@@ -1,29 +1,49 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's decode path on one NVIDIA card.
+"""Smoke run of the PyTorch port on one NVIDIA card: the codec's decode
+path and its encode (training) path.
 
     python3 chip_smoke.py
 
 Drives ``inraudio_tpu_torch`` (never JAX) through its user entry points at
 the production width (SirenWithSnakeTanh, h=128, 2 sine + 2 snake layers,
-random weights from a fixed torch.Generator seed) on two payloads built from
-a synthesised 7 s, 44.1 kHz clip:
+random weights from a fixed torch.Generator seed) on a synthesised 7 s,
+44.1 kHz clip, at two shapes:
 
 - headline shape: 512-row windows, overlap 0.1 (hop 461), k=669,
-  omega0=115, float32 leaves, legacy npz container;
+  omega0=115, float32 leaves, legacy npz container; trained with the
+  bench recipe (lr 1.5e-3, clip 1.0, plateau patience 35);
 - codec default shape: 0.25 s windows (11,025 rows), k=31, omega0=1800,
-  float16 weights, INRA container.
+  float16 weights, INRA container; trained with CodecConfig defaults.
 
 Phases, each of which fails the run:
-0. build the CUDA kernel from csrc/ (nvcc), print ptxas's report;
-1. per shape and per decode tier, the kernel against its plain PyTorch
-   version on the card, max-abs within the stated tolerance;
-2. serving: full decode, three decode_range seeks (must equal the full
-   decode's slice), an upsample=2 decode and a CLI subprocess, with the
-   kernel's launch count read around the in-process requests; the decode is
-   checked against the exact apply on the card and against the CPU plain
-   path on a small range;
+0. build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
+   print ptxas's register and spill lines;
+1. per shape and per decode tier, the stack kernel against its plain
+   PyTorch version on the card, max-abs within the stated tolerance;
+2. serving decode: full decode, three decode_range seeks (must equal the
+   full decode's slice), an upsample=2 decode and a CLI subprocess, with
+   the stack kernel's launch count read around the in-process requests;
+   the decode is checked against the exact apply on the card and against
+   the CPU plain path on a small range;
 3. the card-only pytest file (tests/test_torch_cuda.py);
-4. timings with CUDA events: kernel vs plain, and the stitched decode.
+4. decode timings with CUDA events: kernel vs plain, and the stitched
+   decode;
+5. at the headline shape, the whole-step kernel (D) against the plain step
+   over 3 steps from one state, the backward kernel (C) against the plain
+   backward, and two kernel steps from one state, which must be bit-equal;
+6. serving encode, with every kernel's launch count read around it:
+   codec.encode(fused=True) at the headline shape -> save_inr -> load_inr
+   -> codec.decode on the card, with the SNR against the clip; and the CLI
+   ``encode --device cuda --fused --quantize int8 --refit-steps 50`` at the
+   codec default shape (in process, so that its launches are counted).
+   Then the same headline fit through the plain step from the same
+   initial parameters, for two seeds: at 150 steps the two decoded clip
+   SNRs must agree within 0.5 dB; at 300 steps, where a few windows'
+   trajectories have parted, the median per-hop SNRs within 1 dB.  Beside
+   each pair, a control: the kernel fit from the init times 1 + 2^-22;
+7. training timings with CUDA events: D vs the plain step and C vs the
+   plain backward at the headline shape, and the fit's steps/s and peak
+   device memory at both shapes.
 
 Exits non-zero, printing no result, without CUDA or outside the repo.  The
 last line is the JSON result; the line before it lists the kernels.
@@ -31,11 +51,15 @@ last line is the JSON result; the line before it lists the kernels.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -56,6 +80,17 @@ SHAPES = {
 # adds 6 dB routing slack and a 9 dB margin)
 TIER_FITS = {"bf16-deg7": 20.0, "mixed-bf16x2-deg7": 30.0, "deg9": 60.0,
              "deg11": 100.0, "exact": 130.0}
+# training recipes: bench.py's headline, and CodecConfig's defaults
+TRAIN = {"headline": dict(learning_rate=1.5e-3, grad_clip_norm=1.0,
+                          plateau_patience=35),
+         "codec_default": dict(learning_rate=7e-4, grad_clip_norm=1.0,
+                               plateau_patience=200)}
+FIT_STEPS = 300       # the served headline encode
+CLI_STEPS = 200       # the CLI encode at the codec default shape
+CMP_STEPS = 150       # kernel vs plain-step fit, clip SNR compared
+CMP_SEEDS = (SEED, SEED + 1)
+SNR_AGREE_DB = 0.5    # at CMP_STEPS, as tests/test_pallas_step.py:310
+SNR_AGREE_DB_MEDIAN = 1.0  # median per-hop SNR at FIT_STEPS
 
 
 def log(*args):
@@ -138,6 +173,273 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def hop_median_snr(np, ref, rec, hop):
+    """Median over the clip's hop-long segments of each segment's SNR, dB:
+    a fit-quality statistic that a few chaotic windows do not move."""
+    m = len(ref) // hop * hop
+    r = ref[:m].astype(np.float64).reshape(-1, hop)
+    e = (rec[:m] - ref[:m]).astype(np.float64).reshape(-1, hop)
+    return float(np.median(10 * np.log10(
+        np.sum(r * r, axis=1) / np.maximum(np.sum(e * e, axis=1), 1e-30))))
+
+
+def train_population(np, torch, dev, clip, name, spec):
+    """(cfg, model, train config, windows (k, n), coords, targets (k, n))
+    for one shape, the initial state drawn from SEED."""
+    from inraudio_tpu_torch.models import SirenSnakeTanhConfig, build_model
+    from inraudio_tpu_torch.train.loop import TrainConfig
+    from inraudio_tpu_torch.train.multi_inr import (MultiINRConfig,
+                                                    chunk_signal)
+    cfg = SirenSnakeTanhConfig(hidden_features=128, num_sine=2, num_snake=2,
+                               first_omega_0=spec["omega"],
+                               hidden_omega_0=30.0)
+    model = build_model("mlp", cfg, fused=True, approx_sin=True)
+    tc = TrainConfig(**TRAIN[name])
+    chunks, n, _ = chunk_signal(clip, FS, MultiINRConfig(
+        chunk_seconds=spec["chunk_seconds"], overlap_fraction=spec["overlap"]))
+    scales = np.maximum(np.max(np.abs(chunks), axis=1), 1e-9)
+    targets = torch.from_numpy(chunks / scales[:, None]).to(dev)
+    coords = torch.linspace(-1, 1, n, device=dev)[:, None]
+    return cfg, model, tc, coords, targets
+
+
+def train_phases(np, torch, dev, clip, codec, ss, st, sf):
+    """Phases 5-7: the training kernels against their plain versions, the
+    encode served through the entry points, and the training timings."""
+    from inraudio_tpu_torch.__main__ import main as cli_main
+    from inraudio_tpu_torch.data import write_wav
+    from inraudio_tpu_torch.dsp import calculate_snr
+    from inraudio_tpu_torch.train.loop import TrainConfig, init_train_state
+    from inraudio_tpu_torch.train.multi_inr import (MultiINRConfig,
+                                                    multi_inr_fit,
+                                                    multi_inr_fit_many)
+    from test_torch_cuda import (check_grads, check_state, clone_state,
+                                 steps_kernel_vs_plain)
+
+    out = {}
+    spec = SHAPES["headline"]
+    cfg, model, tc, coords, targets = train_population(
+        np, torch, dev, clip, "headline", spec)
+    k, n = targets.shape
+    state = init_train_state(model, torch.Generator().manual_seed(SEED), tc,
+                             dev, windows=k)
+    fs0 = ss.flat_state_from_train_state(state, cfg)
+    kstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True)
+    pstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                         step_call=ss.step_plain)
+
+    # ---- phase 5: D and C against their plain versions ----
+    gmode = st.grad_dot_mode()
+    a, b, gerr = steps_kernel_vs_plain(cfg, tc, coords, targets, fs0)
+    torch.cuda.synchronize()
+    errs = check_state(a, b, tc.learning_rate, gmode)
+    out["step_err"] = max(errs["params"], errs["best_params"])
+    lr = tc.learning_rate
+    shares = {t: float(((a.params - b.params).abs() <= t * lr).float().mean())
+              for t in (1e-3, 1e-2, 1e-1)}
+    log(f"phase5 D vs plain ({gmode} grad tier, k={k} n={n} h=128): first-"
+        f"step gradients max abs {gerr:.3e}; after 3 steps max abs "
+        + ", ".join(f"{key} {v:.3e}" for key, v in errs.items())
+        + f" (lr {lr}); params within 1e-3/1e-2/1e-1 lr: "
+        + "/".join(f"{v:.5f}" for v in shares.values())
+        + "; loss, step, lr, best_iter, plateau state within tolerance")
+    s1, (l1, _) = kstep(clone_state(a), coords, targets)
+    s2, (l2, _) = kstep(clone_state(a), coords, targets)
+    torch.cuda.synchronize()
+    if not (torch.equal(l1, l2) and all(torch.equal(x, y)
+                                        for x, y in zip(s1, s2))):
+        raise AssertionError("two kernel steps from one state differ")
+    log("phase5 two kernel steps from one state: bit-equal")
+    del s1, s2, b
+    params = {"layers": [{key: v.contiguous() for key, v in p.items()}
+                         for p in st.unflatten_params(a.params,
+                                                      cfg)["layers"]]}
+    plan = sf.stack_plan(cfg, approx_sin=True)
+    cot = (torch.randn(k, n, 1, device=dev,
+                       generator=torch.Generator(dev).manual_seed(SEED))
+           * (2.0 / n))
+    gk = st.flatten_params(st.SIREN_BWD(params, cfg, plan, gmode, coords,
+                                        cot), cfg)
+    gp = st.flatten_params(st.backward_plain(params, plan, gmode, coords,
+                                             cot), cfg)
+    torch.cuda.synchronize()
+    out["bwd_err"] = check_grads(gk, gp, gmode)
+    log(f"phase5 C vs plain ({gmode} grad tier): max abs {out['bwd_err']:.3e}"
+        f" of max |grad| {float(gp.abs().max()):.3e}")
+    del gk, gp
+
+    # ---- phase 6: serving encode through the entry points ----
+    counters = {"siren_stack": sf.SIREN_STACK, "siren_step": ss.SIREN_STEP,
+                "siren_bwd": st.SIREN_BWD}
+    for c in counters.values():
+        c.launches = 0
+    ccfg = codec.CodecConfig(
+        chunk_seconds=spec["chunk_seconds"], overlap_fraction=spec["overlap"],
+        first_omega_0=spec["omega"], total_steps=FIT_STEPS, quantize=None,
+        fused=True, seed=SEED, **TRAIN["headline"])
+    t0 = time.perf_counter()
+    payload = codec.encode(clip, FS, ccfg, device=dev)
+    t1 = time.perf_counter()
+    path = codec.save_inr(os.path.join(WORK, "fit_headline.npz"), payload)
+    _, rec = codec.decode(codec.load_inr(path), dev)
+    snr_k = float(calculate_snr(clip, rec))
+    log(f"phase6 codec.encode(fused) headline: {FIT_STEPS} steps in "
+        f"{t1 - t0:.2f} s (init, fit, fit-SNR estimate), header fit_snr_db "
+        f"{payload['meta']['fit_snr_db']}, save -> load -> decode on the "
+        f"card: SNR {snr_k:.3f} dB")
+    wav = os.path.join(WORK, "clip.wav")
+    write_wav(wav, FS, clip)
+    enc_path = os.path.join(WORK, "cli_codec_default.inra")
+    argv = ["encode", "--device", "cuda", "--fused", "--quantize", "int8",
+            "--refit-steps", "50", "--total-steps", str(CLI_STEPS),
+            "--input", wav, "--output", enc_path]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    stats = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"phase6 CLI {' '.join(argv[:9])} ...: rc={rc} {json.dumps(stats)}")
+    if rc != 0 or not np.isfinite(stats["snr_db"]):
+        raise AssertionError("CLI encode failed")
+    out["launches"] = {name: c.launches for name, c in counters.items()}
+    log(f"phase6 kernel launches in the served encodes: {out['launches']}")
+    if (out["launches"]["siren_step"] < FIT_STEPS + CLI_STEPS
+            or out["launches"]["siren_bwd"] < 50
+            or out["launches"]["siren_stack"] < 50):
+        raise AssertionError("the encode path did not run through every "
+                             "kernel")
+    # The same fit through the plain step, from the same initial params.
+    # Past ~150 steps single windows' Adam trajectories part (bf16 rounding
+    # flips, then summation order), and the clip SNR is set by the few
+    # worst windows: 40-60% of the error sits in 5 of 669 windows.  So the
+    # 0.5 dB gate on the clip SNR is taken at CMP_STEPS, and at FIT_STEPS
+    # the median per-hop SNR is gated, each on two seeds.  Beside each pair
+    # the control: a kernel fit from the init times (1 + 2^-22), which
+    # shows how far a 1-ulp change of the start moves the same statistic.
+    mcfg = MultiINRConfig(chunk_seconds=spec["chunk_seconds"],
+                          overlap_fraction=spec["overlap"])
+    hop = payload["meta"]["hop"]
+
+    def fit_decode(fmodel, steps, seed):
+        """multi_inr_fit_many from ``seed`` -> (clip SNR, median per-hop
+        SNR), decoded through codec.decode with the served header."""
+        res = multi_inr_fit_many(
+            fmodel, [clip], FS, mcfg,
+            TrainConfig(total_steps=steps, **TRAIN["headline"]), seed=seed,
+            device=dev)[0]
+        pl = {**payload, "scales": res.chunk_scales.astype(np.float32),
+              "params": {"layers": [
+                  {key: v.cpu().contiguous() for key, v in p.items()}
+                  for p in res.states.best_params["layers"]]}}
+        _, r = codec.decode(pl, dev)
+        return float(calculate_snr(clip, r)), hop_median_snr(np, clip, r, hop)
+
+    pmodel = dataclasses.replace(
+        model, fused_step_ctx={**model.fused_step_ctx, "step": ss.step_plain})
+    ulp_model = dataclasses.replace(model, init=lambda g, d, windows=None: {
+        "layers": [{key: v * (1.0 + 2.0 ** -22) for key, v in p.items()}
+                   for p in model.init(g, d, windows)["layers"]]})
+    # the kernel side of seed SEED is the served encode, at both lengths
+    pay_c = codec.encode(clip, FS, dataclasses.replace(
+        ccfg, total_steps=CMP_STEPS), device=dev)
+    _, rec_c = codec.decode(pay_c, dev)
+    served_fits = {
+        CMP_STEPS: (float(calculate_snr(clip, rec_c)),
+                    hop_median_snr(np, clip, rec_c, hop)),
+        FIT_STEPS: (snr_k, hop_median_snr(np, clip, rec, hop))}
+    agree = []
+    for steps, stat, limit in ((CMP_STEPS, 0, SNR_AGREE_DB),
+                               (FIT_STEPS, 1, SNR_AGREE_DB_MEDIAN)):
+        for seed in CMP_SEEDS:
+            kern = (served_fits[steps] if seed == SEED
+                    else fit_decode(model, steps, seed))
+            plain = fit_decode(pmodel, steps, seed)
+            ulp = fit_decode(ulp_model, steps, seed)
+            diff = abs(kern[stat] - plain[stat])
+            agree.append(diff <= limit)
+            log(f"phase6 {steps} steps seed {seed}: clip SNR kernel "
+                f"{kern[0]:.3f} / plain {plain[0]:.3f} / perturbed kernel "
+                f"{ulp[0]:.3f} dB; median per-hop SNR kernel {kern[1]:.3f} "
+                f"/ plain {plain[1]:.3f} / perturbed kernel {ulp[1]:.3f} dB;"
+                f" gated: {('clip', 'median per-hop')[stat]} |kernel - "
+                f"plain| {diff:.3f} dB (limit {limit} dB), control |kernel -"
+                f" perturbed| {abs(kern[stat] - ulp[stat]):.3f} dB")
+    if not (np.isfinite(rec).all() and rec.shape == clip.shape
+            and all(agree)):
+        raise AssertionError("kernel fit and plain-step fit disagree")
+
+    # ---- phase 7: training timings ----
+    state = clone_state(a)
+    out["step_ms"] = cuda_ms(torch, lambda: kstep(state, coords, targets), 20)
+    out["step_plain_ms"] = cuda_ms(torch, lambda: pstep(state, coords,
+                                                        targets), 5)
+    step_ms2 = cuda_ms(torch, lambda: kstep(state, coords, targets), 20)
+    log(f"phase7 D whole step, headline: kernel {out['step_ms']:.3f}/"
+        f"{step_ms2:.3f} ms ({1e3 / out['step_ms']:.1f} steps/s), plain "
+        f"{out['step_plain_ms']:.3f} ms")
+    out["step_ms"] = min(out["step_ms"], step_ms2)
+    out["bwd_ms"] = cuda_ms(torch, lambda: st.SIREN_BWD(
+        params, cfg, plan, gmode, coords, cot), 10)
+    out["bwd_plain_ms"] = cuda_ms(torch, lambda: st.backward_plain(
+        params, plan, gmode, coords, cot), 5)
+    log(f"phase7 C backward, headline: kernel {out['bwd_ms']:.3f} ms, plain "
+        f"{out['bwd_plain_ms']:.3f} ms")
+    # where a kernel step's time goes: the grad accumulation alone, its
+    # reduce, the whole of D (adds clip + Adam + best), and the step with
+    # its (k,) plateau / best bookkeeping in torch ops
+    lib = st.TRAIN_LIBRARY()
+    g = st.validate_grad_launch(state.params, cfg, plan, coords)
+    stream = torch.cuda.current_stream().cuda_stream
+    kg = st.window_group(g)
+    f32 = dict(dtype=torch.float32, device=dev)
+    partial = torch.empty((kg * g.tiles, g.layout.size), **f32)
+    pre = torch.empty((kg * g.tiles, len(plan.kinds), st.TILE_FLOATS), **f32)
+    loss_part = torch.empty((k * g.tiles,), **f32)
+
+    def grad_only():
+        for w0 in range(0, k, kg):
+            st.launch_grad(lib, g, coords, state.params, stream, partial,
+                           pre, loss_part, w0, min(kg, k - w0),
+                           targets=targets, gmode=gmode)
+
+    grad_ms = cuda_ms(torch, grad_only, 10)
+    del partial, pre, loss_part
+    reduce_ms = cuda_ms(torch, lambda: st.grad_reduce(
+        lib, g, coords, state.params, stream, targets=targets,
+        gmode=gmode), 10) - grad_ms
+    tf = (state.step + 1).to(torch.float32)
+    c1, c2 = 1.0 - 0.9 ** tf, 1.0 - 0.999 ** tf
+    d_ms = cuda_ms(torch, lambda: ss.SIREN_STEP(
+        state.params, state.mu, state.nu, state.best_params, coords, targets,
+        state.lr, c1, c2, state.best_loss, cfg, plan, gmode,
+        tc.grad_clip_norm), 10)
+    log(f"phase7 D breakdown, headline ({-(-k // kg)} window groups of <= "
+        f"{kg}): grad accumulation {grad_ms:.3f} ms, "
+        f"reduce {reduce_ms:.3f} ms, clip + Adam + best "
+        f"{d_ms - grad_ms - reduce_ms:.3f} ms (D {d_ms:.3f} ms), plateau / "
+        f"best bookkeeping {out['step_ms'] - d_ms:.3f} ms (step "
+        f"{out['step_ms']:.3f} ms)")
+    del a, state, params
+    for name in SHAPES:
+        sp = SHAPES[name]
+        fcfg, fmodel, ftc, _, _ = train_population(np, torch, dev, clip, name,
+                                                   sp)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r = multi_inr_fit(fmodel, clip, FS, MultiINRConfig(
+            chunk_seconds=sp["chunk_seconds"], overlap_fraction=sp["overlap"]),
+            dataclasses.replace(ftc, total_steps=100, scan_chunk=50),
+            seed=SEED, device=dev)
+        log(f"phase7 fit {name}: k={r.num_chunks} n={r.chunk_length}, 100 "
+            f"steps in {r.train_time_s:.3f} s -> "
+            f"{100 / r.train_time_s:.1f} steps/s, "
+            f"{100 * r.num_chunks * r.chunk_length / r.train_time_s / 1e6:.1f}"
+            f" M window-samples/s, peak device memory "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB "
+            f"above the {base / 2**20:.1f} MiB held before")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -172,17 +474,36 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
 
-    # ---- phase 0: build ----
-    t0 = time.perf_counter()
-    sf.SIREN_STACK.library()
-    build_s = time.perf_counter() - t0
-    lib = library_path("siren_stack", ["siren_stack.cu"])
-    report = (lib.parent / "build.log").read_text()
-    log(f"build: siren_stack.cu -> {lib.relative_to(HERE)} in "
-        f"{build_s:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    # ---- phase 0: build, one nvcc per source, all started together ----
+    from inraudio_tpu_torch.ops import siren_step as ss
+    from inraudio_tpu_torch.ops import siren_train as st
+    builds = {"siren_stack": sf.SIREN_STACK.library,
+              "siren_train": st.TRAIN_LIBRARY}
+    build_s, failures = {}, []
+
+    def build(name, fn):
+        t = time.perf_counter()
+        try:
+            fn()
+        except Exception as e:  # reported and re-raised below
+            failures.append(f"{name}: {e}")
+        build_s[name] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=build, args=item)
+               for item in builds.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    for name in builds:
+        lib = library_path(name, [name + ".cu"])
+        log(f"build: {name}.cu -> {lib.relative_to(HERE)} in "
+            f"{build_s[name]:.1f} s")
+        for line in (lib.parent / "build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
 
     clip = synth_clip(np)
     payloads = {}
@@ -348,6 +669,8 @@ def main() -> int:
             f"{k} {v:.2f}" for k, v in parts.items()))
         del on_dev, params, out
 
+    train = train_phases(np, torch, dev, clip, codec, ss, st, sf)
+
     shutil.rmtree(WORK, ignore_errors=True)
     ms, plain_ms = timing[("headline", "deg11")]
     kernels = {"kernels": [{
@@ -356,11 +679,31 @@ def main() -> int:
         "source": "inraudio_tpu_torch/csrc/siren_stack.cu",
         "replaces": "inraudio_tpu/ops/pallas_siren.py:428",
         "also_replaces": "inraudio_tpu/ops/pallas_siren.py:288",
-        "launches": launches,
+        "launches": launches + train["launches"]["siren_stack"],
         "max_abs_err": max(errs.values()),
         "ms": ms,
         "plain_ms": plain_ms,
         "shape": "headline k=669 n=512 h=128, deg11 tier",
+    }, {
+        "name": "siren_step",
+        "route": "cuda",
+        "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+        "replaces": "inraudio_tpu/ops/pallas_siren_step.py:120",
+        "launches": train["launches"]["siren_step"],
+        "max_abs_err": train["step_err"],
+        "ms": train["step_ms"],
+        "plain_ms": train["step_plain_ms"],
+        "shape": "headline k=669 n=512 h=128, one whole train step",
+    }, {
+        "name": "siren_bwd",
+        "route": "cuda",
+        "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+        "replaces": "inraudio_tpu/ops/pallas_siren_train.py:159",
+        "launches": train["launches"]["siren_bwd"],
+        "max_abs_err": train["bwd_err"],
+        "ms": train["bwd_ms"],
+        "plain_ms": train["bwd_plain_ms"],
+        "shape": "headline k=669 n=512 h=128, bf16x2 grad tier",
     }]}
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))

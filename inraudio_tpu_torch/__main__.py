@@ -1,9 +1,10 @@
-"""CLI: ``python -m inraudio_tpu_torch decode --input x.inra --output y.wav``.
+"""CLI: ``python -m inraudio_tpu_torch encode|decode|info ...``.
 
-Port of the ``decode`` and ``info`` subcommands of ``inraudio_tpu``'s CLI,
-plus ``--device`` (default ``cuda``; it raises when there is no card rather
-than running on the CPU).  ``encode``, ``fit``, ``fit-multi`` and
-multi-input decode are not ported yet.
+Port of the ``encode`` (per-window codec; the modulated family and
+``--target-bps`` are not ported yet), ``decode`` and ``info`` subcommands of
+``inraudio_tpu``'s CLI, plus ``--device`` (default ``cuda``; it raises when
+there is no card rather than running on the CPU).  ``fit``, ``fit-multi``
+and multi-input decode are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +17,49 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="inraudio_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    enc = sub.add_parser(
+        "encode", help="compress a wav into an INRA payload (multi-INR "
+                       "codec; .npz output paths select the legacy "
+                       "container)")
+    enc.add_argument("--input", required=True)
+    enc.add_argument("--output", required=True)
+    enc.add_argument("--device", default="cuda",
+                     help="torch device to train on (default cuda; 'cpu' "
+                          "runs the plain PyTorch versions)")
+    enc.add_argument("--chunk-s", type=float, default=0.25)
+    enc.add_argument("--overlap", type=float, default=0.1)
+    enc.add_argument("--hidden", type=int, default=128)
+    enc.add_argument("--omega", type=float, default=1800.0)
+    enc.add_argument("--learning-rate", type=float, default=7e-4)
+    enc.add_argument("--total-steps", type=int, default=3000)
+    enc.add_argument("--quantize", default="float16",
+                     choices=["none", "float16", "bfloat16", "int8", "int16",
+                              "int4"])
+    enc.add_argument("--per-row-scales", action="store_true",
+                     help="int modes: one quantization scale per (window, "
+                          "output unit)")
+    enc.add_argument("--fused", action="store_true",
+                     help="train through the CUDA kernels (the whole-step "
+                          "kernel, and the backward kernel in the refit) "
+                          "with the polynomial sin; hidden width 32, 64 or "
+                          "128")
+    enc.add_argument("--refit-steps", type=int, default=0,
+                     help="quantization-aware refit: fine-tune the float32 "
+                          "leaves around the frozen quantized weights")
+    enc.add_argument("--max-chunks", type=int, default=0,
+                     help="train the window population in batches of this "
+                          "size (bounds device memory; 0 = all at once)")
+    enc.add_argument("--all-channels", action="store_true",
+                     help="encode every channel of a multichannel file as "
+                          "one population; default keeps channel 0")
+    enc.add_argument("--side-quantize", choices=["auto", "on", "off"],
+                     default="auto",
+                     help="float16 storage for the layers-1+ biases and "
+                          "snake a: 'auto' only below ~70 dB estimated fit")
+    enc.add_argument("--plateau-patience", type=int, default=None,
+                     help="ReduceLROnPlateau patience in steps (default "
+                          "200)")
 
     dec = sub.add_parser("decode",
                          help="decode an INRA/npz payload back to wav")
@@ -44,7 +88,46 @@ def main(argv=None) -> int:
                       help="emit the full machine-readable record")
 
     args = ap.parse_args(argv)
-    if args.cmd == "decode":
+    if args.cmd == "encode":
+        import resource
+        import time
+
+        import numpy as np
+
+        from .codec import (CodecConfig, compression_stats, decode, encode,
+                            save_inr)
+        from .data.audio_io import read_wav
+        from .dsp import calculate_snr
+        fs, sig = read_wav(args.input,
+                           channel=None if args.all_channels else 0)
+        sig = sig.astype(np.float32)
+        cfg = CodecConfig(
+            chunk_seconds=args.chunk_s, overlap_fraction=args.overlap,
+            hidden_features=args.hidden, first_omega_0=args.omega,
+            learning_rate=args.learning_rate, total_steps=args.total_steps,
+            quantize=None if args.quantize == "none" else args.quantize,
+            per_row_scales=args.per_row_scales, fused=args.fused,
+            refit_steps=args.refit_steps,
+            max_chunks_per_batch=args.max_chunks or None,
+            side_quantize={"auto": "auto", "on": True,
+                           "off": False}[args.side_quantize],
+            **({"plateau_patience": args.plateau_patience}
+               if args.plateau_patience is not None else {}))
+        t0 = time.time()
+        payload = encode(sig, fs, cfg, device=args.device)
+        enc_s = time.time() - t0
+        path = save_inr(args.output, payload)
+        _, rec = decode(payload, args.device)
+        stats = compression_stats(payload, path)
+        stats["snr_db"] = round(float(calculate_snr(sig, rec)), 3)
+        stats["path"] = path
+        stats["codec"] = payload["meta"].get("codec", "per_chunk")
+        stats["encode_s"] = round(enc_s, 2)
+        stats["audio_s"] = round(len(sig) / fs, 3)
+        stats["peak_host_rss_mb"] = round(resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 1024, 1)
+        print(json.dumps(stats))
+    elif args.cmd == "decode":
         from .codec import decode, decode_range, load_inr
         from .data.audio_io import write_wav
         if (args.start is None) != (args.stop is None):

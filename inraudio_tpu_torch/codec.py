@@ -1,5 +1,11 @@
-"""INR payload -> audio: the codec's decode half and its container (port of
-``inraudio_tpu/codec.py``).
+"""Audio <-> INR payload: the codec (port of ``inraudio_tpu/codec.py``).
+
+``encode`` splits a clip into windows, fits one SirenWithSnakeTanh per
+window with all windows trained at once (``train.multi_inr``: the
+whole-step kernel D on a card when ``CodecConfig.fused``), keeps each
+window's best parameters, optionally quantizes them (and refits the float32
+leaves around the frozen quantized weights, with kernel C's backward), and
+returns the payload.
 
 A payload is ``{"meta": dict, "scales": (k,) float32 numpy, "params":
 tree}``: the header the JAX package writes (format ``inraudio_tpu.inr.v2``),
@@ -11,12 +17,14 @@ either package load in the other: the INRA container and the legacy
 
 ``decode`` / ``decode_range`` dequantize on the target device, evaluate the
 window population through the stack kernel (fused-trained payloads on a
-card) or the exact apply, and overlap-add on the host.  Encoding is not
-ported yet; the modulated codec family neither.
+card) or the exact apply, and overlap-add on the host.  Not ported yet: the
+modulated codec family, ``config_for_bitrate`` / ``plan_for_bitrate`` and
+the rate-distortion points (calibrated on a TPU).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import lzma
 import os
@@ -30,12 +38,49 @@ from .data.coords import get_coord
 from .models import (SirenSnakeTanhConfig, build_model, dequantize_params,
                      quantize_params)
 from .models.siren import tensor_from_numpy
-from .train.multi_inr import (batched_chunk_eval, chunk_eval_fn,
-                              decode_chunk_range, stitch_chunks)
+from .train.loop import TrainConfig
+from .train.multi_inr import (MultiINRConfig, batched_chunk_eval,
+                              chunk_eval_fn, chunk_signal,
+                              decode_chunk_range, multi_inr_fit_many,
+                              stitch_chunks)
+from .train.optim import AdamConfig, adam_init, adam_update
 from .tree import tree_leaves, tree_map, tree_unflatten
 
 # v2: layer-0 weights/biases stay float32 under quantization
 _FORMAT = "inraudio_tpu.inr.v2"
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecConfig:
+    """Encode-side knobs, with the JAX package's names and defaults; the
+    decode side reads everything from the file."""
+
+    chunk_seconds: float = 0.25
+    overlap_fraction: float = 0.1
+    hidden_features: int = 128
+    num_sine: int = 2
+    num_snake: int = 2
+    first_omega_0: float = 1800.0
+    hidden_omega_0: float = 30.0
+    learning_rate: float = 7e-4
+    grad_clip_norm: float = 1.0
+    total_steps: int = 3000
+    plateau_patience: int = 200
+    plateau_factor: float = 0.8
+    quantize: str | None = "float16"   # None | float16 | bfloat16 | int8 | int16 | int4
+    per_row_scales: bool = False
+    # 'auto': float16 side leaves only below _SIDE_AUTO_DB estimated fit SNR
+    side_quantize: bool | str = "auto"
+    fused: bool = False                # the CUDA kernels (plain on the CPU)
+    seed: int = 0
+    refit_steps: int = 0
+    refit_lr: float = 1e-4
+    max_chunks_per_batch: int | None = None
+
+
+# float16 side leaves are free at <=44 dB fits and cost -2.75 dB at ~96 dB
+# (the JAX package's measurement, on a TPU); gate at 70 dB as it does
+_SIDE_AUTO_DB = 70.0
 
 # the side leaves (biases, snake a) of layers 1+ are stored at this tier
 _SIDE_MODE = {"float16": "float16", "bfloat16": "bfloat16",
@@ -103,6 +148,204 @@ def dequantize_inr_params(params: Any,
                           device: torch.device | str | None = None) -> Any:
     """Inverse of ``quantize_inr_params`` -> float32 leaves on ``device``."""
     return dequantize_params(params, device)
+
+
+def _refit_trainable(model, params: Any, mode: str, targets: torch.Tensor,
+                     coords: torch.Tensor, steps: int, lr: float,
+                     per_row: bool = False) -> Any:
+    """Core of the quantization-aware refit: Adam on the float32 leaves
+    (layer-0 weights, every bias, snake a) around the FROZEN dequantized
+    weight matrices of layers 1+, loss = mean squared error over the whole
+    (k, n, 1) population; returns the refitted trainable tree."""
+    q = quantize_inr_params(params, mode, per_row=per_row)
+    dq = dequantize_inr_params(q, coords.device)
+    frozen = [layer["w"] for layer in dq["layers"][1:]]
+    trainable = {"layers": [
+        {k: v for k, v in layer.items() if not (li > 0 and k == "w")}
+        for li, layer in enumerate(dq["layers"])]}
+    adam_cfg = AdamConfig(lr=lr)
+    opt = adam_init(trainable, adam_cfg)
+    for _ in range(steps):
+        leaves = [v.detach().requires_grad_(True)
+                  for v in tree_leaves(trainable)]
+        tr = tree_unflatten(trainable, leaves)
+        full = {"layers": [dict(layer, **({"w": frozen[li - 1]} if li > 0
+                                          else {}))
+                           for li, layer in enumerate(tr["layers"])]}
+        with torch.enable_grad():
+            loss = torch.mean((model.apply(full, coords) - targets) ** 2)
+            grads = torch.autograd.grad(loss, leaves)
+        trainable, opt = adam_update(
+            opt, tree_unflatten(trainable, list(grads)), trainable, adam_cfg)
+    return trainable
+
+
+def quantization_aware_refit(model, params: Any, mode: str,
+                             targets: np.ndarray, coords: np.ndarray,
+                             steps: int, lr: float = 1e-4,
+                             max_chunks_per_batch: int | None = None,
+                             per_row: bool = False,
+                             side: bool = True) -> Any:
+    """Refit the float32 leaves around frozen quantized weights.
+
+    ``params`` is the stacked (k, ...) float32 best-params tree (on the
+    device the refit runs on); ``targets`` the (k, n, 1) normalised window
+    targets it was fit to.  The hidden / last weight matrices are quantized
+    (``mode``) and frozen at the values the decoder reconstructs; the
+    remaining float32 leaves are fine-tuned so that they absorb part of the
+    quantization error.  Returns the stored-form tree (quantized weight
+    dicts + refitted leaves), the structure ``load_inr`` expects.
+    ``max_chunks_per_batch`` refits in batches of that many windows (each
+    window's scales are its own, so a slice's frozen weights equal the full
+    population's)."""
+    dev = params["layers"][0]["w"].device
+    c = torch.as_tensor(np.asarray(coords, np.float32)).to(dev)
+    t = torch.as_tensor(np.asarray(targets, np.float32)).to(dev)
+    k = t.shape[0]
+    kb = max_chunks_per_batch
+    if kb and k > kb:
+        # the last batch repeats window 0 up to kb windows, as the JAX
+        # package does: the loss is a mean over the batch
+        def batch(x, s):
+            x = x[s:s + kb]
+            return torch.cat([x, x[:1].expand(kb - x.shape[0],
+                                              *x.shape[1:])])
+        parts = [tree_map(lambda x: x[:min(kb, k - s)], _refit_trainable(
+            model, tree_map(lambda x: batch(x, s), params), mode,
+            batch(t, s), c, steps, lr, per_row=per_row))
+            for s in range(0, k, kb)]
+        trainable = tree_map(lambda *xs: torch.cat(xs), *parts)
+    else:
+        trainable = _refit_trainable(model, params, mode, t, c, steps, lr,
+                                     per_row=per_row)
+    q = quantize_inr_params(params, mode, per_row=per_row, side=False)
+    stored = {"layers": [
+        dict(trainable["layers"][li],
+             **({"w": q["layers"][li]["w"]} if li > 0 else {}))
+        for li in range(len(q["layers"]))]}
+    return _quantize_sides(stored, mode) if side else stored
+
+
+def _split_channels(signal: np.ndarray) -> list[np.ndarray]:
+    """(n,) or (n, c) float32 -> list of contiguous channel vectors."""
+    sig = np.asarray(signal, np.float32)
+    if sig.size == 0:
+        raise ValueError("cannot encode an empty signal")
+    if sig.ndim == 2 and sig.shape[1] == 1:
+        sig = sig[:, 0]
+    if sig.ndim == 1:
+        return [sig]
+    return [np.ascontiguousarray(sig[:, j]) for j in range(sig.shape[1])]
+
+
+def encode(signal: np.ndarray, sample_rate: int,
+           cfg: CodecConfig | None = None,
+           device: torch.device | str = "cuda") -> dict[str, Any]:
+    """Fit the multi-INR on ``device`` and return the codec payload.
+
+    ``signal`` is (n,) mono or (n, c): every channel's windows join one
+    population, channel-major (window i of channel j at row j*k+i).  The
+    payload's header and leaves are those the JAX package's ``encode``
+    writes; ``trained_forward`` is 'fused_approx' for a fused fit (the
+    kernels' bf16x3 matmuls and polynomial sin) and 'exact' otherwise."""
+    cfg = cfg or CodecConfig()
+    dev = _resolve_device(device)
+    model_cfg = SirenSnakeTanhConfig(
+        hidden_features=cfg.hidden_features, num_sine=cfg.num_sine,
+        num_snake=cfg.num_snake, first_omega_0=cfg.first_omega_0,
+        hidden_omega_0=cfg.hidden_omega_0)
+    model = build_model("mlp", model_cfg, fused=cfg.fused,
+                        approx_sin=cfg.fused)
+    chans = _split_channels(signal)
+    mcfg = MultiINRConfig(chunk_seconds=cfg.chunk_seconds,
+                          overlap_fraction=cfg.overlap_fraction)
+    results = multi_inr_fit_many(
+        model, chans, sample_rate, mcfg,
+        TrainConfig(total_steps=cfg.total_steps,
+                    learning_rate=cfg.learning_rate,
+                    grad_clip_norm=cfg.grad_clip_norm,
+                    plateau_patience=cfg.plateau_patience,
+                    plateau_factor=cfg.plateau_factor),
+        seed=cfg.seed, device=dev,
+        max_chunks_per_batch=cfg.max_chunks_per_batch)
+    res = results[0]
+    params = tree_map(lambda *xs: torch.cat(xs).to(dev),
+                      *[r.states.best_params for r in results])
+    scales = np.concatenate([r.chunk_scales for r in results])
+
+    # fit SNR estimate from the per-window best train losses (the best
+    # snapshot is what ships): unnormalised mse = best_loss * scale^2
+    fit_snr = None
+    if res.loss_history.size:
+        best_mses = np.concatenate(
+            [np.min(r.loss_history, axis=0) for r in results])
+        pw = float(np.mean(np.concatenate(
+            [np.asarray(c, np.float32).reshape(-1) ** 2 for c in chans])))
+        mse = float(np.mean(best_mses * scales.astype(np.float64) ** 2))
+        fit_snr = round(10.0 * np.log10(max(pw, 1e-30) / max(mse, 1e-30)), 2)
+    side = (cfg.side_quantize if isinstance(cfg.side_quantize, bool)
+            else fit_snr is not None and fit_snr < _SIDE_AUTO_DB)
+    if cfg.quantize and cfg.refit_steps > 0:
+        chunks = np.concatenate(
+            [chunk_signal(ch, sample_rate, mcfg)[0] for ch in chans], axis=0)
+        targets = (chunks / scales[:, None])[..., None]
+        stored = quantization_aware_refit(
+            model, params, cfg.quantize, targets,
+            get_coord(res.chunk_length, dim=1), cfg.refit_steps, cfg.refit_lr,
+            max_chunks_per_batch=cfg.max_chunks_per_batch,
+            per_row=cfg.per_row_scales, side=side)
+    elif cfg.quantize:
+        stored = quantize_inr_params(params, cfg.quantize,
+                                     per_row=cfg.per_row_scales, side=side)
+    else:
+        stored = params
+    meta = {
+        "format": _FORMAT,
+        "sample_rate": int(sample_rate),
+        "signal_length": int(res.signal_length),
+        "chunk_length": int(res.chunk_length),
+        "hop": int(res.hop),
+        "num_chunks": int(res.num_chunks),
+        "num_channels": len(chans),
+        "quantize": cfg.quantize,
+        "per_row_scales": bool(cfg.per_row_scales),
+        "side_quantized": bool(cfg.quantize and side),
+        "trained_forward": "fused_approx" if cfg.fused else "exact",
+        **({"fit_snr_db": fit_snr} if fit_snr is not None else {}),
+        "model": {
+            "hidden_features": cfg.hidden_features,
+            "num_sine": cfg.num_sine, "num_snake": cfg.num_snake,
+            "first_omega_0": cfg.first_omega_0,
+            "hidden_omega_0": cfg.hidden_omega_0,
+        },
+    }
+    return {"meta": meta, "scales": scales.astype(np.float32),
+            "params": tree_map(lambda x: x.detach().cpu(), stored)}
+
+
+def param_bytes(params: Any) -> int:
+    """Bytes of every leaf (tensor or array) of a parameter tree."""
+    return sum(x.numel() * x.element_size() if isinstance(x, torch.Tensor)
+               else np.asarray(x).nbytes for x in tree_leaves(params))
+
+
+def compression_stats(payload: dict[str, Any],
+                      path: str | None = None) -> dict[str, float]:
+    """Bytes, bits/sample and ratio against 16-bit PCM; with ``path`` (a
+    file ``save_inr`` wrote) also the on-disk numbers."""
+    nbytes = param_bytes(payload["params"]) + payload["scales"].nbytes
+    n = (payload["meta"]["signal_length"]
+         * int(payload["meta"].get("num_channels", 1)))
+    pcm16 = 2 * n
+    stats = {"param_bytes": float(nbytes),
+             "bits_per_sample": 8.0 * nbytes / n,
+             "ratio_vs_pcm16": pcm16 / nbytes}
+    if path is not None:
+        fb = os.path.getsize(path)
+        stats["file_bytes"] = float(fb)
+        stats["file_bits_per_sample"] = 8.0 * fb / n
+        stats["file_ratio_vs_pcm16"] = pcm16 / fb
+    return stats
 
 
 # ---------------------------------------------------------------------------

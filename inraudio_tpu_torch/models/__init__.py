@@ -26,11 +26,14 @@ class INRModel:
     """A model as data.
 
     ``init(generator, device)`` -> params; ``apply(params, coords)`` -> out
-    (stacked params give (k, n, out)).  The fused variant also sets
-    ``decode_apply(params, coords, fit_snr_db)``, the quality-gated tier
-    (``ops.siren_fused.auto_decode_kwargs``), and the stacked forms
-    ``apply_stacked`` / ``decode_apply_stacked`` over a window population on
-    one grid.  None where the model has no such path."""
+    (stacked params give (k, n, out)), differentiable under autograd.  The
+    fused variant also sets ``decode_apply(params, coords, fit_snr_db)``, the
+    quality-gated tier (``ops.siren_fused.auto_decode_kwargs``), the stacked
+    forms ``apply_stacked`` / ``decode_apply_stacked`` over a window
+    population on one grid, and ``fused_step_ctx`` = dict(cfg, approx_sin,
+    step), which routes mse fits through the whole-step kernel: ``step`` is
+    ``ops.siren_step.fused_mse_step_call``.  None where the model has no
+    such path."""
 
     name: str
     config: Any
@@ -40,14 +43,16 @@ class INRModel:
     apply_stacked: Callable[[Any, torch.Tensor], torch.Tensor] | None = None
     decode_apply_stacked: (Callable[[Any, torch.Tensor, float], torch.Tensor]
                            | None) = None
+    fused_step_ctx: dict[str, Any] | None = None
 
 
 def build_model(arch: str, cfg: SirenSnakeTanhConfig, fused: bool = False,
                 approx_sin: bool = False) -> INRModel:
     """arch 'mlp' = the production SirenWithSnakeTanh.  ``fused=True``
-    routes the forward through the stack kernel (``ops.siren_fused``:
-    CUDA on a card, its plain version on the CPU); ``approx_sin`` picks the
-    polynomial sin for the untiered apply."""
+    routes the forward through the stack kernel and its backward through
+    kernel C (``ops.siren_fused``, ``ops.siren_train``: CUDA on a card,
+    their plain versions on the CPU), and training steps through kernel D;
+    ``approx_sin`` picks the polynomial sin for the untiered apply."""
     if arch != "mlp":
         raise ValueError(f"arch {arch!r} is not ported yet (only 'mlp')")
 
@@ -60,16 +65,21 @@ def build_model(arch: str, cfg: SirenSnakeTanhConfig, fused: bool = False,
 
     from ..ops.siren_fused import (auto_decode_kwargs, fused_siren_apply,
                                    fused_siren_apply_stacked)
+    from ..ops.siren_step import fused_mse_step_call
+    from ..ops.siren_train import fused_siren_train_apply
 
     def tier(fit_snr_db):
         return auto_decode_kwargs(fit_snr_db, first_omega_0=cfg.first_omega_0)
 
     return INRModel(
         name="siren_snake_tanh_fused", config=cfg, init=init,
-        apply=lambda p, c: fused_siren_apply(p, cfg, c, approx_sin=approx_sin),
+        apply=lambda p, c: fused_siren_train_apply(p, cfg, c,
+                                                   approx_sin=approx_sin),
         decode_apply=lambda p, c, fit: fused_siren_apply(p, cfg, c,
                                                          **tier(fit)),
         apply_stacked=lambda P, c: fused_siren_apply_stacked(
             P, cfg, c, approx_sin=approx_sin),
         decode_apply_stacked=lambda P, c, fit: fused_siren_apply_stacked(
-            P, cfg, c, **tier(fit)))
+            P, cfg, c, **tier(fit)),
+        fused_step_ctx=dict(cfg=cfg, approx_sin=approx_sin,
+                            step=fused_mse_step_call))

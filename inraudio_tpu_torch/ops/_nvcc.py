@@ -40,7 +40,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str, sources: list[str]) -> Path:
     h = hashlib.sha256()
-    for src in sources:
+    # the shared headers are part of every source
+    for src in [*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))]:
         h.update((CSRC / src).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"

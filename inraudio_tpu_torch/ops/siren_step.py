@@ -1,0 +1,263 @@
+"""Whole MSE train step for a window population: forward recompute, masked
+MSE, backward, per-window global-norm clip, torch-parity Adam and the
+best-params snapshot, in place.
+
+Port of ``inraudio_tpu/ops/pallas_siren_step.py``: the TPU kernel
+``_step_kernel`` becomes ``SIREN_STEP`` (``csrc/siren_train.cu``: the grad
+accumulation of ``ops.siren_train``, a fixed-order reduce over row tiles,
+then the clip + Adam + best epilogue), with ``step_plain`` as its plain
+PyTorch version.  The train state stays in the flat (k, P) layout of
+``ops.siren_train.flat_layout`` for the whole fit (``FlatTrainState``).
+The plateau scheduler and the best_loss / best_iter bookkeeping are torch
+ops on (k,) tensors, as the JAX package keeps them in XLA.
+
+No VMEM gate, padding or row-tile picker is ported: the kernels take any
+window count and row count and mask the ragged tile themselves.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..models.siren import SirenSnakeTanhConfig
+from .siren_fused import (_KERNEL_MAX_LAYERS, _KERNEL_WIDTHS, _MAX_SMALL_IN,
+                          StackPlan, _check_tensor, stack_plan)
+from .siren_train import (TRAIN_LIBRARY, _check_rc, bwd_sweep_plain,
+                          flatten_params, fwd_pres_plain, grad_dot_mode,
+                          grad_reduce, tile_rows, unflatten_params,
+                          validate_grad_launch)
+
+__all__ = ["FlatTrainState", "SIREN_STEP", "flat_state_from_train_state",
+           "fused_mse_step_call", "make_fused_mse_train_step",
+           "step_block_rows", "step_plain", "step_supported",
+           "train_state_from_flat"]
+
+# Adam constants (torch.optim.Adam defaults, as train.optim.AdamConfig)
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
+
+
+def step_supported(cfg: SirenSnakeTanhConfig, n_rows: int = 1) -> bool:
+    """Whether the whole-step kernel takes this model: one output, at most
+    8 raw input columns, a kernel width and 2..16 layers."""
+    return (cfg.out_features == 1 and 1 <= cfg.in_features <= _MAX_SMALL_IN
+            and cfg.hidden_features in _KERNEL_WIDTHS
+            and 2 <= len(cfg.layer_kinds) <= _KERNEL_MAX_LAYERS
+            and n_rows >= 1)
+
+
+def step_block_rows(cfg: SirenSnakeTanhConfig, n_rows: int) -> int | None:
+    """Rows per CTA of the step kernel (8192 / h: one (rows, h) tile is
+    32 KB at every width), or None when the kernel does not take it."""
+    if not step_supported(cfg, n_rows):
+        return None
+    return tile_rows(cfg.hidden_features)
+
+
+class FlatTrainState(NamedTuple):
+    """A window population's TrainState with params / moments / best in the
+    flat (k, P) layout for the whole fit (flattened once per fit)."""
+    params: torch.Tensor        # (k, P) float32
+    mu: torch.Tensor
+    nu: torch.Tensor
+    best_params: torch.Tensor
+    step: torch.Tensor          # (k,) int32, Adam t
+    lr: torch.Tensor            # (k,) float32
+    plateau_best: torch.Tensor
+    plateau_bad: torch.Tensor
+    best_loss: torch.Tensor
+    best_iter: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def adam_epilogue_plain(params, mu, nu, best, grads, lr, c1, c2, loss,
+                        best_loss, clip_norm: float) -> None:
+    """Per-window clip + Adam + best snapshot on (k, P) tensors, in place
+    (the kernel epilogue's arithmetic, op by op)."""
+    col = lambda x: x.reshape(-1, 1)
+    g = grads
+    if clip_norm > 0:
+        norm = torch.sqrt(torch.sum(g * g, dim=1))
+        scale = torch.clamp(clip_norm / torch.clamp(norm, min=1e-20), max=1.0)
+        g = g * col(scale)
+    p_old = params.clone()
+    if best is not None:
+        best.copy_(torch.where(col(loss < best_loss), p_old, best))
+    m = _B1 * mu + (1.0 - _B1) * g
+    v = _B2 * nu + (1.0 - _B2) * g * g
+    mu.copy_(m)
+    nu.copy_(v)
+    params.copy_(p_old - col(lr) * (m / col(c1))
+                 / (torch.sqrt(v / col(c2)) + _EPS))
+
+
+def step_plain(params, mu, nu, best, coords, targets, lr, c1, c2, best_loss,
+               cfg: SirenSnakeTanhConfig, plan: StackPlan, gmode: str,
+               n_valid: int, clip_norm: float) -> torch.Tensor:
+    """The whole step in plain PyTorch: (k, P) state groups updated in
+    place, returns the per-window loss (k,).  Same arguments as
+    ``fused_mse_step_call``."""
+    inv_n = 1.0 / float(n_valid)
+    leaves = unflatten_params(params, cfg)
+    out, saved = fwd_pres_plain(leaves, plan, coords)
+    err = out[..., 0] - targets                              # (k, n)
+    loss = torch.sum(err * err, dim=1) * inv_n
+    g = err * (2.0 * inv_n)
+    grads = bwd_sweep_plain(g.unsqueeze(-1), saved, leaves, plan, gmode)
+    adam_epilogue_plain(params, mu, nu, best, flatten_params(grads, cfg), lr,
+                        c1, c2, loss, best_loss, clip_norm)
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+class _SirenStepKernel:
+    """Kernel D: one whole train step for the population (grad
+    accumulation, reduce, clip + Adam + best epilogue: three launches on
+    the current stream, no host sync).  ``launches`` rises by one per step
+    launched, nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, params, mu, nu, best, coords, targets, lr, c1, c2,
+                 best_loss, cfg: SirenSnakeTanhConfig, plan: StackPlan,
+                 gmode: str, clip_norm: float) -> torch.Tensor:
+        dev = coords.device
+        g = validate_grad_launch(params, cfg, plan, coords)
+        shape = (g.k, g.layout.size)
+        groups = [("mu", mu), ("nu", nu)]
+        if best is not None:
+            groups.append(("best_params", best))
+        for name, t in groups:
+            _check_tensor(name, t, dev, shape, aligned=True)
+        _check_tensor("targets", targets, dev, (g.k, g.n))
+        for name, t in (("lr", lr), ("c1", c1), ("c2", c2),
+                        ("best_loss", best_loss)):
+            _check_tensor(name, t, dev, (g.k,))
+        lib = TRAIN_LIBRARY()
+        loss = torch.empty((g.k,), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            grads, sq_part, loss_part = grad_reduce(
+                lib, g, coords, params, stream, targets=targets, gmode=gmode)
+            ptr = lambda t: 0 if t is None else t.data_ptr()
+            rc = lib.siren_adam(
+                grads.data_ptr(), sq_part.data_ptr(), loss_part.data_ptr(),
+                params.data_ptr(), mu.data_ptr(), nu.data_ptr(), ptr(best),
+                loss.data_ptr(), lr.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+                best_loss.data_ptr(), g.k, g.tiles, g.layout.size,
+                float(clip_norm), stream)
+            _check_rc("siren_adam", rc)
+        self.launches += 1
+        return loss
+
+
+SIREN_STEP = _SirenStepKernel()
+
+
+def fused_mse_step_call(params, mu, nu, best, coords, targets, lr, c1, c2,
+                        best_loss, cfg: SirenSnakeTanhConfig, plan: StackPlan,
+                        gmode: str, n_valid: int,
+                        clip_norm: float) -> torch.Tensor:
+    """One whole step on (k, P) state groups, in place -> loss (k,).  CPU
+    tensors take the plain version; CUDA tensors the kernel.  ``best``
+    None leaves the best snapshot alone."""
+    for name, t in (("params", params), ("mu", mu), ("nu", nu),
+                    ("best_params", best), ("targets", targets), ("lr", lr),
+                    ("c1", c1), ("c2", c2), ("best_loss", best_loss)):
+        if t is not None and t.device != coords.device:
+            raise ValueError(f"{name} is on {t.device}, coords on "
+                             f"{coords.device}")
+    if coords.device.type == "cpu":
+        return step_plain(params, mu, nu, best, coords, targets, lr, c1, c2,
+                          best_loss, cfg, plan, gmode, n_valid, clip_norm)
+    if coords.device.type != "cuda":
+        raise ValueError(f"no fused step for device {coords.device}")
+    if n_valid != coords.shape[0]:
+        raise ValueError("the step kernel masks rows past coords.shape[0]; "
+                         f"n_valid={n_valid} must equal it")
+    return SIREN_STEP(params, mu, nu, best, coords, targets, lr, c1, c2,
+                      best_loss, cfg, plan, gmode, clip_norm)
+
+
+def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
+                              n_valid: int, approx_sin: bool = False,
+                              step_call=fused_mse_step_call):
+    """Build step(state: FlatTrainState, coords, targets) -> (state, (loss,
+    lr)): the semantics of ``train.loop.make_train_step`` for loss_mode
+    'mse', alpha 0, per window, with the compute in kernel D.
+
+    ``coords`` (n, d) is shared by the windows, ``targets`` is (k, n).  The
+    step updates the state's (k, P) groups in place and returns new (k,)
+    scalars.  ``step_call`` does the arithmetic of one step
+    (``fused_mse_step_call``; a caller that holds the kernel against its
+    plain version passes ``step_plain``, which takes the same arguments).
+    The grad tier is ``INRAUDIO_GRAD_PRECISION``'s when the step is built."""
+    from ..train.optim import PlateauConfig, PlateauState, plateau_update
+
+    plateau_cfg = PlateauConfig(factor=train_cfg.plateau_factor,
+                                patience=train_cfg.plateau_patience,
+                                min_lr=train_cfg.min_learning_rate)
+    plan = stack_plan(cfg, approx_sin=approx_sin)
+    gmode = grad_dot_mode()
+    clip = float(train_cfg.grad_clip_norm)
+    track_best = train_cfg.track_best
+
+    def step(state: FlatTrainState, coords, targets):
+        t = state.step + 1
+        tf = t.to(torch.float32)
+        c1 = 1.0 - _B1 ** tf
+        c2 = 1.0 - _B2 ** tf
+        loss = step_call(
+            state.params, state.mu, state.nu,
+            state.best_params if track_best else None, coords, targets,
+            state.lr, c1, c2, state.best_loss, cfg, plan, gmode, n_valid,
+            clip)
+        pl_state, new_lr = plateau_update(
+            PlateauState(best=state.plateau_best, num_bad=state.plateau_bad),
+            loss, state.lr, plateau_cfg)
+        improved = loss < state.best_loss
+        new_state = state._replace(
+            step=t, lr=new_lr, plateau_best=pl_state.best,
+            plateau_bad=pl_state.num_bad,
+            best_loss=torch.where(improved, loss, state.best_loss),
+            best_iter=torch.where(improved, t - 1, state.best_iter))
+        return new_state, (loss, new_lr)
+
+    return step
+
+
+def flat_state_from_train_state(state, cfg: SirenSnakeTanhConfig
+                                ) -> FlatTrainState:
+    """train.loop.TrainState (stacked) -> FlatTrainState (new buffers)."""
+    flat = lambda p: flatten_params(p, cfg)
+    return FlatTrainState(
+        params=flat(state.params), mu=flat(state.opt.mu),
+        nu=flat(state.opt.nu), best_params=flat(state.best_params),
+        step=state.opt.step, lr=state.opt.lr,
+        plateau_best=state.plateau.best, plateau_bad=state.plateau.num_bad,
+        best_loss=state.best_loss, best_iter=state.best_iter)
+
+
+def train_state_from_flat(fstate: FlatTrainState, cfg: SirenSnakeTanhConfig):
+    """FlatTrainState -> train.loop.TrainState (leaves are views into the
+    flat buffers)."""
+    from ..train.loop import TrainState
+    from ..train.optim import AdamState, PlateauState
+    unf = lambda flat: unflatten_params(flat, cfg)
+    return TrainState(
+        params=unf(fstate.params),
+        opt=AdamState(step=fstate.step, mu=unf(fstate.mu),
+                      nu=unf(fstate.nu), lr=fstate.lr),
+        plateau=PlateauState(best=fstate.plateau_best,
+                             num_bad=fstate.plateau_bad),
+        best_params=unf(fstate.best_params),
+        best_loss=fstate.best_loss, best_iter=fstate.best_iter)
+

@@ -1,0 +1,472 @@
+"""Differentiable SirenWithSnakeTanh stack: the stack kernel forward and a
+backward kernel, with their plain PyTorch versions.
+
+Port of ``inraudio_tpu/ops/pallas_siren_train.py``: ``_fwd_pres`` and
+``_bwd_sweep`` become ``fwd_pres_plain`` / ``bwd_sweep_plain`` (the plain
+versions), the backward kernel ``_bwd_kernel`` becomes ``SIREN_BWD``
+(``csrc/siren_train.cu``), and ``fused_siren_train_apply`` is a
+``torch.autograd.Function`` whose forward is the stack kernel
+(``ops.siren_fused``) and whose backward is ``SIREN_BWD``.
+
+The backward recomputes the forward per row tile and accumulates dW, db and
+the snake's da for each window.  Its matmul tiers follow the JAX package:
+the forward products take ``f32_mode`` (``INRAUDIO_F32_PRECISION``, default
+bf16x3); both backward products take the grad tier
+(``INRAUDIO_GRAD_PRECISION``, default bf16x2, 'inherit' = the f32 tier):
+dW = x_in^T gpre rounds x_in and splits gpre, dgrad = gpre W^T rounds gpre
+and splits W.  Layer 0's forward stays exact f32 multiply-adds; its dW is a
+grad-tier product of the raw coordinates, as in the reference.
+
+Parameters cross the kernel in one flat (k, P) float32 buffer per window
+population (``flat_layout``): each leaf at a 16-byte-aligned offset, zero
+between leaves.  The whole-step kernel (``ops.siren_step``) keeps its train
+state in this layout.
+
+The wrappers run the plain version for CPU tensors only; a CUDA tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+from typing import Any
+
+import torch
+
+from ..models.siren import SirenSnakeTanhConfig
+from ._nvcc import build_library
+from .siren_fused import (_KERNEL_MAX_LAYERS, _KERNEL_WIDTHS, _KIND_CODE,
+                          _MAX_SMALL_IN, _MODE_CODE, SIREN_STACK, StackPlan,
+                          _check_tensor, _cos, _f32_dot_mode, _kernel_dot,
+                          _sin, stack_forward_plain, stack_plan)
+
+Params = dict[str, Any]
+
+# rows per CTA of the training kernels: a (TM, h) tile is 8192 floats at
+# every supported width (csrc/siren_train.cu, TILE_FLOATS)
+TILE_FLOATS = 8192
+# floats per CTA of the reduce / Adam kernels
+CHUNK_FLOATS = 1024
+# device memory for one grad launch's partial grads and saved
+# pre-activations; larger populations go through in groups of windows
+SCRATCH_BYTES = 1 << 30
+
+
+def tile_rows(h: int) -> int:
+    return TILE_FLOATS // h
+
+
+def grad_dot_mode() -> str:
+    """The backward matmul tier: INRAUDIO_GRAD_PRECISION (default bf16x2;
+    'inherit' or '' = the f32 tier), resolved as ``stack_plan`` resolves
+    the forward's: anything but bf16x3 / bf16x2 / bf16 is 'highest'."""
+    mode = os.environ.get("INRAUDIO_GRAD_PRECISION", "bf16x2")
+    if mode in ("", "inherit"):
+        mode = _f32_dot_mode()
+    return mode if mode in ("bf16x3", "bf16x2", "bf16") else "highest"
+
+
+def check_kernel_width(cfg: SirenSnakeTanhConfig) -> None:
+    """The fused kernels take h in _KERNEL_WIDTHS; anything else raises
+    rather than routing elsewhere."""
+    if cfg.hidden_features not in _KERNEL_WIDTHS:
+        raise ValueError(
+            f"the fused kernels take hidden widths {_KERNEL_WIDTHS}, got "
+            f"{cfg.hidden_features}: train this width with fused=False")
+
+
+# ---------------------------------------------------------------------------
+# Flat parameter layout
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FlatLayout:
+    """Where each leaf lives in a window's flat float32 vector:
+    ``leaves[i] = (layer, key, offset, shape)``, offsets multiples of 4;
+    ``size`` (P) a multiple of 4."""
+
+    leaves: tuple[tuple[int, str, int, tuple[int, ...]], ...]
+    size: int
+
+    def offsets(self, n_layers: int) -> list[int]:
+        """[w, b, a] offsets per layer (a = -1 where there is none)."""
+        out = [-1] * (3 * n_layers)
+        slot = {"w": 0, "b": 1, "snake_a": 2}
+        for li, key, off, _ in self.leaves:
+            out[3 * li + slot[key]] = off
+        return out
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def flat_layout(cfg: SirenSnakeTanhConfig) -> FlatLayout:
+    kinds = cfg.layer_kinds
+    h = cfg.hidden_features
+    leaves, off = [], 0
+    for li, kind in enumerate(kinds):
+        in_f = cfg.in_features if li == 0 else h
+        out_f = cfg.out_features if li == len(kinds) - 1 else h
+        shapes = [("w", (in_f, out_f)), ("b", (out_f,))]
+        if kind == "linear_snake":
+            shapes.append(("snake_a", (out_f,)))
+        for key, shape in shapes:
+            leaves.append((li, key, off, shape))
+            size = 1
+            for s in shape:
+                size *= s
+            off = _round4(off + size)
+    return FlatLayout(tuple(leaves), off)
+
+
+def flatten_params(params: Params, cfg: SirenSnakeTanhConfig) -> torch.Tensor:
+    """Stacked params (leading window axis k) -> a new contiguous (k, P)
+    float32 tensor, zero between leaves."""
+    layout = flat_layout(cfg)
+    first = params["layers"][0]["w"]
+    k = first.shape[0]
+    flat = torch.zeros((k, layout.size), dtype=torch.float32,
+                       device=first.device)
+    for li, key, off, shape in layout.leaves:
+        v = params["layers"][li][key]
+        n = v[0].numel()
+        flat[:, off:off + n] = v.reshape(k, n)
+    return flat
+
+
+def unflatten_params(flat: torch.Tensor, cfg: SirenSnakeTanhConfig) -> Params:
+    """(k, P) -> stacked params whose leaves are views into ``flat``."""
+    layout = flat_layout(cfg)
+    k = flat.shape[0]
+    layers: list[Params] = [{} for _ in cfg.layer_kinds]
+    for li, key, off, shape in layout.leaves:
+        n = 1
+        for s in shape:
+            n *= s
+        layers[li][key] = flat[:, off:off + n].reshape(k, *shape)
+    return {"layers": layers}
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU; the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+def fwd_pres_plain(params: Params, plan: StackPlan, coords: torch.Tensor):
+    """The stack forward keeping each layer's (input, pre-activation, snake
+    a) -> (out, saved).  Same arithmetic as ``stack_forward_plain``."""
+    x0 = coords.to(torch.float32)
+    x = x0
+    saved = []
+    for li, p in enumerate(params["layers"]):
+        w, b = p["w"], p["b"].unsqueeze(-2)
+        if li == 0:
+            pre = b
+            for d in range(x0.shape[1]):
+                pre = pre + x0[:, d:d + 1] * w[..., d:d + 1, :]
+        else:
+            pre = _kernel_dot(x, w, plan.modes[li]) + b
+        kind, deg, a = plan.kinds[li], plan.degrees[li], None
+        if kind in ("sine_first", "sine"):
+            out = _sin(plan.omegas[li] * pre, deg)
+        elif kind == "linear_snake":
+            a = p["snake_a"].unsqueeze(-2)
+            out = pre + (0.5 / a) * (1.0 - _cos(2.0 * a * pre, deg))
+        elif kind == "linear_tanh":
+            out = torch.tanh(pre)
+        else:
+            out = pre
+        saved.append((x, pre, a))
+        x = out
+    return x, saved
+
+
+def bwd_sweep_plain(g: torch.Tensor, saved, params: Params, plan: StackPlan,
+                    gmode: str) -> Params:
+    """Reverse walk over the stack: backprop the output cotangent ``g``
+    ((k, n, out) or (n, out)) through the saved (input, pre) pairs ->
+    gradients in the params' layout.  Port of ``_bwd_sweep`` (explicit
+    tier-emulated products, not autograd, so the grad tier matches)."""
+    layers: list[Params] = [{} for _ in plan.kinds]
+    for li in range(len(plan.kinds) - 1, -1, -1):
+        kind, om, deg = plan.kinds[li], plan.omegas[li], plan.degrees[li]
+        x_in, pre, a = saved[li]
+        if kind in ("sine_first", "sine"):
+            gpre = g * (om * _cos(om * pre, deg))
+        elif kind == "linear_snake":
+            s2 = _sin(2.0 * a * pre, deg)
+            c2 = _cos(2.0 * a * pre, deg)
+            gpre = g * (1.0 + s2)
+            ga = (-(0.5 / (a * a)) * (1.0 - c2) + (pre / a) * s2) * g
+            layers[li]["snake_a"] = ga.sum(dim=-2)
+        elif kind == "linear_tanh":
+            t = torch.tanh(pre)
+            gpre = g * (1.0 - t * t)
+        else:
+            gpre = g
+        layers[li]["w"] = _kernel_dot(x_in.transpose(-1, -2), gpre, gmode)
+        layers[li]["b"] = gpre.sum(dim=-2)
+        if li > 0:
+            w = params["layers"][li]["w"]
+            g = _kernel_dot(gpre, w.transpose(-1, -2), gmode)
+    return {"layers": layers}
+
+
+def backward_plain(params: Params, plan: StackPlan, gmode: str,
+                   coords: torch.Tensor, cot: torch.Tensor) -> Params:
+    """Gradients of <cot, stack(params, coords)> w.r.t. params."""
+    _, saved = fwd_pres_plain(params, plan, coords)
+    return bwd_sweep_plain(cot, saved, params, plan, gmode)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/siren_train.cu)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+class _TrainLibrary:
+    """``csrc/siren_train.cu`` built once per process (at first use)."""
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self):
+        if self._lib is None:
+            lib = build_library("siren_train", ["siren_train.cu"])
+            lib.siren_grad.argtypes = [_P] * 10 + [_I] * 7 + [_F, _F, _P]
+            lib.siren_reduce.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+            lib.siren_adam.argtypes = [_P] * 12 + [_I, _I, _I, _F, _P]
+            for fn in (lib.siren_grad, lib.siren_reduce, lib.siren_adam):
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+
+TRAIN_LIBRARY = _TrainLibrary()
+
+
+def _check_rc(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+
+
+@dataclasses.dataclass
+class GradLaunch:
+    """Validated arguments of one grad-accumulation launch."""
+
+    k: int
+    n: int
+    d: int
+    h: int
+    tiles: int
+    layout: FlatLayout
+    plan: StackPlan
+
+
+def validate_grad_launch(flat: torch.Tensor, cfg: SirenSnakeTanhConfig,
+                         plan: StackPlan, coords: torch.Tensor) -> GradLaunch:
+    """Shape / dtype / device checks shared by the C and D wrappers."""
+    dev = coords.device
+    n, d = coords.shape
+    check_kernel_width(cfg)
+    h = cfg.hidden_features
+    layout = flat_layout(cfg)
+    L = len(plan.kinds)
+    _check_tensor("coords", coords, dev, (n, d))
+    if not 1 <= d <= _MAX_SMALL_IN or d != cfg.in_features:
+        raise ValueError(f"kernel takes 1..{_MAX_SMALL_IN} raw input columns "
+                         f"matching the config, got {d}")
+    if cfg.out_features != 1:
+        raise ValueError("the training kernels take out_features == 1")
+    if not 2 <= L <= _KERNEL_MAX_LAYERS:
+        raise ValueError(f"kernel takes 2..{_KERNEL_MAX_LAYERS} layers, "
+                         f"got {L}")
+    k = flat.shape[0]
+    _check_tensor("params", flat, dev, (k, layout.size), aligned=True)
+    if n < 1 or k < 1:
+        raise ValueError("kernel takes at least one window and one row")
+    return GradLaunch(k, n, d, h, -(-n // tile_rows(h)), layout, plan)
+
+
+def window_group(g: GradLaunch) -> int:
+    """Windows per grad + reduce launch: as many as ``SCRATCH_BYTES`` of
+    partial grads and saved pre-activations hold, at least one.  The
+    scratch of a step is then bounded, whatever the clip's length."""
+    per_window = g.tiles * (g.layout.size + len(g.plan.kinds) * TILE_FLOATS)
+    return max(1, min(g.k, SCRATCH_BYTES // (4 * per_window)))
+
+
+def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
+                loss_part, w0: int, kn: int, *, targets=None, cot=None,
+                gmode: str) -> None:
+    """Grad-accumulation kernel over windows [w0, w0 + kn): each (window,
+    row tile)'s partial grads into ``partial`` (kn * tiles, P), its loss
+    into ``loss_part`` (k * tiles) at the window's place."""
+    L = len(g.plan.kinds)
+    offs = g.layout.offsets(L)
+    ints = []
+    for li in range(L):
+        ints += [_KIND_CODE[g.plan.kinds[li]],
+                 _MODE_CODE[g.plan.modes[li] or "highest"],
+                 g.plan.degrees[li]]
+    c_offs = (ctypes.c_int32 * len(offs))(*offs)
+    c_ints = (ctypes.c_int32 * len(ints))(*ints)
+    c_om = (ctypes.c_float * L)(*g.plan.omegas)
+    row = lambda t, width: 0 if t is None else t.data_ptr() + 4 * w0 * width
+    rc = lib.siren_grad(
+        coords.data_ptr(), row(flat, g.layout.size), partial.data_ptr(),
+        row(loss_part, g.tiles), pre.data_ptr(), row(targets, g.n),
+        row(cot, g.n), ctypes.addressof(c_offs), ctypes.addressof(c_ints),
+        ctypes.addressof(c_om), L, kn, g.n, g.d, g.h, g.layout.size,
+        _MODE_CODE[gmode], 1.0 / float(g.n), 2.0 * (1.0 / float(g.n)),
+        stream)
+    _check_rc("siren_grad", rc)
+
+
+def launch_reduce(lib, g: GradLaunch, partial, grads, sq_part, w0: int,
+                  kn: int, stream) -> None:
+    """Sum windows [w0, w0 + kn)'s row-tile partials in a fixed order into
+    their rows of ``grads`` (k, P), and their per-chunk sums of squares
+    into ``sq_part`` (k, chunks)."""
+    rc = lib.siren_reduce(
+        partial.data_ptr(), grads.data_ptr() + 4 * w0 * g.layout.size,
+        sq_part.data_ptr() + 4 * w0 * sq_part.shape[1], kn, g.tiles,
+        g.layout.size, stream)
+    _check_rc("siren_reduce", rc)
+
+
+def grad_reduce(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
+                cot=None, gmode: str):
+    """Each window's gradient, over groups of ``window_group`` windows that
+    share one scratch -> (grads (k, P), sq_part (k, chunks), loss_part
+    (k * tiles)).  All on the current stream, no host sync."""
+    dev = coords.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    kg = window_group(g)
+    partial = torch.empty((kg * g.tiles, g.layout.size), **f32)
+    pre = torch.empty((kg * g.tiles, len(g.plan.kinds), TILE_FLOATS), **f32)
+    grads = torch.empty((g.k, g.layout.size), **f32)
+    sq_part = torch.empty((g.k, -(-g.layout.size // CHUNK_FLOATS)), **f32)
+    loss_part = torch.empty((g.k * g.tiles,), **f32)
+    for w0 in range(0, g.k, kg):
+        kn = min(kg, g.k - w0)
+        launch_grad(lib, g, coords, flat, stream, partial, pre, loss_part,
+                    w0, kn, targets=targets, cot=cot, gmode=gmode)
+        launch_reduce(lib, g, partial, grads, sq_part, w0, kn, stream)
+    return grads, sq_part, loss_part
+
+
+class _SirenBwdKernel:
+    """Kernel C: the backward of the stack for a supplied cotangent
+    (grad accumulation + the fixed-order reduce).  ``launches`` rises by
+    one per backward launched, nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, params: Params, cfg: SirenSnakeTanhConfig,
+                 plan: StackPlan, gmode: str, coords: torch.Tensor,
+                 cot: torch.Tensor) -> Params:
+        """Stacked params (k, ...) on one CUDA device, coords (n, d),
+        cotangent (k, n, 1) -> stacked grads (views into one (k, P))."""
+        flat = flatten_params(params, cfg)
+        g = validate_grad_launch(flat, cfg, plan, coords)
+        cot = cot.reshape(g.k, g.n)
+        _check_tensor("cotangent", cot, coords.device, (g.k, g.n))
+        lib = TRAIN_LIBRARY()
+        with torch.cuda.device(coords.device):
+            stream = torch.cuda.current_stream(coords.device).cuda_stream
+            grads, _, _ = grad_reduce(lib, g, coords, flat, stream, cot=cot,
+                                      gmode=gmode)
+        self.launches += 1
+        return unflatten_params(grads, cfg)
+
+
+SIREN_BWD = _SirenBwdKernel()
+
+
+def siren_backward(params: Params, cfg: SirenSnakeTanhConfig, plan: StackPlan,
+                   gmode: str, coords: torch.Tensor,
+                   cot: torch.Tensor) -> Params:
+    """Gradients of the stacked stack for cotangent ``cot`` (k, n, 1): the
+    plain version for CPU tensors, kernel C for CUDA ones."""
+    if coords.device.type == "cpu":
+        return backward_plain(params, plan, gmode, coords, cot)
+    if coords.device.type != "cuda":
+        raise ValueError(f"no fused backward for device {coords.device}")
+    return SIREN_BWD(params, cfg, plan, gmode, coords, cot.contiguous())
+
+
+class _FusedStack(torch.autograd.Function):
+    """Forward: the stack kernel; backward: kernel C (plain versions on the
+    CPU).  Port of the JAX package's ``_fused_stack`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, cfg, plan, coords, *leaves):
+        params = _tree_from_leaves(leaves, plan)
+        if coords.device.type == "cpu":
+            out = stack_forward_plain(params, plan, coords)
+        elif coords.device.type == "cuda":
+            out = SIREN_STACK(params, plan, coords)
+        else:
+            raise ValueError(f"no fused stack for device {coords.device}")
+        ctx.cfg, ctx.plan = cfg, plan
+        ctx.gmode = grad_dot_mode()
+        ctx.save_for_backward(coords, *leaves)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        coords, *leaves = ctx.saved_tensors
+        params = _tree_from_leaves(leaves, ctx.plan)
+        grads = siren_backward(params, ctx.cfg, ctx.plan, ctx.gmode, coords,
+                               grad_out)
+        out = [grads["layers"][li][key]
+               for li, key in _leaf_keys(ctx.plan)]
+        return (None, None, None, *out)
+
+
+def _leaf_keys(plan: StackPlan) -> list[tuple[int, str]]:
+    keys = []
+    for li, kind in enumerate(plan.kinds):
+        keys += [(li, "w"), (li, "b")]
+        if kind == "linear_snake":
+            keys.append((li, "snake_a"))
+    return keys
+
+
+def _tree_from_leaves(leaves, plan: StackPlan) -> Params:
+    layers: list[Params] = [{} for _ in plan.kinds]
+    for (li, key), v in zip(_leaf_keys(plan), leaves):
+        layers[li][key] = v
+    return {"layers": layers}
+
+
+def fused_siren_train_apply(params: Params, cfg: SirenSnakeTanhConfig,
+                            coords: torch.Tensor,
+                            approx_sin: bool = False) -> torch.Tensor:
+    """Differentiable fused forward: params with or without a leading
+    window axis, coords (n, d) -> (k, n, 1) or (n, 1).  Drop-in for
+    ``siren_snake_tanh_apply`` under autograd; its backward is kernel C on
+    a card.  Unlike the TPU kernels, any n and k are taken as they are."""
+    check_kernel_width(cfg)
+    plan = stack_plan(cfg, approx_sin=approx_sin)
+    stacked = params["layers"][0]["w"].dim() == 3
+    if not stacked:
+        params = {"layers": [{k: v.unsqueeze(0) for k, v in p.items()}
+                             for p in params["layers"]]}
+    for li, layer in enumerate(params["layers"]):
+        for key, v in layer.items():
+            if v.device != coords.device:
+                raise ValueError(f"layers[{li}].{key} is on {v.device}, "
+                                 f"coords on {coords.device}")
+    leaves = [params["layers"][li][key].contiguous()
+              for li, key in _leaf_keys(plan)]
+    out = _FusedStack.apply(cfg, plan, coords.contiguous(), *leaves)
+    return out if stacked else out[0]

@@ -1,22 +1,33 @@
-"""Multi-INR windows: chunking, per-window evaluation and the crossfade
-stitch (port of the decode half of ``inraudio_tpu/train/multi_inr.py``).
+"""Chunked multi-INR fitting and decode: one small INR per overlapping
+window of a clip, all windows trained at once (port of
+``inraudio_tpu/train/multi_inr.py``).
 
-Every window shares one coordinate grid, so a window population is
-evaluated as one stacked call (``INRModel.apply_stacked``, the stack
-kernel on a card) and overlap-added on the host in float64, exactly as the
-JAX package does.  The fitting half is not ported yet.
+Every window shares one coordinate grid, so the population is one stacked
+state with a leading window axis: ``_fit_chunk_population`` runs the
+whole-step kernel D (``ops.siren_step``) or the autograd step with kernel
+C's backward over all windows per step, in rounds of ``scan_chunk`` steps
+that read nothing back from the device.  Decoding evaluates the population
+as one stacked call (``INRModel.apply_stacked``, the stack kernel on a
+card) and overlap-adds on the host in float64, exactly as the JAX package
+does.  Each window is peak-normalised; its scale restores the amplitude at
+stitch time.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+import time
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from ..data.coords import get_coord
 from ..models import INRModel
 from ..tree import tree_map
+from .loop import (TrainConfig, TrainState, fused_step_plan,
+                   init_train_state, make_train_step,
+                   make_vmapped_fused_step)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +41,17 @@ class MultiINRConfig:
             raise ValueError(
                 f"overlap_fraction must be in [0, 0.5], got "
                 f"{self.overlap_fraction}")
+
+
+class MultiINRResult(NamedTuple):
+    states: TrainState        # stacked on the window axis, on the fit device
+    chunk_scales: np.ndarray  # (k,) per-window peak de-normalisation
+    chunk_length: int
+    hop: int
+    num_chunks: int
+    signal_length: int
+    loss_history: np.ndarray  # (steps, k)
+    train_time_s: float
 
 
 def chunk_signal(signal: np.ndarray, sample_rate: int,
@@ -56,6 +78,136 @@ def _crossfade_window(n: int, overlap: int) -> np.ndarray:
         w[:overlap] = ramp
         w[-overlap:] = ramp[::-1]
     return w
+
+
+def multi_inr_fit(model: INRModel, signal: np.ndarray, sample_rate: int,
+                  cfg: MultiINRConfig | None = None,
+                  train_cfg: TrainConfig | None = None, seed: int = 0,
+                  device: torch.device | str = "cpu",
+                  max_chunks_per_batch: int | None = None) -> MultiINRResult:
+    """Fit one INR per window, all windows at once on ``device``.  The
+    initial parameters are drawn from ``torch.Generator().manual_seed(
+    seed)`` (the JAX package's PRNG key; the numbers differ, the
+    distributions match).  ``max_chunks_per_batch`` trains the population in batches of that many
+    windows, with finished states moved to the host, to bound device
+    memory for long clips."""
+    cfg = cfg or MultiINRConfig()
+    train_cfg = train_cfg or TrainConfig()
+    chunks, n, hop = chunk_signal(np.asarray(signal, dtype=np.float32),
+                                  sample_rate, cfg)
+    return _fit_chunks(model, chunks, n, hop, len(signal), train_cfg,
+                       torch.Generator().manual_seed(seed), device,
+                       max_chunks_per_batch)
+
+
+def _fit_chunks(model, chunks, n, hop, signal_length, train_cfg, generator,
+                device, max_chunks_per_batch) -> MultiINRResult:
+    """Train a (k, n) window population, optionally in batches (the
+    ``max_chunks_per_batch`` memory bound).  Eager PyTorch compiles
+    nothing, so the last batch is not padded."""
+    k = chunks.shape[0]
+    kb = max_chunks_per_batch
+    if not kb or k <= kb:
+        return _fit_chunk_population(model, chunks, n, hop, signal_length,
+                                     train_cfg, generator, device)
+    parts = []
+    for start in range(0, k, kb):
+        r = _fit_chunk_population(model, chunks[start:start + kb], n, hop,
+                                  signal_length, train_cfg, generator,
+                                  device)
+        # finished states to the host before the next batch trains
+        parts.append(r._replace(states=tree_map(lambda x: x.cpu(),
+                                                r.states)))
+    states = tree_map(lambda *xs: torch.cat(xs), *[p.states for p in parts])
+    return MultiINRResult(
+        states=states,
+        chunk_scales=np.concatenate([p.chunk_scales for p in parts]),
+        chunk_length=n, hop=hop, num_chunks=k, signal_length=signal_length,
+        loss_history=np.concatenate([p.loss_history for p in parts], axis=1),
+        train_time_s=sum(p.train_time_s for p in parts))
+
+
+def multi_inr_fit_many(model: INRModel, signals: list[np.ndarray],
+                       sample_rate: int, cfg: MultiINRConfig | None = None,
+                       train_cfg: TrainConfig | None = None, seed: int = 0,
+                       device: torch.device | str = "cpu",
+                       max_chunks_per_batch: int | None = None
+                       ) -> list[MultiINRResult]:
+    """Fit several clips as one population: each clip is chunked on its
+    own (windows stay aligned to clip starts), the populations are
+    concatenated and trained together, and the result is split back into
+    one ``MultiINRResult`` per clip."""
+    cfg = cfg or MultiINRConfig()
+    train_cfg = train_cfg or TrainConfig()
+    if not signals:
+        return []
+    per_clip = [chunk_signal(np.asarray(s, dtype=np.float32), sample_rate,
+                             cfg) for s in signals]
+    n, hop = per_clip[0][1], per_clip[0][2]
+    chunks = np.concatenate([c for c, _, _ in per_clip], axis=0)
+    res = _fit_chunks(model, chunks, n, hop, chunks.shape[0] * n, train_cfg,
+                      torch.Generator().manual_seed(seed), device,
+                      max_chunks_per_batch)
+    out, start = [], 0
+    for (c, _, _), sig in zip(per_clip, signals):
+        sl = slice(start, start + c.shape[0])
+        out.append(MultiINRResult(
+            states=tree_map(lambda x: x[sl], res.states),
+            chunk_scales=res.chunk_scales[sl], chunk_length=n, hop=hop,
+            num_chunks=c.shape[0],
+            signal_length=len(np.asarray(sig).reshape(-1)),
+            loss_history=res.loss_history[:, sl],
+            train_time_s=res.train_time_s))
+        start += c.shape[0]
+    return out
+
+
+def _fit_chunk_population(model, chunks, n, hop, signal_length, train_cfg,
+                          generator, device) -> MultiINRResult:
+    """Core of the fit: train a (k, n) window population on ``device``.
+
+    A round of ``scan_chunk`` steps launches work and reads nothing back:
+    the per-step losses stay a device tensor until the fit ends."""
+    dev = torch.device(device)
+    k = chunks.shape[0]
+    scales = np.maximum(np.max(np.abs(chunks), axis=1), 1e-9)
+    targets = (chunks / scales[:, None])[..., None].astype(np.float32)
+    coords = torch.from_numpy(get_coord(n, dim=1)).to(dev)
+    states = init_train_state(model, generator, train_cfg, dev, windows=k)
+    fused = fused_step_plan(model, train_cfg, n) is not None
+    if fused:
+        vstep, to_flat, from_flat, prep_targets = make_vmapped_fused_step(
+            model, train_cfg, coords)
+        targets_d = prep_targets(targets)
+        states = to_flat(states)
+    else:
+        train_step = make_train_step(model, train_cfg)
+        targets_d = torch.from_numpy(targets).to(dev)
+        vstep = lambda s, t: train_step(s, coords, t)
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    hists = []
+    done = 0
+    while done < train_cfg.total_steps:
+        m = min(train_cfg.scan_chunk, train_cfg.total_steps - done)
+        round_losses = []
+        for _ in range(m):
+            states, (loss, _lr) = vstep(states, targets_d)
+            round_losses.append(loss)
+        hists.append(torch.stack(round_losses))
+        done += m
+    sync()
+    train_time = time.perf_counter() - t0
+    if fused:
+        states = from_flat(states)
+    hist = (torch.cat(hists).cpu().numpy() if hists
+            else np.zeros((0, k), np.float32))
+    return MultiINRResult(states=states, chunk_scales=scales,
+                          chunk_length=n, hop=hop, num_chunks=k,
+                          signal_length=signal_length, loss_history=hist,
+                          train_time_s=train_time)
 
 
 def stitch_chunks(outs: np.ndarray, hop: int, length: int) -> np.ndarray:
@@ -122,3 +274,37 @@ def decode_chunk_range(fn: Callable[[Any], torch.Tensor], params: Any,
     outs = outs[:ksel, :, 0] * scales[i_lo:i_hi + 1, None]
     local = stitch_chunks(outs, hop, stop - i_lo * hop)
     return local[start - i_lo * hop:]
+
+
+def multi_inr_decode_range(model: INRModel, result: MultiINRResult,
+                           start: int, stop: int, track_best: bool = True,
+                           max_chunks_per_batch: int | None = None
+                           ) -> np.ndarray:
+    """Decode only samples ``[start, stop)`` of the fitted clip, on the
+    device its states lie on (see ``decode_chunk_range``)."""
+    params = (result.states.best_params if track_best
+              else result.states.params)
+    fn = chunk_eval_fn(model, _grid_like(result, params))
+    return decode_chunk_range(fn, params, result.chunk_scales,
+                              result.chunk_length, result.hop,
+                              result.num_chunks, result.signal_length, start,
+                              stop, max_chunks_per_batch)
+
+
+def multi_inr_decode(model: INRModel, result: MultiINRResult,
+                     track_best: bool = True,
+                     max_chunks_per_batch: int | None = None) -> np.ndarray:
+    """Evaluate every window (one stacked call) on the device its states
+    lie on and overlap-add -> the stitched waveform."""
+    params = (result.states.best_params if track_best
+              else result.states.params)
+    fn = chunk_eval_fn(model, _grid_like(result, params))
+    outs = batched_chunk_eval(fn, params, result.num_chunks,
+                              max_chunks_per_batch)
+    outs = outs[:result.num_chunks, :, 0] * result.chunk_scales[:, None]
+    return stitch_chunks(outs, result.hop, result.signal_length)
+
+
+def _grid_like(result: MultiINRResult, params) -> torch.Tensor:
+    dev = params["layers"][0]["w"].device
+    return torch.from_numpy(get_coord(result.chunk_length, dim=1)).to(dev)

@@ -7,17 +7,23 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Any,
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any,
              is_leaf: Callable[[Any], bool] | None = None) -> Any:
     """``fn`` applied to every leaf (or every subtree ``is_leaf`` accepts);
-    the same structure back."""
+    the same structure back.  With ``rest`` trees of the same structure,
+    ``fn`` takes the corresponding leaf of each."""
     if is_leaf is not None and is_leaf(tree):
-        return fn(tree)
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, is_leaf) for v in tree)
-    return fn(tree)
+        items = [tree_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+                 for i, v in enumerate(tree)]
+        # a NamedTuple takes its fields as arguments
+        return type(tree)(*items) if hasattr(tree, "_fields") else \
+            type(tree)(items)
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
@@ -40,5 +46,6 @@ def _fill(t, it):
     if isinstance(t, dict):
         return {k: _fill(t[k], it) for k in sorted(t)}
     if isinstance(t, (list, tuple)):
-        return type(t)(_fill(v, it) for v in t)
+        items = [_fill(v, it) for v in t]
+        return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
     return next(it)

@@ -1,5 +1,6 @@
-"""Card-only checks of the CUDA stack kernel (csrc/siren_stack.cu) against
-its plain PyTorch version on the same card.
+"""Card-only checks of the CUDA kernels (csrc/siren_stack.cu, and the
+backward and whole-step kernels of csrc/siren_train.cu) against their plain
+PyTorch versions on the same card.
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports no JAX, so the card's machine runs it without the tests' conftest:
@@ -13,6 +14,9 @@ import torch
 from inraudio_tpu_torch import codec
 from inraudio_tpu_torch.models import SirenSnakeTanhConfig, build_model
 from inraudio_tpu_torch.ops import siren_fused as sf
+from inraudio_tpu_torch.ops import siren_step as ss
+from inraudio_tpu_torch.ops import siren_train as st
+from inraudio_tpu_torch.train import loop as tloop
 
 pytestmark = pytest.mark.cuda
 
@@ -146,3 +150,207 @@ def test_decode_range_equals_full_decode_slice(dev):
     # tier's f32 tolerance
     _, cpu = codec.decode_range(payload, 0.123, 0.2, "cpu", fused=True)
     np.testing.assert_allclose(cpu, full[984:1600], atol=F32_ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: C (backward) and D (whole step)
+# ---------------------------------------------------------------------------
+
+# C against its plain version, relative to the largest gradient of the
+# population.  f32-class grad tiers: only the summation order differs.  The
+# bf16-class tiers round x_in and gpre, and an operand within an f32 ulp of
+# a rounding boundary rounds the other way when the forward sums in another
+# order (measured at h = 128: 9e-5 of the largest gradient); bound the max
+# loosely and the bulk tightly.
+GRAD_F32_RTOL = 2e-6
+GRAD_BF16_MAX_RTOL, GRAD_BF16_BULK_RTOL, GRAD_BULK_SHARE = 1e-3, 1e-5, 0.99
+# D against its plain version.  First the arithmetic: the first step's
+# gradients (mu = 0.1 g after one step) meet C's criterion above.  Then the
+# state after a few steps, in units of an Adam step (lr): Adam divides each
+# gradient by its own magnitude, so a rounding-boundary flip (bf16-class
+# grad tiers) or a gradient that cancels to ~1e-8 moves small-gradient
+# elements' updates, and later gradients follow the slightly different
+# parameters.  Measured on an H100 at the headline shape after 3 steps:
+# bf16x2 grads, 99.99% of parameters within 0.1 lr, max 3.9 lr (an element
+# can move (1 - b1) / sqrt(1 - b2) = 3.16 lr per step); bf16x3 grads,
+# 99.995% within 0.01 lr, max 0.3 lr.
+STEP_BULK_SHARE = 0.999
+STEP_F32_BULK_LR, STEP_F32_MAX_LR = 1e-2, 1.0
+STEP_BF16_BULK_LR, STEP_BF16_MAX_LR = 1e-1, 10.0
+MOMENT_MAX_RTOL, MOMENT_BULK_RTOL, MOMENT_BULK_SHARE = 5e-2, 1e-3, 0.99
+# The first step's loss comes from one state: only the summation order
+# differs.  Later losses follow the parameters that moved apart as above
+# (measured on an H100 at the headline shape, bf16x2 grads, third step:
+# 6 of 669 windows beyond 1e-5, the worst 3.3e-5 relative).
+LOSS_RTOL, LOSS_DRIFT_RTOL = 1e-5, 3e-4
+
+
+def is_bf16_grad(gmode: str) -> bool:
+    return gmode in ("bf16x2", "bf16")
+
+
+def check_grads(out: torch.Tensor, ref: torch.Tensor, gmode: str) -> float:
+    """Assert the grad tier's tolerance on flat (k, P) gradients; returns
+    the max abs difference."""
+    assert torch.isfinite(out).all()
+    err = (out - ref).abs()
+    scale = float(ref.abs().max())
+    if is_bf16_grad(gmode):
+        assert float(err.max()) <= GRAD_BF16_MAX_RTOL * scale, err.max()
+        share = float((err <= GRAD_BF16_BULK_RTOL * scale).float().mean())
+        assert share >= GRAD_BULK_SHARE, share
+    else:
+        assert float(err.max()) <= GRAD_F32_RTOL * scale, (gmode, err.max())
+    return float(err.max())
+
+
+def check_state(out, ref, lr: float, gmode: str) -> dict[str, float]:
+    """Assert D's tolerance on two FlatTrainStates a few steps from one
+    state; returns the max abs difference per group."""
+    bulk, top = ((STEP_BF16_BULK_LR, STEP_BF16_MAX_LR) if is_bf16_grad(gmode)
+                 else (STEP_F32_BULK_LR, STEP_F32_MAX_LR))
+    errs = {}
+    for name in ("params", "best_params"):
+        a, b = getattr(out, name), getattr(ref, name)
+        err = (a - b).abs()
+        assert torch.isfinite(a).all()
+        assert float(err.max()) <= top * lr, (name, err.max())
+        share = float((err <= bulk * lr).float().mean())
+        assert share >= STEP_BULK_SHARE, (name, share)
+        errs[name] = float(err.max())
+    for name in ("mu", "nu"):
+        a, b = getattr(out, name), getattr(ref, name)
+        err = (a - b).abs()
+        scale = float(b.abs().max())
+        assert float(err.max()) <= MOMENT_MAX_RTOL * scale, (name, err.max())
+        share = float((err <= MOMENT_BULK_RTOL * scale).float().mean())
+        assert share >= MOMENT_BULK_SHARE, (name, share)
+        errs[name] = float(err.max())
+    for name in ("step", "lr", "best_iter", "plateau_bad"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    torch.testing.assert_close(out.best_loss, ref.best_loss,
+                               rtol=LOSS_DRIFT_RTOL, atol=0)
+    return errs
+
+
+def steps_kernel_vs_plain(cfg, tc, coords, targets, fs0, steps=3):
+    """``steps`` kernel steps and plain steps from one flat state, at the
+    grad tier of INRAUDIO_GRAD_PRECISION: checks each step's loss and the
+    first step's gradients; returns (kernel state, plain state, first-step
+    gradient error)."""
+    n = coords.shape[0]
+    kstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True)
+    pstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                         step_call=ss.step_plain)
+    a, b = clone_state(fs0), clone_state(fs0)
+    gmode = st.grad_dot_mode()
+    for i in range(steps):
+        a, (la, _) = kstep(a, coords, targets)
+        b, (lb, _) = pstep(b, coords, targets)
+        torch.testing.assert_close(la, lb, atol=0,
+                                   rtol=LOSS_DRIFT_RTOL if i else LOSS_RTOL)
+        if i == 0:  # mu = 0.1 g: the kernel's gradients
+            gerr = check_grads(a.mu, b.mu, gmode)
+    return a, b, gerr
+
+
+def clone_state(state):
+    return type(state)(*(t.clone() for t in state))
+
+
+def _train_setup(h, k, n, dev, seed=0, lr=1e-3):
+    cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=300.0)
+    model = build_model("mlp", cfg, fused=True, approx_sin=True)
+    tc = tloop.TrainConfig(learning_rate=lr, grad_clip_norm=1.0,
+                           plateau_patience=35)
+    state = tloop.init_train_state(model, torch.Generator().manual_seed(seed),
+                                   tc, dev, windows=k)
+    coords = torch.linspace(-1, 1, n, device=dev)[:, None]
+    freqs = torch.arange(1, k + 1, device=dev, dtype=torch.float32)[:, None]
+    targets = 0.8 * torch.sin(3.0 * freqs * torch.pi * coords[:, 0])
+    return cfg, model, tc, state, coords, targets
+
+
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
+@pytest.mark.parametrize("h", [32, 64, 128])
+def test_backward_kernel_matches_plain(dev, h, gmode):
+    cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
+    params = _population(cfg, 3, dev)
+    plan = sf.stack_plan(cfg, approx_sin=True)
+    coords = torch.linspace(-1, 1, 300, device=dev)[:, None]  # ragged tile
+    cot = torch.randn(3, 300, 1, device=dev,
+                      generator=torch.Generator(dev).manual_seed(1))
+    before = st.SIREN_BWD.launches
+    out = st.SIREN_BWD(params, cfg, plan, gmode, coords, cot)
+    assert st.SIREN_BWD.launches == before + 1
+    ref = st.backward_plain(params, plan, gmode, coords, cot)
+    check_grads(st.flatten_params(out, cfg), st.flatten_params(ref, cfg),
+                gmode)
+
+
+@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3"])
+@pytest.mark.parametrize("h", [32, 64, 128])
+def test_step_kernel_matches_plain(dev, h, gmode, monkeypatch):
+    monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
+    cfg, model, tc, state, coords, targets = _train_setup(h, 3, 300, dev)
+    before = ss.SIREN_STEP.launches
+    a, b, _ = steps_kernel_vs_plain(cfg, tc, coords, targets,
+                                    ss.flat_state_from_train_state(state, cfg))
+    assert ss.SIREN_STEP.launches == before + 3
+    check_state(a, b, tc.learning_rate, gmode)
+
+
+def test_step_kernel_is_deterministic(dev):
+    cfg, model, tc, state, coords, targets = _train_setup(128, 4, 700, dev)
+    step = ss.make_fused_mse_train_step(cfg, tc, 700, approx_sin=True)
+    s0 = ss.flat_state_from_train_state(state, cfg)
+    s0, _ = step(s0, coords, targets)  # non-zero moments
+    a, (la, _) = step(clone_state(s0), coords, targets)
+    b, (lb, _) = step(clone_state(s0), coords, targets)
+    assert torch.equal(la, lb)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("h", [32, 128])
+def test_window_groups_leave_results_bit_equal(dev, h, monkeypatch):
+    # long windows: a small scratch budget sends the population through
+    # grad + reduce in groups; every window's result is that of one group
+    cfg, model, tc, state, coords, targets = _train_setup(h, 5, 1500, dev)
+    step = ss.make_fused_mse_train_step(cfg, tc, 1500, approx_sin=True)
+    s0 = ss.flat_state_from_train_state(state, cfg)
+    s0, _ = step(s0, coords, targets)  # non-zero moments
+    plan = sf.stack_plan(cfg, approx_sin=True)
+    params = st.unflatten_params(s0.params.clone(), cfg)
+    cot = torch.randn(5, 1500, 1, device=dev,
+                      generator=torch.Generator(dev).manual_seed(3))
+    one, (l1, _) = step(clone_state(s0), coords, targets)
+    g1 = st.SIREN_BWD(params, cfg, plan, "bf16x2", coords, cot)
+    g = st.validate_grad_launch(s0.params, cfg, plan, coords)
+    assert st.window_group(g) == 5
+    per_window = 4 * g.tiles * (g.layout.size + len(plan.kinds)
+                                * st.TILE_FLOATS)
+    monkeypatch.setattr(st, "SCRATCH_BYTES", 2 * per_window)
+    assert st.window_group(g) == 2  # groups of 2, 2, 1
+    two, (l2, _) = step(clone_state(s0), coords, targets)
+    g2 = st.SIREN_BWD(params, cfg, plan, "bf16x2", coords, cot)
+    assert torch.equal(l1, l2)
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
+    for x, y in zip(st.flatten_params(g1, cfg), st.flatten_params(g2, cfg)):
+        assert torch.equal(x, y)
+
+
+def test_training_kernels_validate(dev):
+    cfg, model, tc, state, coords, targets = _train_setup(32, 2, 64, dev)
+    wide = SirenSnakeTanhConfig(hidden_features=48)
+    with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+        tloop.fused_step_plan(build_model("mlp", wide, fused=True), tc, 64)
+    with pytest.raises(ValueError, match="hidden widths"):
+        st.fused_siren_train_apply(_population(wide, 1, dev), wide, coords)
+    fs = ss.flat_state_from_train_state(state, cfg)
+    before = ss.SIREN_STEP.launches
+    with pytest.raises(ValueError, match="coords on"):
+        ss.make_fused_mse_train_step(cfg, tc, 64)(fs, coords.cpu(),
+                                                  targets.cpu())
+    assert ss.SIREN_STEP.launches == before
