@@ -45,6 +45,29 @@ Phases, each of which fails the run:
    plain backward at the headline shape, and the fit's steps/s and peak
    device memory at both shapes.
 
+The KAN fit (the runner's ``fit --arch kan``), at the runner shape
+KAN([1, 256, 256, 1]) over the same clip (308,207 rows, f32, weights from
+seed 0), with ``csrc/kan.cu`` built in phase 0 beside the other sources:
+8. kernel G (forward) and kernel H (backward) against their plain versions
+   over the full clip, the cotangent that of the MSE loss against the
+   clip; two H calls from one state, which must be bit-equal;
+9. served through the entry points, in process, with the launch counts set
+   to 0 before and read after: the CLI ``fit --device cuda --arch kan
+   --fused --hidden 256`` on the clip as a wav (KAN_FIT_STEPS steps), whose
+   checkpoint is loaded and decoded through ``eval.decode.decode_problem``;
+   the same CLI with the RFF recipe ``--num-freq 256 --sigma 1500 --hidden
+   128`` (KAN(512, 128, 128, 1)); then a kernel fit and a plain-version fit
+   from one initial state (KAN_CMP_STEPS steps), whose final losses must
+   agree within a limit set from a 1-ulp-perturbed kernel fit beside them;
+10. timings with CUDA events: G, H and a whole KAN step against their plain
+   versions, the fit's steps/s and its peak device memory.
+
+Every kernel's bound (the least time the card could take for the same
+work) is computed from the run's shapes: the larger of the bytes it must
+move over 3.35 TB/s and its operations over the peak of the unit they
+could use (989 TFLOP/s bf16 tensor cores for the bf16-split products,
+67 TFLOP/s fp32 for the elementwise work), at the published 700 W rates.
+
 Exits non-zero, printing no result, without CUDA or outside the repo.  The
 last line is the JSON result; the line before it lists the kernels.
 """
@@ -91,6 +114,20 @@ CMP_STEPS = 150       # kernel vs plain-step fit, clip SNR compared
 CMP_SEEDS = (SEED, SEED + 1)
 SNR_AGREE_DB = 0.5    # at CMP_STEPS, as tests/test_pallas_step.py:310
 SNR_AGREE_DB_MEDIAN = 1.0  # median per-hop SNR at FIT_STEPS
+# the KAN fit: the runner's KAN([1, h, h, 1]) at its default h
+KAN_LAYERS = (1, 256, 256, 1)
+KAN_FIT_STEPS = 200   # each CLI fit
+KAN_CMP_STEPS = 40    # kernel vs plain-version fit
+# the kernel and plain fits' final losses may differ by this many times the
+# 1-ulp control's gap, or by this relative floor, whichever is larger (on
+# the H100 the two fits agreed to 9 digits over 40 steps while the control
+# moved the loss by 1.5e-7 of itself)
+KAN_CMP_CONTROL_X = 10.0
+KAN_CMP_FLOOR_REL = 1e-6
+# the card's published peaks (NVIDIA H100 SXM, 700 W)
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOP_S = 989e12
+PEAK_F32_FLOP_S = 67e12
 
 
 def log(*args):
@@ -171,6 +208,290 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_lines(build_log):
+    """One line per compiled kernel: its (mangled) name, spills and
+    registers, from ptxas's -v report."""
+    out, name = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("spill" in line or "registers" in line):
+            out.append((name, line.split(":", 1)[-1].strip()))
+    lines = {}
+    for name, info in out:
+        lines.setdefault(name, []).append(info)
+    return [f"{name}: {'; '.join(infos)}" for name, infos in lines.items()]
+
+
+def bound(bytes_moved, tensor_flop, f32_flop):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and each unit's operations over its peak."""
+    t_bytes = bytes_moved / PEAK_BYTES_S
+    t_ops = max(tensor_flop / PEAK_BF16_FLOP_S, f32_flop / PEAK_F32_FLOP_S)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def siren_bounds(k, n, h, n_params):
+    """Bounds of the three SIREN kernels at (k windows, n rows, width h,
+    n_params floats a window), 2 sine + 2 snake layers + a linear head:
+    bf16x3 forward products, bf16x2 backward products (the grad tier), and
+    ~20 fp32 operations for each sine / snake activation."""
+    rows = k * n
+    macs = h + 4 * h * h + h                      # per row, forward
+    act = 20 * 5 * h                              # per row, activations
+    p_bytes = 4 * k * n_params
+    stack = bound(p_bytes + 4 * rows * 2, 6 * macs * rows, act * rows)
+    train_flop = (6 * macs + 2 * 2 * 2 * macs) * rows
+    # D: params, mu, nu and best read and written, targets read
+    step = bound(8 * p_bytes + 4 * rows, train_flop, 2 * act * rows)
+    # C: params and the cotangent read, the gradient written
+    bwd = bound(2 * p_bytes + 4 * rows, train_flop, 2 * act * rows)
+    return stack, step, bwd
+
+
+def kan_bounds(n, layers_hidden, n_coef=8):
+    """Bounds of G and H for KAN(layers_hidden) over n rows at bf16x3:
+    the products on bf16 tensor cores (3 passes), and per (row, input
+    feature) ~300 fp32 operations for silu, the Cox-de-Boor recursion and
+    the hi/lo splits."""
+    J = 1 + n_coef
+    dims = list(zip(layers_hidden[:-1], layers_hidden[1:]))
+    macs = sum(i * J * o for i, o in dims)
+    dx_macs = sum(i * J * o for i, o in dims[1:])
+    feats = sum(i for i, _ in dims)
+    p_bytes = 4 * sum(o * i * (J + 2) for i, o in dims)
+    g = bound(4 * n * (layers_hidden[0] + layers_hidden[-1]) + p_bytes,
+              6 * macs * n, 300 * feats * n)
+    # H reads the saved layer inputs, the cotangent and the weights, and
+    # writes the gradients
+    h = bound(4 * n * (feats + layers_hidden[-1]) + 2 * p_bytes,
+              6 * (macs + dx_macs) * n, 2 * 300 * feats * n)
+    return g, h
+
+
+def plain_kan_model(kf, model):
+    """``model`` with G and H's plain versions on the card, through the
+    same autograd Function (the package sends CUDA tensors only to the
+    kernels)."""
+    return dataclasses.replace(model, apply=lambda p, c: kf.fused_kan_apply(
+        p, model.config, c, stack=kf.PLAIN_STACK))
+
+
+def kan_phases(np, torch, dev, clip):
+    """Phases 8-10: kernels G and H against their plain versions at the
+    runner shape, the KAN fit served through the entry points, and the
+    KAN timings."""
+    from inraudio_tpu_torch.__main__ import main as cli_main
+    from inraudio_tpu_torch.data import waveform_fitting, write_wav
+    from inraudio_tpu_torch.eval.decode import decode_problem
+    from inraudio_tpu_torch.eval.metrics import reconstruction_snr
+    from inraudio_tpu_torch.models import (KANConfig, build_model, rff_apply,
+                                           rff_init)
+    from inraudio_tpu_torch.ops import kan_fused as kf
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_step as ss
+    from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.train.checkpoint import load_checkpoint
+    from inraudio_tpu_torch.tree import tree_map
+    from test_torch_cuda import (KAN_GRAD_RTOL, KAN_RTOL, check_kan,
+                                 check_kan_outputs)
+
+    out = {}
+    n = CLIP_SAMPLES
+    cfg = KANConfig(layers_hidden=KAN_LAYERS)
+    model = build_model("kan", cfg, fused=True)
+    params = model.init(torch.Generator().manual_seed(SEED), dev)
+    flat = [t.detach().contiguous() for t in kf.flatten_kan_params(params)]
+    layers = list(zip(flat[0::2], flat[1::2]))
+    mode, order = kf.kan_dot_mode(), cfg.spline_order
+    coords = torch.linspace(-1, 1, n, device=dev)[:, None]
+    targets = torch.from_numpy(clip / np.max(np.abs(clip)))[:, None].to(dev)
+
+    # ---- phase 8: G and H against their plain versions ----
+    gout, xs = kf.KAN_FWD(layers, coords, order, mode)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ref, xr = kf.kan_forward_plain(layers, coords, order, mode)
+    torch.cuda.synchronize()
+    plain_peak = torch.cuda.max_memory_allocated() - base
+    out["kan_fwd_err"], fwd_ratio = check_kan_outputs(layers, xs, gout, xr,
+                                                      ref, order)
+    cot = (2.0 / n) * (ref - targets)
+    gk = kf.KAN_BWD(layers, xr, cot, order, mode)
+    gp = kf.kan_backward_plain(layers, xr, cot, order, mode)
+    torch.cuda.synchronize()
+    out["kan_bwd_err"] = max(check_kan(a, b, KAN_GRAD_RTOL)
+                             for a, b in zip(gk, gp))
+    bwd_ratio = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(gk, gp))
+    log(f"phase8 KAN{KAN_LAYERS} over {n} rows, {mode} tier (tolerances: "
+        f"each layer output max-abs <= {KAN_RTOL} x its term scale, each "
+        f"dW max-abs <= {KAN_GRAD_RTOL} x max |dW|): G max abs "
+        f"{out['kan_fwd_err']:.3e} (max |out| {float(ref.abs().max()):.3e}"
+        f", largest ratio to a layer's term scale {fwd_ratio:.2e}); H max "
+        f"abs {out['kan_bwd_err']:.3e} (largest ratio to max |dW| "
+        f"{bwd_ratio:.2e}); the plain "
+        f"forward's peak {plain_peak / 2**30:.2f} GiB")
+    gk2 = kf.KAN_BWD(layers, xr, cot, order, mode)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
+        raise AssertionError("two H calls from one state differ")
+    log("phase8 two H calls from one state: bit-equal")
+    del gout, xs, gk, gk2, gp
+
+    # ---- phase 9: the KAN fit served through the entry points ----
+    wav = os.path.join(WORK, "kan_clip.wav")
+    write_wav(wav, FS, clip)
+    counters = {"siren_stack": sf.SIREN_STACK, "siren_step": ss.SIREN_STEP,
+                "siren_bwd": st.SIREN_BWD, "kan_fwd": kf.KAN_FWD,
+                "kan_bwd": kf.KAN_BWD}
+    duration = 7.0  # the whole clip (308,207 samples < 7 s)
+
+    def cli_fit(tag, extra):
+        argv = ["fit", "--device", "cuda", "--arch", "kan", "--fused",
+                "--filename", wav, "--duration", str(duration),
+                "--total-steps", str(KAN_FIT_STEPS), "--experiment-path",
+                WORK, "--tag", tag, *extra]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        wall = time.perf_counter() - t0
+        folder = os.path.join(WORK, tag)
+        with open(os.path.join(folder, "parameters.json")) as f:
+            rec = json.load(f)
+        ckpt = json.loads(buf.getvalue().strip().splitlines()[-1])["ckpt"]
+        files = {name: os.path.exists(os.path.join(folder, name))
+                 for name in ("saved_ckpt.npz", "metrics.jsonl",
+                              "parameters.json", "output.wav")}
+        log(f"phase9 CLI {' '.join(argv[:6])} {' '.join(extra)} "
+            f"--total-steps {KAN_FIT_STEPS}: rc={rc} in {wall:.1f} s, "
+            f"{rec['steps_per_sec']:.2f} steps/s, best loss "
+            f"{rec['best_loss']:.6g} at {rec['best_iter']}, SNR "
+            f"{rec['SNR']:.3f} dB, files {files}")
+        if rc != 0 or not all(files.values()) or ckpt != \
+                os.path.join(folder, "saved_ckpt.npz"):
+            raise AssertionError(f"CLI fit {tag} failed")
+        return rec, ckpt
+
+    for c in counters.values():
+        c.launches = 0
+    rec, ckpt = cli_fit("kan_cli", ["--hidden", str(KAN_LAYERS[1])])
+    out["kan_fit_steps_s"] = rec["steps_per_sec"]
+    problem = waveform_fitting(wav, duration)
+    template = tloop.init_train_state(model, torch.Generator(),
+                                      tloop.TrainConfig(), dev)
+    state = load_checkpoint(ckpt, template)
+    rec_wav, rate = decode_problem(model, state.best_params, problem,
+                                   device=dev)
+    snr = reconstruction_snr(problem.targets[:, 0] * problem.decode["peak"],
+                             rec_wav)
+    log(f"phase9 checkpoint -> load_checkpoint -> decode_problem on the "
+        f"card: {rec_wav.shape[0]} samples at {rate} Hz, SNR {snr:.3f} dB "
+        f"(the run's own record {rec['SNR']:.3f} dB)")
+    if (rec_wav.shape != clip.shape or not np.isfinite(rec_wav).all()
+            or abs(snr - rec["SNR"]) > 1e-3):
+        raise AssertionError("the loaded checkpoint decodes differently")
+    rff, _ = cli_fit("kan_rff", ["--num-freq", "256", "--sigma", "1500",
+                                 "--hidden", "128"])
+    out["launches_kan"] = {name: c.launches for name, c in counters.items()}
+    log(f"phase9 kernel launches in the served KAN fits: "
+        f"{out['launches_kan']}")
+    if (out["launches_kan"]["kan_fwd"] < 2 * KAN_FIT_STEPS
+            or out["launches_kan"]["kan_bwd"] < 2 * KAN_FIT_STEPS):
+        raise AssertionError("the KAN fit did not run through G and H")
+    out["kan_rff_snr"] = rff["SNR"]
+
+    # the kernel fit against the plain-version fit from one initial state,
+    # beside the kernel fit from the init times (1 + 2^-22).  The RFF
+    # recipe's KAN, whose loss moves within a few steps (the raw-coordinate
+    # KAN's stays at the signal's power).
+    rcfg = KANConfig(layers_hidden=(512, 128, 128, 1))
+    rmodel = build_model("kan", rcfg, fused=True)
+    pmodel = plain_kan_model(kf, rmodel)
+    b = rff_init(torch.Generator().manual_seed(SEED), 1, 256, sigma=1500.0,
+                 device=dev)
+    feats = rff_apply(b, torch.from_numpy(problem.coords).to(dev))
+    tc = tloop.TrainConfig(total_steps=KAN_CMP_STEPS,
+                           scan_chunk=KAN_CMP_STEPS)
+    x_np, y_np = problem.coords, problem.targets
+    r0 = tloop.init_train_state(rmodel, torch.Generator().manual_seed(SEED),
+                                tc, dev)
+
+    def fit_from(m, scale=1.0):
+        st0 = r0._replace(params=tree_map(lambda t: t * scale, r0.params))
+        st0 = tree_map(torch.clone, st0)
+        return tloop.fit(m, feats, y_np, tc, state=st0, device=dev)
+
+    kern, plain = fit_from(rmodel), fit_from(pmodel)
+    ulp = fit_from(rmodel, 1.0 + 2.0 ** -22)
+    lk, lp, lu = (float(r.loss_history[-1]) for r in (kern, plain, ulp))
+    limit = max(KAN_CMP_CONTROL_X * abs(lk - lu), KAN_CMP_FLOOR_REL * lk)
+    log(f"phase9 KAN(512, 128, 128, 1) on the RFF features, "
+        f"{KAN_CMP_STEPS}-step fits from one state: first loss "
+        f"{float(kern.loss_history[0]):.9g}; final loss "
+        f"kernel {lk:.9g} / plain {lp:.9g} / perturbed kernel {lu:.9g}; "
+        f"gated |kernel - plain| {abs(lk - lp):.3e} (limit {limit:.3e} = "
+        f"max({KAN_CMP_CONTROL_X} x control {abs(lk - lu):.3e}, "
+        f"{KAN_CMP_FLOOR_REL} x loss)); steps/s kernel "
+        f"{kern.steps_per_sec:.2f}, plain {plain.steps_per_sec:.2f}")
+    if not abs(lk - lp) <= limit:
+        raise AssertionError("kernel fit and plain-version fit disagree")
+
+    # ---- phase 10: timings ----
+    out["kan_fwd_ms"] = cuda_ms(torch, lambda: kf.KAN_FWD(
+        layers, coords, order, mode), 10)
+    out["kan_fwd_plain_ms"] = cuda_ms(torch, lambda: kf.kan_forward_plain(
+        layers, coords, order, mode), 3)
+    out["kan_bwd_ms"] = cuda_ms(torch, lambda: kf.KAN_BWD(
+        layers, xr, cot, order, mode), 10)
+    out["kan_bwd_plain_ms"] = cuda_ms(torch, lambda: kf.kan_backward_plain(
+        layers, xr, cot, order, mode), 3)
+    log(f"phase10 G {out['kan_fwd_ms']:.3f} ms (plain "
+        f"{out['kan_fwd_plain_ms']:.3f} ms), H {out['kan_bwd_ms']:.3f} ms "
+        f"(plain {out['kan_bwd_plain_ms']:.3f} ms)")
+    lib = kf.KAN_LIBRARY()
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = []
+    for li, (grid, w_t) in enumerate(layers):
+        s = kf._layer_shape(xr[li], grid, w_t, order, li)
+        g = torch.ones((n, s.dout), device=dev) / n
+        fwd = cuda_ms(torch, lambda: kf.KAN_FWD([(grid, w_t)], xr[li], order,
+                                                mode), 5)
+        dw = cuda_ms(torch, lambda: kf.layer_dw(lib, xr[li], grid, g, s,
+                                                order, 3, stream), 5)
+        parts.append(f"layer {li} ({s.din}->{s.dout}) G {fwd:.3f} ms, "
+                     f"dW {dw:.3f} ms")
+    log("phase10 per layer: " + "; ".join(parts))
+    del xr, cot, ref
+    del feats, kern, plain, ulp, r0
+    s0 = tloop.init_train_state(model, torch.Generator().manual_seed(SEED),
+                                tc, dev)
+    step_k = tloop.make_train_step(model, tc)
+    step_p = tloop.make_train_step(plain_kan_model(kf, model), tc)
+    state = tree_map(torch.clone, s0)
+    out["kan_step_ms"] = cuda_ms(torch, lambda: step_k(state, coords,
+                                                       targets), 5)
+    out["kan_step_plain_ms"] = cuda_ms(torch, lambda: step_p(state, coords,
+                                                             targets), 3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    r = tloop.fit(model, x_np, y_np, dataclasses.replace(
+        tc, total_steps=20, scan_chunk=10), state=tree_map(torch.clone, s0),
+        device=dev)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"phase10 whole KAN step: kernels {out['kan_step_ms']:.3f} ms, "
+        f"plain {out['kan_step_plain_ms']:.3f} ms; fit 20 steps "
+        f"{r.steps_per_sec:.2f} steps/s, peak device memory "
+        f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held "
+        f"before; CLI fit {out['kan_fit_steps_s']:.2f} steps/s")
+    out["kan_bounds"] = kan_bounds(n, KAN_LAYERS)
+    return out
 
 
 def hop_median_snr(np, ref, rec, hop):
@@ -477,8 +798,9 @@ def main() -> int:
     # ---- phase 0: build, one nvcc per source, all started together ----
     from inraudio_tpu_torch.ops import siren_step as ss
     from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.ops import kan_fused as kf
     builds = {"siren_stack": sf.SIREN_STACK.library,
-              "siren_train": st.TRAIN_LIBRARY}
+              "siren_train": st.TRAIN_LIBRARY, "kan": kf.KAN_LIBRARY}
     build_s, failures = {}, []
 
     def build(name, fn):
@@ -501,9 +823,8 @@ def main() -> int:
         lib = library_path(name, [name + ".cu"])
         log(f"build: {name}.cu -> {lib.relative_to(HERE)} in "
             f"{build_s[name]:.1f} s")
-        for line in (lib.parent / "build.log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                log(f"  ptxas: {line.strip()}")
+        for line in ptxas_lines((lib.parent / "build.log").read_text()):
+            log(f"  ptxas: {line}")
 
     clip = synth_clip(np)
     payloads = {}
@@ -670,9 +991,19 @@ def main() -> int:
         del on_dev, params, out
 
     train = train_phases(np, torch, dev, clip, codec, ss, st, sf)
+    kan = kan_phases(np, torch, dev, clip)
 
     shutil.rmtree(WORK, ignore_errors=True)
     ms, plain_ms = timing[("headline", "deg11")]
+    head = payloads["headline"][1]
+    n_params = sum(v[0].numel() for layer in head["params"]["layers"]
+                   for v in layer.values())
+    (stack_b, stack_by), (step_b, step_by), (bwd_b, bwd_by) = siren_bounds(
+        head["meta"]["num_chunks"], head["meta"]["chunk_length"], 128,
+        n_params)
+    (g_b, g_by), (h_b, h_by) = kan["kan_bounds"]
+    kan_shape = (f"runner KAN{KAN_LAYERS} over {CLIP_SAMPLES} rows, bf16x3"
+                 f", launches from the served CLI fits (phase 9)")
     kernels = {"kernels": [{
         "name": "siren_stack",
         "route": "cuda",
@@ -683,6 +1014,9 @@ def main() -> int:
         "max_abs_err": max(errs.values()),
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": stack_b,
+        "bound_by": stack_by,
+        "library_ms": None,
         "shape": "headline k=669 n=512 h=128, deg11 tier",
     }, {
         "name": "siren_step",
@@ -693,6 +1027,9 @@ def main() -> int:
         "max_abs_err": train["step_err"],
         "ms": train["step_ms"],
         "plain_ms": train["step_plain_ms"],
+        "bound_ms": step_b,
+        "bound_by": step_by,
+        "library_ms": None,
         "shape": "headline k=669 n=512 h=128, one whole train step",
     }, {
         "name": "siren_bwd",
@@ -703,7 +1040,36 @@ def main() -> int:
         "max_abs_err": train["bwd_err"],
         "ms": train["bwd_ms"],
         "plain_ms": train["bwd_plain_ms"],
+        "bound_ms": bwd_b,
+        "bound_by": bwd_by,
+        "library_ms": None,
         "shape": "headline k=669 n=512 h=128, bf16x2 grad tier",
+    }, {
+        "name": "kan_fwd",
+        "route": "cuda",
+        "source": "inraudio_tpu_torch/csrc/kan.cu",
+        "replaces": "inraudio_tpu/ops/pallas_kan.py:75",
+        "launches": kan["launches_kan"]["kan_fwd"],
+        "max_abs_err": kan["kan_fwd_err"],
+        "ms": kan["kan_fwd_ms"],
+        "plain_ms": kan["kan_fwd_plain_ms"],
+        "bound_ms": g_b,
+        "bound_by": g_by,
+        "library_ms": None,
+        "shape": kan_shape,
+    }, {
+        "name": "kan_bwd",
+        "route": "cuda",
+        "source": "inraudio_tpu_torch/csrc/kan.cu",
+        "replaces": "inraudio_tpu/ops/pallas_kan.py:194",
+        "launches": kan["launches_kan"]["kan_bwd"],
+        "max_abs_err": kan["kan_bwd_err"],
+        "ms": kan["kan_bwd_ms"],
+        "plain_ms": kan["kan_bwd_plain_ms"],
+        "bound_ms": h_b,
+        "bound_by": h_by,
+        "library_ms": None,
+        "shape": kan_shape,
     }]}
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))

@@ -7,8 +7,12 @@ so parameters and files cross between the two unchanged.  It never imports
 JAX.
 
 Ported so far: the codec's decode path (``codec.load_inr`` -> ``decode`` /
-``decode_range`` -> stitched waveform), with the SIREN stack forward as a
-hand-written CUDA kernel (``ops/siren_fused.py``, ``csrc/siren_stack.cu``).
+``decode_range`` -> stitched waveform), its encode path (``codec.encode``,
+the multi-INR fit), and the single-model fit (``experiments.runner``,
+``train.loop.fit``, the ``fit`` CLI, the KAN).  Hand-written CUDA kernels
+carry them: the SIREN stack forward (``csrc/siren_stack.cu``), the SIREN
+training step and backward (``csrc/siren_train.cu``) and the KAN forward
+and backward (``csrc/kan.cu``), each beside its plain PyTorch version.
 
 Float32 matmuls stay true float32 everywhere in the package: TF32 is turned
 off here, and the bf16 roundings the decode tiers ask for are emulated

@@ -1,10 +1,11 @@
-"""CLI: ``python -m inraudio_tpu_torch encode|decode|info ...``.
+"""CLI: ``python -m inraudio_tpu_torch fit|encode|decode|info ...``.
 
-Port of the ``encode`` (per-window codec; the modulated family and
-``--target-bps`` are not ported yet), ``decode`` and ``info`` subcommands of
-``inraudio_tpu``'s CLI, plus ``--device`` (default ``cuda``; it raises when
-there is no card rather than running on the CPU).  ``fit``, ``fit-multi``
-and multi-input decode are not ported yet.
+Port of the ``fit`` (the runner's ``train``, wave method, mse; the flags
+it honours, with the JAX package's names), ``encode`` (per-window codec;
+the modulated family and ``--target-bps`` are not ported yet), ``decode``
+and ``info`` subcommands of ``inraudio_tpu``'s CLI, plus ``--device``
+(default ``cuda``; it raises when there is no card rather than running on
+the CPU).  ``fit-multi`` and multi-input decode are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +18,57 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="inraudio_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    fit = sub.add_parser("fit", help="fit an INR to an audio file (wave "
+                                     "method, mse)")
+    fit.add_argument("--experiment-path", default="results")
+    fit.add_argument("--tag", default="exp")
+    fit.add_argument("--filename", required=True)
+    fit.add_argument("--duration", type=float, default=10.0)
+    fit.add_argument("--device", default="cuda",
+                     help="torch device to train on (default cuda; 'cpu' "
+                          "runs the plain PyTorch versions)")
+    fit.add_argument("--arch", default="mlp", choices=["mlp", "kan"])
+    fit.add_argument("--total-steps", type=int, default=20000)
+    fit.add_argument("--learning-rate", type=float, default=1e-3)
+    fit.add_argument("--min-learning-rate", type=float, default=1e-6)
+    fit.add_argument("--num-sine", type=int, default=2)
+    fit.add_argument("--num-snake", type=int, default=2)
+    fit.add_argument("--num-tanh", type=int, default=0)
+    fit.add_argument("--hidden", type=int, default=256)
+    fit.add_argument("--omega", type=float, default=22000.0)
+    fit.add_argument("--hidden-omega", type=float, default=30.0)
+    fit.add_argument("--a-initial", type=float, default=0.5)
+    fit.add_argument("--first-linear", action="store_true",
+                     help="mlp: first layer Linear+Snake instead of a sine "
+                          "layer")
+    fit.add_argument("--no-last-linear", dest="last_linear",
+                     action="store_false",
+                     help="mlp: final layer a sine layer instead of a "
+                          "linear head")
+    fit.add_argument("--num-freq", type=int, default=None,
+                     help="input encoding with this many frequencies")
+    fit.add_argument("--sigma", type=float, default=10.0,
+                     help="RFF projection scale")
+    fit.add_argument("--encoding", default="rff", choices=["rff", "nerf"],
+                     help="input featurisation used with --num-freq")
+    fit.add_argument("--grad-clip-norm", type=float, default=0.0,
+                     help="global-norm gradient clipping (0 = off)")
+    fit.add_argument("--plateau-factor", type=float, default=0.8)
+    fit.add_argument("--plateau-patience", type=int, default=200)
+    fit.add_argument("--decimation", type=int, default=1)
+    fit.add_argument("--bwe", action="store_true",
+                     help="decode at the original rate (bandwidth "
+                          "extension of a decimated fit)")
+    fit.add_argument("--prev-ckpt-path", default=None)
+    fit.add_argument("--seed", type=int, default=0)
+    fit.add_argument("--fused", action="store_true",
+                     help="train through the CUDA kernels: mlp (widths 32, "
+                          "64, 128, raw coordinates) the stack and whole-step "
+                          "kernels; kan the KAN forward and backward kernels")
+    fit.add_argument("--update-grid-every", type=int, default=0,
+                     help="KAN data-adaptive grid refresh period in steps "
+                          "(0 = never)")
 
     enc = sub.add_parser(
         "encode", help="compress a wav into an INRA payload (multi-INR "
@@ -88,7 +140,15 @@ def main(argv=None) -> int:
                       help="emit the full machine-readable record")
 
     args = ap.parse_args(argv)
-    if args.cmd == "encode":
+    if args.cmd == "fit":
+        from .experiments import train
+        kw = {k: v for k, v in vars(args).items()
+              if k not in ("cmd", "experiment_path", "tag", "filename",
+                           "duration")}
+        ckpt = train(args.experiment_path, args.tag, args.filename,
+                     args.duration, **kw)
+        print(json.dumps({"ckpt": ckpt}))
+    elif args.cmd == "encode":
         import resource
         import time
 

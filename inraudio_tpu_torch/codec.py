@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .data.coords import get_coord
+from .device import resolve_device as _resolve_device
 from .models import (SirenSnakeTanhConfig, build_model, dequantize_params,
                      quantize_params)
 from .models.siren import tensor_from_numpy
@@ -351,14 +352,6 @@ def compression_stats(payload: dict[str, Any],
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
-
-def _resolve_device(device: torch.device | str) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    return dev
-
 
 def _routing_fit_snr(meta: dict[str, Any]) -> float | None:
     fit = meta.get("fit_snr_db")

@@ -1,9 +1,11 @@
-"""Host-side wav I/O (port of ``inraudio_tpu/data/audio_io.py``)."""
+"""Host-side wav I/O and decimation (port of
+``inraudio_tpu/data/audio_io.py``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import scipy.io.wavfile as wavfile
+import scipy.signal
 
 
 def read_wav(path: str, channel: int | None = None) -> tuple[int, np.ndarray]:
@@ -17,3 +19,13 @@ def read_wav(path: str, channel: int | None = None) -> tuple[int, np.ndarray]:
 
 def write_wav(path: str, sample_rate: int, data: np.ndarray) -> None:
     wavfile.write(path, sample_rate, np.asarray(data, dtype=np.float32))
+
+
+def decimate(data: np.ndarray, q: int, ftype: str = "iir",
+             zero_phase: bool = True) -> np.ndarray:
+    """Anti-aliased downsampling by an integer factor: scipy's decimate
+    (order-8 Chebyshev-I, zero phase), as float32."""
+    if q <= 1:
+        return data
+    return scipy.signal.decimate(data, q=int(q), ftype=ftype,
+                                 zero_phase=zero_phase).astype(np.float32)

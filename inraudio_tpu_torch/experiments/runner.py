@@ -1,0 +1,305 @@
+"""Experiment runner with the reference ``train(...)`` surface (port of
+``inraudio_tpu/experiments/runner.py``, the wave method).
+
+Build the fitting problem, build the model (with an optional input
+encoding), optionally warm-start from a checkpoint, fit, decode (with
+bandwidth extension), score the SNR, and write the artefacts: ``output.wav``,
+the checkpoint, ``metrics.jsonl`` and ``parameters.json`` with the JAX
+package's schema.  ``train`` takes a wav file and returns the checkpoint
+path; ``train_from_signal`` takes an in-memory signal (coords in
+[-coord_scale, coord_scale]) and returns the reconstruction and residual.
+
+Every fit runs on ``device`` (default the card; it raises without one).
+The encodings are computed once on the device and handed to the model as
+its input features, for every architecture.  Not ported: the mdct, fft and
+multi methods, the loss modes other than mse, plots and the loss landscape.
+A fused mlp with an input encoding needs the RFF branch of the stack
+kernels, which is not ported, and raises.  The knobs the port does not
+have are written into ``parameters.json`` at the values it runs with, so
+the schema matches the JAX package's.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..data.audio_io import decimate as decimate_signal
+from ..data.audio_io import read_wav, write_wav
+from ..data.fittings import (FittingProblem, waveform_fitting,
+                             waveform_fitting_from_array)
+from ..device import resolve_device
+from ..eval.decode import decode_problem
+from ..eval.metrics import (experiment_record, reconstruction_snr,
+                            save_parameters)
+from ..models import (INRModel, KANConfig, SirenSnakeTanhConfig, build_model,
+                      posenc_nerf, posenc_output_dim, rff_apply, rff_init)
+from ..train.checkpoint import load_checkpoint, save_checkpoint
+from ..train.loop import TrainConfig, fit, init_train_state
+from ..utils.observability import MetricsLogger
+
+# the RFF projection's generator seed, apart from the init's
+_RFF_SEED_OFFSET = 1 << 31
+
+
+def make_experiment_folder(experiment_path: str, tag: str) -> str:
+    """``<experiment_path>/<tag>``, with "(2)" appended while it exists."""
+    folder = os.path.join(experiment_path, tag)
+    while os.path.exists(folder):
+        folder = folder + "(2)"
+    os.makedirs(folder)
+    return folder
+
+
+def build_problem(method: str, filename: str, duration: float,
+                  decimation: int = 1) -> FittingProblem:
+    """Method dispatch: 'wave' is ported; mdct, fft and multi come with the
+    DSP slice."""
+    if method == "wave":
+        return waveform_fitting(filename, duration, decimation)
+    if method in ("mdct", "fft", "multi"):
+        raise NotImplementedError(
+            f"method {method!r} comes with the DSP slice of the port")
+    raise ValueError(f"unknown method {method!r}")
+
+
+def build_arch(arch: str, in_features: int, hidden: int, num_sine: int,
+               num_snake: int, num_tanh: int, omega: float,
+               hidden_omega: float, a_initial: float | None,
+               first_linear: bool = False, last_linear: bool = True,
+               fused: bool = False) -> INRModel:
+    """'mlp' -> SirenWithSnakeTanh (fused: the stack kernels and kernel D,
+    raw coordinates only, widths 32/64/128); 'kan' -> KAN([in, hidden,
+    hidden, 1]) (fused: kernels G and H)."""
+    if arch == "mlp":
+        return build_model("mlp", SirenSnakeTanhConfig(
+            in_features=in_features, hidden_features=hidden,
+            num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
+            first_linear=first_linear, last_linear=last_linear,
+            first_omega_0=omega, hidden_omega_0=hidden_omega,
+            a_initial=a_initial), fused=fused, approx_sin=fused)
+    if arch == "kan":
+        return build_model("kan", KANConfig(
+            layers_hidden=(in_features, hidden, hidden, 1)), fused=fused)
+    raise ValueError(f"unknown arch {arch!r}")
+
+
+def _encoding(problem: FittingProblem, num_freq: int | None, sigma: float,
+              encoding: str, seed: int, dev: torch.device):
+    """(encode: raw coords tensor -> features, or None; in_features)."""
+    if not num_freq:
+        return None, problem.in_features
+    if encoding == "nerf":
+        return (lambda c: posenc_nerf(c, num_freq),
+                posenc_output_dim(problem.in_features, num_freq))
+    if encoding != "rff":
+        raise ValueError(f"unknown encoding {encoding!r}")
+    b = rff_init(torch.Generator().manual_seed(_RFF_SEED_OFFSET + seed),
+                 problem.in_features, num_freq, sigma=sigma, device=dev)
+    return (lambda c: rff_apply(b, c)), 2 * num_freq
+
+
+def _scalars(d: dict[str, Any]) -> dict[str, Any]:
+    return {k: v for k, v in d.items()
+            if isinstance(v, (int, float, str, bool, type(None)))}
+
+
+def _run_experiment(
+    problem: FittingProblem, experiment_folder: str,
+    reference_signal: np.ndarray, reference_rate: int, *,
+    arch: str, hidden: int, num_sine: int, num_snake: int, num_tanh: int,
+    omega: float, hidden_omega: float, a_initial: float | None,
+    num_freq: int | None, sigma: float, total_steps: int,
+    learning_rate: float, min_learning_rate: float, bwe: bool,
+    prev_ckpt_path: str | None, seed: int, track_best: bool,
+    hparams: dict[str, Any], fused: bool = False, first_linear: bool = False,
+    last_linear: bool = True, grad_clip_norm: float = 0.0,
+    plateau_factor: float = 0.8, plateau_patience: int = 200,
+    update_grid_every: int = 0, encoding: str = "rff",
+    device: torch.device | str = "cuda") -> dict[str, Any]:
+    """The engine behind ``train`` and ``train_from_signal``."""
+    dev = resolve_device(device)
+    if fused and arch == "mlp" and num_freq:
+        raise NotImplementedError(
+            "a fused mlp with an input encoding needs the RFF branch of the "
+            "stack kernels, which is not ported yet; fit it with fused=False")
+    encode, in_features = _encoding(problem, num_freq, sigma, encoding, seed,
+                                    dev)
+    coords = torch.from_numpy(problem.coords).to(dev)
+    enc_coords = encode(coords) if encode is not None else coords
+    model = build_arch(arch, in_features, hidden, num_sine, num_snake,
+                       num_tanh, omega, hidden_omega, a_initial,
+                       first_linear=first_linear, last_linear=last_linear,
+                       fused=fused)
+    cfg = TrainConfig(total_steps=total_steps, learning_rate=learning_rate,
+                      min_learning_rate=min_learning_rate,
+                      track_best=track_best, grad_clip_norm=grad_clip_norm,
+                      plateau_factor=plateau_factor,
+                      plateau_patience=plateau_patience,
+                      update_grid_every=update_grid_every)
+    generator = torch.Generator().manual_seed(seed)
+
+    state = None
+    if prev_ckpt_path:
+        template = init_train_state(model, generator, cfg, dev)
+        state = load_checkpoint(prev_ckpt_path, template)
+
+    metrics = MetricsLogger(os.path.join(experiment_folder, "metrics.jsonl"))
+    metrics.log({"event": "config", "hparams": _scalars(hparams)})
+    t0 = time.time()
+    result = fit(model, enc_coords, problem.targets, cfg, generator=generator,
+                 state=state, metrics=metrics, device=dev)
+    train_time = time.time() - t0
+
+    # an mse fit's own quality estimate gates a fused mlp's decode tier
+    fit_snr_est = None
+    if np.isfinite(result.best_loss) and result.best_loss > 0:
+        sig_pow = float(np.mean(np.square(problem.targets)))
+        if sig_pow > 0:
+            fit_snr_est = 10.0 * float(np.log10(sig_pow / result.best_loss))
+    recovered, out_rate = decode_problem(model, result.params, problem,
+                                         bwe=bwe, encode=encode,
+                                         fit_snr_db=fit_snr_est, device=dev)
+    write_wav(os.path.join(experiment_folder, "output.wav"), out_rate,
+              recovered)
+
+    ref = reference_signal
+    if bwe:
+        ref_cmp = ref
+    else:
+        q = reference_rate // problem.sample_rate
+        ref_cmp = decimate_signal(ref, q) if q > 1 else ref
+    snr = reconstruction_snr(ref_cmp, recovered)
+
+    ckpt_path = save_checkpoint(
+        os.path.join(experiment_folder, "saved_ckpt"), result.state,
+        extra={"arch": arch, "hparams": _scalars(hparams)})
+    record = experiment_record(hparams, result.params, train_time, snr)
+    record["best_iter"] = result.best_iter
+    record["best_loss"] = result.best_loss
+    record["steps_per_sec"] = result.steps_per_sec
+    save_parameters(experiment_folder, record)
+    metrics.log({"event": "final", "snr_db": snr,
+                 "best_loss": result.best_loss,
+                 "best_iter": result.best_iter,
+                 "train_time_s": round(train_time, 3),
+                 "steps_per_sec": round(result.steps_per_sec, 2)})
+    metrics.close()
+    return {"ckpt": ckpt_path, "ref": ref_cmp, "rec": recovered,
+            "res": ref_cmp[: len(recovered)] - recovered[: len(ref_cmp)],
+            "snr": snr, "rate": out_rate, "result": result, "model": model,
+            "problem": problem, "record": record}
+
+
+def train(experiment_path: str, tag: str, filename: str,
+          duration: float = 10.0, *, arch: str = "mlp",
+          total_steps: int = 20000, learning_rate: float = 1e-3,
+          min_learning_rate: float = 1e-6, num_sine: int = 2,
+          num_snake: int = 2, num_tanh: int = 0, hidden: int = 256,
+          omega: float = 22000.0, hidden_omega: float = 30.0,
+          a_initial: float | None = 0.5, num_freq: int | None = None,
+          sigma: float = 10.0, decimation: int = 1, bwe: bool = False,
+          prev_ckpt_path: str | None = None, seed: int = 0,
+          track_best: bool = True, fused: bool = False,
+          first_linear: bool = False, last_linear: bool = True,
+          grad_clip_norm: float = 0.0, plateau_factor: float = 0.8,
+          plateau_patience: int = 200, update_grid_every: int = 0,
+          encoding: str = "rff",
+          device: torch.device | str = "cuda") -> str:
+    """File-based experiment (the wave method) -> the checkpoint path.
+    Defaults are the reference runner's."""
+    device = resolve_device(device)
+    folder = make_experiment_folder(experiment_path, tag)
+    problem = build_problem("wave", filename, duration,
+                            decimation=decimation)
+    ref_rate, ref = read_wav(filename, channel=0)
+    ref = ref[: int(duration * ref_rate)]
+    hparams = dict(
+        tag=tag, inst=None, filename=filename, duration=duration,
+        method="wave", arch=arch, loss_mode="mse", total_steps=total_steps,
+        learning_rate=learning_rate, min_learning_rate=min_learning_rate,
+        num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
+        hidden=hidden, omega=omega, hidden_omega=hidden_omega,
+        a_initial=a_initial, num_freq=num_freq, alpha=0.0,
+        decimation=decimation, bwe=bwe, takelog=False, N=2048,
+        prev_ckpt_path=prev_ckpt_path, seed=seed, num_channels=1,
+        first_linear=first_linear, last_linear=last_linear,
+        grad_clip_norm=grad_clip_norm, plateau_factor=plateau_factor,
+        plateau_patience=plateau_patience, multi_resolution_stft=False,
+        n_fft=1024, highpass=False, perceptual_mask=False, adaptive=False,
+        update_grid_every=update_grid_every, scaled_first=False,
+        encoding=encoding)
+    out = _run_experiment(
+        problem, folder, ref, ref_rate, arch=arch, hidden=hidden,
+        num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
+        omega=omega, hidden_omega=hidden_omega, a_initial=a_initial,
+        num_freq=num_freq, sigma=sigma, total_steps=total_steps,
+        learning_rate=learning_rate, min_learning_rate=min_learning_rate,
+        bwe=bwe, prev_ckpt_path=prev_ckpt_path, seed=seed,
+        track_best=track_best, hparams=hparams, fused=fused,
+        first_linear=first_linear, last_linear=last_linear,
+        grad_clip_norm=grad_clip_norm, plateau_factor=plateau_factor,
+        plateau_patience=plateau_patience,
+        update_grid_every=update_grid_every, encoding=encoding,
+        device=device)
+    return out["ckpt"]
+
+
+def train_from_signal(experiment_path: str, tag: str,
+                      input_signal: np.ndarray, input_fs: int, *,
+                      coord_scale: float = 100.0, arch: str = "mlp",
+                      total_steps: int = 20000, learning_rate: float = 1e-3,
+                      min_learning_rate: float = 1e-6, num_sine: int = 2,
+                      num_snake: int = 2, num_tanh: int = 0,
+                      hidden: int = 256, omega: float = 22000.0,
+                      hidden_omega: float = 30.0,
+                      a_initial: float | None = 0.5,
+                      num_freq: int | None = None, sigma: float = 10.0,
+                      decimation: int = 1, bwe: bool = False,
+                      prev_ckpt_path: str | None = None, seed: int = 0,
+                      track_best: bool = True, fused: bool = False,
+                      first_linear: bool = False, last_linear: bool = True,
+                      grad_clip_norm: float = 0.0,
+                      plateau_factor: float = 0.8,
+                      plateau_patience: int = 200,
+                      update_grid_every: int = 0, encoding: str = "rff",
+                      device: torch.device | str = "cuda") -> dict[str, Any]:
+    """In-memory experiment: coords span [-coord_scale, coord_scale], the
+    decode is de-normalised by the stored peak, and the residual
+    ``input - recovered`` is returned for band-split chaining."""
+    device = resolve_device(device)
+    folder = make_experiment_folder(experiment_path, tag)
+    problem = waveform_fitting_from_array(input_signal, input_fs,
+                                          decimation=decimation,
+                                          coord_scale=coord_scale)
+    hparams = dict(
+        tag=tag, duration=len(input_signal) / input_fs, method="wave",
+        arch=arch, loss_mode="mse", total_steps=total_steps,
+        learning_rate=learning_rate, min_learning_rate=min_learning_rate,
+        num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
+        hidden=hidden, omega=omega, hidden_omega=hidden_omega,
+        a_initial=a_initial, num_freq=num_freq, alpha=0.0,
+        decimation=decimation, bwe=bwe, coord_scale=coord_scale,
+        prev_ckpt_path=prev_ckpt_path, seed=seed,
+        first_linear=first_linear, last_linear=last_linear,
+        grad_clip_norm=grad_clip_norm, plateau_factor=plateau_factor,
+        plateau_patience=plateau_patience, multi_resolution_stft=False,
+        update_grid_every=update_grid_every, scaled_first=False,
+        encoding=encoding)
+    return _run_experiment(
+        problem, folder, np.asarray(input_signal, dtype=np.float32),
+        input_fs, arch=arch, hidden=hidden, num_sine=num_sine,
+        num_snake=num_snake, num_tanh=num_tanh, omega=omega,
+        hidden_omega=hidden_omega, a_initial=a_initial, num_freq=num_freq,
+        sigma=sigma, total_steps=total_steps, learning_rate=learning_rate,
+        min_learning_rate=min_learning_rate, bwe=bwe,
+        prev_ckpt_path=prev_ckpt_path, seed=seed, track_best=track_best,
+        hparams=hparams, fused=fused, first_linear=first_linear,
+        last_linear=last_linear, grad_clip_norm=grad_clip_norm,
+        plateau_factor=plateau_factor, plateau_patience=plateau_patience,
+        update_grid_every=update_grid_every, encoding=encoding,
+        device=device)

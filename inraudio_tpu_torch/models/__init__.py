@@ -1,7 +1,7 @@
-"""Model factory (port of the ``build_model("mlp")`` part of
-``inraudio_tpu/models/__init__.py``): the production SirenWithSnakeTanh and
-the ``INRModel`` fields the decode path uses.  The other architectures are
-not ported yet."""
+"""Model factory (port of ``inraudio_tpu/models/__init__.py``, archs 'mlp'
+and 'kan'): the production SirenWithSnakeTanh, the KAN, the input
+encodings, and the ``INRModel`` fields the fit and decode paths use.  The
+'siren' and 'relu' architectures are not ported yet."""
 
 from __future__ import annotations
 
@@ -10,14 +10,26 @@ from typing import Any, Callable
 
 import torch
 
+from ..tree import tree_leaves
 from .activations import snake_apply, snake_init
+from .encodings import (num_frequencies_nyquist, posenc_nerf,
+                        posenc_output_dim, rff_apply, rff_init,
+                        rff_output_dim)
+from .kan import (KANConfig, b_splines, curve2coeff, kan_apply, kan_init,
+                  kan_linear_apply, kan_linear_init, kan_linear_update_grid,
+                  kan_regularization_loss, kan_update_grid)
 from .quantize import dequantize_params, quantize_params
 from .siren import (SirenSnakeTanhConfig, params_from_jax, params_to_numpy,
                     siren_snake_tanh_apply, siren_snake_tanh_init)
 
-__all__ = ["INRModel", "SirenSnakeTanhConfig", "build_model",
-           "dequantize_params", "params_from_jax", "params_to_numpy",
-           "quantize_params", "siren_snake_tanh_apply",
+__all__ = ["INRModel", "KANConfig", "SirenSnakeTanhConfig", "b_splines",
+           "build_model", "curve2coeff", "dequantize_params", "kan_apply",
+           "kan_init", "kan_linear_apply", "kan_linear_init",
+           "kan_linear_update_grid", "kan_regularization_loss",
+           "kan_update_grid", "num_frequencies_nyquist", "param_bytes",
+           "param_count", "params_from_jax", "params_to_numpy", "posenc_nerf",
+           "posenc_output_dim", "quantize_params", "rff_apply", "rff_init",
+           "rff_output_dim", "siren_snake_tanh_apply",
            "siren_snake_tanh_init", "snake_apply", "snake_init"]
 
 
@@ -32,8 +44,10 @@ class INRModel:
     forms ``apply_stacked`` / ``decode_apply_stacked`` over a window
     population on one grid, and ``fused_step_ctx`` = dict(cfg, approx_sin,
     step), which routes mse fits through the whole-step kernel: ``step`` is
-    ``ops.siren_step.fused_mse_step_call``.  None where the model has no
-    such path."""
+    ``ops.siren_step.fused_mse_step_call``.  ``update_grid(params, x)`` is
+    the KAN's data-adaptive knot refresh (``kan_update_grid``), called by
+    ``train.loop.fit`` between rounds.  None where the model has no such
+    path."""
 
     name: str
     config: Any
@@ -44,17 +58,24 @@ class INRModel:
     decode_apply_stacked: (Callable[[Any, torch.Tensor, float], torch.Tensor]
                            | None) = None
     fused_step_ctx: dict[str, Any] | None = None
+    update_grid: Callable[[Any, torch.Tensor], Any] | None = None
 
 
-def build_model(arch: str, cfg: SirenSnakeTanhConfig, fused: bool = False,
-                approx_sin: bool = False) -> INRModel:
+def build_model(arch: str, cfg: SirenSnakeTanhConfig | KANConfig,
+                fused: bool = False, approx_sin: bool = False) -> INRModel:
     """arch 'mlp' = the production SirenWithSnakeTanh.  ``fused=True``
     routes the forward through the stack kernel and its backward through
     kernel C (``ops.siren_fused``, ``ops.siren_train``: CUDA on a card,
     their plain versions on the CPU), and training steps through kernel D;
-    ``approx_sin`` picks the polynomial sin for the untiered apply."""
+    ``approx_sin`` picks the polynomial sin for the untiered apply.
+
+    arch 'kan' = the KAN of ``cfg`` (a ``KANConfig``); ``fused=True`` routes
+    its forward through kernel G and its backward through kernel H
+    (``ops.kan_fused``)."""
+    if arch == "kan":
+        return _build_kan(cfg, fused)
     if arch != "mlp":
-        raise ValueError(f"arch {arch!r} is not ported yet (only 'mlp')")
+        raise ValueError(f"arch {arch!r} is not ported yet ('mlp', 'kan')")
 
     def init(generator: torch.Generator, device="cpu", windows=None):
         return siren_snake_tanh_init(generator, cfg, device, windows)
@@ -83,3 +104,30 @@ def build_model(arch: str, cfg: SirenSnakeTanhConfig, fused: bool = False,
             P, cfg, c, **tier(fit)),
         fused_step_ctx=dict(cfg=cfg, approx_sin=approx_sin,
                             step=fused_mse_step_call))
+
+
+def _build_kan(cfg: KANConfig, fused: bool) -> INRModel:
+    def init(generator: torch.Generator, device="cpu", windows=None):
+        if windows is not None:
+            raise ValueError("a KAN trains as one model, not a window "
+                             "population")
+        return kan_init(generator, cfg, device)
+
+    update = lambda p, c: kan_update_grid(p, cfg, c)  # noqa: E731
+    if not fused:
+        return INRModel(name="kan", config=cfg, init=init,
+                        apply=lambda p, c: kan_apply(p, cfg, c),
+                        update_grid=update)
+    from ..ops.kan_fused import fused_kan_apply
+    return INRModel(name="kan_fused", config=cfg, init=init,
+                    apply=lambda p, c: fused_kan_apply(p, cfg, c),
+                    update_grid=update)
+
+
+def param_count(params: Any) -> int:
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def param_bytes(params: Any) -> int:
+    """Parameter and buffer bytes, the reference's ``total_model_size``."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))

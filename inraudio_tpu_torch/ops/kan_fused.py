@@ -1,0 +1,495 @@
+"""KAN stack forward (kernel G) and backward (kernel H): the CUDA kernels,
+their plain PyTorch versions, and the autograd Function that joins them.
+
+Port of ``inraudio_tpu/ops/pallas_kan.py``: ``_kan_kernel`` becomes
+``KAN_FWD`` and ``_kan_bwd_kernel`` becomes ``KAN_BWD`` (both in
+``csrc/kan.cu``), with ``kan_forward_plain`` / ``kan_backward_plain`` beside
+them, and ``fused_kan_apply`` is a ``torch.autograd.Function`` whose forward
+is G and whose backward is H, as ``_fused_kan_flat`` and its custom VJP are.
+
+Each layer crosses the kernels as its knot grid (in, n_knots) and W^T =
+cat([base_w[..., None], spline_w * spline_scaler[..., None]], -1) reshaped
+to (out, in * J), J = 1 + n_coef.  That flattening is plain differentiable
+torch outside the Function, so autograd carries the gradients of spline_w
+and spline_scaler as the JAX package differentiates its flatten; the grid
+gets a zero gradient.  The Function keeps each layer's input from the
+forward for the backward (the TPU kernel recomputed it per tile).
+
+Every product takes the f32 tier of ``INRAUDIO_F32_PRECISION`` (default
+bf16x3), as the JAX kernels' ``_kernel_dot`` with compute_dtype float32
+does, in the forward and in both backward products.  Not ported, as TPU
+artefacts: the first layer's lane padding to 8 inputs, the final layer's
+128-lane output padding, the list-of-arrays bases, the row-tile pickers and
+the VMEM gate that sends stacks of h >= 512 to XLA autodiff (H here takes
+every width).
+
+The wrappers run the plain versions for CPU tensors only; a CUDA tensor
+launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..models.kan import KANConfig, _scaled_spline_weight, b_splines
+from ._nvcc import build_library
+from .siren_fused import _MODE_CODE, _check_tensor, _f32_dot_mode, _kernel_dot
+from .siren_train import _check_rc
+
+Params = dict[str, Any]
+
+# shapes the kernels take (csrc/kan.cu)
+_MAX_BASES = 16          # degree-0 bases per feature (n_knots - 1)
+_MAX_ORDER = 4
+_KNOT_STRIDE = 20        # floats per feature's knot row in shared memory
+# shared memory per CTA the plans stay within: two CTAs fit on an SM
+_SMEM_BUDGET = 110 * 1024
+_DX_TM, _DX_TN = 32, 256
+# CTAs the dW launch aims for: 8 waves of one CTA per SM on 132 SMs
+_TARGET_CTAS = 1056
+# device memory for one dW launch's per-slice partial sums; more slices go
+# through in groups that fold into the same fixed-order sum
+SCRATCH_BYTES = 1 << 30
+
+
+def kan_dot_mode() -> str:
+    """The f32 tier of every KAN product: INRAUDIO_F32_PRECISION (default
+    bf16x3); anything but bf16x3 / bf16x2 / bf16 is 'highest'."""
+    mode = _f32_dot_mode()
+    return mode if mode in ("bf16x3", "bf16x2", "bf16") else "highest"
+
+
+# ---------------------------------------------------------------------------
+# Launch plans (the shared-memory formulas of csrc/kan.cu)
+# ---------------------------------------------------------------------------
+
+def _round4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def _ld(inner: int) -> int:
+    return inner if inner % 8 else inner + 4
+
+
+def _col_groups(width: int, cap: int) -> int:
+    """Column groups of 8 for a ``width``-wide output: the smallest power
+    of two that covers it, at most ``cap``."""
+    cg = 1
+    while cg * 8 < width and cg < cap:
+        cg *= 2
+    return cg
+
+
+def fwd_plan(din: int, dout: int, J: int) -> tuple[int, int]:
+    """G's (column groups, input features per chunk) for one layer."""
+    cg = _col_groups(dout, 32)
+    tm, tn = 1024 // cg, 8 * cg
+
+    def smem(fc):
+        kcp = _round4(fc * J)
+        return 4 * (2 * tm * _ld(kcp) + 2 * kcp * tn + fc * _KNOT_STRIDE)
+
+    fc = 1
+    while fc < din and smem(fc + 1) <= _SMEM_BUDGET:
+        fc += 1
+    return cg, fc
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """H's dW launch for one layer: column groups, input features per K
+    tile, rows per chunk, rows per slice, slices."""
+
+    cg: int
+    fck: int
+    rc: int
+    rows_per_slice: int
+    slices: int
+
+
+def dw_plan(n: int, din: int, dout: int, J: int) -> DwPlan:
+    """Enough slices of rows that the (K tile, column tile, slice) grid
+    fills the card; the slice count depends on the shapes alone, so the
+    summation order does not depend on the scratch budget."""
+    cg = _col_groups(dout, 16)
+    tmk, tn = 1024 // cg, 8 * cg
+    fck = min(din, tmk // J)
+
+    def smem(rc):
+        return 4 * (2 * tmk * _ld(rc) + 2 * rc * tn + fck * _KNOT_STRIDE)
+
+    rc = 4
+    while rc < 256 and smem(rc + 4) <= _SMEM_BUDGET:
+        rc += 4
+    tiles = -(-din // fck) * -(-dout // tn)
+    slices = max(1, min(-(-_TARGET_CTAS // tiles), -(-n // rc)))
+    rows = -(-(-(-n // slices)) // rc) * rc
+    return DwPlan(cg, fck, rc, rows, -(-n // rows))
+
+
+def dw_group(plan: DwPlan, dout: int, K: int) -> int:
+    """Slices per dW launch: as many partial sums as ``SCRATCH_BYTES``
+    holds, at least one."""
+    return max(1, min(plan.slices, SCRATCH_BYTES // (4 * dout * K)))
+
+
+def dx_plan(din: int, dout: int, J: int) -> tuple[int, int]:
+    """H's dx launch for one layer: (input features per chunk, dout per
+    inner chunk)."""
+    fcx = min(din, _DX_TN // J)
+
+    def smem(ic):
+        return 4 * (2 * _DX_TM * _ld(ic) + 2 * ic * _DX_TN
+                    + _DX_TM * _DX_TN + fcx * _KNOT_STRIDE)
+
+    ic = min(32, _round4(dout))
+    while ic > 4 and smem(ic) > _SMEM_BUDGET:
+        ic -= 4
+    return fcx, ic
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU; the reference the kernels are held to)
+# ---------------------------------------------------------------------------
+
+def _sigmoid_ref(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _features_plain(x: torch.Tensor, grid: torch.Tensor,
+                    order: int) -> torch.Tensor:
+    """A's rows: per feature [silu(x), B_0(x), ..., B_{n_coef-1}(x)] ->
+    (n, din * J)."""
+    silu = x * _sigmoid_ref(x)
+    feats = torch.cat([silu.unsqueeze(-1), b_splines(x, grid, order)], -1)
+    return feats.reshape(x.shape[0], -1)
+
+
+def kan_layer_forward_plain(x: torch.Tensor, grid: torch.Tensor,
+                            w_t: torch.Tensor, order: int,
+                            mode: str) -> torch.Tensor:
+    """One layer: A(x) @ W in the tier -> (n, dout)."""
+    return _kernel_dot(_features_plain(x, grid, order), w_t.T, mode)
+
+
+def kan_layer_backward_plain(x: torch.Tensor, grid: torch.Tensor,
+                             w_t: torch.Tensor, g: torch.Tensor, order: int,
+                             mode: str, need_dx: bool):
+    """One layer's backward for the output cotangent g (n, dout) -> (dW^T
+    (dout, K), dx (n, din) or None).  dx weights each of g @ W^T's J
+    values per feature by silu'(x) or by the B-spline derivative, summed
+    in coefficient order as the TPU kernel does."""
+    n, din = x.shape
+    a = _features_plain(x, grid, order)
+    dw_t = _kernel_dot(a.T, g, mode).T
+    if not need_dx:
+        return dw_t, None
+    J = w_t.shape[1] // din
+    gx = _kernel_dot(g, w_t, mode).reshape(n, din, J)
+    sig = _sigmoid_ref(x)
+    v = gx[..., 0] * (sig * (1.0 + x * (1.0 - sig)))
+    prev = b_splines(x, grid, order - 1)
+    t = grid
+    for c in range(J - 1):
+        db = order * (prev[..., c] / (t[:, c + order] - t[:, c])
+                      - prev[..., c + 1] / (t[:, c + order + 1]
+                                            - t[:, c + 1]))
+        v = v + gx[..., 1 + c] * db
+    return dw_t, v
+
+
+def kan_forward_plain(layers, coords: torch.Tensor, order: int, mode: str):
+    """The stack: layers [(grid, W^T)], coords (n, d) -> (out, the input
+    of every layer)."""
+    x, xs = coords, [coords]
+    for li, (grid, w_t) in enumerate(layers):
+        x = kan_layer_forward_plain(x, grid, w_t, order, mode)
+        if li < len(layers) - 1:
+            xs.append(x)
+    return x, xs
+
+
+def kan_backward_plain(layers, xs, g: torch.Tensor, order: int,
+                       mode: str) -> list[torch.Tensor]:
+    """dW^T of every layer for the output cotangent g, from the layer
+    inputs ``xs`` the forward kept."""
+    grads: list[torch.Tensor] = [None] * len(layers)
+    for li in range(len(layers) - 1, -1, -1):
+        grid, w_t = layers[li]
+        grads[li], g = kan_layer_backward_plain(xs[li], grid, w_t, g, order,
+                                                mode, need_dx=li > 0)
+    return grads
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels (csrc/kan.cu)
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class _KanLibrary:
+    """``csrc/kan.cu`` built once per process (at first use)."""
+
+    def __init__(self):
+        self._lib = None
+
+    def __call__(self):
+        if self._lib is None:
+            lib = build_library("kan", ["kan.cu"])
+            lib.kan_split.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+            lib.kan_forward.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+            lib.kan_dw.argtypes = [_P] * 4 + [_I] * 12 + [_P]
+            lib.kan_reduce.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _P]
+            lib.kan_dx.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+            for fn in (lib.kan_split, lib.kan_forward, lib.kan_dw,
+                       lib.kan_reduce, lib.kan_dx):
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+
+KAN_LIBRARY = _KanLibrary()
+
+
+def _check_cuda(name: str, dev: torch.device) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"{name} is on {dev}; the KAN kernels take CUDA "
+                         "tensors")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerShape:
+    n: int
+    din: int
+    dout: int
+    nk: int
+    J: int
+
+    @property
+    def K(self) -> int:
+        return self.din * self.J
+
+
+def check_kernel_config(order: int, n_knots: int) -> None:
+    """The kernels take spline orders 1..4 and at most 16 degree-0 bases
+    (grid_size + 2 * order <= 16); anything else raises."""
+    if not 1 <= order <= _MAX_ORDER or not order < n_knots - 1 <= _MAX_BASES:
+        raise ValueError(
+            f"the KAN kernels take spline_order 1..{_MAX_ORDER} and "
+            f"grid_size + 2 * spline_order <= {_MAX_BASES}; got order "
+            f"{order} with {n_knots} knots")
+
+
+def _layer_shape(x: torch.Tensor, grid: torch.Tensor, w_t: torch.Tensor,
+                 order: int, li: int) -> LayerShape:
+    dev = x.device
+    n, din = x.shape
+    nk = grid.shape[-1]
+    check_kernel_config(order, nk)
+    J = nk - order
+    dout = w_t.shape[0]
+    _check_tensor(f"layers[{li}] input", x, dev, (n, din))
+    _check_tensor(f"layers[{li}].grid", grid, dev, (din, nk))
+    _check_tensor(f"layers[{li}] W^T", w_t, dev, (dout, din * J))
+    if n < 1:
+        raise ValueError("kernel takes at least one row")
+    return LayerShape(n, din, dout, nk, J)
+
+
+def _split(lib, w_t, s: LayerShape, code: int, stream, *, rows: bool):
+    """W's hi/lo planes: (K, dout) for G when ``rows``, else (dout, K)."""
+    f32 = dict(dtype=torch.float32, device=w_t.device)
+    shape = (s.K, s.dout) if rows else (s.dout, s.K)
+    hi, lo = torch.empty(shape, **f32), torch.empty(shape, **f32)
+    ptrs = (hi.data_ptr(), lo.data_ptr(), 0, 0) if rows else \
+        (0, 0, hi.data_ptr(), lo.data_ptr())
+    _check_rc("kan_split", lib.kan_split(w_t.data_ptr(), *ptrs, s.dout, s.K,
+                                         code, stream))
+    return hi, lo
+
+
+class _KanFwdKernel:
+    """Kernel G: the stack forward, one launch per layer (plus W's split).
+    ``launches`` rises by one per stack forward launched, nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, layers, coords: torch.Tensor, order: int, mode: str):
+        """layers [(grid, W^T)] and coords (n, d) on one CUDA device ->
+        (out (n, dout), the input of every layer)."""
+        dev = coords.device
+        _check_cuda("coords", dev)
+        lib = KAN_LIBRARY()
+        code = _MODE_CODE[mode]
+        x, xs = coords, [coords]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for li, (grid, w_t) in enumerate(layers):
+                s = _layer_shape(x, grid, w_t, order, li)
+                whi, wlo = _split(lib, w_t, s, code, stream, rows=True)
+                cg, fc = fwd_plan(s.din, s.dout, s.J)
+                y = torch.empty((s.n, s.dout), dtype=torch.float32,
+                                device=dev)
+                _check_rc("kan_forward", lib.kan_forward(
+                    x.data_ptr(), grid.data_ptr(), whi.data_ptr(),
+                    wlo.data_ptr(), y.data_ptr(), s.n, s.din, s.dout, s.nk,
+                    order, code, cg, fc, stream))
+                x = y
+                if li < len(layers) - 1:
+                    xs.append(y)
+        self.launches += 1
+        return x, xs
+
+
+def layer_dw(lib, x, grid, g, s: LayerShape, order: int, code: int,
+             stream) -> torch.Tensor:
+    """dW^T (dout, K) of one layer: slices of rows in groups of
+    ``dw_group``, each group's partial sums folded into the result in
+    slice order."""
+    plan = dw_plan(s.n, s.din, s.dout, s.J)
+    group = dw_group(plan, s.dout, s.K)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    partial = torch.empty((group, s.dout, s.K), **f32)
+    dw_t = torch.empty((s.dout, s.K), **f32)
+    for s0 in range(0, plan.slices, group):
+        sg = min(group, plan.slices - s0)
+        _check_rc("kan_dw", lib.kan_dw(
+            x.data_ptr(), grid.data_ptr(), g.data_ptr(), partial.data_ptr(),
+            s.n, s.din, s.dout, s.nk, order, code, plan.cg, plan.fck,
+            plan.rc, plan.rows_per_slice, s0, sg, stream))
+        _check_rc("kan_reduce", lib.kan_reduce(
+            partial.data_ptr(), dw_t.data_ptr(), s.dout * s.K, sg,
+            int(s0 == 0), stream))
+    return dw_t
+
+
+class _KanBwdKernel:
+    """Kernel H: the stack backward for a supplied output cotangent, per
+    layer in reverse: dW (product over rows + fixed-order reduce) and, for
+    layers > 0, dx.  ``launches`` rises by one per stack backward."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, layers, xs, g: torch.Tensor, order: int,
+                 mode: str) -> list[torch.Tensor]:
+        dev = g.device
+        _check_cuda("cotangent", dev)
+        lib = KAN_LIBRARY()
+        code = _MODE_CODE[mode]
+        grads: list[torch.Tensor] = [None] * len(layers)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for li in range(len(layers) - 1, -1, -1):
+                grid, w_t = layers[li]
+                x = xs[li]
+                s = _layer_shape(x, grid, w_t, order, li)
+                _check_tensor("cotangent", g, dev, (s.n, s.dout))
+                grads[li] = layer_dw(lib, x, grid, g, s, order, code, stream)
+                if li == 0:
+                    break
+                thi, tlo = _split(lib, w_t, s, code, stream, rows=False)
+                fcx, ic = dx_plan(s.din, s.dout, s.J)
+                dx = torch.empty((s.n, s.din), dtype=torch.float32,
+                                 device=dev)
+                _check_rc("kan_dx", lib.kan_dx(
+                    x.data_ptr(), grid.data_ptr(), g.data_ptr(),
+                    thi.data_ptr(), tlo.data_ptr(), dx.data_ptr(), s.n,
+                    s.din, s.dout, s.nk, order, code, fcx, ic, stream))
+                g = dx
+        self.launches += 1
+        return grads
+
+
+KAN_FWD = _KanFwdKernel()
+KAN_BWD = _KanBwdKernel()
+
+
+def kan_stack_forward(layers, coords: torch.Tensor, order: int, mode: str):
+    """G for CUDA tensors, its plain version for CPU ones."""
+    if coords.device.type == "cpu":
+        return kan_forward_plain(layers, coords, order, mode)
+    if coords.device.type != "cuda":
+        raise ValueError(f"no fused KAN for device {coords.device}")
+    return KAN_FWD(layers, coords, order, mode)
+
+
+def kan_stack_backward(layers, xs, g: torch.Tensor, order: int,
+                       mode: str) -> list[torch.Tensor]:
+    """H for CUDA tensors, its plain version for CPU ones."""
+    if g.device.type == "cpu":
+        return kan_backward_plain(layers, xs, g, order, mode)
+    if g.device.type != "cuda":
+        raise ValueError(f"no fused KAN backward for device {g.device}")
+    return KAN_BWD(layers, xs, g, order, mode)
+
+
+# ---------------------------------------------------------------------------
+# The differentiable stack
+# ---------------------------------------------------------------------------
+
+class _FusedKAN(torch.autograd.Function):
+    """Forward: ``stack[0]``; backward: ``stack[1]`` (G and H through the
+    dispatchers).  Inputs after coords are (grid, W^T) per layer; the grids
+    get zero gradients."""
+
+    @staticmethod
+    def forward(ctx, order, mode, stack, coords, *flat):
+        layers = list(zip(flat[0::2], flat[1::2]))
+        out, xs = stack[0](layers, coords, order, mode)
+        ctx.order, ctx.mode, ctx.stack = order, mode, stack
+        ctx.n_layers = len(layers)
+        ctx.save_for_backward(*xs, *flat)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        xs, flat = saved[:ctx.n_layers], saved[ctx.n_layers:]
+        layers = list(zip(flat[0::2], flat[1::2]))
+        dws = ctx.stack[1](layers, list(xs), grad_out.contiguous(),
+                           ctx.order, ctx.mode)
+        grads = []
+        for (grid, _), dw in zip(layers, dws):
+            grads += [torch.zeros_like(grid), dw]
+        grads = [gr if need else None
+                 for gr, need in zip(grads, ctx.needs_input_grad[4:])]
+        return (None, None, None, None, *grads)
+
+
+def flatten_kan_params(params: Params) -> list[torch.Tensor]:
+    """[grid, W^T] per layer: W^T = cat([base_w[..., None], spline_w *
+    spline_scaler[..., None]], -1) as (out, in * J), differentiable."""
+    flat = []
+    for p in params["layers"]:
+        sw = _scaled_spline_weight(p)
+        w_t = torch.cat([p["base_w"].unsqueeze(-1), sw], dim=-1)
+        flat += [p["grid"].contiguous(), w_t.reshape(sw.shape[0], -1)]
+    return flat
+
+
+STACK = (kan_stack_forward, kan_stack_backward)
+PLAIN_STACK = (kan_forward_plain, kan_backward_plain)
+
+
+def fused_kan_apply(params: Params, cfg: KANConfig, coords: torch.Tensor,
+                    stack=STACK) -> torch.Tensor:
+    """Drop-in for ``kan_apply`` under autograd: (n, d) coords -> (n, out),
+    G forward and H backward on a card.  Any n is taken as it is.
+    ``stack`` is the (forward, backward) pair; a comparison on the card
+    passes ``PLAIN_STACK`` to run the plain versions there."""
+    for li, layer in enumerate(params["layers"]):
+        for key, v in layer.items():
+            if v.device != coords.device:
+                raise ValueError(f"layers[{li}].{key} is on {v.device}, "
+                                 f"coords on {coords.device}")
+    return _FusedKAN.apply(cfg.spline_order, kan_dot_mode(), stack,
+                           coords.to(torch.float32).contiguous(),
+                           *flatten_kan_params(params))

@@ -1,5 +1,5 @@
-"""Training step and state (port of ``inraudio_tpu/train/loop.py``, without
-``fit``).
+"""Training step, state and the full-batch fit (port of
+``inraudio_tpu/train/loop.py``).
 
 ``TrainState`` keeps the JAX package's fields.  For a window population
 every leaf carries a leading window axis k and every scalar is a (k,)
@@ -9,9 +9,14 @@ best snapshot and best loss, as under the JAX package's ``vmap``.
 Two steps:
 - ``make_train_step``: autograd of the model's apply, per-window MSE, so the
   gradient of the summed loss is each window's own; clip, Adam, plateau
-  and best per window.  With a fused model its backward is kernel C.
+  and best per window.  With a fused mlp its backward is kernel C, with a
+  fused KAN kernel H.
 - the whole-step kernel D (``ops.siren_step``), wired for a population by
   ``make_vmapped_fused_step`` when ``fused_step_plan`` admits the model.
+
+``fit`` trains one model on full-batch (coords, targets) in rounds of
+``scan_chunk`` steps; a fused mlp goes through kernel D as a one-window
+population, every other model through ``make_train_step``.
 
 Best-params semantics as the JAX package: ``track_best=True`` snapshots the
 parameters that produced the best loss; False keeps the initial ones.
@@ -20,11 +25,13 @@ parameters that produced the best loss; False keeps the initial ones.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models import INRModel
 from ..models.siren import params_from_jax, params_to_numpy
 from ..tree import tree_leaves, tree_map, tree_unflatten
@@ -36,10 +43,9 @@ from .optim import (AdamConfig, AdamState, PlateauConfig, PlateauState,
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's knobs that the ported steps read, with its names
-    and defaults.  Ported so far: loss_mode 'mse' with alpha 0; the other
-    losses, the KAN grid refresh and the precision schedule belong to
-    ``fit``, which is not ported yet."""
+    """The JAX package's knobs that the ported steps and ``fit`` read, with
+    its names and defaults.  Ported so far: loss_mode 'mse' with alpha 0;
+    the other losses and the precision schedule are not ported yet."""
 
     total_steps: int = 20000
     learning_rate: float = 1e-3
@@ -50,6 +56,14 @@ class TrainConfig:
     plateau_factor: float = 0.8
     plateau_patience: int = 200
     grad_clip_norm: float = 0.0
+    # history stride applied after the fit (1 = every step)
+    log_every: int = 1
+    # every N steps, between rounds, call the model's data-adaptive refresh
+    # (INRModel.update_grid, the KAN grid update); 0 = never
+    update_grid_every: int = 0
+    # rows of the refresh batch: an evenly strided subsample of the coords
+    # (the unreduced spline output is (batch, in, out))
+    update_grid_batch: int = 4096
     # steps per round: the fit reads nothing back from the device inside a
     # round (the JAX package's lax.scan length)
     scan_chunk: int = 500
@@ -111,7 +125,11 @@ def make_train_step(model: INRModel, cfg: TrainConfig):
         params = tree_unflatten(state.params, leaves)
         with torch.enable_grad():
             losses = loss_fn(params, coords, targets)
-            grads = torch.autograd.grad(losses.sum(), leaves)
+            # a leaf the apply does not reach (a KAN's knot grid) gets a
+            # zero gradient, as under jax.grad
+            grads = torch.autograd.grad(losses.sum(), leaves,
+                                        allow_unused=True,
+                                        materialize_grads=True)
         loss = losses.detach().to(torch.float32)
         grads = tree_unflatten(state.params, list(grads))
         windows = loss.dim() == 1
@@ -146,16 +164,16 @@ def _col(x: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
 def fused_step_plan(model: INRModel, cfg: TrainConfig,
                     n_rows: int) -> int | None:
     """Row tile of the whole-step kernel, or None when the fit cannot route
-    through it (non-mse loss, a model without the fused step).  A fused
-    model at a width the kernels do not take raises ``ValueError`` (it is
-    not sent elsewhere silently)."""
+    through it (non-mse loss, a grid refresh, a model without the fused
+    step).  A fused model at a width the kernels do not take raises
+    ``ValueError`` (it is not sent elsewhere silently)."""
     ctx = model.fused_step_ctx
     if ctx is None:
         return None
     from ..ops.siren_step import step_block_rows
     from ..ops.siren_train import check_kernel_width
     check_kernel_width(ctx["cfg"])
-    if cfg.loss_mode != "mse" or cfg.alpha != 0.0:
+    if cfg.loss_mode != "mse" or cfg.alpha != 0.0 or cfg.update_grid_every:
         return None
     return step_block_rows(ctx["cfg"], n_rows)
 
@@ -190,6 +208,136 @@ def make_vmapped_fused_step(model: INRModel, cfg: TrainConfig,
 
     return (vstep, lambda s: flat_state_from_train_state(s, mcfg),
             lambda s: train_state_from_flat(s, mcfg), prep_targets)
+
+
+# ---------------------------------------------------------------------------
+# The full-batch fit
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FitResult:
+    params: Any            # parameters used for decode (best or final)
+    final_params: Any
+    state: TrainState
+    loss_history: np.ndarray
+    lr_history: np.ndarray
+    best_loss: float
+    best_iter: int
+    steps: int
+    train_time_s: float
+    steps_per_sec: float
+
+
+def _one_window_step(model: INRModel, cfg: TrainConfig, state: TrainState,
+                     coords: torch.Tensor, targets: np.ndarray):
+    """Kernel D for one model: the state as a population of one window.
+    Returns (carry, step(carry) -> (carry, (loss, lr)), carry ->
+    TrainState)."""
+    vstep, to_flat, from_flat, prep_targets = make_vmapped_fused_step(
+        model, cfg, coords)
+    targets_k = prep_targets(np.asarray(targets, np.float32)[None])
+    carry = to_flat(tree_map(lambda t: t.unsqueeze(0), state))
+
+    def step(carry):
+        carry, (loss, lr) = vstep(carry, targets_k)
+        return carry, (loss[0], lr[0])
+
+    return carry, step, lambda c: tree_map(lambda t: t[0], from_flat(c))
+
+
+def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
+        generator: torch.Generator | None = None,
+        state: TrainState | None = None, checkpoint_every: int = 0,
+        checkpoint_path: str | None = None, metrics=None,
+        device: torch.device | str = "cuda") -> FitResult:
+    """Fit one model to full-batch (coords (n, d), targets (n, out)) on
+    ``device`` (default the card; without one it raises).
+
+    Rounds of ``scan_chunk`` steps read nothing back from the device.
+    Between rounds: the grid refresh (``update_grid_every`` /
+    ``update_grid_batch``, Adam moments kept), a ``metrics`` JSONL record
+    (a ``utils.observability.MetricsLogger``), and a checkpoint of the
+    whole TrainState to ``checkpoint_path`` about every
+    ``checkpoint_every`` steps.  ``state`` warm-starts; otherwise the state
+    is drawn from ``generator`` (seed 0 when None).  Not ported: the
+    multi-device branch, the precision schedule, the profiler and the
+    per-row loss weight."""
+    cfg = cfg or TrainConfig()
+    _check_loss(cfg)
+    dev = resolve_device(device)
+    if state is None:
+        state = init_train_state(
+            model, generator or torch.Generator().manual_seed(0), cfg, dev)
+    else:
+        state = tree_map(lambda t: t.to(dev), state)
+    coords_d = torch.as_tensor(coords, dtype=torch.float32).to(dev)
+    targets_d = torch.as_tensor(np.asarray(targets, np.float32)).to(dev)
+
+    if fused_step_plan(model, cfg, coords_d.shape[0]) is not None:
+        carry, step, unstack = _one_window_step(model, cfg, state, coords_d,
+                                                targets)
+    else:
+        train_step = make_train_step(model, cfg)
+        carry, unstack = state, (lambda c: c)
+        step = lambda c: train_step(c, coords_d, targets_d)  # noqa: E731
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    chunk = max(1, min(cfg.scan_chunk, cfg.total_steps))
+    sync()
+    t0 = time.time()
+    loss_chunks, lr_chunks = [], []
+    done = last_ckpt = last_grid_update = 0
+    while done < cfg.total_steps:
+        m = min(chunk, cfg.total_steps - done)
+        losses, lrs = [], []
+        for _ in range(m):
+            carry, (loss, lr) = step(carry)
+            losses.append(loss)
+            lrs.append(lr)
+        loss_chunks.append(torch.stack(losses))
+        lr_chunks.append(torch.stack(lrs))
+        done += m
+        if (cfg.update_grid_every and model.update_grid is not None
+                and done - last_grid_update >= cfg.update_grid_every
+                and done < cfg.total_steps):
+            n_rows = coords_d.shape[0]
+            grid_x = coords_d
+            if n_rows > cfg.update_grid_batch:
+                grid_x = coords_d[::-(-n_rows // cfg.update_grid_batch)]
+            carry = carry._replace(
+                params=model.update_grid(carry.params, grid_x))
+            last_grid_update = done
+        if metrics is not None:
+            elapsed = time.time() - t0
+            metrics.log({"event": "round", "step": done,
+                         "loss": float(loss_chunks[-1][-1]),
+                         "lr": float(lr_chunks[-1][-1]),
+                         "elapsed_s": round(elapsed, 3),
+                         "steps_per_sec": round(done / max(elapsed, 1e-9),
+                                                2)})
+        if (checkpoint_every and checkpoint_path
+                and done - last_ckpt >= checkpoint_every
+                and done < cfg.total_steps):
+            from .checkpoint import save_checkpoint
+            save_checkpoint(checkpoint_path, unstack(carry),
+                            extra={"steps_done": done})
+            last_ckpt = done
+    sync()
+    train_time = time.time() - t0
+    state = unstack(carry)
+    cat = lambda xs: (torch.cat(xs).cpu().numpy() if xs  # noqa: E731
+                      else np.zeros((0,), np.float32))
+    loss_hist, lr_hist = cat(loss_chunks), cat(lr_chunks)
+    if cfg.log_every > 1:
+        loss_hist = loss_hist[::cfg.log_every]
+        lr_hist = lr_hist[::cfg.log_every]
+    return FitResult(
+        params=state.best_params if cfg.track_best else state.params,
+        final_params=state.params, state=state, loss_history=loss_hist,
+        lr_history=lr_hist, best_loss=float(state.best_loss),
+        best_iter=int(state.best_iter), steps=cfg.total_steps,
+        train_time_s=train_time,
+        steps_per_sec=cfg.total_steps / max(train_time, 1e-9))
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..data.coords import get_coord
+from ..device import resolve_device
 from ..models import INRModel
 from ..tree import tree_map
 from .loop import (TrainConfig, TrainState, fused_step_plan,
@@ -83,9 +84,10 @@ def _crossfade_window(n: int, overlap: int) -> np.ndarray:
 def multi_inr_fit(model: INRModel, signal: np.ndarray, sample_rate: int,
                   cfg: MultiINRConfig | None = None,
                   train_cfg: TrainConfig | None = None, seed: int = 0,
-                  device: torch.device | str = "cpu",
+                  device: torch.device | str = "cuda",
                   max_chunks_per_batch: int | None = None) -> MultiINRResult:
-    """Fit one INR per window, all windows at once on ``device``.  The
+    """Fit one INR per window, all windows at once on ``device`` (default
+    the card; without one it raises, pass "cpu" for the CPU).  The
     initial parameters are drawn from ``torch.Generator().manual_seed(
     seed)`` (the JAX package's PRNG key; the numbers differ, the
     distributions match).  ``max_chunks_per_batch`` trains the population in batches of that many
@@ -93,6 +95,7 @@ def multi_inr_fit(model: INRModel, signal: np.ndarray, sample_rate: int,
     memory for long clips."""
     cfg = cfg or MultiINRConfig()
     train_cfg = train_cfg or TrainConfig()
+    device = resolve_device(device)
     chunks, n, hop = chunk_signal(np.asarray(signal, dtype=np.float32),
                                   sample_rate, cfg)
     return _fit_chunks(model, chunks, n, hop, len(signal), train_cfg,
@@ -130,15 +133,16 @@ def _fit_chunks(model, chunks, n, hop, signal_length, train_cfg, generator,
 def multi_inr_fit_many(model: INRModel, signals: list[np.ndarray],
                        sample_rate: int, cfg: MultiINRConfig | None = None,
                        train_cfg: TrainConfig | None = None, seed: int = 0,
-                       device: torch.device | str = "cpu",
+                       device: torch.device | str = "cuda",
                        max_chunks_per_batch: int | None = None
                        ) -> list[MultiINRResult]:
     """Fit several clips as one population: each clip is chunked on its
     own (windows stay aligned to clip starts), the populations are
     concatenated and trained together, and the result is split back into
-    one ``MultiINRResult`` per clip."""
+    one ``MultiINRResult`` per clip.  ``device`` as ``multi_inr_fit``."""
     cfg = cfg or MultiINRConfig()
     train_cfg = train_cfg or TrainConfig()
+    device = resolve_device(device)
     if not signals:
         return []
     per_clip = [chunk_signal(np.asarray(s, dtype=np.float32), sample_rate,

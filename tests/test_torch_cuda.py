@@ -1,6 +1,7 @@
-"""Card-only checks of the CUDA kernels (csrc/siren_stack.cu, and the
-backward and whole-step kernels of csrc/siren_train.cu) against their plain
-PyTorch versions on the same card.
+"""Card-only checks of the CUDA kernels (csrc/siren_stack.cu, the backward
+and whole-step kernels of csrc/siren_train.cu, and the KAN forward and
+backward kernels of csrc/kan.cu) against their plain PyTorch versions on
+the same card.
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports no JAX, so the card's machine runs it without the tests' conftest:
@@ -12,7 +13,9 @@ import pytest
 import torch
 
 from inraudio_tpu_torch import codec
-from inraudio_tpu_torch.models import SirenSnakeTanhConfig, build_model
+from inraudio_tpu_torch.models import (KANConfig, SirenSnakeTanhConfig,
+                                       build_model)
+from inraudio_tpu_torch.ops import kan_fused as kf
 from inraudio_tpu_torch.ops import siren_fused as sf
 from inraudio_tpu_torch.ops import siren_step as ss
 from inraudio_tpu_torch.ops import siren_train as st
@@ -354,3 +357,158 @@ def test_training_kernels_validate(dev):
         ss.make_fused_mse_train_step(cfg, tc, 64)(fs, coords.cpu(),
                                                   targets.cpu())
     assert ss.SIREN_STEP.launches == before
+
+
+# ---------------------------------------------------------------------------
+# KAN forward (G) and backward (H)
+# ---------------------------------------------------------------------------
+
+# kernel vs plain, both in the bf16x3 or highest tier: the kernel sums
+# each row's K = in * J products in its own order (sequential fmaf per
+# chunk), the plain version through cuBLAS, and expf differs from
+# torch.exp by an ulp.  A layer output is bounded relative to its term
+# scale, max over rows of sum_k |A_k| |W_k| (outputs that cancel to well
+# below their terms carry the terms' rounding); a gradient relative to its
+# largest |value|.  On the H100 at the runner shape over the full clip
+# (chip_smoke.py phase 8): 2.7e-7 of the term scale, 3.5e-6 of max |dW|.
+KAN_RTOL = 2e-5
+KAN_GRAD_RTOL = 1e-4
+# one-pass bf16 roundings of A flip with an ulp of silu or a basis: a
+# wiring check only in the bf16 and bf16x2 tiers
+KAN_BF16_RTOL = 1e-2
+KAN_CONFIGS = [dict(layers_hidden=(1, 32, 32, 1)),
+               dict(layers_hidden=(2, 16, 1)),
+               dict(layers_hidden=(1, 16, 16, 16, 1)),
+               dict(layers_hidden=(1, 16, 3)),
+               dict(layers_hidden=(1, 16, 1), grid_size=8, spline_order=2),
+               dict(layers_hidden=(2, 32, 3), grid_size=6, spline_order=2),
+               dict(layers_hidden=(1, 256, 256, 1)),
+               dict(layers_hidden=(512, 128, 128, 1))]
+KAN_IDS = ["x".join(map(str, c["layers_hidden"]))
+           + f"-g{c.get('grid_size', 5)}o{c.get('spline_order', 3)}"
+           for c in KAN_CONFIGS]
+
+
+def check_kan(out: torch.Tensor, ref: torch.Tensor, rtol: float,
+              scale: float | None = None) -> float:
+    """Assert max |out - ref| <= rtol * scale (default max |ref|); returns
+    the max abs difference."""
+    assert out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    worst = float((out - ref).abs().max())
+    scale = float(ref.abs().max()) if scale is None else scale
+    assert worst <= rtol * scale, (worst, rtol, scale)
+    return worst
+
+
+def kan_term_scale(x, grid, w_t, order) -> float:
+    """max over rows of sum_k |A_k(x)| |W_k|: the scale of a layer output's
+    terms."""
+    a = kf._features_plain(x, grid, order).abs()
+    return float((a @ w_t.abs().T).max())
+
+
+def check_kan_outputs(layers, xs, out, xs_ref, ref, order, rtol=KAN_RTOL):
+    """Every layer's output (the next layer's input, then the stack's)
+    against the plain version's, each at its term scale; returns (the
+    largest max abs difference, the largest ratio of one to its scale)."""
+    worst, ratio = 0.0, 0.0
+    for li, (grid, w_t) in enumerate(layers):
+        o, r = ((xs[li + 1], xs_ref[li + 1]) if li + 1 < len(layers)
+                else (out, ref))
+        scale = kan_term_scale(xs_ref[li], grid, w_t, order)
+        err = check_kan(o, r, rtol, scale)
+        worst, ratio = max(worst, err), max(ratio, err / scale)
+    return worst, ratio
+
+
+def kan_setup(cfg_kw, n, dev, seed=0):
+    """(layers [(grid, W^T)], coords (n, d), cotangent (n, out)) for a
+    KAN drawn from ``seed``, coords a little past the grid range."""
+    cfg = KANConfig(**cfg_kw)
+    params = build_model("kan", cfg).init(torch.Generator().manual_seed(seed),
+                                          dev)
+    flat = [t.detach().contiguous() for t in kf.flatten_kan_params(params)]
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    d, out = cfg.layers_hidden[0], cfg.layers_hidden[-1]
+    coords = torch.rand(n, d, device=dev, generator=g) * 2.2 - 1.1
+    cot = torch.randn(n, out, device=dev, generator=g) / n
+    return list(zip(flat[0::2], flat[1::2])), coords, cot
+
+
+@pytest.mark.parametrize("cfg_kw", KAN_CONFIGS, ids=KAN_IDS)
+def test_kan_kernels_match_plain(dev, cfg_kw):
+    order = KANConfig(**cfg_kw).spline_order
+    layers, coords, cot = kan_setup(cfg_kw, 3001, dev)
+    out, xs = kf.KAN_FWD(layers, coords, order, "bf16x3")
+    ref, xs_ref = kf.kan_forward_plain(layers, coords, order, "bf16x3")
+    gk = kf.KAN_BWD(layers, xs_ref, cot, order, "bf16x3")
+    gp = kf.kan_backward_plain(layers, xs_ref, cot, order, "bf16x3")
+    torch.cuda.synchronize()
+    check_kan_outputs(layers, xs, out, xs_ref, ref, order)
+    for a, b in zip(gk, gp):
+        check_kan(a, b, KAN_GRAD_RTOL)
+
+
+@pytest.mark.parametrize("mode", ["highest", "bf16x2", "bf16"])
+def test_kan_kernels_every_tier(dev, mode):
+    cfg_kw = dict(layers_hidden=(1, 64, 64, 1))
+    layers, coords, cot = kan_setup(cfg_kw, 2000, dev)
+    exact = mode == "highest"
+    out, xs = kf.KAN_FWD(layers, coords, 3, mode)
+    ref, xs_ref = kf.kan_forward_plain(layers, coords, 3, mode)
+    gk = kf.KAN_BWD(layers, xs_ref, cot, 3, mode)
+    gp = kf.kan_backward_plain(layers, xs_ref, cot, 3, mode)
+    torch.cuda.synchronize()
+    check_kan_outputs(layers, xs, out, xs_ref, ref, 3,
+                      KAN_RTOL if exact else KAN_BF16_RTOL)
+    for a, b in zip(gk, gp):
+        check_kan(a, b, KAN_GRAD_RTOL if exact else KAN_BF16_RTOL)
+
+
+def test_kan_backward_is_deterministic_and_budget_free(dev, monkeypatch):
+    """Two H calls from one state are bit-equal, and so are calls whose dW
+    slices go through a small scratch in several launch groups."""
+    layers, coords, cot = kan_setup(dict(layers_hidden=(1, 256, 256, 1)),
+                                    6000, dev)
+    _, xs = kf.KAN_FWD(layers, coords, 3, "bf16x3")
+    a = kf.KAN_BWD(layers, xs, cot, 3, "bf16x3")
+    b = kf.KAN_BWD(layers, xs, cot, 3, "bf16x3")
+    plan = kf.dw_plan(6000, 256, 256, 9)
+    assert plan.slices >= 4 and kf.dw_group(plan, 256, 256 * 9) == \
+        plan.slices
+    monkeypatch.setattr(kf, "SCRATCH_BYTES", 3 * 4 * 256 * 256 * 9)
+    assert kf.dw_group(plan, 256, 256 * 9) == 3
+    c = kf.KAN_BWD(layers, xs, cot, 3, "bf16x3")
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_kan_autograd_counts_launches(dev):
+    cfg = KANConfig(layers_hidden=(1, 32, 32, 1))
+    model = build_model("kan", cfg, fused=True)
+    params = model.init(torch.Generator().manual_seed(0), dev)
+    leaves = [v.requires_grad_(True) for p in params["layers"]
+              for v in p.values()]
+    coords = torch.linspace(-1, 1, 500, device=dev)[:, None]
+    f0, b0 = kf.KAN_FWD.launches, kf.KAN_BWD.launches
+    loss = torch.mean(model.apply(params, coords) ** 2)
+    grads = torch.autograd.grad(loss, leaves)
+    assert kf.KAN_FWD.launches == f0 + 1 and kf.KAN_BWD.launches == b0 + 1
+    names = [k for p in params["layers"] for k in p]
+    for name, gr in zip(names, grads):
+        assert torch.isfinite(gr).all()
+        assert (not gr.any()) if name == "grid" else bool(gr.any())
+    with torch.no_grad():
+        model.apply(params, coords)
+    assert kf.KAN_FWD.launches == f0 + 2
+
+
+def test_kan_kernels_validate(dev):
+    layers, coords, cot = kan_setup(dict(layers_hidden=(1, 16, 1)), 100, dev)
+    before = kf.KAN_FWD.launches
+    with pytest.raises(ValueError, match="spline_order"):
+        kf.KAN_FWD(layers, coords, 5, "bf16x3")
+    with pytest.raises(ValueError, match="is on"):
+        kf.KAN_FWD(layers, coords.cpu(), 3, "bf16x3")
+    assert kf.KAN_FWD.launches == before

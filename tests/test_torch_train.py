@@ -285,7 +285,8 @@ def test_multi_inr_fit_matches_jax(inherit_grad_tier):
     tres = tmulti.multi_inr_fit(
         tm, sig, fs, tmulti.MultiINRConfig(chunk_seconds=0.06,
                                            overlap_fraction=0.25),
-        tloop.TrainConfig(total_steps=4, grad_clip_norm=1.0, scan_chunk=3))
+        tloop.TrainConfig(total_steps=4, grad_clip_norm=1.0, scan_chunk=3),
+        device="cpu")
     assert (tres.chunk_length, tres.hop, tres.num_chunks) == \
         (jres.chunk_length, jres.hop, jres.num_chunks)
     np.testing.assert_array_equal(tres.chunk_scales, jres.chunk_scales)
@@ -294,7 +295,8 @@ def test_multi_inr_fit_matches_jax(inherit_grad_tier):
     first = tmulti.multi_inr_fit(
         tm, sig, fs, tmulti.MultiINRConfig(chunk_seconds=0.06,
                                            overlap_fraction=0.25),
-        tloop.TrainConfig(total_steps=1, grad_clip_norm=1.0)).states
+        tloop.TrainConfig(total_steps=1, grad_clip_norm=1.0),
+        device="cpu").states
     _assert_state_close(jax.tree.map(lambda x: np.asarray(x)[:k],
                                      jres.states), tres.states, first)
     jrec = jmulti.multi_inr_decode(jm, jres)
