@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: the codec's decode
-path and its encode (training) path.
+path and its encode (training) path, and the runner's single-model fit of
+the KAN and of the production mlp.
 
     python3 chip_smoke.py
 
-Drives ``inraudio_tpu_torch`` (never JAX) through its user entry points at
-the production width (SirenWithSnakeTanh, h=128, 2 sine + 2 snake layers,
-random weights from a fixed torch.Generator seed) on a synthesised 7 s,
-44.1 kHz clip, at two shapes:
+Drives ``inraudio_tpu_torch`` (never JAX) through its user entry points,
+random weights from a fixed torch.Generator seed, on a synthesised 7 s,
+44.1 kHz clip.  The codec runs at its production width (SirenWithSnakeTanh,
+h=128, 2 sine + 2 snake layers) at two shapes:
 
 - headline shape: 512-row windows, overlap 0.1 (hop 461), k=669,
   omega0=115, float32 leaves, legacy npz container; trained with the
@@ -61,6 +62,33 @@ seed 0), with ``csrc/kan.cu`` built in phase 0 beside the other sources:
    agree within a limit set from a 1-ulp-perturbed kernel fit beside them;
 10. timings with CUDA events: G, H and a whole KAN step against their plain
    versions, the fit's steps/s and its peak device memory.
+
+The runner's production mlp (``fit --arch mlp --fused`` at the CLI's
+defaults: h=256, omega0=22000, hidden omega 30, a_initial 0.5, 2 sine + 2
+snake layers and a linear head) over the same clip as one full batch
+(308,207 rows), on raw coordinates ("runner mlp") and with ``--num-freq
+256`` at sigma 10 ("runner mlp RFF": in_features 512, the model owns B and
+the kernels compute the features in layer 0), weights from seed 0:
+11. per shape, the stack kernel against its plain version in every decode
+   tier the gate can pick, with layer 0's pre-activation held to a few
+   ulps and the output to RUNNER_CTRL_X times a control (the plain
+   version with layer 0's W and b one ulp off: at omega0 = 22000 the two
+   summation orders of layer 0 differ by about that much); kernel C and
+   kernel D (3 steps) against their plain versions beside the same
+   control; two D steps from one state, which must be bit-equal;
+12. served through the entry points, in process, with every launch count
+   set to 0 before and read after: the CLI ``fit --device cuda --arch mlp
+   --fused`` at its defaults and the same with ``--num-freq 256``
+   (RUNNER_FIT_STEPS steps each), the RFF fit's checkpoint -> load ->
+   ``decode_problem``; RUNNER_AUTOGRAD_STEPS autograd steps of each model
+   (``train.loop.make_train_step``: the stack forward and kernel C, the
+   JAX package's route for the RFF model at h=256); then a kernel fit and a
+   plain-step fit of the RFF model from one state (RUNNER_CMP_STEPS steps)
+   beside a 1-ulp-perturbed kernel fit, as phase 9;
+13. timings with CUDA events at both shapes: the stack kernel, C and D
+   against their plain versions and bounds, the step's split into grad
+   accumulation, reduce, clip + Adam + best and bookkeeping, and the
+   fit's steps/s and peak device memory against the grad scratch bound.
 
 Every kernel's bound (the least time the card could take for the same
 work) is computed from the run's shapes: the larger of the bytes it must
@@ -124,6 +152,18 @@ KAN_CMP_STEPS = 40    # kernel vs plain-version fit
 # moved the loss by 1.5e-7 of itself)
 KAN_CMP_CONTROL_X = 10.0
 KAN_CMP_FLOOR_REL = 1e-6
+# the runner's production mlp (phases 11-13)
+RUNNER_H = 256
+RUNNER_OMEGA = 22000.0
+RUNNER_NUM_FREQ = 256
+RUNNER_SIGMA = 10.0
+RUNNER_FIT_STEPS = 200     # each CLI fit
+RUNNER_AUTOGRAD_STEPS = 5  # autograd steps (stack kernel + C) per shape
+RUNNER_CMP_STEPS = 40      # kernel vs plain-step fit
+# kernel vs plain at omega0 = 22000: at most this many times the control's
+# gap (the plain version with W0 one ulp off), or the f32 tolerance of the
+# card tests, whichever is larger; the same rule as the fits' comparison
+RUNNER_CTRL_X = 10.0
 # the card's published peaks (NVIDIA H100 SXM, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
@@ -234,17 +274,21 @@ def bound(bytes_moved, tensor_flop, f32_flop):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def siren_bounds(k, n, h, n_params):
+def siren_bounds(k, n, h, n_params, n_freq=0):
     """Bounds of the three SIREN kernels at (k windows, n rows, width h,
-    n_params floats a window), 2 sine + 2 snake layers + a linear head:
-    bf16x3 forward products, bf16x2 backward products (the grad tier), and
-    ~20 fp32 operations for each sine / snake activation."""
+    n_params floats a window, n_freq RFF frequencies or 0 for a raw layer
+    0), 2 sine + 2 snake layers + a linear head: bf16x3 forward products,
+    bf16x2 backward products (the grad tier: dW of every layer, dgrad of
+    layers 1+), and ~20 fp32 operations for each sine / snake activation
+    and RFF feature."""
     rows = k * n
-    macs = h + 4 * h * h + h                      # per row, forward
-    act = 20 * 5 * h                              # per row, activations
+    l0 = (2 * n_freq if n_freq else 1) * h
+    macs = l0 + 4 * h * h + h                     # per row, forward
+    dgrad = 4 * h * h + h                         # per row, below layer 1
+    act = 20 * (5 * h + 2 * n_freq)               # per row, activations
     p_bytes = 4 * k * n_params
     stack = bound(p_bytes + 4 * rows * 2, 6 * macs * rows, act * rows)
-    train_flop = (6 * macs + 2 * 2 * 2 * macs) * rows
+    train_flop = (6 * macs + 2 * 2 * (macs + dgrad)) * rows
     # D: params, mu, nu and best read and written, targets read
     step = bound(8 * p_bytes + 4 * rows, train_flop, 2 * act * rows)
     # C: params and the cotangent read, the gradient written
@@ -270,6 +314,36 @@ def kan_bounds(n, layers_hidden, n_coef=8):
     h = bound(4 * n * (feats + layers_hidden[-1]) + 2 * p_bytes,
               6 * (macs + dx_macs) * n, 2 * 300 * feats * n)
     return g, h
+
+
+def run_cli_fit(cli_main, phase, wav, tag, arch, steps, extra):
+    """The CLI ``fit`` in process (so that its launches are counted) ->
+    (parameters.json record, checkpoint path); fails unless every artefact
+    was written."""
+    argv = ["fit", "--device", "cuda", "--arch", arch, "--fused",
+            "--filename", wav, "--duration", "7.0", "--total-steps",
+            str(steps), "--experiment-path", WORK, "--tag", tag, *extra]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    folder = os.path.join(WORK, tag)
+    with open(os.path.join(folder, "parameters.json")) as f:
+        rec = json.load(f)
+    ckpt = json.loads(buf.getvalue().strip().splitlines()[-1])["ckpt"]
+    files = {name: os.path.exists(os.path.join(folder, name))
+             for name in ("saved_ckpt.npz", "metrics.jsonl",
+                          "parameters.json", "output.wav")}
+    log(f"{phase} CLI {' '.join(argv[:6])} {' '.join(extra)} "
+        f"--total-steps {steps}: rc={rc} in {wall:.1f} s, "
+        f"{rec['steps_per_sec']:.2f} steps/s, best loss "
+        f"{rec['best_loss']:.6g} at {rec['best_iter']}, SNR "
+        f"{rec['SNR']:.3f} dB, files {files}")
+    if rc != 0 or not all(files.values()) or ckpt != \
+            os.path.join(folder, "saved_ckpt.npz"):
+        raise AssertionError(f"CLI fit {tag} failed")
+    return rec, ckpt
 
 
 def plain_kan_model(kf, model):
@@ -352,31 +426,8 @@ def kan_phases(np, torch, dev, clip):
     duration = 7.0  # the whole clip (308,207 samples < 7 s)
 
     def cli_fit(tag, extra):
-        argv = ["fit", "--device", "cuda", "--arch", "kan", "--fused",
-                "--filename", wav, "--duration", str(duration),
-                "--total-steps", str(KAN_FIT_STEPS), "--experiment-path",
-                WORK, "--tag", tag, *extra]
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = cli_main(argv)
-        wall = time.perf_counter() - t0
-        folder = os.path.join(WORK, tag)
-        with open(os.path.join(folder, "parameters.json")) as f:
-            rec = json.load(f)
-        ckpt = json.loads(buf.getvalue().strip().splitlines()[-1])["ckpt"]
-        files = {name: os.path.exists(os.path.join(folder, name))
-                 for name in ("saved_ckpt.npz", "metrics.jsonl",
-                              "parameters.json", "output.wav")}
-        log(f"phase9 CLI {' '.join(argv[:6])} {' '.join(extra)} "
-            f"--total-steps {KAN_FIT_STEPS}: rc={rc} in {wall:.1f} s, "
-            f"{rec['steps_per_sec']:.2f} steps/s, best loss "
-            f"{rec['best_loss']:.6g} at {rec['best_iter']}, SNR "
-            f"{rec['SNR']:.3f} dB, files {files}")
-        if rc != 0 or not all(files.values()) or ckpt != \
-                os.path.join(folder, "saved_ckpt.npz"):
-            raise AssertionError(f"CLI fit {tag} failed")
-        return rec, ckpt
+        return run_cli_fit(cli_main, "phase9", wav, tag, "kan",
+                           KAN_FIT_STEPS, extra)
 
     for c in counters.values():
         c.launches = 0
@@ -491,6 +542,332 @@ def kan_phases(np, torch, dev, clip):
         f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held "
         f"before; CLI fit {out['kan_fit_steps_s']:.2f} steps/s")
     out["kan_bounds"] = kan_bounds(n, KAN_LAYERS)
+    return out
+
+
+def runner_phases(np, torch, dev, clip):
+    """Phases 11-13: the runner's production mlp at full width over the
+    whole clip, raw and with RFF: its kernels against their plain versions,
+    the fit served through the entry points, and the timings."""
+    from inraudio_tpu_torch.__main__ import main as cli_main
+    from inraudio_tpu_torch.data import waveform_fitting, write_wav
+    from inraudio_tpu_torch.eval.decode import decode_problem
+    from inraudio_tpu_torch.eval.metrics import reconstruction_snr
+    from inraudio_tpu_torch.experiments import runner as trunner
+    from inraudio_tpu_torch.models import rff_init
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_step as ss
+    from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.train.checkpoint import load_checkpoint
+    from inraudio_tpu_torch.tree import tree_map
+    from test_torch_cuda import (BF16_BULK_ATOL, BF16_MAX_ATOL, F32_ATOL,
+                                 RFF_PRE_RTOL, TIER_IDS, TIERS,
+                                 check_rff_backward, check_rff_steps,
+                                 clone_state, is_bf16_tier, perturb_layer0,
+                                 stacked)
+
+    wav = os.path.join(WORK, "runner_clip.wav")
+    write_wav(wav, FS, clip)
+    problem = waveform_fitting(wav, 7.0)
+    n = problem.coords.shape[0]
+    coords = torch.from_numpy(problem.coords).to(dev)
+    targets = torch.from_numpy(problem.targets[:, 0]).to(dev)[None]
+    # the runner's RFF projection for seed SEED
+    b = rff_init(torch.Generator().manual_seed(trunner._RFF_SEED_OFFSET + SEED),
+                 1, RUNNER_NUM_FREQ, sigma=RUNNER_SIGMA, device=dev)
+    shapes = {"runner_mlp": None, "runner_mlp_rff": b}
+    gmode = st.grad_dot_mode()
+    tc = tloop.TrainConfig()  # the runner's defaults: lr 1e-3, no clip
+
+    def model_for(rff_b):
+        return trunner.build_arch(
+            "mlp", 1 if rff_b is None else 2 * RUNNER_NUM_FREQ, RUNNER_H, 2,
+            2, 0, RUNNER_OMEGA, 30.0, 0.5, fused=True, rff_b=rff_b)
+
+    out, fails, keep = {}, [], {}
+    # ---- phase 11: the kernels against their plain versions ----
+    for name, rb in shapes.items():
+        model = model_for(rb)
+        cfg = model.config
+        bt = None if rb is None else sf._prep_rff_bt(rb)
+        params = model.init(torch.Generator().manual_seed(SEED), dev)
+        sp, pert = stacked(params), perturb_layer0(params)
+        errs = []
+        for tier, kw in zip(TIER_IDS, TIERS):  # every tier of the gate
+            plan = sf.stack_plan(cfg, rff=rb is not None, **kw)
+            pre0 = torch.empty((1, n, RUNNER_H), device=dev)
+            kout = sf.SIREN_STACK(sp, plan, coords, bt, pre0=pre0)[0]
+            ref = sf.stack_forward_plain(params, plan, coords, bt)
+            ctrl = sf.stack_forward_plain(pert, plan, coords, bt)
+            pre_ref = st.fwd_pres_plain(params, plan, coords, bt)[1][0][1]
+            torch.cuda.synchronize()
+            err = float((kout - ref).abs().max())
+            c = float((ctrl - ref).abs().max())
+            pre_err = float((pre0[0] - pre_ref).abs().max())
+            pre_scale = float(pre_ref.abs().max())
+            floor = BF16_MAX_ATOL if is_bf16_tier(kw) else F32_ATOL
+            limit = max(RUNNER_CTRL_X * c, floor)
+            bulk = float(((kout - ref).abs() <= BF16_BULK_ATOL).float().mean())
+            ok = (bool(torch.isfinite(kout).all()) and err <= limit
+                  and pre_err <= RFF_PRE_RTOL * pre_scale)
+            errs.append(err)
+            log(f"phase11 {name} stack tier={tier} kwargs={kw}: output max "
+                f"abs {err:.3e} (limit {limit:.3e} = max({RUNNER_CTRL_X} x "
+                f"control {c:.3e}, {floor})), {bulk:.4f} of rows within "
+                f"{BF16_BULK_ATOL}; layer-0 pre max abs "
+                f"{pre_err:.3e} = {pre_err / pre_scale:.2e} of max |pre| "
+                f"{pre_scale:.3e} (limit {RFF_PRE_RTOL}); "
+                f"{'ok' if ok else 'FAILED'}")
+            if not ok:
+                fails.append(f"{name} stack {tier}")
+            del pre0, pre_ref, kout
+        out[(name, "stack_err")] = max(errs)
+        # C for the MSE cotangent of the training forward
+        plan = sf.stack_plan(cfg, approx_sin=True, rff=rb is not None)
+        fout = sf.stack_forward_plain(params, plan, coords, bt)
+        cot = ((2.0 / n) * (fout[:, 0] - targets[0]))[None, :, None]
+        cot = cot.contiguous()
+        del fout
+        try:
+            err, c, limit, scale = check_rff_backward(sp, cfg, plan, gmode,
+                                                      coords, cot, bt)
+            verdict = "ok"
+        except AssertionError as e:
+            (err, c, limit), scale, verdict = e.args[0], float("nan"), \
+                "FAILED"
+            fails.append(f"{name} C")
+        log(f"phase11 {name} C vs plain ({gmode} grad tier): max abs "
+            f"{err:.3e} of max |grad| {scale:.3e} (limit {limit:.3e} = max("
+            f"{RUNNER_CTRL_X} x control {c:.3e}, the tier's tolerance)); "
+            f"{verdict}")
+        out[(name, "bwd_err")] = err
+        # D: 3 steps from one state: kernel, plain, and plain from layer 0
+        # one ulp off
+        state = tloop.init_train_state(
+            model, torch.Generator().manual_seed(SEED), tc, dev, windows=1)
+        try:
+            a, gaps = check_rff_steps(cfg, tc, coords, targets, state, rb)
+            verdict = "ok"
+        except AssertionError as e:
+            gaps, verdict = e.args[0] if e.args else {}, "FAILED"
+            fails.append(f"{name} D")
+        log(f"phase11 {name} D vs plain, 3 steps from one state: {gaps}; "
+            f"{verdict}")
+        if verdict != "ok":
+            continue
+        out[(name, "step_err")] = gaps["grad"]
+        kstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                             rff_b=rb)
+        pstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                             step_call=ss.step_plain,
+                                             rff_b=rb)
+        s1, (l1, _) = kstep(clone_state(a), coords, targets)
+        s2, (l2, _) = kstep(clone_state(a), coords, targets)
+        torch.cuda.synchronize()
+        same = torch.equal(l1, l2) and all(torch.equal(x, y)
+                                           for x, y in zip(s1, s2))
+        if not same:
+            fails.append(f"{name} D determinism")
+        log(f"phase11 {name} two kernel steps from one state: "
+            f"{'bit-equal' if same else 'DIFFER'}")
+        keep[name] = dict(model=model, cfg=cfg, bt=bt, params=params, sp=sp,
+                          cot=cot, state=a, kstep=kstep, pstep=pstep,
+                          plan=plan, rff_b=rb)
+        del s1, s2
+    if fails:
+        raise AssertionError(f"phase 11 failed: {fails}")
+
+    # ---- phase 12: served through the entry points ----
+    counters = {"siren_stack": sf.SIREN_STACK, "siren_step": ss.SIREN_STEP,
+                "siren_bwd": st.SIREN_BWD}
+    for c in counters.values():
+        c.launches = 0
+    counts = lambda: {k: c.launches for k, c in counters.items()}  # noqa
+    delta = lambda c1, c0: {k: c1[k] - c0[k] for k in c1}  # noqa: E731
+    served = {}
+    c0 = counts()
+    rec_raw, _ = run_cli_fit(cli_main, "phase12", wav, "mlp_cli", "mlp",
+                             RUNNER_FIT_STEPS, [])
+    c1 = counts()
+    rec_rff, ck_rff = run_cli_fit(cli_main, "phase12", wav, "mlp_rff_cli",
+                                  "mlp", RUNNER_FIT_STEPS,
+                                  ["--num-freq", str(RUNNER_NUM_FREQ)])
+    c2 = counts()
+    served["runner_mlp"], served["runner_mlp_rff"] = delta(c1, c0), \
+        delta(c2, c1)
+    out["runner_fit_steps_s"] = {"runner_mlp": rec_raw["steps_per_sec"],
+                                 "runner_mlp_rff": rec_rff["steps_per_sec"]}
+    model = keep["runner_mlp_rff"]["model"]
+    template = tloop.init_train_state(model, torch.Generator(),
+                                      tloop.TrainConfig(), dev)
+    state = load_checkpoint(ck_rff, template)
+    sig_pow = float(np.mean(np.square(problem.targets)))
+    fit_db = 10.0 * float(np.log10(sig_pow / rec_rff["best_loss"]))
+    rec_wav, rate = decode_problem(model, state.best_params, problem,
+                                   fit_snr_db=fit_db, device=dev)
+    snr = reconstruction_snr(problem.targets[:, 0] * problem.decode["peak"],
+                             rec_wav)
+    log(f"phase12 RFF checkpoint -> load_checkpoint -> decode_problem on the "
+        f"card (tier {sf.auto_decode_kwargs(fit_db, first_omega_0=RUNNER_OMEGA)}"
+        f"): {rec_wav.shape[0]} samples at {rate} Hz, SNR {snr:.3f} dB (the "
+        f"run's own record {rec_rff['SNR']:.3f} dB)")
+    if (rec_wav.shape != clip.shape or not np.isfinite(rec_wav).all()
+            or abs(snr - rec_rff["SNR"]) > 1e-3):
+        raise AssertionError("the loaded RFF checkpoint decodes differently")
+    # the JAX package's route for the RFF model at h=256: autograd over the
+    # stack forward and kernel C
+    for name in shapes:
+        m = keep[name]["model"]
+        cb = counts()
+        st0 = tloop.init_train_state(m, torch.Generator().manual_seed(SEED),
+                                     tc, dev)
+        step = tloop.make_train_step(m, tc)
+        losses = []
+        for _ in range(RUNNER_AUTOGRAD_STEPS):
+            st0, (loss, _) = step(st0, coords, targets[0][:, None])
+            losses.append(float(loss))
+        d = delta(counts(), cb)
+        served[name + "_autograd"] = d
+        log(f"phase12 {name}: {RUNNER_AUTOGRAD_STEPS} autograd steps "
+            f"(train.loop.make_train_step), losses {losses}, launches {d}")
+        if not all(np.isfinite(losses)) or \
+                d["siren_bwd"] < RUNNER_AUTOGRAD_STEPS:
+            raise AssertionError(f"{name}: autograd steps failed")
+        del st0
+    # the kernel fit against the plain-step fit from one state, beside the
+    # kernel fit from the init times (1 + 2^-22)
+    pmodel = dataclasses.replace(
+        model, fused_step_ctx={**model.fused_step_ctx, "step": ss.step_plain})
+    ctc = tloop.TrainConfig(total_steps=RUNNER_CMP_STEPS,
+                            scan_chunk=RUNNER_CMP_STEPS)
+    r0 = tloop.init_train_state(model, torch.Generator().manual_seed(SEED),
+                                ctc, dev)
+
+    def fit_from(m, scale=1.0):
+        st0 = r0._replace(params=tree_map(lambda t: t * scale, r0.params))
+        return tloop.fit(m, problem.coords, problem.targets, ctc,
+                         state=tree_map(torch.clone, st0), device=dev)
+
+    kern, plain = fit_from(model), fit_from(pmodel)
+    ulp = fit_from(model, 1.0 + 2.0 ** -22)
+    lk, lp, lu = (float(r.loss_history[-1]) for r in (kern, plain, ulp))
+    limit = max(KAN_CMP_CONTROL_X * abs(lk - lu), KAN_CMP_FLOOR_REL * lk)
+    log(f"phase12 runner mlp RFF, {RUNNER_CMP_STEPS}-step fits from one "
+        f"state: first loss {float(kern.loss_history[0]):.9g}; final loss "
+        f"kernel {lk:.9g} / plain {lp:.9g} / perturbed kernel {lu:.9g}; "
+        f"gated |kernel - plain| {abs(lk - lp):.3e} (limit {limit:.3e} = "
+        f"max({KAN_CMP_CONTROL_X} x control {abs(lk - lu):.3e}, "
+        f"{KAN_CMP_FLOOR_REL} x loss)); steps/s kernel "
+        f"{kern.steps_per_sec:.2f}, plain {plain.steps_per_sec:.2f}")
+    if not abs(lk - lp) <= limit:
+        raise AssertionError("runner kernel fit and plain-step fit disagree")
+    del kern, plain, ulp, r0
+    out["launches_runner"] = counts()
+    out["served"] = served
+    log(f"phase12 kernel launches in the served runner paths: {served}; "
+        f"total {out['launches_runner']}")
+    for name in shapes:
+        if (served[name]["siren_step"] < RUNNER_FIT_STEPS
+                or served[name]["siren_stack"] < 1):
+            raise AssertionError(f"the {name} fit did not run through D "
+                                 "and the stack kernel")
+
+    # ---- phase 13: timings ----
+    for name, kp in keep.items():
+        cfg, bt, plan, sp = kp["cfg"], kp["bt"], kp["plan"], kp["sp"]
+        state = kp["state"]
+        n_freq = 0 if bt is None else bt.shape[1]
+        t = {}
+        t["stack"] = cuda_ms(torch, lambda: sf.SIREN_STACK(sp, plan, coords,
+                                                           bt), 10)
+        t["stack_plain"] = cuda_ms(torch, lambda: sf.stack_forward_plain(
+            kp["params"], plan, coords, bt), 3)
+        t["bwd"] = cuda_ms(torch, lambda: st.SIREN_BWD(
+            sp, cfg, plan, gmode, coords, kp["cot"], bt), 5)
+        t["bwd_plain"] = cuda_ms(torch, lambda: st.backward_plain(
+            sp, plan, gmode, coords, kp["cot"], bt), 2)
+        t["step"] = cuda_ms(torch, lambda: kp["kstep"](state, coords,
+                                                       targets), 10)
+        t["step_plain"] = cuda_ms(torch, lambda: kp["pstep"](state, coords,
+                                                             targets), 2)
+        # one step's split, CUDA events between its three launches
+        lib = st.TRAIN_LIBRARY()
+        g = st.validate_grad_launch(state.params, cfg, plan, coords, bt)
+        stream = torch.cuda.current_stream().cuda_stream
+        f32 = dict(dtype=torch.float32, device=dev)
+        P = g.layout.size
+        partial = torch.empty((g.slices, P), **f32)
+        pre = torch.empty((g.slices, len(plan.kinds), st.TILE_FLOATS), **f32)
+        loss_part = torch.empty((g.slices,), **f32)
+        grads = torch.empty((1, P), **f32)
+        sq_part = torch.empty((1, -(-P // st.CHUNK_FLOATS)), **f32)
+        loss = torch.empty((1,), **f32)
+        tf = (state.step + 1).to(torch.float32)
+        c1_, c2_ = 1.0 - 0.9 ** tf, 1.0 - 0.999 ** tf
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        split, iters = [0.0, 0.0, 0.0], 10
+        for it in range(iters + 2):  # 2 warm-ups
+            ev[0].record()
+            st.launch_grad(lib, g, coords, state.params, stream, partial, pre,
+                           loss_part, 0, 1, targets=targets, gmode=gmode)
+            ev[1].record()
+            st.launch_reduce(lib, g, partial, grads, sq_part, 0, 1, stream)
+            ev[2].record()
+            rc = lib.siren_adam(
+                grads.data_ptr(), sq_part.data_ptr(), loss_part.data_ptr(),
+                state.params.data_ptr(), state.mu.data_ptr(),
+                state.nu.data_ptr(), state.best_params.data_ptr(),
+                loss.data_ptr(), state.lr.data_ptr(), c1_.data_ptr(),
+                c2_.data_ptr(), state.best_loss.data_ptr(), 1, g.slices, P,
+                float(tc.grad_clip_norm), stream)
+            ev[3].record()
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise RuntimeError(f"siren_adam launch failed: {rc}")
+            if it >= 2:
+                for i in range(3):
+                    split[i] += ev[i].elapsed_time(ev[i + 1]) / iters
+        del partial, pre, loss_part, grads, sq_part
+        t["grad"], t["reduce"], t["adam"] = split
+        log(f"phase13 {name}: stack kernel {t['stack']:.3f} ms (plain "
+            f"{t['stack_plain']:.3f}), C {t['bwd']:.3f} ms (plain "
+            f"{t['bwd_plain']:.3f}), whole step {t['step']:.3f} ms (plain "
+            f"{t['step_plain']:.3f}); one step's split: grad accumulation "
+            f"{t['grad']:.3f} ms over {g.tiles} row tiles in {g.slices} "
+            f"slices, reduce {t['reduce']:.3f} ms, clip + Adam + best "
+            f"{t['adam']:.3f} ms, plateau / best bookkeeping and launch gaps "
+            f"{t['step'] - sum(split):.3f} ms (the step minus the three)")
+        # the fit's rate and peak memory against the scratch bound
+        s0 = tloop.init_train_state(kp["model"],
+                                    torch.Generator().manual_seed(SEED), tc,
+                                    dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r = tloop.fit(kp["model"], problem.coords, problem.targets,
+                      dataclasses.replace(tc, total_steps=20, scan_chunk=10),
+                      state=s0, device=dev)
+        peak = torch.cuda.max_memory_allocated() - base
+        scratch = 4 * g.slices * (P + len(plan.kinds) * st.TILE_FLOATS)
+        allowed = st.SCRATCH_BYTES + 4 * 8 * P + 4 * 16 * n
+        log(f"phase13 {name} fit 20 steps: {r.steps_per_sec:.2f} steps/s; "
+            f"peak device memory {peak / 2**20:.1f} MiB above the "
+            f"{base / 2**20:.1f} MiB held before (grad scratch "
+            f"{scratch / 2**20:.1f} MiB = {g.slices} slices x (P={P} + "
+            f"{len(plan.kinds)} x 8192 floats); limit {allowed / 2**20:.1f} "
+            f"MiB = SCRATCH_BYTES {st.SCRATCH_BYTES / 2**20:.0f} MiB + 8 "
+            f"state-sized groups + 16 floats a row)")
+        if peak > allowed:
+            raise AssertionError(f"{name}: the fit's peak memory exceeds the "
+                                 "scratch bound")
+        n_params = sum(v.numel() for p in kp["params"]["layers"]
+                       for v in p.values())
+        t["bounds"] = siren_bounds(1, n, RUNNER_H, n_params, n_freq)
+        t["fit_steps_s"] = r.steps_per_sec
+        t["peak_mib"] = peak / 2**20
+        out[name] = t
+        del s0, r
     return out
 
 
@@ -761,44 +1138,13 @@ def train_phases(np, torch, dev, clip, codec, ss, st, sf):
     return out
 
 
-def main() -> int:
-    import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available; this script needs an "
-              "NVIDIA card", file=sys.stderr)
-        return 2
-    if not os.path.isdir(os.path.join(HERE, "inraudio_tpu_torch")):
-        print("chip_smoke: run from a checkout of the repository (no "
-              "inraudio_tpu_torch/ beside this script)", file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
-    from inraudio_tpu_torch import codec
-    from inraudio_tpu_torch.models import SirenSnakeTanhConfig, build_model
-    from inraudio_tpu_torch.ops import siren_fused as sf
-    from inraudio_tpu_torch.ops._nvcc import library_path
-    from inraudio_tpu_torch.train.multi_inr import (MultiINRConfig,
-                                                    chunk_eval_fn,
-                                                    chunk_signal)
-    sys.path.insert(0, os.path.join(HERE, "tests"))
-    from test_torch_cuda import (BF16_BULK_ATOL, BF16_BULK_SHARE,
-                                 BF16_MAX_ATOL, F32_ATOL, check_close)
-
-    smi = nvidia_smi()
-    log(f"nvidia-smi: {smi}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
-        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    log(f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32} "
-        f"float32 matmul precision {torch.get_float32_matmul_precision()}")
-    dev = torch.device("cuda")
-    shutil.rmtree(WORK, ignore_errors=True)
-    os.makedirs(WORK)
-
-    # ---- phase 0: build, one nvcc per source, all started together ----
-    from inraudio_tpu_torch.ops import siren_step as ss
-    from inraudio_tpu_torch.ops import siren_train as st
+def build_kernels():
+    """Phase 0: every CUDA source built at once (one nvcc each, in threads),
+    with ptxas's register and spill lines printed."""
     from inraudio_tpu_torch.ops import kan_fused as kf
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.ops._nvcc import library_path
     builds = {"siren_stack": sf.SIREN_STACK.library,
               "siren_train": st.TRAIN_LIBRARY, "kan": kf.KAN_LIBRARY}
     build_s, failures = {}, []
@@ -825,6 +1171,45 @@ def main() -> int:
             f"{build_s[name]:.1f} s")
         for line in ptxas_lines((lib.parent / "build.log").read_text()):
             log(f"  ptxas: {line}")
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs an "
+              "NVIDIA card", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "inraudio_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository (no "
+              "inraudio_tpu_torch/ beside this script)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from inraudio_tpu_torch import codec
+    from inraudio_tpu_torch.models import SirenSnakeTanhConfig, build_model
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.train.multi_inr import (MultiINRConfig,
+                                                    chunk_eval_fn,
+                                                    chunk_signal)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from test_torch_cuda import (BF16_BULK_ATOL, BF16_BULK_SHARE,
+                                 BF16_MAX_ATOL, F32_ATOL, check_close)
+
+    smi = nvidia_smi()
+    log(f"nvidia-smi: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    log(f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32} "
+        f"float32 matmul precision {torch.get_float32_matmul_precision()}")
+    dev = torch.device("cuda")
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+
+    # ---- phase 0: build, one nvcc per source, all started together ----
+    from inraudio_tpu_torch.ops import siren_step as ss
+    from inraudio_tpu_torch.ops import siren_train as st
+    build_kernels()
 
     clip = synth_clip(np)
     payloads = {}
@@ -992,6 +1377,7 @@ def main() -> int:
 
     train = train_phases(np, torch, dev, clip, codec, ss, st, sf)
     kan = kan_phases(np, torch, dev, clip)
+    runner = runner_phases(np, torch, dev, clip)
 
     shutil.rmtree(WORK, ignore_errors=True)
     ms, plain_ms = timing[("headline", "deg11")]
@@ -1071,6 +1457,48 @@ def main() -> int:
         "library_ms": None,
         "shape": kan_shape,
     }]}
+    served = runner["served"]
+    for name, shape in (("runner_mlp", "runner mlp h=256 omega0=22000, raw "
+                         "coordinates"),
+                        ("runner_mlp_rff", "runner mlp RFF h=256 omega0=22000"
+                         f", F={RUNNER_NUM_FREQ} sigma={RUNNER_SIGMA}")):
+        t = runner[name]
+        (sb_, sby), (db_, dby), (cb_, cby) = t["bounds"]
+        shape += f", {CLIP_SAMPLES} rows, launches from phase 12"
+        rff = name.endswith("rff")
+        kernels["kernels"] += [{
+            "name": "siren_stack_rff" if rff else "siren_stack_runner",
+            "route": "cuda",
+            "source": "inraudio_tpu_torch/csrc/siren_stack.cu",
+            "replaces": ("inraudio_tpu/ops/pallas_siren.py:209" if rff
+                         else "inraudio_tpu/ops/pallas_siren.py:288"),
+            "launches": (served[name]["siren_stack"]
+                         + served[name + "_autograd"]["siren_stack"]),
+            "max_abs_err": runner[(name, "stack_err")],
+            "ms": t["stack"], "plain_ms": t["stack_plain"],
+            "bound_ms": sb_, "bound_by": sby, "library_ms": None,
+            "shape": shape + ", training forward tier (bf16x3, deg 11)",
+        }, {
+            "name": "siren_step_" + name.replace("_mlp", ""),
+            "route": "cuda",
+            "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+            "replaces": "inraudio_tpu/ops/pallas_siren_step.py:120",
+            "launches": served[name]["siren_step"],
+            "max_abs_err": runner[(name, "step_err")],
+            "ms": t["step"], "plain_ms": t["step_plain"],
+            "bound_ms": db_, "bound_by": dby, "library_ms": None,
+            "shape": shape + ", one whole train step",
+        }, {
+            "name": "siren_bwd_" + name.replace("_mlp", ""),
+            "route": "cuda",
+            "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+            "replaces": "inraudio_tpu/ops/pallas_siren_train.py:159",
+            "launches": served[name + "_autograd"]["siren_bwd"],
+            "max_abs_err": runner[(name, "bwd_err")],
+            "ms": t["bwd"], "plain_ms": t["bwd_plain"],
+            "bound_ms": cb_, "bound_by": cby, "library_ms": None,
+            "shape": shape + ", bf16x2 grad tier",
+        }]
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

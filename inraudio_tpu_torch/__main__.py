@@ -64,8 +64,10 @@ def main(argv=None) -> int:
     fit.add_argument("--seed", type=int, default=0)
     fit.add_argument("--fused", action="store_true",
                      help="train through the CUDA kernels: mlp (widths 32, "
-                          "64, 128, raw coordinates) the stack and whole-step "
-                          "kernels; kan the KAN forward and backward kernels")
+                          "64, 128, 256; raw coordinates, or with --num-freq "
+                          "its RFF encoding folded into layer 0) the stack "
+                          "and whole-step kernels; kan the KAN forward and "
+                          "backward kernels")
     fit.add_argument("--update-grid-every", type=int, default=0,
                      help="KAN data-adaptive grid refresh period in steps "
                           "(0 = never)")
@@ -94,8 +96,8 @@ def main(argv=None) -> int:
     enc.add_argument("--fused", action="store_true",
                      help="train through the CUDA kernels (the whole-step "
                           "kernel, and the backward kernel in the refit) "
-                          "with the polynomial sin; hidden width 32, 64 or "
-                          "128")
+                          "with the polynomial sin; hidden width 32, 64, "
+                          "128 or 256")
     enc.add_argument("--refit-steps", type=int, default=0,
                      help="quantization-aware refit: fine-tune the float32 "
                           "leaves around the frozen quantized weights")

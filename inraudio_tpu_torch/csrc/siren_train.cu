@@ -1,64 +1,73 @@
 // SirenWithSnakeTanh training kernels for Hopper (sm_90a), CUDA C++.
 //
-// Replaces two Pallas TPU kernels of the JAX package:
+// Replaces two Pallas TPU kernels of the JAX package, with the RFF layer 0
+// they share (inraudio_tpu/ops/pallas_siren.py:_rff_features_in_kernel):
 //   inraudio_tpu/ops/pallas_siren_step.py:_step_kernel  (kernel D: the whole
 //       MSE step: forward recompute, masked MSE, backward, global-norm clip,
 //       Adam, best-params snapshot, in place)
 //   inraudio_tpu/ops/pallas_siren_train.py:_bwd_kernel  (kernel C: the
 //       backward of the stack for a supplied cotangent)
 // as three kernels:
-//   siren_grad_kernel   per (window, row tile): forward recompute, the
-//                       cotangent (D: 2 (out - tgt) / n on valid rows, and
-//                       the tile's loss; C: the supplied cotangent), the
-//                       backward sweep, and that tile's dW / db / da written
-//                       to its own slab of a global partial-grad buffer;
+//   siren_grad_kernel   per (window, row slice): for each row tile of the
+//                       slice in order, the forward recompute, the cotangent
+//                       (D: 2 (out - tgt) / n on valid rows, and the tile's
+//                       loss; C: the supplied cotangent), the backward sweep,
+//                       and that tile's dW / db / da added to the slice's own
+//                       slab of a global partial-grad buffer;
 //   siren_reduce_kernel per (window, 1024-float chunk): the window's slabs
-//                       summed in tile order, and the chunk's sum of squares;
+//                       summed in slice order, and the chunk's sum of squares;
 //   siren_adam_kernel   per (window, chunk): the window's norm and loss from
-//                       the chunk / tile partials (fixed order), then clip,
+//                       the chunk / slice partials (fixed order), then clip,
 //                       Adam and the best snapshot of the OLD params, in
 //                       place (D only).
 // C is grad + reduce; D is all three.
 //
 // What bounds it on an H100 (by reading): per sample at h = 128 the step is
 // ~197k forward fp32 FMAs (bf16x3) plus ~262k backward (4 hidden layers x 2
-// products x 2 passes at the default bf16x2 grad tier), all on CUDA cores.
-// So the grad kernel is fp32-FMA bound like siren_stack.cu; the reduce and
-// Adam passes are memory bound (~1.4 GB of partial grads per step at the
-// headline shape, read once).
+// products x 2 passes at the default bf16x2 grad tier), all on CUDA cores
+// (at h = 256 four times that, and an F = 256 RFF layer 0 adds ~0.65M).  So
+// the grad kernel is fp32-FMA bound like siren_stack.cu; the reduce and
+// Adam passes are memory bound.
 //
 // Design choices (the TPU kernel kept 7-9 copies of a window's parameters
 // plus every layer's (input, pre) pair in 16 MB of VMEM; a block here has
 // 227 KB, and one window's f32 parameters alone are 266.8 KB at h = 128):
-// - one CTA per (window, row tile of TM = 8192 / h rows), as the stack
-//   kernel: the activation tile stays in shared memory and each layer's W
-//   is streamed in; the dgrad product reads W transposed, written to shared
-//   memory through 4 x 4 register transposes;
+// - one CTA per (window, row slice); a slice is a run of row tiles of TM =
+//   8192 / h rows, as the stack kernel's: the activation tile stays in
+//   shared memory and each layer's W streams in by K-slabs (slab_rows<H>:
+//   the whole W up to h = 128, 64 rows at h = 256); the dgrad product reads
+//   W transposed, written to shared memory through 4 x 4 register
+//   transposes, slab by slab;
+// - RFF layer 0: the features are recomputed per tile and per K-slab from
+//   the coordinates, in the forward and again for dW0 = [cos; sin]^T gpre0
+//   (no dgrad below layer 0, no gradient for B); never saved;
 // - only each layer's pre-activation is saved, in an L2-sized global scratch
-//   private to the CTA (6 x 32 KB at h = 128); a layer's input is recomputed
-//   from the previous layer's pre when the backward needs it;
+//   private to the CTA (L x 32 KB); a layer's input is recomputed from the
+//   previous layer's pre when the backward needs it;
 // - determinism: no float atomics anywhere.  Each CTA writes its own slab
-//   of partial grads; the reduce sums slabs in tile order, block sums use
-//   fixed trees, and the norm / loss are summed in a fixed order.  Two steps
-//   from the same state give bit-identical states.  The price is one write
-//   and one read of k * tiles * P floats per step.
-// - bounded scratch: the slabs and saved pres take tiles * (P + 8192 L)
-//   floats per window (3.7 MB at the headline, 80 MB at the codec default,
-//   growing with the window's rows), so the wrappers run grad + reduce over
-//   groups of windows that fit a fixed budget (ops/siren_train.py,
-//   SCRATCH_BYTES) and the Adam kernel once over the population.  A
-//   window's result does not depend on its group.
-// - grid-wide parallelism: tiles CTAs per window (8 at the headline, 173 at
-//   the codec default) rather than one CTA per window (31 at k = 31).
+//   of partial grads (its first tile stores, later tiles add, in tile
+//   order); the reduce sums slabs in slice order, block sums use fixed
+//   trees, and the norm / loss are summed in a fixed order.  Two steps from
+//   the same state give bit-identical states;
+// - bounded scratch: a window of more row tiles than kMaxSlices goes
+//   through kMaxSlices slices (ops/siren_train.py, MAX_SLICES), so its
+//   slabs and saved pres take at most kMaxSlices x (P + 8192 L) floats
+//   whatever its length; a window of fewer tiles keeps one tile per slice.
+//   The slice count depends on the shapes only, so the wrappers' grouping
+//   of windows within SCRATCH_BYTES leaves every result bit-equal;
+// - grid-wide parallelism: slices x windows CTAs (8 per window at the
+//   headline, 173 at the codec default, 264 for one model over a clip).
 //
 // Numerics, as the JAX package (and the plain versions in
 // inraudio_tpu_torch/ops/siren_train.py and siren_step.py):
-// - forward: layer 0 exact f32 multiply-adds; layers 1+ in their forward
-//   tier (f32_mode, default bf16x3), as siren_stack.cu;
+// - forward: raw layer 0 exact f32 multiply-adds, RFF layer 0 its features
+//   in the forward tier; layers 1+ in their forward tier (f32_mode, default
+//   bf16x3), as siren_stack.cu;
 // - backward: one grad tier for both products (INRAUDIO_GRAD_PRECISION,
 //   default bf16x2): dW = x_in^T gpre rounds x_in (and splits it in bf16x3)
 //   and splits gpre; dgrad = gpre W^T rounds gpre and splits W.  Layer 0's
-//   dW is the same grad-tier product of the raw coordinates;
+//   dW is the same grad-tier product of the raw coordinates, or of the RFF
+//   features;
 // - sine: gpre = g * (omega * cos(omega * pre)); snake: gpre = g * (1 +
 //   sin 2a pre), da = sum_rows ((-0.5 / a^2)(1 - cos 2a pre) + (pre / a)
 //   sin 2a pre) * g; tanh: g * (1 - t^2); sin / cos of the forward's degree;
@@ -78,7 +87,7 @@ struct TrainArgs {
   int off_b[kMaxLayers];
   int off_a[kMaxLayers];  // -1: no snake a
   int kind[kMaxLayers];
-  int mode[kMaxLayers];   // forward matmul tier
+  int mode[kMaxLayers];   // forward matmul tier (RFF layer 0: its tier)
   int deg[kMaxLayers];    // 0 = exact sinf / cosf
   float omega[kMaxLayers];
   int n_layers;
@@ -86,6 +95,9 @@ struct TrainArgs {
   int P;                  // floats per window (multiple of 4)
   int gmode;              // backward matmul tier
   float inv_n, two_inv_n;
+  const float* bt;        // RFF: 2 pi B^T (d, F), or null
+  int n_freq;             // F (0: raw layer 0)
+  int fdeg;               // the RFF features' trig degree
 };
 
 template <int H>
@@ -96,9 +108,10 @@ __host__ __device__ constexpr int wgrad_splits() {
 
 template <int H>
 __host__ __device__ constexpr int region1_floats() {
-  // W planes (forward), x_in planes / W^T planes / dX (backward)
-  return (2 * H * H > 2 * tile_rows<H>() * (H + 4)) ? 2 * H * H
-                                                     : 2 * tile_rows<H>() * (H + 4);
+  // W slab planes (forward), x_in planes / W^T slab planes / dX (backward)
+  return (2 * slab_rows<H>() * H > 2 * tile_rows<H>() * (H + 4))
+             ? 2 * slab_rows<H>() * H
+             : 2 * tile_rows<H>() * (H + 4);
 }
 
 template <int H>
@@ -115,6 +128,7 @@ __host__ __device__ constexpr size_t train_smem_floats() {
 static_assert(train_smem_floats<32>() * 4 <= 232448, "smem h=32");
 static_assert(train_smem_floats<64>() * 4 <= 232448, "smem h=64");
 static_assert(train_smem_floats<128>() * 4 <= 232448, "smem h=128");
+static_assert(train_smem_floats<256>() * 4 <= 232448, "smem h=256");
 
 // Derivative of the layer's activation: returns gpre; the snake also
 // returns its da term in *ga.
@@ -132,24 +146,6 @@ __device__ __forceinline__ float dact(int kind, float pre, float omega,
     return g * (1.0f - t * t);
   }
   return g;
-}
-
-template <int H>
-__device__ __forceinline__ void dense_dispatch(int mode, const float* Xhi,
-                                               const float* Xlo,
-                                               const float* Whi,
-                                               const float* Wlo, int r0,
-                                               int c0, int c1,
-                                               float (&acc)[4][8],
-                                               float (&acc2)[4][8]) {
-  if (mode == kBf16x3)
-    dense_tile<H, kBf16x3>(Xhi, Xlo, Whi, Wlo, r0, c0, c1, acc, acc2);
-  else if (mode == kBf16x2)
-    dense_tile<H, kBf16x2>(Xhi, Xlo, Whi, Wlo, r0, c0, c1, acc, acc2);
-  else if (mode == kBf16)
-    dense_tile<H, kBf16>(Xhi, Xlo, Whi, Wlo, r0, c0, c1, acc, acc2);
-  else
-    dense_tile<H, kHighest>(Xhi, Xlo, Whi, Wlo, r0, c0, c1, acc, acc2);
 }
 
 // acc[i][c] (+ acc2) += sum_r A[r, j0 + i] * B[r, col(c)] over rows
@@ -246,6 +242,19 @@ __device__ __forceinline__ float tier_mul(float xh, float xl, float wh,
   return xh * wh + (xh * wl + xl * wh);
 }
 
+// A slice's slab entry: its first tile stores, later tiles add in order.
+__device__ __forceinline__ void put(float* p, float v, bool first) {
+  *p = first ? v : *p + v;
+}
+
+__device__ __forceinline__ void put4(float* p, float4 v, bool first) {
+  if (!first) {
+    const float4 o = *reinterpret_cast<const float4*>(p);
+    v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+  }
+  *reinterpret_cast<float4*>(p) = v;
+}
+
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
 siren_grad_kernel(const float* __restrict__ coords,
@@ -253,9 +262,10 @@ siren_grad_kernel(const float* __restrict__ coords,
                   float* __restrict__ partial, float* __restrict__ loss_part,
                   float* __restrict__ pre_buf, const float* __restrict__ tgt,
                   const float* __restrict__ cot, const TrainArgs args, int n,
-                  int tiles) {
+                  int tiles, int slices) {
   constexpr int TM = tile_rows<H>();
   constexpr int LD = H + 4;
+  constexpr int KS = slab_rows<H>();
   constexpr int CG = H / 8;            // column groups of 2 x 4 columns
   constexpr int TPR = kThreads / TM;   // head forward: threads per row
   constexpr int TPC = kThreads / H;    // column passes: threads per column
@@ -277,11 +287,16 @@ siren_grad_kernel(const float* __restrict__ coords,
   float* red = sl + TM;                // 2 * kThreads column partials
 
   const int tid = threadIdx.x;
-  const long long win = blockIdx.x / tiles;
-  const int row0 = (blockIdx.x % tiles) * TM;
+  const long long win = blockIdx.x / slices;
+  const int slice = blockIdx.x % slices;
+  const int t_begin = static_cast<int>(static_cast<long long>(slice) * tiles /
+                                       slices);
+  const int t_end = static_cast<int>(static_cast<long long>(slice + 1) *
+                                     tiles / slices);
   const int d = args.d;
   const int L = args.n_layers;
   const int gm = args.gmode;
+  const int F = args.n_freq;
   const float* wp = params + win * args.P;
   float* slab = partial + static_cast<long long>(blockIdx.x) * args.P;
   float* pre_tile = pre_buf + static_cast<long long>(blockIdx.x) * L * kTileFloats;
@@ -289,11 +304,13 @@ siren_grad_kernel(const float* __restrict__ coords,
   const int r0 = (tid / CG) * 4;
   const int c0 = cg * 4, c1 = H / 2 + cg * 4;
   const int ec = tid % H, es = tid / H;  // column-pass mapping
+  const int LH = L - 1;
 
-  // zero the pads between leaves of this slab (the reduce sums all P)
+  // zero the pads between leaves of this slab (the reduce sums all P;
+  // no tile writes a pad)
   if (tid == 0) {
     for (int li = 0; li < L; ++li) {
-      const int in_f = li == 0 ? d : H;
+      const int in_f = li == 0 ? (F > 0 ? 2 * F : d) : H;
       const int out_f = li == L - 1 ? 1 : H;
       int ends[3] = {args.off_w[li] + in_f * out_f, args.off_b[li] + out_f,
                      args.off_a[li] >= 0 ? args.off_a[li] + out_f : -1};
@@ -301,124 +318,8 @@ siren_grad_kernel(const float* __restrict__ coords,
         for (int e = ends[q]; e >= 0 && (e & 3); ++e) slab[e] = 0.0f;
     }
   }
+  float loss_acc = 0.0f;  // thread 0: the slice's loss
 
-  // ================= forward recompute, saving each pre =================
-  {
-    const float* w0 = wp + args.off_w[0];
-    for (int e = tid; e < d * H; e += kThreads) r1[e] = w0[e];
-    for (int e = tid; e < H; e += kThreads) {
-      sb[e] = wp[args.off_b[0] + e];
-      sa[e] = args.off_a[0] >= 0 ? wp[args.off_a[0] + e] : 1.0f;
-    }
-    for (int e = tid; e < TM * d; e += kThreads) {
-      const int row = row0 + e / d;
-      sc[e] = row < n ? coords[(long long)row * d + e % d] : 0.0f;
-    }
-    __syncthreads();
-    const int kind = args.kind[0], deg = args.deg[0], next = args.mode[1];
-    const float omega = args.omega[0];
-    for (int e = tid; e < TM * H; e += kThreads) {
-      const int r = e / H, c = e % H;
-      float pre = sb[c];
-      for (int q = 0; q < d; ++q) pre = pre + sc[r * d + q] * r1[q * H + c];
-      pre_tile[e] = pre;
-      split_store(activate(kind, pre, omega, sa[c], deg), next, Xhi, Xlo,
-                  r * LD + c);
-    }
-  }
-  for (int li = 1; li < L - 1; ++li) {
-    const int mode = args.mode[li];
-    __syncthreads();
-    load_split(wp + args.off_w[li], r1, r1 + H * H, H * H, mode);
-    for (int e = tid; e < H; e += kThreads) {
-      sb[e] = wp[args.off_b[li] + e];
-      sa[e] = args.off_a[li] >= 0 ? wp[args.off_a[li] + e] : 1.0f;
-    }
-    __syncthreads();
-    float acc[4][8], acc2[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[i][c] = acc2[i][c] = 0.0f;
-    dense_dispatch<H>(mode, Xhi, Xlo, r1, r1 + H * H, r0, c0, c1, acc, acc2);
-    __syncthreads();
-    const int kind = args.kind[li], deg = args.deg[li], next = args.mode[li + 1];
-    const float omega = args.omega[li];
-    float* pt = pre_tile + li * kTileFloats;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int cb = half ? c1 : c0;
-        float p[4], v[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int c = half * 4 + q;
-          p[q] = (acc[i][c] + acc2[i][c]) + sb[cb + q];
-          v[q] = activate(kind, p[q], omega, sa[cb + q], deg);
-        }
-        *reinterpret_cast<float4*>(pt + (r0 + i) * H + cb) =
-            make_float4(p[0], p[1], p[2], p[3]);
-        const float4 v4 = make_float4(v[0], v[1], v[2], v[3]);
-        const float4 h4 = split4_hi(v4, next);
-        const int idx = (r0 + i) * LD + cb;
-        *reinterpret_cast<float4*>(Xhi + idx) = h4;
-        if (next != kHighest)
-          *reinterpret_cast<float4*>(Xlo + idx) = split4_hi(sub4(v4, h4), kBf16);
-      }
-    }
-  }
-  // head: h -> 1, then the cotangent
-  const int LH = L - 1;
-  {
-    const int mode = args.mode[LH];
-    __syncthreads();
-    load_split(wp + args.off_w[LH], r1, r1 + H * H, H, mode);
-    __syncthreads();
-    const int r = tid / TPR, s = tid % TPR;
-    const float* xh = Xhi + r * LD;
-    const float* xl = Xlo + r * LD;
-    float acc = 0.0f, acc2 = 0.0f;
-    for (int j = s; j < H; j += TPR) {
-      acc = fmaf(xh[j], r1[j], acc);
-      if (mode == kBf16x2 || mode == kBf16x3)
-        acc2 = fmaf(xh[j], r1[H * H + j], acc2);
-      if (mode == kBf16x3) acc2 = fmaf(xl[j], r1[j], acc2);
-    }
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off /= 2) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      acc2 += __shfl_xor_sync(0xffffffffu, acc2, off);
-    }
-    if (s == 0) {
-      const int row = row0 + r;
-      const float pre = (acc + acc2) + wp[args.off_b[LH]];
-      const float a = args.off_a[LH] >= 0 ? wp[args.off_a[LH]] : 1.0f;
-      const float out = activate(args.kind[LH], pre, args.omega[LH], a,
-                                 args.deg[LH]);
-      float g = 0.0f, l = 0.0f;
-      if (row < n) {
-        if (cot != nullptr) {
-          g = cot[win * n + row];
-        } else {
-          const float err = out - tgt[win * n + row];
-          l = err * err;
-          g = err * args.two_inv_n;
-        }
-      }
-      shp[r] = pre;
-      shg[r] = g;
-      sl[r] = l;
-    }
-  }
-  __syncthreads();
-  if (tid == 0 && cot == nullptr) {
-    float s = 0.0f;
-    for (int r = 0; r < TM; ++r) s += sl[r];
-    loss_part[blockIdx.x] = s * args.inv_n;
-  }
-
-  // ================= backward =================
   // x_in planes of layer li (act of layer li-1, rounded side) into r1
   auto build_xin = [&](int li) {
     const int pl = li - 1;
@@ -432,78 +333,220 @@ siren_grad_kernel(const float* __restrict__ coords,
     }
   };
 
-  // head backward: gpre, db, dW (h x 1) and dX (TM x h) into r1
-  {
-    const int kind = args.kind[LH];
-    const float a = args.off_a[LH] >= 0 ? wp[args.off_a[LH]] : 1.0f;
-    for (int r = tid; r < TM; r += kThreads) {  // one row per thread
-      float ga = 0.0f;
-      const float gp = dact(kind, shp[r], args.omega[LH], a, args.deg[LH],
-                            shg[r], &ga);
-      shg[r] = gp;
-      shp[r] = ga;  // the pre is not needed again
-      wsplit(gp, gm, shh + r, shl + r);
-    }
-    build_xin(LH);
-    __syncthreads();
-    if (tid == 0) {
-      float db = 0.0f, da = 0.0f;
-      for (int r = 0; r < TM; ++r) {
-        db += shg[r];
-        da += shp[r];
+  // dW rows [0, R) += A^T gpre, A = the r1 planes (R columns), gpre = the
+  // R2 planes; rows from kn on are padding and are not written
+  auto wgrad = [&](int R, int kn, float* dw, bool first) {
+    constexpr int T = H * H / 32;              // 4 x 8 output tiles of H rows
+    constexpr int TT = T < kThreads ? T : kThreads;
+    const int TR = R * H / 32;                 // live tiles of R rows
+    const int s = tid / TT;                    // row group
+    const int rb = s * (TM / S), re = rb + TM / S;
+    for (int base = 0; base < T; base += TT) {
+      const int tile = base + tid % TT;
+      const bool live = tile < TR;
+      const int tc = tile % CG, tj = tile / CG;
+      const int j0 = tj * 4, wc0 = tc * 4, wc1 = H / 2 + tc * 4;
+      float acc[4][8], acc2[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = acc2[i][c] = 0.0f;
+      if (live)
+        wgrad_dispatch<H>(gm, r1, r1 + TM * LD, Xhi, Xlo, rb, re, j0, wc0,
+                          wc1, acc, acc2);
+      if (S > 1) {
+        if (s > 0 && live) {
+          float* dst = r3 + ((s - 1) * T + tile) * 64;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              dst[i * 8 + c] = acc[i][c];
+              dst[32 + i * 8 + c] = acc2[i][c];
+            }
+        }
+        __syncthreads();
+        if (s == 0 && live) {
+          for (int q = 1; q < S; ++q) {
+            const float* src = r3 + ((q - 1) * T + tile) * 64;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int c = 0; c < 8; ++c) {
+                acc[i][c] += src[i * 8 + c];
+                acc2[i][c] += src[32 + i * 8 + c];
+              }
+          }
+        }
       }
-      slab[args.off_b[LH]] = db;
-      if (args.off_a[LH] >= 0) slab[args.off_a[LH]] = da;
-    }
-    // dW[j] = sum_r x_in[r, j] * gpre[r]
-    float acc = 0.0f, acc2 = 0.0f;
-    for (int r = es; r < TM; r += TPC) {
-      const float xh = r1[r * LD + ec], xl = r1[TM * LD + r * LD + ec];
-      acc = fmaf(xh, shh[r], acc);
-      if (gm == kBf16x2 || gm == kBf16x3) acc2 = fmaf(xh, shl[r], acc2);
-      if (gm == kBf16x3) acc2 = fmaf(xl, shh[r], acc2);
-    }
-    red[es * H + ec] = acc;
-    red[kThreads + es * H + ec] = acc2;
-    __syncthreads();
-    if (es == 0) {
-      float s1 = red[ec], s2 = red[kThreads + ec];
-      for (int q = 1; q < TPC; ++q) {
-        s1 += red[q * H + ec];
-        s2 += red[kThreads + q * H + ec];
+      if (s == 0 && live) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (j0 + i >= kn) continue;
+          float* rowp = dw + (j0 + i) * H;
+          put4(rowp + wc0, make_float4(
+              acc[i][0] + acc2[i][0], acc[i][1] + acc2[i][1],
+              acc[i][2] + acc2[i][2], acc[i][3] + acc2[i][3]), first);
+          put4(rowp + wc1, make_float4(
+              acc[i][4] + acc2[i][4], acc[i][5] + acc2[i][5],
+              acc[i][6] + acc2[i][6], acc[i][7] + acc2[i][7]), first);
+        }
       }
-      slab[args.off_w[LH] + ec] = s1 + s2;
     }
-    // dX[r, j] = gpre[r] * W[j]
-    float wh, wl;
-    wsplit(wp[args.off_w[LH] + ec], gm, &wh, &wl);
-    for (int r = es; r < TM; r += TPC) {
-      float gh, gl;
-      xsplit(shg[r], gm, &gh, &gl);
-      r1[r * LD + ec] = tier_mul(gh, gl, wh, wl, gm);
-    }
-    __syncthreads();
-  }
+  };
 
-  // hidden layers, last to first; then layer 0
-  for (int li = L - 2; li >= 0; --li) {
-    // ---- phase A: gpre = dX * act'(pre) into the R2 planes; db, da ----
+  for (int t = t_begin; t < t_end; ++t) {
+    const bool first = t == t_begin;
+    const int row0 = t * TM;
+    __syncthreads();  // the previous tile is done with shared memory
+
+    // ================= forward recompute, saving each pre =================
     {
-      const float* pt = pre_tile + li * kTileFloats;
-      const int kind = args.kind[li], deg = args.deg[li];
-      const float omega = args.omega[li];
-      const float a = args.off_a[li] >= 0 ? wp[args.off_a[li] + ec] : 1.0f;
-      float db = 0.0f, da = 0.0f;
-      for (int r = es; r < TM; r += TPC) {
-        float ga = 0.0f;
-        const float gp = dact(kind, pt[r * H + ec], omega, a, deg,
-                              r1[r * LD + ec], &ga);
-        db += gp;
-        da += ga;
-        wsplit(gp, gm, Xhi + r * LD + ec, Xlo + r * LD + ec);
+      for (int e = tid; e < H; e += kThreads) {
+        sb[e] = wp[args.off_b[0] + e];
+        sa[e] = args.off_a[0] >= 0 ? wp[args.off_a[0] + e] : 1.0f;
       }
-      red[es * H + ec] = db;
-      red[kThreads + es * H + ec] = da;
+      for (int e = tid; e < TM * d; e += kThreads) {
+        const int row = row0 + e / d;
+        sc[e] = row < n ? coords[(long long)row * d + e % d] : 0.0f;
+      }
+      const int kind = args.kind[0], deg = args.deg[0], next = args.mode[1];
+      const float omega = args.omega[0];
+      if (F > 0) {
+        float acc[4][8], acc2[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[i][c] = acc2[i][c] = 0.0f;
+        rff_layer0<H>(wp + args.off_w[0], args.bt, sc, d, F, args.fdeg,
+                      args.mode[0], r1, r1 + KS * H, Xhi, Xlo, r0, c0, c1,
+                      acc, acc2);
+        __syncthreads();  // every thread has read the features
+        store_tile<H>(acc, acc2, sb, sa, kind, omega, deg, next, Xhi, Xlo,
+                      r0, c0, c1, pre_tile, 0, TM);
+      } else {
+        const float* w0 = wp + args.off_w[0];
+        for (int e = tid; e < d * H; e += kThreads) r1[e] = w0[e];
+        __syncthreads();
+        for (int e = tid; e < TM * H; e += kThreads) {
+          const int r = e / H, c = e % H;
+          float pre = sb[c];
+          for (int q = 0; q < d; ++q) pre = pre + sc[r * d + q] * r1[q * H + c];
+          pre_tile[e] = pre;
+          split_store(activate(kind, pre, omega, sa[c], deg), next, Xhi, Xlo,
+                      r * LD + c);
+        }
+      }
+    }
+    for (int li = 1; li < L - 1; ++li) {
+      const int mode = args.mode[li];
+      float acc[4][8], acc2[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[i][c] = acc2[i][c] = 0.0f;
+      for (int k0 = 0; k0 < H; k0 += KS) {
+        __syncthreads();
+        load_split(wp + args.off_w[li] + k0 * H, r1, r1 + KS * H, KS * H,
+                   mode);
+        if (k0 == 0) {
+          for (int e = tid; e < H; e += kThreads) {
+            sb[e] = wp[args.off_b[li] + e];
+            sa[e] = args.off_a[li] >= 0 ? wp[args.off_a[li] + e] : 1.0f;
+          }
+        }
+        __syncthreads();
+        dense_dispatch<H>(mode, Xhi + k0, Xlo + k0, r1, r1 + KS * H, r0, c0,
+                          c1, acc, acc2, KS);
+      }
+      __syncthreads();
+      store_tile<H>(acc, acc2, sb, sa, args.kind[li], args.omega[li],
+                    args.deg[li], args.mode[li + 1], Xhi, Xlo, r0, c0, c1,
+                    pre_tile + li * kTileFloats, 0, TM);
+    }
+    // head: h -> 1, then the cotangent
+    {
+      const int mode = args.mode[LH];
+      __syncthreads();
+      load_split(wp + args.off_w[LH], r1, r1 + KS * H, H, mode);
+      __syncthreads();
+      const int r = tid / TPR, s = tid % TPR;
+      const float* xh = Xhi + r * LD;
+      const float* xl = Xlo + r * LD;
+      float acc = 0.0f, acc2 = 0.0f;
+      for (int j = s; j < H; j += TPR) {
+        acc = fmaf(xh[j], r1[j], acc);
+        if (mode == kBf16x2 || mode == kBf16x3)
+          acc2 = fmaf(xh[j], r1[KS * H + j], acc2);
+        if (mode == kBf16x3) acc2 = fmaf(xl[j], r1[j], acc2);
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off /= 2) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        acc2 += __shfl_xor_sync(0xffffffffu, acc2, off);
+      }
+      if (s == 0) {
+        const int row = row0 + r;
+        const float pre = (acc + acc2) + wp[args.off_b[LH]];
+        const float a = args.off_a[LH] >= 0 ? wp[args.off_a[LH]] : 1.0f;
+        const float out = activate(args.kind[LH], pre, args.omega[LH], a,
+                                   args.deg[LH]);
+        float g = 0.0f, l = 0.0f;
+        if (row < n) {
+          if (cot != nullptr) {
+            g = cot[win * n + row];
+          } else {
+            const float err = out - tgt[win * n + row];
+            l = err * err;
+            g = err * args.two_inv_n;
+          }
+        }
+        shp[r] = pre;
+        shg[r] = g;
+        sl[r] = l;
+      }
+    }
+    __syncthreads();
+    if (tid == 0 && cot == nullptr) {
+      float s = 0.0f;
+      for (int r = 0; r < TM; ++r) s += sl[r];
+      loss_acc = first ? s * args.inv_n : loss_acc + s * args.inv_n;
+    }
+
+    // ================= backward =================
+    // head backward: gpre, db, dW (h x 1) and dX (TM x h) into r1
+    {
+      const int kind = args.kind[LH];
+      const float a = args.off_a[LH] >= 0 ? wp[args.off_a[LH]] : 1.0f;
+      for (int r = tid; r < TM; r += kThreads) {  // one row per thread
+        float ga = 0.0f;
+        const float gp = dact(kind, shp[r], args.omega[LH], a, args.deg[LH],
+                              shg[r], &ga);
+        shg[r] = gp;
+        shp[r] = ga;  // the pre is not needed again
+        wsplit(gp, gm, shh + r, shl + r);
+      }
+      build_xin(LH);
+      __syncthreads();
+      if (tid == 0) {
+        float db = 0.0f, da = 0.0f;
+        for (int r = 0; r < TM; ++r) {
+          db += shg[r];
+          da += shp[r];
+        }
+        put(slab + args.off_b[LH], db, first);
+        if (args.off_a[LH] >= 0) put(slab + args.off_a[LH], da, first);
+      }
+      // dW[j] = sum_r x_in[r, j] * gpre[r]
+      float acc = 0.0f, acc2 = 0.0f;
+      for (int r = es; r < TM; r += TPC) {
+        const float xh = r1[r * LD + ec], xl = r1[TM * LD + r * LD + ec];
+        acc = fmaf(xh, shh[r], acc);
+        if (gm == kBf16x2 || gm == kBf16x3) acc2 = fmaf(xh, shl[r], acc2);
+        if (gm == kBf16x3) acc2 = fmaf(xl, shh[r], acc2);
+      }
+      red[es * H + ec] = acc;
+      red[kThreads + es * H + ec] = acc2;
       __syncthreads();
       if (es == 0) {
         float s1 = red[ec], s2 = red[kThreads + ec];
@@ -511,161 +554,167 @@ siren_grad_kernel(const float* __restrict__ coords,
           s1 += red[q * H + ec];
           s2 += red[kThreads + q * H + ec];
         }
-        slab[args.off_b[li] + ec] = s1;
-        if (args.off_a[li] >= 0) slab[args.off_a[li] + ec] = s2;
+        put(slab + args.off_w[LH] + ec, s1 + s2, first);
       }
+      // dX[r, j] = gpre[r] * W[j]
+      float wh, wl;
+      wsplit(wp[args.off_w[LH] + ec], gm, &wh, &wl);
+      for (int r = es; r < TM; r += TPC) {
+        float gh, gl;
+        xsplit(shg[r], gm, &gh, &gl);
+        r1[r * LD + ec] = tier_mul(gh, gl, wh, wl, gm);
+      }
+      __syncthreads();
     }
-    if (li == 0) break;
-    // ---- phase B: x_in planes into r1 (dX is consumed) ----
-    __syncthreads();
-    build_xin(li);
-    __syncthreads();
-    // ---- phase C: dW = x_in^T gpre ----
-    {
-      constexpr int T = H * H / 32;              // 4 x 8 output tiles
-      constexpr int TT = T < kThreads ? T : kThreads;
-      const int s = tid / TT;                    // row group
-      const int rb = s * (TM / S), re = rb + TM / S;
-      float* dw = slab + args.off_w[li];
-      for (int base = 0; base < T; base += TT) {
-        const int tile = base + tid % TT;
-        const int tc = tile % CG, tj = tile / CG;
-        const int j0 = tj * 4, wc0 = tc * 4, wc1 = H / 2 + tc * 4;
+
+    // hidden layers, last to first; then layer 0
+    for (int li = L - 2; li >= 0; --li) {
+      // ---- phase A: gpre = dX * act'(pre) into the R2 planes; db, da ----
+      {
+        const float* pt = pre_tile + li * kTileFloats;
+        const int kind = args.kind[li], deg = args.deg[li];
+        const float omega = args.omega[li];
+        const float a = args.off_a[li] >= 0 ? wp[args.off_a[li] + ec] : 1.0f;
+        float db = 0.0f, da = 0.0f;
+        for (int r = es; r < TM; r += TPC) {
+          float ga = 0.0f;
+          const float gp = dact(kind, pt[r * H + ec], omega, a, deg,
+                                r1[r * LD + ec], &ga);
+          db += gp;
+          da += ga;
+          wsplit(gp, gm, Xhi + r * LD + ec, Xlo + r * LD + ec);
+        }
+        red[es * H + ec] = db;
+        red[kThreads + es * H + ec] = da;
+        __syncthreads();
+        if (es == 0) {
+          float s1 = red[ec], s2 = red[kThreads + ec];
+          for (int q = 1; q < TPC; ++q) {
+            s1 += red[q * H + ec];
+            s2 += red[kThreads + q * H + ec];
+          }
+          put(slab + args.off_b[li] + ec, s1, first);
+          if (args.off_a[li] >= 0) put(slab + args.off_a[li] + ec, s2, first);
+        }
+      }
+      if (li == 0) break;
+      // ---- phase B: x_in planes into r1 (dX is consumed) ----
+      __syncthreads();
+      build_xin(li);
+      __syncthreads();
+      // ---- phase C: dW = x_in^T gpre ----
+      wgrad(H, H, slab + args.off_w[li], first);
+      // ---- phases D + E: dX = gpre W^T, W^T by K-slabs into r1 ----
+      {
         float acc[4][8], acc2[4][8];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int c = 0; c < 8; ++c) acc[i][c] = acc2[i][c] = 0.0f;
-        wgrad_dispatch<H>(gm, r1, r1 + TM * LD, Xhi, Xlo, rb, re, j0, wc0,
-                          wc1, acc, acc2);
-        if (S > 1) {
-          if (s > 0) {
-            float* dst = r3 + ((s - 1) * T + tile) * 64;
+        const float* w = wp + args.off_w[li];
+        float* th = r1;
+        float* tl = r1 + KS * H;
+        constexpr int NBJ = H / 4, NBC = KS / 4;  // 4 x 4 blocks
+        for (int k0 = 0; k0 < H; k0 += KS) {
+          __syncthreads();  // r1 is free
+          // W^T slab: row c - k0 for c in [k0, k0 + KS), column j
+          for (int bidx = tid; bidx < NBJ * NBC; bidx += kThreads) {
+            const int cb = bidx % NBC, jb = bidx / NBC;  // lanes walk along c
+            float4 rows[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
+            for (int q = 0; q < 4; ++q)
+              rows[q] = __ldg(reinterpret_cast<const float4*>(
+                  w + (jb * 4 + q) * H + k0 + cb * 4));
 #pragma unroll
-              for (int c = 0; c < 8; ++c) {
-                dst[i * 8 + c] = acc[i][c];
-                dst[32 + i * 8 + c] = acc2[i][c];
-              }
-          }
-          __syncthreads();
-          if (s == 0) {
-            for (int q = 1; q < S; ++q) {
-              const float* src = r3 + ((q - 1) * T + tile) * 64;
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int c = 0; c < 8; ++c) {
-                  acc[i][c] += src[i * 8 + c];
-                  acc2[i][c] += src[32 + i * 8 + c];
-                }
+            for (int q = 0; q < 4; ++q) {   // W^T row k0 + cb*4 + q
+              const float4 v = make_float4(lane(rows[0], q), lane(rows[1], q),
+                                           lane(rows[2], q), lane(rows[3], q));
+              float4 hv, lv;
+              wsplit(v.x, gm, &hv.x, &lv.x);
+              wsplit(v.y, gm, &hv.y, &lv.y);
+              wsplit(v.z, gm, &hv.z, &lv.z);
+              wsplit(v.w, gm, &hv.w, &lv.w);
+              const int idx = (cb * 4 + q) * H + jb * 4;
+              *reinterpret_cast<float4*>(th + idx) = hv;
+              *reinterpret_cast<float4*>(tl + idx) = lv;
             }
           }
+          __syncthreads();
+          dense_dispatch<H>(gm, Xhi + k0, Xlo + k0, th, tl, r0, c0, c1, acc,
+                            acc2, KS);
         }
-        if (s == 0) {
+        __syncthreads();
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float* rowp = dw + (j0 + i) * H;
-            *reinterpret_cast<float4*>(rowp + wc0) = make_float4(
-                acc[i][0] + acc2[i][0], acc[i][1] + acc2[i][1],
-                acc[i][2] + acc2[i][2], acc[i][3] + acc2[i][3]);
-            *reinterpret_cast<float4*>(rowp + wc1) = make_float4(
-                acc[i][4] + acc2[i][4], acc[i][5] + acc2[i][5],
-                acc[i][6] + acc2[i][6], acc[i][7] + acc2[i][7]);
+        for (int i = 0; i < 4; ++i) {
+          float* rowp = r1 + (r0 + i) * LD;
+          *reinterpret_cast<float4*>(rowp + c0) = make_float4(
+              acc[i][0] + acc2[i][0], acc[i][1] + acc2[i][1],
+              acc[i][2] + acc2[i][2], acc[i][3] + acc2[i][3]);
+          *reinterpret_cast<float4*>(rowp + c1) = make_float4(
+              acc[i][4] + acc2[i][4], acc[i][5] + acc2[i][5],
+              acc[i][6] + acc2[i][6], acc[i][7] + acc2[i][7]);
+        }
+        __syncthreads();
+      }
+    }
+
+    // ---- layer 0 dW: the grad-tier product of its input and gpre0 ----
+    if (F > 0) {
+      // dW0 = [cos v, sin v]^T gpre0, the features recomputed by K-slabs
+      // into r1 on the rounded side
+      const int K = 2 * F;
+      for (int k0 = 0; k0 < K; k0 += KS) {
+        const int kn = K - k0 < KS ? K - k0 : KS;
+        const int kn4 = (kn + 3) & ~3;
+        __syncthreads();
+        for (int e = tid; e < TM * kn4; e += kThreads) {
+          const int r = e / kn4, j = e % kn4;
+          const float v = j < kn ? rff_feature(sc + r * d, args.bt, d, F,
+                                               k0 + j, args.fdeg)
+                                 : 0.0f;
+          xsplit(v, gm, r1 + r * LD + j, r1 + TM * LD + r * LD + j);
+        }
+        __syncthreads();
+        wgrad(kn4, kn, slab + args.off_w[0] + k0 * H, first);
+      }
+    } else {
+      // coords^T gpre0, rows split over TPC
+      __syncthreads();
+      float acc[kMaxIn], acc2[kMaxIn];
+#pragma unroll
+      for (int q = 0; q < kMaxIn; ++q) acc[q] = acc2[q] = 0.0f;
+      for (int r = es; r < TM; r += TPC) {
+        const float gh = Xhi[r * LD + ec], gl = Xlo[r * LD + ec];
+#pragma unroll
+        for (int q = 0; q < kMaxIn; ++q) {
+          if (q < d) {
+            float xh, xl;
+            xsplit(sc[r * d + q], gm, &xh, &xl);
+            acc[q] = fmaf(xh, gh, acc[q]);
+            if (gm == kBf16x2 || gm == kBf16x3) acc2[q] = fmaf(xh, gl, acc2[q]);
+            if (gm == kBf16x3) acc2[q] = fmaf(xl, gh, acc2[q]);
           }
         }
       }
-    }
-    __syncthreads();
-    // ---- phase D: W^T planes (split side) into r1 ----
-    {
-      const float* w = wp + args.off_w[li];
-      float* th = r1;
-      float* tl = r1 + H * H;
-      constexpr int NB = H / 4;                   // 4 x 4 blocks per side
-      for (int bidx = tid; bidx < NB * NB; bidx += kThreads) {
-        const int cb = bidx % NB, jb = bidx / NB;  // lanes walk along c
-        float4 rows[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          rows[q] = __ldg(reinterpret_cast<const float4*>(
-              w + (jb * 4 + q) * H + cb * 4));
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {   // W^T row c = cb*4 + q
-          const float4 v = make_float4(lane(rows[0], q), lane(rows[1], q),
-                                       lane(rows[2], q), lane(rows[3], q));
-          float4 hv, lv;
-          wsplit(v.x, gm, &hv.x, &lv.x);
-          wsplit(v.y, gm, &hv.y, &lv.y);
-          wsplit(v.z, gm, &hv.z, &lv.z);
-          wsplit(v.w, gm, &hv.w, &lv.w);
-          const int idx = (cb * 4 + q) * H + jb * 4;
-          *reinterpret_cast<float4*>(th + idx) = hv;
-          *reinterpret_cast<float4*>(tl + idx) = lv;
-        }
-      }
-    }
-    __syncthreads();
-    // ---- phase E: dX = gpre W^T; phase F: into r1 ----
-    {
-      float acc[4][8], acc2[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[i][c] = acc2[i][c] = 0.0f;
-      dense_dispatch<H>(gm, Xhi, Xlo, r1, r1 + H * H, r0, c0, c1, acc, acc2);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float* rowp = r1 + (r0 + i) * LD;
-        *reinterpret_cast<float4*>(rowp + c0) = make_float4(
-            acc[i][0] + acc2[i][0], acc[i][1] + acc2[i][1],
-            acc[i][2] + acc2[i][2], acc[i][3] + acc2[i][3]);
-        *reinterpret_cast<float4*>(rowp + c1) = make_float4(
-            acc[i][4] + acc2[i][4], acc[i][5] + acc2[i][5],
-            acc[i][6] + acc2[i][6], acc[i][7] + acc2[i][7]);
-      }
-      __syncthreads();
-    }
-  }
-
-  // ---- layer 0 dW = coords^T gpre0 (grad tier), rows split over TPC ----
-  __syncthreads();
-  {
-    float acc[kMaxIn], acc2[kMaxIn];
-#pragma unroll
-    for (int q = 0; q < kMaxIn; ++q) acc[q] = acc2[q] = 0.0f;
-    for (int r = es; r < TM; r += TPC) {
-      const float gh = Xhi[r * LD + ec], gl = Xlo[r * LD + ec];
-#pragma unroll
-      for (int q = 0; q < kMaxIn; ++q) {
-        if (q < d) {
-          float xh, xl;
-          xsplit(sc[r * d + q], gm, &xh, &xl);
-          acc[q] = fmaf(xh, gh, acc[q]);
-          if (gm == kBf16x2 || gm == kBf16x3) acc2[q] = fmaf(xh, gl, acc2[q]);
-          if (gm == kBf16x3) acc2[q] = fmaf(xl, gh, acc2[q]);
-        }
-      }
-    }
-    float* part = r1;  // (TPC, d, H) x 2
-    for (int q = 0; q < d; ++q) {
-      part[(es * d + q) * H + ec] = acc[q];
-      part[TPC * d * H + (es * d + q) * H + ec] = acc2[q];
-    }
-    __syncthreads();
-    if (es == 0) {
+      float* part = r1;  // (TPC, d, H) x 2
       for (int q = 0; q < d; ++q) {
-        float s1 = part[q * H + ec], s2 = part[TPC * d * H + q * H + ec];
-        for (int grp = 1; grp < TPC; ++grp) {
-          s1 += part[(grp * d + q) * H + ec];
-          s2 += part[TPC * d * H + (grp * d + q) * H + ec];
+        part[(es * d + q) * H + ec] = acc[q];
+        part[TPC * d * H + (es * d + q) * H + ec] = acc2[q];
+      }
+      __syncthreads();
+      if (es == 0) {
+        for (int q = 0; q < d; ++q) {
+          float s1 = part[q * H + ec], s2 = part[TPC * d * H + q * H + ec];
+          for (int grp = 1; grp < TPC; ++grp) {
+            s1 += part[(grp * d + q) * H + ec];
+            s2 += part[TPC * d * H + (grp * d + q) * H + ec];
+          }
+          put(slab + args.off_w[0] + q * H + ec, s1 + s2, first);
         }
-        slab[args.off_w[0] + q * H + ec] = s1 + s2;
       }
     }
   }
+  if (tid == 0 && cot == nullptr) loss_part[blockIdx.x] = loss_acc;
 }
 
 // Block-wide sum of one float per thread in a fixed order.
@@ -682,16 +731,16 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
 __global__ void __launch_bounds__(kThreads)
 siren_reduce_kernel(const float* __restrict__ partial,
                     float* __restrict__ grads, float* __restrict__ sq_part,
-                    int tiles, int P, int chunks) {
+                    int slices, int P, int chunks) {
   __shared__ float scratch[kThreads / 32];
   const long long win = blockIdx.x / chunks;
   const int chunk = blockIdx.x % chunks;
   const int e = chunk * kChunk + threadIdx.x * 4;
   float sq = 0.0f;
   if (e < P) {
-    const float* src = partial + win * tiles * static_cast<long long>(P) + e;
+    const float* src = partial + win * slices * static_cast<long long>(P) + e;
     float4 acc = __ldg(reinterpret_cast<const float4*>(src));
-    for (int s = 1; s < tiles; ++s) {
+    for (int s = 1; s < slices; ++s) {
       const float4 v = __ldg(reinterpret_cast<const float4*>(
           src + static_cast<long long>(s) * P));
       acc.x += v.x; acc.y += v.y; acc.z += v.z; acc.w += v.w;
@@ -711,7 +760,7 @@ siren_adam_kernel(const float* __restrict__ grads,
                   float* __restrict__ nu, float* __restrict__ best,
                   float* __restrict__ loss_out, const float* __restrict__ lr,
                   const float* __restrict__ c1, const float* __restrict__ c2,
-                  const float* __restrict__ best_loss, int tiles, int P,
+                  const float* __restrict__ best_loss, int slices, int P,
                   int chunks, float clip) {
   constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
   constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
@@ -722,7 +771,7 @@ siren_adam_kernel(const float* __restrict__ grads,
   if (threadIdx.x == 0) {
     float sq = 0.0f, loss = 0.0f;
     for (int c = 0; c < chunks; ++c) sq += sq_part[win * chunks + c];
-    for (int s = 0; s < tiles; ++s) loss += loss_part[win * tiles + s];
+    for (int s = 0; s < slices; ++s) loss += loss_part[win * slices + s];
     float scale = 1.0f;
     if (clip > 0.0f) scale = fminf(1.0f, clip / fmaxf(sqrtf(sq), 1e-20f));
     s_scale = scale;
@@ -752,18 +801,19 @@ template <int H>
 int launch_grad(const TrainArgs& args, const float* coords,
                 const float* params, float* partial, float* loss_part,
                 float* pre, const float* tgt, const float* cot, int k, int n,
-                cudaStream_t stream) {
+                int slices, cudaStream_t stream) {
   const size_t smem = train_smem_floats<H>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       siren_grad_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles = (n + tile_rows<H>() - 1) / tile_rows<H>();
-  const long long blocks = static_cast<long long>(tiles) * k;
+  if (slices > tiles) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(slices) * k;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   siren_grad_kernel<H><<<static_cast<unsigned>(blocks), kThreads, smem,
                          stream>>>(coords, params, partial, loss_part, pre,
-                                   tgt, cot, args, n, tiles);
+                                   tgt, cot, args, n, tiles, slices);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -771,20 +821,26 @@ int launch_grad(const TrainArgs& args, const float* coords,
 
 extern "C" {
 
-// coords (n, d), params (k, P), partial (k * tiles, P), loss_part
-// (k * tiles), pre (k * tiles, n_layers, 8192): device float32.  tgt (k, n)
-// for the MSE step, or cot (k, n) for the backward (tgt null).  k may be a
-// group of a larger population: the caller offsets params, tgt / cot and
-// loss_part to the group's first window.  offs: host int32[3 * n_layers] =
-// w, b, a offsets per layer; ints: host int32[3 * n_layers] = kind, forward
-// mode, degree; omegas: host float[n_layers].  Returns a cudaError_t value:
-// 0 when accepted.
+// coords (n, d), params (k, P), partial (k * slices, P), loss_part
+// (k * slices), pre (k * slices, n_layers, 8192): device float32.  tgt
+// (k, n) for the MSE step, or cot (k, n) for the backward (tgt null).  k
+// may be a group of a larger population: the caller offsets params, tgt /
+// cot and loss_part to the group's first window.  offs: host int32[3 *
+// n_layers] = w, b, a offsets per layer; ints: host int32[3 * n_layers] =
+// kind, forward mode, degree; omegas: host float[n_layers].  bt: device
+// (d, F) f32 = 2 pi B^T of an RFF model (n_freq = F > 0, layer 0's w is
+// (2F, h)), or null with n_freq = 0; fdeg: the features' trig degree.
+// slices: row slices per window, 1 <= slices <= the window's row tiles.
+// Returns a cudaError_t value: 0 when accepted.
 int siren_grad(const void* coords, const void* params, void* partial,
                void* loss_part, void* pre, const void* tgt, const void* cot,
-               const void* offs, const void* ints, const void* omegas, int n_layers, int k, int n, int d, int h,
-               int P, int gmode, float inv_n, float two_inv_n, void* stream) {
+               const void* offs, const void* ints, const void* omegas,
+               int n_layers, int k, int n, int d, int h, int P, int gmode,
+               float inv_n, float two_inv_n, const void* bt, int n_freq,
+               int fdeg, int slices, void* stream) {
   if (n_layers < 2 || n_layers > kMaxLayers || d < 1 || d > kMaxIn || k < 1 ||
-      n < 1 || P < 1 || (P & 3) || (tgt == nullptr) == (cot == nullptr))
+      n < 1 || P < 1 || (P & 3) || (tgt == nullptr) == (cot == nullptr) ||
+      slices < 1 || n_freq < 0 || (n_freq > 0) != (bt != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   TrainArgs args;
   const int* o = static_cast<const int*>(offs);
@@ -806,6 +862,9 @@ int siren_grad(const void* coords, const void* params, void* partial,
   args.gmode = gmode;
   args.inv_n = inv_n;
   args.two_inv_n = two_inv_n;
+  args.bt = static_cast<const float*>(bt);
+  args.n_freq = n_freq;
+  args.fdeg = fdeg;
   const float* c = static_cast<const float*>(coords);
   const float* p = static_cast<const float*>(params);
   float* part = static_cast<float*>(partial);
@@ -815,17 +874,18 @@ int siren_grad(const void* coords, const void* params, void* partial,
   const float* ct = static_cast<const float*>(cot);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (h) {
-    case 32: return launch_grad<32>(args, c, p, part, lp, pr, t, ct, k, n, s);
-    case 64: return launch_grad<64>(args, c, p, part, lp, pr, t, ct, k, n, s);
-    case 128: return launch_grad<128>(args, c, p, part, lp, pr, t, ct, k, n, s);
+    case 32: return launch_grad<32>(args, c, p, part, lp, pr, t, ct, k, n, slices, s);
+    case 64: return launch_grad<64>(args, c, p, part, lp, pr, t, ct, k, n, slices, s);
+    case 128: return launch_grad<128>(args, c, p, part, lp, pr, t, ct, k, n, slices, s);
+    case 256: return launch_grad<256>(args, c, p, part, lp, pr, t, ct, k, n, slices, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// partial (k * tiles, P) -> grads (k, P), sq_part (k, chunks).
+// partial (k * slices, P) -> grads (k, P), sq_part (k, chunks).
 int siren_reduce(const void* partial, void* grads, void* sq_part, int k,
-                 int tiles, int P, void* stream) {
-  if (k < 1 || tiles < 1 || P < 1 || (P & 3))
+                 int slices, int P, void* stream) {
+  if (k < 1 || slices < 1 || P < 1 || (P & 3))
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (P + kChunk - 1) / kChunk;
   const long long blocks = static_cast<long long>(k) * chunks;
@@ -833,18 +893,19 @@ int siren_reduce(const void* partial, void* grads, void* sq_part, int k,
   siren_reduce_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(partial), static_cast<float*>(grads),
-      static_cast<float*>(sq_part), tiles, P, chunks);
+      static_cast<float*>(sq_part), slices, P, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 // In place on params / mu / nu / best (k, P; best may be null); loss_out
-// (k) receives each window's loss; lr, c1, c2, best_loss (k) are read.
+// (k) receives each window's loss, the sum of its slices' loss_part;
+// lr, c1, c2, best_loss (k) are read.
 int siren_adam(const void* grads, const void* sq_part, const void* loss_part,
                void* params, void* mu, void* nu, void* best, void* loss_out,
                const void* lr, const void* c1, const void* c2,
-               const void* best_loss, int k, int tiles, int P, float clip,
+               const void* best_loss, int k, int slices, int P, float clip,
                void* stream) {
-  if (k < 1 || tiles < 1 || P < 1 || (P & 3))
+  if (k < 1 || slices < 1 || P < 1 || (P & 3))
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (P + kChunk - 1) / kChunk;
   const long long blocks = static_cast<long long>(k) * chunks;
@@ -857,7 +918,7 @@ int siren_adam(const void* grads, const void* sq_part, const void* loss_part,
       static_cast<float*>(best), static_cast<float*>(loss_out),
       static_cast<const float*>(lr), static_cast<const float*>(c1),
       static_cast<const float*>(c2), static_cast<const float*>(best_loss),
-      tiles, P, chunks, clip);
+      slices, P, chunks, clip);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,13 +10,16 @@ path; ``train_from_signal`` takes an in-memory signal (coords in
 [-coord_scale, coord_scale]) and returns the reconstruction and residual.
 
 Every fit runs on ``device`` (default the card; it raises without one).
-The encodings are computed once on the device and handed to the model as
-its input features, for every architecture.  Not ported: the mdct, fft and
-multi methods, the loss modes other than mse, plots and the loss landscape.
-A fused mlp with an input encoding needs the RFF branch of the stack
-kernels, which is not ported, and raises.  The knobs the port does not
-have are written into ``parameters.json`` at the values it runs with, so
-the schema matches the JAX package's.
+With ``num_freq``, the mlp owns its RFF encoding, as in the JAX runner: raw
+coordinates go to the fit and the decode, and a fused mlp folds the
+encoding into its kernels' layer 0.  Every other encoding (the NeRF
+posenc, and RFF for the KAN) is computed once on the device and handed to
+the model as its input features.  A fused mlp with the NeRF posenc raises:
+the kernels have no posenc layer 0 (the JAX runner silently unfuses it).
+Not ported: the mdct, fft and multi methods, the loss modes other than
+mse, plots and the loss landscape.  The knobs the port does not have are
+written into ``parameters.json`` at the values it runs with, so the schema
+matches the JAX package's.
 """
 
 from __future__ import annotations
@@ -71,17 +74,20 @@ def build_arch(arch: str, in_features: int, hidden: int, num_sine: int,
                num_snake: int, num_tanh: int, omega: float,
                hidden_omega: float, a_initial: float | None,
                first_linear: bool = False, last_linear: bool = True,
-               fused: bool = False) -> INRModel:
+               fused: bool = False, rff_b: torch.Tensor | None = None
+               ) -> INRModel:
     """'mlp' -> SirenWithSnakeTanh (fused: the stack kernels and kernel D,
-    raw coordinates only, widths 32/64/128); 'kan' -> KAN([in, hidden,
-    hidden, 1]) (fused: kernels G and H)."""
+    widths 32/64/128/256, raw coordinates or the model's own RFF encoding
+    ``rff_b``); 'kan' -> KAN([in, hidden, hidden, 1]) (fused: kernels G
+    and H)."""
     if arch == "mlp":
         return build_model("mlp", SirenSnakeTanhConfig(
             in_features=in_features, hidden_features=hidden,
             num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
             first_linear=first_linear, last_linear=last_linear,
             first_omega_0=omega, hidden_omega_0=hidden_omega,
-            a_initial=a_initial), fused=fused, approx_sin=fused)
+            a_initial=a_initial), fused=fused, approx_sin=fused,
+            rff_b=rff_b)
     if arch == "kan":
         return build_model("kan", KANConfig(
             layers_hidden=(in_features, hidden, hidden, 1)), fused=fused)
@@ -89,18 +95,23 @@ def build_arch(arch: str, in_features: int, hidden: int, num_sine: int,
 
 
 def _encoding(problem: FittingProblem, num_freq: int | None, sigma: float,
-              encoding: str, seed: int, dev: torch.device):
-    """(encode: raw coords tensor -> features, or None; in_features)."""
+              encoding: str, seed: int, dev: torch.device, arch: str):
+    """(encode: raw coords tensor -> features, or None; in_features; the
+    RFF projection an mlp owns, or None)."""
     if not num_freq:
-        return None, problem.in_features
+        return None, problem.in_features, None
     if encoding == "nerf":
         return (lambda c: posenc_nerf(c, num_freq),
-                posenc_output_dim(problem.in_features, num_freq))
+                posenc_output_dim(problem.in_features, num_freq), None)
     if encoding != "rff":
         raise ValueError(f"unknown encoding {encoding!r}")
     b = rff_init(torch.Generator().manual_seed(_RFF_SEED_OFFSET + seed),
                  problem.in_features, num_freq, sigma=sigma, device=dev)
-    return (lambda c: rff_apply(b, c)), 2 * num_freq
+    if arch == "mlp":
+        # the model owns the encoding: raw coordinates reach the fit and
+        # the decode, and the fused kernels compute the features in layer 0
+        return None, 2 * num_freq, b
+    return (lambda c: rff_apply(b, c)), 2 * num_freq, None
 
 
 def _scalars(d: dict[str, Any]) -> dict[str, Any]:
@@ -123,18 +134,18 @@ def _run_experiment(
     device: torch.device | str = "cuda") -> dict[str, Any]:
     """The engine behind ``train`` and ``train_from_signal``."""
     dev = resolve_device(device)
-    if fused and arch == "mlp" and num_freq:
+    if fused and arch == "mlp" and num_freq and encoding == "nerf":
         raise NotImplementedError(
-            "a fused mlp with an input encoding needs the RFF branch of the "
-            "stack kernels, which is not ported yet; fit it with fused=False")
-    encode, in_features = _encoding(problem, num_freq, sigma, encoding, seed,
-                                    dev)
+            "a fused mlp has no NeRF posenc layer 0 in its kernels; fit it "
+            "with encoding='rff' or fused=False")
+    encode, in_features, rff_b = _encoding(problem, num_freq, sigma,
+                                           encoding, seed, dev, arch)
     coords = torch.from_numpy(problem.coords).to(dev)
     enc_coords = encode(coords) if encode is not None else coords
     model = build_arch(arch, in_features, hidden, num_sine, num_snake,
                        num_tanh, omega, hidden_omega, a_initial,
                        first_linear=first_linear, last_linear=last_linear,
-                       fused=fused)
+                       fused=fused, rff_b=rff_b)
     cfg = TrainConfig(total_steps=total_steps, learning_rate=learning_rate,
                       min_learning_rate=min_learning_rate,
                       track_best=track_best, grad_clip_norm=grad_clip_norm,

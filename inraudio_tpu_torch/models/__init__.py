@@ -43,11 +43,11 @@ class INRModel:
     quality-gated tier (``ops.siren_fused.auto_decode_kwargs``), the stacked
     forms ``apply_stacked`` / ``decode_apply_stacked`` over a window
     population on one grid, and ``fused_step_ctx`` = dict(cfg, approx_sin,
-    step), which routes mse fits through the whole-step kernel: ``step`` is
-    ``ops.siren_step.fused_mse_step_call``.  ``update_grid(params, x)`` is
-    the KAN's data-adaptive knot refresh (``kan_update_grid``), called by
-    ``train.loop.fit`` between rounds.  None where the model has no such
-    path."""
+    rff_b, step), which routes mse fits through the whole-step kernel:
+    ``step`` is ``ops.siren_step.fused_mse_step_call``.
+    ``update_grid(params, x)`` is the KAN's data-adaptive knot refresh
+    (``kan_update_grid``), called by ``train.loop.fit`` between rounds.
+    None where the model has no such path."""
 
     name: str
     config: Any
@@ -62,17 +62,25 @@ class INRModel:
 
 
 def build_model(arch: str, cfg: SirenSnakeTanhConfig | KANConfig,
-                fused: bool = False, approx_sin: bool = False) -> INRModel:
+                fused: bool = False, approx_sin: bool = False,
+                rff_b: torch.Tensor | None = None) -> INRModel:
     """arch 'mlp' = the production SirenWithSnakeTanh.  ``fused=True``
     routes the forward through the stack kernel and its backward through
     kernel C (``ops.siren_fused``, ``ops.siren_train``: CUDA on a card,
     their plain versions on the CPU), and training steps through kernel D;
     ``approx_sin`` picks the polynomial sin for the untiered apply.
+    ``rff_b`` (F, d): the mlp OWNS a Gaussian Fourier encoding, so apply
+    takes raw coordinates and ``cfg.in_features`` is 2F; fused, the
+    encoding is folded into the kernels' layer 0 (and the model has no
+    stacked forms, as in the JAX package), unfused it is ``rff_apply``.
 
     arch 'kan' = the KAN of ``cfg`` (a ``KANConfig``); ``fused=True`` routes
     its forward through kernel G and its backward through kernel H
     (``ops.kan_fused``)."""
     if arch == "kan":
+        if rff_b is not None:
+            raise ValueError("a KAN takes its encoded features as input; "
+                             "rff_b is an mlp option")
         return _build_kan(cfg, fused)
     if arch != "mlp":
         raise ValueError(f"arch {arch!r} is not ported yet ('mlp', 'kan')")
@@ -81,6 +89,11 @@ def build_model(arch: str, cfg: SirenSnakeTanhConfig | KANConfig,
         return siren_snake_tanh_init(generator, cfg, device, windows)
 
     if not fused:
+        if rff_b is not None:
+            return INRModel(name="siren_snake_tanh_rff", config=cfg,
+                            init=init,
+                            apply=lambda p, c: siren_snake_tanh_apply(
+                                p, cfg, rff_apply(rff_b, c)))
         return INRModel(name="siren_snake_tanh", config=cfg, init=init,
                         apply=lambda p, c: siren_snake_tanh_apply(p, cfg, c))
 
@@ -92,17 +105,21 @@ def build_model(arch: str, cfg: SirenSnakeTanhConfig | KANConfig,
     def tier(fit_snr_db):
         return auto_decode_kwargs(fit_snr_db, first_omega_0=cfg.first_omega_0)
 
+    rff = rff_b is not None
     return INRModel(
-        name="siren_snake_tanh_fused", config=cfg, init=init,
-        apply=lambda p, c: fused_siren_train_apply(p, cfg, c,
-                                                   approx_sin=approx_sin),
-        decode_apply=lambda p, c, fit: fused_siren_apply(p, cfg, c,
-                                                         **tier(fit)),
-        apply_stacked=lambda P, c: fused_siren_apply_stacked(
-            P, cfg, c, approx_sin=approx_sin),
-        decode_apply_stacked=lambda P, c, fit: fused_siren_apply_stacked(
-            P, cfg, c, **tier(fit)),
-        fused_step_ctx=dict(cfg=cfg, approx_sin=approx_sin,
+        name="siren_snake_tanh_fused_rff" if rff else "siren_snake_tanh_fused",
+        config=cfg, init=init,
+        apply=lambda p, c: fused_siren_train_apply(
+            p, cfg, c, approx_sin=approx_sin, rff_b=rff_b),
+        decode_apply=lambda p, c, fit: fused_siren_apply(
+            p, cfg, c, rff_b=rff_b, **tier(fit)),
+        apply_stacked=None if rff else (
+            lambda P, c: fused_siren_apply_stacked(P, cfg, c,
+                                                   approx_sin=approx_sin)),
+        decode_apply_stacked=None if rff else (
+            lambda P, c, fit: fused_siren_apply_stacked(P, cfg, c,
+                                                        **tier(fit))),
+        fused_step_ctx=dict(cfg=cfg, approx_sin=approx_sin, rff_b=rff_b,
                             step=fused_mse_step_call))
 
 

@@ -2,11 +2,13 @@
 
 Port of ``inraudio_tpu/ops/pallas_siren.py``'s two forward kernels:
 ``_stack_kernel_multi`` (k windows on one shared coordinate grid, the
-multi-INR decode) and ``_stack_kernel`` (one model over row tiles).  On
-Hopper both are the same computation, so one CUDA kernel
-(``csrc/siren_stack.cu``) serves both; ``fused_siren_apply`` is its k = 1
-call.  The TPU layout artefacts (8-row bias bands, lane padding, packed
-(., 128) outputs, VMEM tile pickers) are not ported.
+multi-INR decode) and ``_stack_kernel`` (one model over row tiles), with
+the latter's RFF layer 0 (``_rff_features_in_kernel``).  On Hopper both are
+the same computation, so one CUDA kernel (``csrc/siren_stack.cu``) serves
+both; ``fused_siren_apply`` is its k = 1 call, and ``rff_b`` folds the
+Gaussian Fourier encoding into its layer 0.  The TPU layout artefacts
+(8-row bias bands, lane padding, packed (., 128) outputs, VMEM tile
+pickers) are not ported.
 
 Every quality tier of the reference is kept, with the same meaning
 (``_run_layers``):
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 import os
 from typing import Any
 
@@ -39,7 +42,7 @@ from ._nvcc import build_library
 Params = dict[str, Any]
 
 _MAX_SMALL_IN = 8
-_KERNEL_WIDTHS = (32, 64, 128)
+_KERNEL_WIDTHS = (32, 64, 128, 256)
 _KERNEL_MAX_LAYERS = 16
 
 # Odd least-squares polynomials for sin on [-pi, pi], copied verbatim from
@@ -104,13 +107,21 @@ _BF16_PASS_KINDS = ("linear_snake", "linear_tanh", "linear_last")
 
 @dataclasses.dataclass(frozen=True)
 class StackPlan:
-    """Static per-layer recipe: kind, omega, matmul tier (None for layer
-    0's exact multiply-adds) and trig degree (0 = exact sin/cos)."""
+    """Static per-layer recipe: kind, omega, matmul tier (None for a raw
+    layer 0's exact multiply-adds; an RFF layer 0's features take the
+    forward tier) and trig degree (0 = exact sin/cos), and the trig degree
+    of an RFF model's features (layer 0's: ``exact_first_sin`` covers
+    them, as in the JAX package)."""
 
     kinds: tuple[str, ...]
     omegas: tuple[float, ...]
     modes: tuple[str | None, ...]
     degrees: tuple[int, ...]
+    feature_degree: int = 0
+
+    @property
+    def rff(self) -> bool:
+        return self.modes[0] is not None
 
 
 def _is_bf16(dtype) -> bool:
@@ -120,7 +131,11 @@ def _is_bf16(dtype) -> bool:
 def stack_plan(cfg: SirenSnakeTanhConfig, compute_dtype=torch.float32,
                approx_sin: bool = False, sin_poly_degree: int = 11,
                mixed_matmul: bool = False, f32_mode: str | None = None,
-               exact_first_sin: bool = False) -> StackPlan:
+               exact_first_sin: bool = False, rff: bool = False) -> StackPlan:
+    """The per-layer recipe of the forward tier given by the arguments;
+    ``rff`` for a model whose layer 0 takes RFF features (its product in
+    the forward tier: bf16 under a bfloat16 ``compute_dtype``, else
+    ``f32_mode``; ``mixed_matmul`` does not reach it)."""
     kinds = cfg.layer_kinds
     if approx_sin and sin_poly_degree not in _SIN_COEFFS:
         raise ValueError(f"sin_poly_degree must be one of 7, 9, 11, got "
@@ -133,7 +148,8 @@ def stack_plan(cfg: SirenSnakeTanhConfig, compute_dtype=torch.float32,
         omegas.append(float(cfg.first_omega_0 if kind == "sine_first" else
                             cfg.hidden_omega_0 if kind == "sine" else 0.0))
         if li == 0:
-            modes.append(None)
+            modes.append(("bf16" if _is_bf16(compute_dtype) else f32)
+                         if rff else None)
         elif _is_bf16(compute_dtype) or (mixed_matmul
                                          and kind in _BF16_PASS_KINDS):
             modes.append("bf16")
@@ -141,7 +157,8 @@ def stack_plan(cfg: SirenSnakeTanhConfig, compute_dtype=torch.float32,
             modes.append(f32)
         degrees.append(0 if kind == "sine_first" and exact_first_sin
                        else hidden_deg)
-    return StackPlan(kinds, tuple(omegas), tuple(modes), tuple(degrees))
+    return StackPlan(kinds, tuple(omegas), tuple(modes), tuple(degrees),
+                     0 if exact_first_sin else hidden_deg)
 
 
 # ---------------------------------------------------------------------------
@@ -177,15 +194,44 @@ def _cos(x, deg):
     return torch.cos(x) if deg == 0 else _fast_cos(x, deg)
 
 
+def rff_features_plain(coords: torch.Tensor, bt: torch.Tensor,
+                       deg: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos v, sin v), v = coords . bt by exact f32 multiply-adds over the
+    d raw columns (``_rff_features_in_kernel``'s order): (n, d), (d, F) ->
+    two (n, F)."""
+    x = coords.to(torch.float32)
+    v = x[:, 0:1] * bt[0:1]
+    for d in range(1, x.shape[1]):
+        v = v + x[:, d:d + 1] * bt[d:d + 1]
+    return _cos(v, deg), _sin(v, deg)
+
+
+def rff_pre_plain(feats, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """[cos v, sin v] @ W0 in the tier, as the JAX package sums it:
+    cos v @ W0[:F] + sin v @ W0[F:] (the bias is added after)."""
+    cv, sv = feats
+    f = cv.shape[-1]
+    return (_kernel_dot(cv, w[..., :f, :], mode)
+            + _kernel_dot(sv, w[..., f:, :], mode))
+
+
 def stack_forward_plain(params: Params, plan: StackPlan,
-                        coords: torch.Tensor) -> torch.Tensor:
+                        coords: torch.Tensor,
+                        bt: torch.Tensor | None = None) -> torch.Tensor:
     """The fused forward in plain PyTorch: params with or without a leading
-    window axis k, coords (n, d) -> (k, n, out) or (n, out)."""
+    window axis k, coords (n, d) -> (k, n, out) or (n, out).  ``bt`` (d,
+    F) = 2 pi B^T of an RFF model (``_prep_rff_bt``), whose plan has
+    ``rff``."""
+    _check_rff_plan(plan, bt)
     x0 = coords.to(torch.float32)
     x = x0
     for li, p in enumerate(params["layers"]):
         w, b = p["w"], p["b"].unsqueeze(-2)
-        if li == 0:
+        if li == 0 and bt is not None:
+            pre = rff_pre_plain(rff_features_plain(x0, bt,
+                                                   plan.feature_degree),
+                                w, plan.modes[0]) + b
+        elif li == 0:
             # tiny-in first layer: exact f32 multiply-adds, never a rounded
             # matmul pass (omega0 * coord is the delicate product)
             pre = b
@@ -206,6 +252,35 @@ def stack_forward_plain(params: Params, plan: StackPlan,
     return x
 
 
+def _check_rff_plan(plan: StackPlan, bt) -> None:
+    if plan.rff != (bt is not None):
+        raise ValueError("an RFF layer 0 needs both an rff plan and bt "
+                         "(stack_plan(rff=True), _prep_rff_bt)")
+
+
+def _prep_rff_bt(rff_b: torch.Tensor) -> torch.Tensor:
+    """(F, d) Gaussian projection -> 2 pi B^T, a contiguous (d, F) float32
+    tensor on B's device: the same product as the JAX package's
+    ``_prep_rff_bt`` (without its padding to 8 rows)."""
+    if rff_b.dim() != 2 or not 1 <= rff_b.shape[1] <= _MAX_SMALL_IN:
+        raise ValueError(f"RFF projection must be (F, d) with d <= "
+                         f"{_MAX_SMALL_IN}, got {tuple(rff_b.shape)}")
+    return (2.0 * math.pi * rff_b.detach().T.to(torch.float32)).contiguous()
+
+
+def _check_rff_model(cfg: SirenSnakeTanhConfig, rff_b) -> None:
+    """An RFF model's in_features are its 2F features; a raw one takes at
+    most 8 coordinate columns."""
+    if rff_b is None:
+        if cfg.in_features > _MAX_SMALL_IN:
+            raise ValueError(
+                f"the fused kernels take in_features <= {_MAX_SMALL_IN} (raw "
+                "coordinates): pass rff_b to fold an RFF encoding in")
+    elif cfg.in_features != 2 * rff_b.shape[0]:
+        raise ValueError(f"cfg.in_features ({cfg.in_features}) != 2*F "
+                         f"({2 * rff_b.shape[0]})")
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
@@ -222,23 +297,33 @@ class _SirenStackKernel:
         if self._lib is None:
             lib = build_library("siren_stack", ["siren_stack.cu"])
             fn = lib.siren_stack_forward
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p] * 2)
             fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
     def __call__(self, params: Params, plan: StackPlan,
-                 coords: torch.Tensor) -> torch.Tensor:
+                 coords: torch.Tensor, bt: torch.Tensor | None = None,
+                 pre0: torch.Tensor | None = None) -> torch.Tensor:
         """Stacked params (k, ...) on one CUDA device, coords (n, d) ->
-        (k, n, 1) float32, launched on the current stream."""
+        (k, n, 1) float32, launched on the current stream.  ``bt`` (d, F):
+        an RFF model's 2 pi B^T (layer 0's w is then (k, 2F, h)).  ``pre0``
+        (k, n, h) float32, if given, receives layer 0's pre-activation."""
+        _check_rff_plan(plan, bt)
         dev = coords.device
         n, d = coords.shape
         layers = params["layers"]
         k = layers[0]["w"].shape[0]
         h = layers[0]["w"].shape[-1]
         L = len(layers)
+        n_freq = 0 if bt is None else bt.shape[1]
         _check_tensor("coords", coords, dev, (n, d))
+        if bt is not None:
+            _check_tensor("bt", bt, dev, (d, n_freq))
+        if pre0 is not None:
+            _check_tensor("pre0", pre0, dev, (k, n, h), aligned=True)
         if not 1 <= d <= _MAX_SMALL_IN:
             raise ValueError(f"kernel takes 1..{_MAX_SMALL_IN} raw input "
                              f"columns, got {d}")
@@ -250,11 +335,12 @@ class _SirenStackKernel:
                              f"matching the plan, got {L}")
         ptrs, ints = [], []
         for li, p in enumerate(layers):
-            in_f = d if li == 0 else h
+            in_f = (2 * n_freq if n_freq else d) if li == 0 else h
             out_f = 1 if li == L - 1 else h
-            # the kernel reads layers 1+ weights as 16-byte vectors
+            # the kernel reads an RFF layer 0's and layers 1+ weights as
+            # 16-byte vectors
             _check_tensor(f"layers[{li}].w", p["w"], dev, (k, in_f, out_f),
-                          aligned=li > 0)
+                          aligned=li > 0 or n_freq > 0)
             _check_tensor(f"layers[{li}].b", p["b"], dev, (k, out_f))
             a = p.get("snake_a")
             if plan.kinds[li] == "linear_snake":
@@ -265,6 +351,7 @@ class _SirenStackKernel:
                      _MODE_CODE[plan.modes[li] or "highest"],
                      plan.degrees[li]]
         out = torch.empty((k, n), dtype=torch.float32, device=dev)
+        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
         if k == 0 or n == 0:
             return out.unsqueeze(-1)
         c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
@@ -276,7 +363,8 @@ class _SirenStackKernel:
             rc = lib.siren_stack_forward(
                 coords.data_ptr(), out.data_ptr(), ctypes.addressof(c_ptrs),
                 ctypes.addressof(c_ints), ctypes.addressof(c_omegas), L, k, n,
-                d, h, stream)
+                d, h, ptr(bt), n_freq, plan.feature_degree, ptr(pre0),
+                stream)
         if rc != 0:
             raise RuntimeError(f"siren_stack launch failed: cudaError {rc}")
         self.launches += 1
@@ -304,20 +392,23 @@ SIREN_STACK = _SirenStackKernel()
 
 
 def _run(params: Params, plan: StackPlan, coords: torch.Tensor,
-         stacked: bool) -> torch.Tensor:
+         stacked: bool, bt: torch.Tensor | None = None) -> torch.Tensor:
     for li, layer in enumerate(params["layers"]):
         for key, v in layer.items():
             if v.device != coords.device:
                 raise ValueError(f"layers[{li}].{key} is on {v.device}, "
                                  f"coords on {coords.device}")
+    if bt is not None and bt.device != coords.device:
+        raise ValueError(f"rff_b is on {bt.device}, coords on "
+                         f"{coords.device}")
     if coords.device.type == "cpu":
-        return stack_forward_plain(params, plan, coords)
+        return stack_forward_plain(params, plan, coords, bt)
     if coords.device.type != "cuda":
         raise ValueError(f"no fused stack for device {coords.device}")
     if not stacked:
         params = {"layers": [{k: v.unsqueeze(0) for k, v in p.items()}
                              for p in params["layers"]]}
-    out = SIREN_STACK(params, plan, coords)
+    out = SIREN_STACK(params, plan, coords, bt)
     return out if stacked else out[0]
 
 
@@ -331,7 +422,13 @@ def fused_siren_apply_stacked(params: Params, cfg: SirenSnakeTanhConfig,
                               exact_first_sin: bool = False) -> torch.Tensor:
     """A stacked window population (leading k axis on every leaf) on one
     shared (n, d) grid -> (k, n, out).  Replaces the JAX package's
-    ``fused_siren_apply_stacked`` (``_stack_kernel_multi``)."""
+    ``fused_siren_apply_stacked`` (``_stack_kernel_multi``).  Raw
+    coordinates only: an RFF model has no stacked path, as in the JAX
+    package."""
+    if cfg.in_features > _MAX_SMALL_IN:
+        raise ValueError(
+            f"stacked populations take raw coordinates (in_features <= "
+            f"{_MAX_SMALL_IN}); an RFF model decodes one model at a time")
     plan = stack_plan(cfg, compute_dtype, approx_sin, sin_poly_degree,
                       mixed_matmul, f32_mode, exact_first_sin)
     return _run(params, plan, coords, stacked=True)
@@ -341,13 +438,19 @@ def fused_siren_apply(params: Params, cfg: SirenSnakeTanhConfig,
                       coords: torch.Tensor, compute_dtype=torch.float32,
                       approx_sin: bool = False, sin_poly_degree: int = 11,
                       mixed_matmul: bool = False, f32_mode: str | None = None,
-                      exact_first_sin: bool = False) -> torch.Tensor:
+                      exact_first_sin: bool = False,
+                      rff_b: torch.Tensor | None = None) -> torch.Tensor:
     """One model over (n, d) coords -> (n, out): the k = 1 call of the same
-    kernel.  Replaces ``fused_siren_apply`` (``_stack_kernel``) without its
-    RFF layer 0."""
+    kernel.  Replaces ``fused_siren_apply`` (``_stack_kernel``).  ``rff_b``
+    (F, d): the model owns a Gaussian Fourier encoding, folded into layer
+    0; ``coords`` are then the raw coordinates and ``cfg.in_features`` is
+    2F."""
+    _check_rff_model(cfg, rff_b)
     plan = stack_plan(cfg, compute_dtype, approx_sin, sin_poly_degree,
-                      mixed_matmul, f32_mode, exact_first_sin)
-    return _run(params, plan, coords, stacked=False)
+                      mixed_matmul, f32_mode, exact_first_sin,
+                      rff=rff_b is not None)
+    bt = None if rff_b is None else _prep_rff_bt(rff_b)
+    return _run(params, plan, coords, stacked=False, bt=bt)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ The plateau scheduler and the best_loss / best_iter bookkeeping are torch
 ops on (k,) tensors, as the JAX package keeps them in XLA.
 
 No VMEM gate, padding or row-tile picker is ported: the kernels take any
-window count and row count and mask the ragged tile themselves.
+window count and row count and mask the ragged tile themselves, so the
+step also takes the RFF model at h = 256, which the JAX package's VMEM
+gate sends to the two-kernel autodiff step (the same step up to rounding).
+An RFF model (``rff_b``) folds its Gaussian Fourier encoding into layer 0.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 
 from ..models.siren import SirenSnakeTanhConfig
 from .siren_fused import (_KERNEL_MAX_LAYERS, _KERNEL_WIDTHS, _MAX_SMALL_IN,
-                          StackPlan, _check_tensor, stack_plan)
+                          StackPlan, _check_tensor, _prep_rff_bt, stack_plan)
 from .siren_train import (TRAIN_LIBRARY, _check_rc, bwd_sweep_plain,
                           flatten_params, fwd_pres_plain, grad_dot_mode,
                           grad_reduce, tile_rows, unflatten_params,
@@ -38,19 +41,27 @@ __all__ = ["FlatTrainState", "SIREN_STEP", "flat_state_from_train_state",
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
-def step_supported(cfg: SirenSnakeTanhConfig, n_rows: int = 1) -> bool:
+def step_supported(cfg: SirenSnakeTanhConfig, n_rows: int = 1,
+                   rff_b=None) -> bool:
     """Whether the whole-step kernel takes this model: one output, at most
-    8 raw input columns, a kernel width and 2..16 layers."""
-    return (cfg.out_features == 1 and 1 <= cfg.in_features <= _MAX_SMALL_IN
+    8 raw input columns (an RFF model's ``rff_b`` (F, d): d <= 8 and
+    in_features 2F), a kernel width and 2..16 layers."""
+    if rff_b is None:
+        inputs_ok = 1 <= cfg.in_features <= _MAX_SMALL_IN
+    else:
+        f, d = rff_b.shape
+        inputs_ok = 1 <= d <= _MAX_SMALL_IN and cfg.in_features == 2 * f
+    return (cfg.out_features == 1 and inputs_ok
             and cfg.hidden_features in _KERNEL_WIDTHS
             and 2 <= len(cfg.layer_kinds) <= _KERNEL_MAX_LAYERS
             and n_rows >= 1)
 
 
-def step_block_rows(cfg: SirenSnakeTanhConfig, n_rows: int) -> int | None:
+def step_block_rows(cfg: SirenSnakeTanhConfig, n_rows: int,
+                    rff_b=None) -> int | None:
     """Rows per CTA of the step kernel (8192 / h: one (rows, h) tile is
     32 KB at every width), or None when the kernel does not take it."""
-    if not step_supported(cfg, n_rows):
+    if not step_supported(cfg, n_rows, rff_b):
         return None
     return tile_rows(cfg.hidden_features)
 
@@ -97,13 +108,13 @@ def adam_epilogue_plain(params, mu, nu, best, grads, lr, c1, c2, loss,
 
 def step_plain(params, mu, nu, best, coords, targets, lr, c1, c2, best_loss,
                cfg: SirenSnakeTanhConfig, plan: StackPlan, gmode: str,
-               n_valid: int, clip_norm: float) -> torch.Tensor:
+               n_valid: int, clip_norm: float, bt=None) -> torch.Tensor:
     """The whole step in plain PyTorch: (k, P) state groups updated in
     place, returns the per-window loss (k,).  Same arguments as
     ``fused_mse_step_call``."""
     inv_n = 1.0 / float(n_valid)
     leaves = unflatten_params(params, cfg)
-    out, saved = fwd_pres_plain(leaves, plan, coords)
+    out, saved = fwd_pres_plain(leaves, plan, coords, bt)
     err = out[..., 0] - targets                              # (k, n)
     loss = torch.sum(err * err, dim=1) * inv_n
     g = err * (2.0 * inv_n)
@@ -128,9 +139,9 @@ class _SirenStepKernel:
 
     def __call__(self, params, mu, nu, best, coords, targets, lr, c1, c2,
                  best_loss, cfg: SirenSnakeTanhConfig, plan: StackPlan,
-                 gmode: str, clip_norm: float) -> torch.Tensor:
+                 gmode: str, clip_norm: float, bt=None) -> torch.Tensor:
         dev = coords.device
-        g = validate_grad_launch(params, cfg, plan, coords)
+        g = validate_grad_launch(params, cfg, plan, coords, bt)
         shape = (g.k, g.layout.size)
         groups = [("mu", mu), ("nu", nu)]
         if best is not None:
@@ -152,7 +163,7 @@ class _SirenStepKernel:
                 grads.data_ptr(), sq_part.data_ptr(), loss_part.data_ptr(),
                 params.data_ptr(), mu.data_ptr(), nu.data_ptr(), ptr(best),
                 loss.data_ptr(), lr.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-                best_loss.data_ptr(), g.k, g.tiles, g.layout.size,
+                best_loss.data_ptr(), g.k, g.slices, g.layout.size,
                 float(clip_norm), stream)
             _check_rc("siren_adam", rc)
         self.launches += 1
@@ -164,32 +175,34 @@ SIREN_STEP = _SirenStepKernel()
 
 def fused_mse_step_call(params, mu, nu, best, coords, targets, lr, c1, c2,
                         best_loss, cfg: SirenSnakeTanhConfig, plan: StackPlan,
-                        gmode: str, n_valid: int,
-                        clip_norm: float) -> torch.Tensor:
+                        gmode: str, n_valid: int, clip_norm: float,
+                        bt=None) -> torch.Tensor:
     """One whole step on (k, P) state groups, in place -> loss (k,).  CPU
     tensors take the plain version; CUDA tensors the kernel.  ``best``
-    None leaves the best snapshot alone."""
+    None leaves the best snapshot alone.  ``bt``: an RFF model's 2 pi B^T
+    (d, F), with an rff plan."""
     for name, t in (("params", params), ("mu", mu), ("nu", nu),
                     ("best_params", best), ("targets", targets), ("lr", lr),
-                    ("c1", c1), ("c2", c2), ("best_loss", best_loss)):
+                    ("c1", c1), ("c2", c2), ("best_loss", best_loss),
+                    ("rff_b", bt)):
         if t is not None and t.device != coords.device:
             raise ValueError(f"{name} is on {t.device}, coords on "
                              f"{coords.device}")
     if coords.device.type == "cpu":
         return step_plain(params, mu, nu, best, coords, targets, lr, c1, c2,
-                          best_loss, cfg, plan, gmode, n_valid, clip_norm)
+                          best_loss, cfg, plan, gmode, n_valid, clip_norm, bt)
     if coords.device.type != "cuda":
         raise ValueError(f"no fused step for device {coords.device}")
     if n_valid != coords.shape[0]:
         raise ValueError("the step kernel masks rows past coords.shape[0]; "
                          f"n_valid={n_valid} must equal it")
     return SIREN_STEP(params, mu, nu, best, coords, targets, lr, c1, c2,
-                      best_loss, cfg, plan, gmode, clip_norm)
+                      best_loss, cfg, plan, gmode, clip_norm, bt)
 
 
 def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
                               n_valid: int, approx_sin: bool = False,
-                              step_call=fused_mse_step_call):
+                              step_call=fused_mse_step_call, rff_b=None):
     """Build step(state: FlatTrainState, coords, targets) -> (state, (loss,
     lr)): the semantics of ``train.loop.make_train_step`` for loss_mode
     'mse', alpha 0, per window, with the compute in kernel D.
@@ -199,13 +212,16 @@ def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
     scalars.  ``step_call`` does the arithmetic of one step
     (``fused_mse_step_call``; a caller that holds the kernel against its
     plain version passes ``step_plain``, which takes the same arguments).
-    The grad tier is ``INRAUDIO_GRAD_PRECISION``'s when the step is built."""
+    The grad tier is ``INRAUDIO_GRAD_PRECISION``'s when the step is built.
+    ``rff_b`` (F, d): the model's RFF projection, folded into layer 0;
+    ``coords`` are then the raw (n, d) coordinates."""
     from ..train.optim import PlateauConfig, PlateauState, plateau_update
 
     plateau_cfg = PlateauConfig(factor=train_cfg.plateau_factor,
                                 patience=train_cfg.plateau_patience,
                                 min_lr=train_cfg.min_learning_rate)
-    plan = stack_plan(cfg, approx_sin=approx_sin)
+    plan = stack_plan(cfg, approx_sin=approx_sin, rff=rff_b is not None)
+    bt = None if rff_b is None else _prep_rff_bt(rff_b)
     gmode = grad_dot_mode()
     clip = float(train_cfg.grad_clip_norm)
     track_best = train_cfg.track_best
@@ -219,7 +235,7 @@ def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
             state.params, state.mu, state.nu,
             state.best_params if track_best else None, coords, targets,
             state.lr, c1, c2, state.best_loss, cfg, plan, gmode, n_valid,
-            clip)
+            clip, bt)
         pl_state, new_lr = plateau_update(
             PlateauState(best=state.plateau_best, num_bad=state.plateau_bad),
             loss, state.lr, plateau_cfg)

@@ -14,8 +14,15 @@ the forward products take ``f32_mode`` (``INRAUDIO_F32_PRECISION``, default
 bf16x3); both backward products take the grad tier
 (``INRAUDIO_GRAD_PRECISION``, default bf16x2, 'inherit' = the f32 tier):
 dW = x_in^T gpre rounds x_in and splits gpre, dgrad = gpre W^T rounds gpre
-and splits W.  Layer 0's forward stays exact f32 multiply-adds; its dW is a
-grad-tier product of the raw coordinates, as in the reference.
+and splits W.  A raw layer 0's forward stays exact f32 multiply-adds; its
+dW is a grad-tier product of the raw coordinates, as in the reference.  An
+RFF layer 0 (``rff_b``) takes its features (cos v, sin v) in the forward
+tier, and its dW is the grad-tier product [cos v; sin v]^T gpre, with the
+features on the rounded side; B gets no gradient.
+
+The grad kernel's scratch is bounded per window: a window of more row
+tiles than ``MAX_SLICES`` goes through ``MAX_SLICES`` row slices, each CTA
+walking its slice's tiles in order into one slab of partial grads.
 
 Parameters cross the kernel in one flat (k, P) float32 buffer per window
 population (``flat_layout``): each leaf at a 16-byte-aligned offset, zero
@@ -39,8 +46,10 @@ from ..models.siren import SirenSnakeTanhConfig
 from ._nvcc import build_library
 from .siren_fused import (_KERNEL_MAX_LAYERS, _KERNEL_WIDTHS, _KIND_CODE,
                           _MAX_SMALL_IN, _MODE_CODE, SIREN_STACK, StackPlan,
-                          _check_tensor, _cos, _f32_dot_mode, _kernel_dot,
-                          _sin, stack_forward_plain, stack_plan)
+                          _check_rff_model, _check_rff_plan, _check_tensor,
+                          _cos, _f32_dot_mode, _kernel_dot, _prep_rff_bt,
+                          _sin, rff_features_plain, rff_pre_plain,
+                          stack_forward_plain, stack_plan)
 
 Params = dict[str, Any]
 
@@ -52,10 +61,22 @@ CHUNK_FLOATS = 1024
 # device memory for one grad launch's partial grads and saved
 # pre-activations; larger populations go through in groups of windows
 SCRATCH_BYTES = 1 << 30
+# row slices of a window of more row tiles than this (two waves of CTAs on
+# the H100's 132 SMs at one model): each slice's CTA walks its tiles in
+# order into one slab, so a window's scratch stays at most MAX_SLICES slabs
+# whatever its length.  Windows of fewer tiles keep one tile per slice.
+MAX_SLICES = 264
 
 
 def tile_rows(h: int) -> int:
     return TILE_FLOATS // h
+
+
+def row_slices(tiles: int) -> int:
+    """Row slices of a window of ``tiles`` row tiles: a function of the
+    shapes only, never of SCRATCH_BYTES, so the grouping of windows leaves
+    every result bit-equal."""
+    return min(tiles, MAX_SLICES)
 
 
 def grad_dot_mode() -> str:
@@ -154,15 +175,21 @@ def unflatten_params(flat: torch.Tensor, cfg: SirenSnakeTanhConfig) -> Params:
 # Plain PyTorch versions (CPU; the reference the kernels are held to)
 # ---------------------------------------------------------------------------
 
-def fwd_pres_plain(params: Params, plan: StackPlan, coords: torch.Tensor):
+def fwd_pres_plain(params: Params, plan: StackPlan, coords: torch.Tensor,
+                   bt: torch.Tensor | None = None):
     """The stack forward keeping each layer's (input, pre-activation, snake
-    a) -> (out, saved).  Same arithmetic as ``stack_forward_plain``."""
+    a) -> (out, saved).  Same arithmetic as ``stack_forward_plain``; an RFF
+    layer 0's saved input is its feature pair (cos v, sin v)."""
+    _check_rff_plan(plan, bt)
     x0 = coords.to(torch.float32)
     x = x0
     saved = []
     for li, p in enumerate(params["layers"]):
         w, b = p["w"], p["b"].unsqueeze(-2)
-        if li == 0:
+        if li == 0 and bt is not None:
+            x = rff_features_plain(x0, bt, plan.feature_degree)
+            pre = rff_pre_plain(x, w, plan.modes[0]) + b
+        elif li == 0:
             pre = b
             for d in range(x0.shape[1]):
                 pre = pre + x0[:, d:d + 1] * w[..., d:d + 1, :]
@@ -206,7 +233,13 @@ def bwd_sweep_plain(g: torch.Tensor, saved, params: Params, plan: StackPlan,
             gpre = g * (1.0 - t * t)
         else:
             gpre = g
-        layers[li]["w"] = _kernel_dot(x_in.transpose(-1, -2), gpre, gmode)
+        if isinstance(x_in, tuple):  # RFF features: no gradient for B
+            layers[li]["w"] = torch.cat(
+                [_kernel_dot(f.transpose(-1, -2), gpre, gmode)
+                 for f in x_in], dim=-2)
+        else:
+            layers[li]["w"] = _kernel_dot(x_in.transpose(-1, -2), gpre,
+                                          gmode)
         layers[li]["b"] = gpre.sum(dim=-2)
         if li > 0:
             w = params["layers"][li]["w"]
@@ -215,9 +248,10 @@ def bwd_sweep_plain(g: torch.Tensor, saved, params: Params, plan: StackPlan,
 
 
 def backward_plain(params: Params, plan: StackPlan, gmode: str,
-                   coords: torch.Tensor, cot: torch.Tensor) -> Params:
+                   coords: torch.Tensor, cot: torch.Tensor,
+                   bt: torch.Tensor | None = None) -> Params:
     """Gradients of <cot, stack(params, coords)> w.r.t. params."""
-    _, saved = fwd_pres_plain(params, plan, coords)
+    _, saved = fwd_pres_plain(params, plan, coords, bt)
     return bwd_sweep_plain(cot, saved, params, plan, gmode)
 
 
@@ -239,7 +273,8 @@ class _TrainLibrary:
     def __call__(self):
         if self._lib is None:
             lib = build_library("siren_train", ["siren_train.cu"])
-            lib.siren_grad.argtypes = [_P] * 10 + [_I] * 7 + [_F, _F, _P]
+            lib.siren_grad.argtypes = ([_P] * 10 + [_I] * 7 + [_F, _F, _P]
+                                       + [_I] * 3 + [_P])
             lib.siren_reduce.argtypes = [_P, _P, _P, _I, _I, _I, _P]
             lib.siren_adam.argtypes = [_P] * 12 + [_I, _I, _I, _F, _P]
             for fn in (lib.siren_grad, lib.siren_reduce, lib.siren_adam):
@@ -258,7 +293,8 @@ def _check_rc(name: str, rc: int) -> None:
 
 @dataclasses.dataclass
 class GradLaunch:
-    """Validated arguments of one grad-accumulation launch."""
+    """Validated arguments of one grad-accumulation launch (``bt``: an RFF
+    model's 2 pi B^T, (d, F))."""
 
     k: int
     n: int
@@ -267,21 +303,34 @@ class GradLaunch:
     tiles: int
     layout: FlatLayout
     plan: StackPlan
+    bt: torch.Tensor | None = None
+
+    @property
+    def slices(self) -> int:
+        return row_slices(self.tiles)
 
 
 def validate_grad_launch(flat: torch.Tensor, cfg: SirenSnakeTanhConfig,
-                         plan: StackPlan, coords: torch.Tensor) -> GradLaunch:
+                         plan: StackPlan, coords: torch.Tensor,
+                         bt: torch.Tensor | None = None) -> GradLaunch:
     """Shape / dtype / device checks shared by the C and D wrappers."""
     dev = coords.device
     n, d = coords.shape
     check_kernel_width(cfg)
+    _check_rff_plan(plan, bt)
     h = cfg.hidden_features
     layout = flat_layout(cfg)
     L = len(plan.kinds)
     _check_tensor("coords", coords, dev, (n, d))
-    if not 1 <= d <= _MAX_SMALL_IN or d != cfg.in_features:
+    in_f = cfg.in_features if bt is None else d
+    if not 1 <= d <= _MAX_SMALL_IN or d != in_f:
         raise ValueError(f"kernel takes 1..{_MAX_SMALL_IN} raw input columns "
                          f"matching the config, got {d}")
+    if bt is not None:
+        _check_tensor("bt", bt, dev, (d, bt.shape[1]))
+        if cfg.in_features != 2 * bt.shape[1]:
+            raise ValueError(f"cfg.in_features ({cfg.in_features}) != 2*F "
+                             f"({2 * bt.shape[1]})")
     if cfg.out_features != 1:
         raise ValueError("the training kernels take out_features == 1")
     if not 2 <= L <= _KERNEL_MAX_LAYERS:
@@ -291,14 +340,15 @@ def validate_grad_launch(flat: torch.Tensor, cfg: SirenSnakeTanhConfig,
     _check_tensor("params", flat, dev, (k, layout.size), aligned=True)
     if n < 1 or k < 1:
         raise ValueError("kernel takes at least one window and one row")
-    return GradLaunch(k, n, d, h, -(-n // tile_rows(h)), layout, plan)
+    return GradLaunch(k, n, d, h, -(-n // tile_rows(h)), layout, plan, bt)
 
 
 def window_group(g: GradLaunch) -> int:
     """Windows per grad + reduce launch: as many as ``SCRATCH_BYTES`` of
-    partial grads and saved pre-activations hold, at least one.  The
-    scratch of a step is then bounded, whatever the clip's length."""
-    per_window = g.tiles * (g.layout.size + len(g.plan.kinds) * TILE_FLOATS)
+    partial grads and saved pre-activations hold, at least one.  A window
+    takes at most ``MAX_SLICES`` slabs (row slices), so the scratch of a
+    step is bounded whatever the clip's length."""
+    per_window = g.slices * (g.layout.size + len(g.plan.kinds) * TILE_FLOATS)
     return max(1, min(g.k, SCRATCH_BYTES // (4 * per_window)))
 
 
@@ -306,8 +356,8 @@ def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
                 loss_part, w0: int, kn: int, *, targets=None, cot=None,
                 gmode: str) -> None:
     """Grad-accumulation kernel over windows [w0, w0 + kn): each (window,
-    row tile)'s partial grads into ``partial`` (kn * tiles, P), its loss
-    into ``loss_part`` (k * tiles) at the window's place."""
+    row slice)'s partial grads into ``partial`` (kn * slices, P), its loss
+    into ``loss_part`` (k * slices) at the window's place."""
     L = len(g.plan.kinds)
     offs = g.layout.offsets(L)
     ints = []
@@ -319,24 +369,25 @@ def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
     c_ints = (ctypes.c_int32 * len(ints))(*ints)
     c_om = (ctypes.c_float * L)(*g.plan.omegas)
     row = lambda t, width: 0 if t is None else t.data_ptr() + 4 * w0 * width
+    n_freq = 0 if g.bt is None else g.bt.shape[1]
     rc = lib.siren_grad(
         coords.data_ptr(), row(flat, g.layout.size), partial.data_ptr(),
-        row(loss_part, g.tiles), pre.data_ptr(), row(targets, g.n),
+        row(loss_part, g.slices), pre.data_ptr(), row(targets, g.n),
         row(cot, g.n), ctypes.addressof(c_offs), ctypes.addressof(c_ints),
         ctypes.addressof(c_om), L, kn, g.n, g.d, g.h, g.layout.size,
         _MODE_CODE[gmode], 1.0 / float(g.n), 2.0 * (1.0 / float(g.n)),
-        stream)
+        row(g.bt, 0), n_freq, g.plan.feature_degree, g.slices, stream)
     _check_rc("siren_grad", rc)
 
 
 def launch_reduce(lib, g: GradLaunch, partial, grads, sq_part, w0: int,
                   kn: int, stream) -> None:
-    """Sum windows [w0, w0 + kn)'s row-tile partials in a fixed order into
+    """Sum windows [w0, w0 + kn)'s row-slice partials in a fixed order into
     their rows of ``grads`` (k, P), and their per-chunk sums of squares
     into ``sq_part`` (k, chunks)."""
     rc = lib.siren_reduce(
         partial.data_ptr(), grads.data_ptr() + 4 * w0 * g.layout.size,
-        sq_part.data_ptr() + 4 * w0 * sq_part.shape[1], kn, g.tiles,
+        sq_part.data_ptr() + 4 * w0 * sq_part.shape[1], kn, g.slices,
         g.layout.size, stream)
     _check_rc("siren_reduce", rc)
 
@@ -345,15 +396,15 @@ def grad_reduce(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
                 cot=None, gmode: str):
     """Each window's gradient, over groups of ``window_group`` windows that
     share one scratch -> (grads (k, P), sq_part (k, chunks), loss_part
-    (k * tiles)).  All on the current stream, no host sync."""
+    (k * slices)).  All on the current stream, no host sync."""
     dev = coords.device
     f32 = dict(dtype=torch.float32, device=dev)
     kg = window_group(g)
-    partial = torch.empty((kg * g.tiles, g.layout.size), **f32)
-    pre = torch.empty((kg * g.tiles, len(g.plan.kinds), TILE_FLOATS), **f32)
+    partial = torch.empty((kg * g.slices, g.layout.size), **f32)
+    pre = torch.empty((kg * g.slices, len(g.plan.kinds), TILE_FLOATS), **f32)
     grads = torch.empty((g.k, g.layout.size), **f32)
     sq_part = torch.empty((g.k, -(-g.layout.size // CHUNK_FLOATS)), **f32)
-    loss_part = torch.empty((g.k * g.tiles,), **f32)
+    loss_part = torch.empty((g.k * g.slices,), **f32)
     for w0 in range(0, g.k, kg):
         kn = min(kg, g.k - w0)
         launch_grad(lib, g, coords, flat, stream, partial, pre, loss_part,
@@ -372,11 +423,12 @@ class _SirenBwdKernel:
 
     def __call__(self, params: Params, cfg: SirenSnakeTanhConfig,
                  plan: StackPlan, gmode: str, coords: torch.Tensor,
-                 cot: torch.Tensor) -> Params:
+                 cot: torch.Tensor, bt: torch.Tensor | None = None) -> Params:
         """Stacked params (k, ...) on one CUDA device, coords (n, d),
-        cotangent (k, n, 1) -> stacked grads (views into one (k, P))."""
+        cotangent (k, n, 1) -> stacked grads (views into one (k, P)).
+        ``bt``: an RFF model's 2 pi B^T (d, F)."""
         flat = flatten_params(params, cfg)
-        g = validate_grad_launch(flat, cfg, plan, coords)
+        g = validate_grad_launch(flat, cfg, plan, coords, bt)
         cot = cot.reshape(g.k, g.n)
         _check_tensor("cotangent", cot, coords.device, (g.k, g.n))
         lib = TRAIN_LIBRARY()
@@ -392,31 +444,32 @@ SIREN_BWD = _SirenBwdKernel()
 
 
 def siren_backward(params: Params, cfg: SirenSnakeTanhConfig, plan: StackPlan,
-                   gmode: str, coords: torch.Tensor,
-                   cot: torch.Tensor) -> Params:
+                   gmode: str, coords: torch.Tensor, cot: torch.Tensor,
+                   bt: torch.Tensor | None = None) -> Params:
     """Gradients of the stacked stack for cotangent ``cot`` (k, n, 1): the
     plain version for CPU tensors, kernel C for CUDA ones."""
     if coords.device.type == "cpu":
-        return backward_plain(params, plan, gmode, coords, cot)
+        return backward_plain(params, plan, gmode, coords, cot, bt)
     if coords.device.type != "cuda":
         raise ValueError(f"no fused backward for device {coords.device}")
-    return SIREN_BWD(params, cfg, plan, gmode, coords, cot.contiguous())
+    return SIREN_BWD(params, cfg, plan, gmode, coords, cot.contiguous(), bt)
 
 
 class _FusedStack(torch.autograd.Function):
     """Forward: the stack kernel; backward: kernel C (plain versions on the
-    CPU).  Port of the JAX package's ``_fused_stack`` custom VJP."""
+    CPU).  Port of the JAX package's ``_fused_stack`` custom VJP.  ``bt``
+    (an RFF model's 2 pi B^T, or None) is a constant: no gradient."""
 
     @staticmethod
-    def forward(ctx, cfg, plan, coords, *leaves):
+    def forward(ctx, cfg, plan, coords, bt, *leaves):
         params = _tree_from_leaves(leaves, plan)
         if coords.device.type == "cpu":
-            out = stack_forward_plain(params, plan, coords)
+            out = stack_forward_plain(params, plan, coords, bt)
         elif coords.device.type == "cuda":
-            out = SIREN_STACK(params, plan, coords)
+            out = SIREN_STACK(params, plan, coords, bt)
         else:
             raise ValueError(f"no fused stack for device {coords.device}")
-        ctx.cfg, ctx.plan = cfg, plan
+        ctx.cfg, ctx.plan, ctx.bt = cfg, plan, bt
         ctx.gmode = grad_dot_mode()
         ctx.save_for_backward(coords, *leaves)
         return out
@@ -426,10 +479,10 @@ class _FusedStack(torch.autograd.Function):
         coords, *leaves = ctx.saved_tensors
         params = _tree_from_leaves(leaves, ctx.plan)
         grads = siren_backward(params, ctx.cfg, ctx.plan, ctx.gmode, coords,
-                               grad_out)
+                               grad_out, ctx.bt)
         out = [grads["layers"][li][key]
                for li, key in _leaf_keys(ctx.plan)]
-        return (None, None, None, *out)
+        return (None, None, None, None, *out)
 
 
 def _leaf_keys(plan: StackPlan) -> list[tuple[int, str]]:
@@ -449,14 +502,20 @@ def _tree_from_leaves(leaves, plan: StackPlan) -> Params:
 
 
 def fused_siren_train_apply(params: Params, cfg: SirenSnakeTanhConfig,
-                            coords: torch.Tensor,
-                            approx_sin: bool = False) -> torch.Tensor:
+                            coords: torch.Tensor, approx_sin: bool = False,
+                            rff_b: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """Differentiable fused forward: params with or without a leading
     window axis, coords (n, d) -> (k, n, 1) or (n, 1).  Drop-in for
     ``siren_snake_tanh_apply`` under autograd; its backward is kernel C on
-    a card.  Unlike the TPU kernels, any n and k are taken as they are."""
+    a card.  Unlike the TPU kernels, any n and k are taken as they are.
+    ``rff_b`` (F, d) folds the model's Gaussian Fourier encoding into both
+    kernels (``coords`` raw, ``cfg.in_features`` = 2F); B is fixed, so it
+    gets no gradient, as under ``rff_apply``."""
     check_kernel_width(cfg)
-    plan = stack_plan(cfg, approx_sin=approx_sin)
+    _check_rff_model(cfg, rff_b)
+    plan = stack_plan(cfg, approx_sin=approx_sin, rff=rff_b is not None)
+    bt = None if rff_b is None else _prep_rff_bt(rff_b)
     stacked = params["layers"][0]["w"].dim() == 3
     if not stacked:
         params = {"layers": [{k: v.unsqueeze(0) for k, v in p.items()}
@@ -468,5 +527,5 @@ def fused_siren_train_apply(params: Params, cfg: SirenSnakeTanhConfig,
                                  f"coords on {coords.device}")
     leaves = [params["layers"][li][key].contiguous()
               for li, key in _leaf_keys(plan)]
-    out = _FusedStack.apply(cfg, plan, coords.contiguous(), *leaves)
+    out = _FusedStack.apply(cfg, plan, coords.contiguous(), bt, *leaves)
     return out if stacked else out[0]

@@ -175,7 +175,7 @@ def fused_step_plan(model: INRModel, cfg: TrainConfig,
     check_kernel_width(ctx["cfg"])
     if cfg.loss_mode != "mse" or cfg.alpha != 0.0 or cfg.update_grid_every:
         return None
-    return step_block_rows(ctx["cfg"], n_rows)
+    return step_block_rows(ctx["cfg"], n_rows, ctx["rff_b"])
 
 
 def make_vmapped_fused_step(model: INRModel, cfg: TrainConfig,
@@ -189,7 +189,9 @@ def make_vmapped_fused_step(model: INRModel, cfg: TrainConfig,
     ``prep_targets(t)`` (k, n, 1) targets -> the kernel's (k, n) tensor on
     the coords' device.  The kernel masks the ragged row tile itself, so
     nothing is padded.  The step's arithmetic is the model's
-    ``fused_step_ctx["step"]``."""
+    ``fused_step_ctx["step"]``; an RFF model's projection
+    (``fused_step_ctx["rff_b"]``) goes to the step, and ``coords`` are its
+    raw coordinates."""
     from ..ops.siren_step import (flat_state_from_train_state,
                                   make_fused_mse_train_step,
                                   train_state_from_flat)
@@ -197,7 +199,8 @@ def make_vmapped_fused_step(model: INRModel, cfg: TrainConfig,
     mcfg = ctx["cfg"]
     fstep = make_fused_mse_train_step(mcfg, cfg, coords.shape[0],
                                       approx_sin=ctx["approx_sin"],
-                                      step_call=ctx["step"])
+                                      step_call=ctx["step"],
+                                      rff_b=ctx["rff_b"])
 
     def vstep(states, targets):
         return fstep(states, coords, targets)

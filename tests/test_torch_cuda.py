@@ -1,7 +1,7 @@
 """Card-only checks of the CUDA kernels (csrc/siren_stack.cu, the backward
-and whole-step kernels of csrc/siren_train.cu, and the KAN forward and
-backward kernels of csrc/kan.cu) against their plain PyTorch versions on
-the same card.
+and whole-step kernels of csrc/siren_train.cu, each at widths 32 to 256 and
+with an RFF layer 0, and the KAN forward and backward kernels of
+csrc/kan.cu) against their plain PyTorch versions on the same card.
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports no JAX, so the card's machine runs it without the tests' conftest:
@@ -14,7 +14,7 @@ import torch
 
 from inraudio_tpu_torch import codec
 from inraudio_tpu_torch.models import (KANConfig, SirenSnakeTanhConfig,
-                                       build_model)
+                                       build_model, rff_init)
 from inraudio_tpu_torch.ops import kan_fused as kf
 from inraudio_tpu_torch.ops import siren_fused as sf
 from inraudio_tpu_torch.ops import siren_step as ss
@@ -71,7 +71,7 @@ def _population(cfg, k, dev, seed=0):
 
 
 @pytest.mark.parametrize("kw", TIERS, ids=TIER_IDS)
-@pytest.mark.parametrize("h", [32, 64, 128])
+@pytest.mark.parametrize("h", [32, 64, 128, 256])
 def test_kernel_matches_plain(dev, h, kw):
     cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
     params = _population(cfg, 3, dev)
@@ -123,10 +123,82 @@ def test_counts_launches_and_validates(dev):
     assert sf.SIREN_STACK.launches == before + 2
     with pytest.raises(ValueError, match="coords on"):
         sf.fused_siren_apply_stacked(params, cfg, coords.cpu())
-    wide = SirenSnakeTanhConfig(hidden_features=256)
+    wide = SirenSnakeTanhConfig(hidden_features=48)
     with pytest.raises(ValueError, match="hidden width"):
         sf.fused_siren_apply_stacked(_population(wide, 1, dev), wide, coords)
     assert sf.SIREN_STACK.launches == before + 2
+
+
+def _rff_model(h, f, dev, d=1, omega=300.0, seed=0, sigma=10.0):
+    """(cfg, params (one model), B (f, d), 2 pi B^T) of an RFF mlp."""
+    cfg = SirenSnakeTanhConfig(in_features=2 * f, hidden_features=h,
+                               first_omega_0=omega)
+    params = build_model("mlp", cfg).init(torch.Generator().manual_seed(seed),
+                                          dev)
+    b = rff_init(torch.Generator().manual_seed(seed + 1), d, f, sigma=sigma,
+                 device=dev)
+    return cfg, params, b, sf._prep_rff_bt(b)
+
+
+def stacked(params):
+    """One model's params as a population of one window."""
+    return {"layers": [{k: v.unsqueeze(0).contiguous() for k, v in p.items()}
+                       for p in params["layers"]]}
+
+
+# An RFF layer 0 sums a 2F-deep tiered product: kernel and plain version
+# sum it in different orders.  Its pre-activation is held to a few ulps of
+# its largest value; the features themselves are computed op by op alike.
+# The output carries that gap times omega0 through layer 0's sine, so it is
+# held to RFF_CTRL_X times a control: the plain version with layer 0's W
+# and b one ulp off (the bias survives a bf16 tier's rounding), or to the
+# tier's tolerance, whichever is larger; no bulk rule in the bf16 tiers.
+RFF_PRE_RTOL = 2e-6
+RFF_CTRL_X = 10.0
+
+
+def perturb_layer0(params):
+    """``params`` with layer 0's W and b one ulp up (times 1 + 2^-23)."""
+    layers = [dict(p) for p in params["layers"]]
+    layers[0] = {k: (v * (1.0 + 2.0 ** -23) if k in ("w", "b") else v)
+                 for k, v in layers[0].items()}
+    return {"layers": layers}
+
+
+@pytest.mark.parametrize("kw", TIERS, ids=TIER_IDS)
+@pytest.mark.parametrize("h,f,d", [(32, 4, 1), (64, 37, 2), (256, 256, 1)])
+def test_rff_kernel_matches_plain(dev, h, f, d, kw):
+    cfg, params, b, bt = _rff_model(h, f, dev, d=d)
+    coords = torch.rand(1000, d, device=dev) * 2 - 1  # ragged tile
+    before = sf.SIREN_STACK.launches
+    out = sf.fused_siren_apply(params, cfg, coords, rff_b=b, **kw)
+    assert sf.SIREN_STACK.launches == before + 1
+    plan = sf.stack_plan(cfg, rff=True, **kw)
+    ref = sf.stack_forward_plain(params, plan, coords, bt)
+    ctrl = sf.stack_forward_plain(perturb_layer0(params), plan, coords, bt)
+    assert torch.isfinite(out).all()
+    floor = BF16_MAX_ATOL if is_bf16_tier(kw) else F32_ATOL
+    assert float((out - ref).abs().max()) <= max(
+        RFF_CTRL_X * float((ctrl - ref).abs().max()), floor)
+    pre0 = torch.empty(1, 1000, h, device=dev)
+    sf.SIREN_STACK(stacked(params), plan, coords, bt, pre0=pre0)
+    _, saved = st.fwd_pres_plain(params, plan, coords, bt)
+    torch.cuda.synchronize()
+    pre_ref = saved[0][1]
+    assert float((pre0[0] - pre_ref).abs().max()) <= \
+        RFF_PRE_RTOL * float(pre_ref.abs().max())
+
+
+def test_rff_stacked_is_refused(dev):
+    cfg, params, b, _ = _rff_model(32, 8, dev)
+    with pytest.raises(ValueError, match="raw coordinates"):
+        sf.fused_siren_apply_stacked(stacked(params), cfg,
+                                     torch.zeros(10, 1, device=dev))
+    model = build_model("mlp", cfg, fused=True, rff_b=b)
+    assert model.apply_stacked is None and model.decode_apply_stacked is None
+    with pytest.raises(ValueError, match="2\\*F"):
+        sf.fused_siren_apply(params, cfg, torch.zeros(10, 1, device=dev),
+                             rff_b=b[:4])
 
 
 def test_decode_range_equals_full_decode_slice(dev):
@@ -261,6 +333,73 @@ def clone_state(state):
     return type(state)(*(t.clone() for t in state))
 
 
+def _gap(a, b) -> float:
+    return float((a - b).abs().max())
+
+
+def check_rff_backward(params, cfg, plan, gmode, coords, cot, bt):
+    """Kernel C of an RFF model against its plain version, held to
+    RFF_CTRL_X times the control (the plain backward with layer 0 one ulp
+    off) or to the grad tier's max tolerance; returns (error, control,
+    limit, max |grad|)."""
+    out = st.flatten_params(st.SIREN_BWD(params, cfg, plan, gmode, coords,
+                                         cot, bt), cfg)
+    ref = st.flatten_params(st.backward_plain(params, plan, gmode, coords,
+                                              cot, bt), cfg)
+    ctl = st.flatten_params(st.backward_plain(perturb_layer0(params), plan,
+                                              gmode, coords, cot, bt), cfg)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err, c = _gap(out, ref), _gap(ctl, ref)
+    tol = (GRAD_BF16_MAX_RTOL if is_bf16_grad(gmode) else GRAD_F32_RTOL)
+    limit = max(RFF_CTRL_X * c, tol * scale)
+    assert torch.isfinite(out).all() and err <= limit, (err, c, limit)
+    return err, c, limit, scale
+
+
+def check_rff_steps(cfg, tc, coords, targets, state, rff_b, steps=3):
+    """``steps`` kernel steps, plain steps, and plain steps from layer 0
+    one ulp off (the control), from one stacked TrainState of an RFF (or
+    raw, rff_b None) model.  Each loss, the first step's gradients (mu =
+    0.1 g) and the final parameters (in lr) are held to RFF_CTRL_X times
+    the control's gap or to the raw-model tolerances above; returns (the
+    kernel's FlatTrainState, a dict of the gaps)."""
+    n, gmode, lr = coords.shape[0], st.grad_dot_mode(), tc.learning_rate
+    kstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                         rff_b=rff_b)
+    pstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                         step_call=ss.step_plain, rff_b=rff_b)
+    a = ss.flat_state_from_train_state(state, cfg)
+    p = clone_state(a)
+    u = ss.flat_state_from_train_state(
+        state._replace(params=perturb_layer0(state.params)), cfg)
+    gaps = {"loss": [], "loss_ctrl": []}
+    for i in range(steps):
+        a, (la, _) = kstep(a, coords, targets)
+        p, (lp, _) = pstep(p, coords, targets)
+        u, (lu, _) = pstep(u, coords, targets)
+        torch.cuda.synchronize()
+        scale = float(lp.abs().max())
+        gaps["loss"].append(_gap(la, lp) / scale)
+        gaps["loss_ctrl"].append(_gap(lu, lp) / scale)
+        assert gaps["loss"][-1] <= max(RFF_CTRL_X * gaps["loss_ctrl"][-1],
+                                       LOSS_DRIFT_RTOL if i else LOSS_RTOL), \
+            gaps
+        if i == 0:  # mu = 0.1 g
+            tol = (GRAD_BF16_MAX_RTOL if is_bf16_grad(gmode)
+                   else GRAD_F32_RTOL) * float(p.mu.abs().max())
+            gaps.update(grad=_gap(a.mu, p.mu), grad_ctrl=_gap(u.mu, p.mu),
+                        grad_scale=float(p.mu.abs().max()), grad_tol=tol)
+            assert gaps["grad"] <= max(RFF_CTRL_X * gaps["grad_ctrl"], tol), \
+                gaps
+    top = STEP_BF16_MAX_LR if is_bf16_grad(gmode) else STEP_F32_MAX_LR
+    gaps.update(params=_gap(a.params, p.params) / lr,
+                params_ctrl=_gap(u.params, p.params) / lr, params_top=top)
+    assert torch.isfinite(a.params).all(), gaps
+    assert gaps["params"] <= max(RFF_CTRL_X * gaps["params_ctrl"], top), gaps
+    return a, gaps
+
+
 def _train_setup(h, k, n, dev, seed=0, lr=1e-3):
     cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=300.0)
     model = build_model("mlp", cfg, fused=True, approx_sin=True)
@@ -275,7 +414,7 @@ def _train_setup(h, k, n, dev, seed=0, lr=1e-3):
 
 
 @pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
-@pytest.mark.parametrize("h", [32, 64, 128])
+@pytest.mark.parametrize("h", [32, 64, 128, 256])
 def test_backward_kernel_matches_plain(dev, h, gmode):
     cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
     params = _population(cfg, 3, dev)
@@ -291,8 +430,36 @@ def test_backward_kernel_matches_plain(dev, h, gmode):
                 gmode)
 
 
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
+@pytest.mark.parametrize("h,f,d", [(32, 4, 1), (64, 37, 2), (256, 256, 1)])
+def test_rff_backward_kernel_matches_plain(dev, h, f, d, gmode):
+    cfg, params, b, bt = _rff_model(h, f, dev, d=d)
+    params = stacked(params)
+    plan = sf.stack_plan(cfg, approx_sin=True, rff=True)
+    coords = torch.rand(1000, d, device=dev) * 2 - 1
+    cot = torch.randn(1, 1000, 1, device=dev,
+                      generator=torch.Generator(dev).manual_seed(1))
+    before = st.SIREN_BWD.launches
+    check_rff_backward(params, cfg, plan, gmode, coords, cot, bt)
+    assert st.SIREN_BWD.launches == before + 1
+
+
+def test_rff_autograd_runs_both_kernels(dev):
+    cfg, params, b, _ = _rff_model(64, 16, dev)
+    leaves = [v.requires_grad_(True) for p in params["layers"]
+              for v in p.values()]
+    coords = torch.linspace(-1, 1, 700, device=dev)[:, None]
+    f0, b0 = sf.SIREN_STACK.launches, st.SIREN_BWD.launches
+    out = st.fused_siren_train_apply(params, cfg, coords, approx_sin=True,
+                                     rff_b=b)
+    grads = torch.autograd.grad(torch.mean(out ** 2), leaves)
+    assert (sf.SIREN_STACK.launches, st.SIREN_BWD.launches) == (f0 + 1,
+                                                                b0 + 1)
+    assert all(torch.isfinite(g).all() and g.any() for g in grads)
+
+
 @pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3"])
-@pytest.mark.parametrize("h", [32, 64, 128])
+@pytest.mark.parametrize("h", [32, 64, 128, 256])
 def test_step_kernel_matches_plain(dev, h, gmode, monkeypatch):
     monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
     cfg, model, tc, state, coords, targets = _train_setup(h, 3, 300, dev)
@@ -301,6 +468,68 @@ def test_step_kernel_matches_plain(dev, h, gmode, monkeypatch):
                                     ss.flat_state_from_train_state(state, cfg))
     assert ss.SIREN_STEP.launches == before + 3
     check_state(a, b, tc.learning_rate, gmode)
+
+
+@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3"])
+@pytest.mark.parametrize("h,f", [(32, 4), (256, 256)])
+def test_rff_step_kernel_matches_plain(dev, h, f, gmode, monkeypatch):
+    monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
+    cfg, model, tc, state, coords, targets, b = _rff_train_setup(h, f, 1,
+                                                                 2000, dev)
+    before = ss.SIREN_STEP.launches
+    check_rff_steps(cfg, tc, coords, targets, state, b)
+    assert ss.SIREN_STEP.launches == before + 3
+
+
+def _rff_train_setup(h, f, k, n, dev, seed=0):
+    """_train_setup's recipe with an RFF layer 0 of f frequencies."""
+    cfg = SirenSnakeTanhConfig(in_features=2 * f, hidden_features=h,
+                               first_omega_0=300.0)
+    b = rff_init(torch.Generator().manual_seed(seed + 1), 1, f, sigma=10.0,
+                 device=dev)
+    model = build_model("mlp", cfg, fused=True, approx_sin=True, rff_b=b)
+    tc = tloop.TrainConfig(learning_rate=1e-3, grad_clip_norm=1.0,
+                           plateau_patience=35)
+    state = tloop.init_train_state(model, torch.Generator().manual_seed(seed),
+                                   tc, dev, windows=k)
+    coords = torch.linspace(-1, 1, n, device=dev)[:, None]
+    freqs = torch.arange(1, k + 1, device=dev, dtype=torch.float32)[:, None]
+    targets = 0.8 * torch.sin(3.0 * freqs * torch.pi * coords[:, 0])
+    return cfg, model, tc, state, coords, targets, b
+
+
+def test_rff_step_over_row_slices_is_deterministic_and_budget_free(
+        dev, monkeypatch):
+    """One window of more row tiles than MAX_SLICES (h = 256, RFF): its
+    tiles go through MAX_SLICES slices.  Two steps from one state are
+    bit-equal, and a scratch budget too small for one window changes
+    nothing: D's state and C's grads stay bit-equal."""
+    n = 12000  # 375 row tiles of 32
+    cfg, model, tc, state, coords, targets, b = _rff_train_setup(
+        256, 64, 2, n, dev)
+    step = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True, rff_b=b)
+    s0 = ss.flat_state_from_train_state(state, cfg)
+    s0, _ = step(s0, coords, targets)  # non-zero moments
+    plan = sf.stack_plan(cfg, approx_sin=True, rff=True)
+    bt = sf._prep_rff_bt(b)
+    g = st.validate_grad_launch(s0.params, cfg, plan, coords, bt)
+    assert g.tiles == 375 and g.slices == st.MAX_SLICES
+    assert st.window_group(g) == 2
+    params = st.unflatten_params(s0.params.clone(), cfg)
+    cot = torch.randn(2, n, 1, device=dev,
+                      generator=torch.Generator(dev).manual_seed(3))
+    one, (l1, _) = step(clone_state(s0), coords, targets)
+    again, (l2, _) = step(clone_state(s0), coords, targets)
+    g1 = st.SIREN_BWD(params, cfg, plan, "bf16x2", coords, cot, bt)
+    monkeypatch.setattr(st, "SCRATCH_BYTES", 1)
+    assert st.window_group(g) == 1 and g.slices == st.MAX_SLICES
+    small, (l3, _) = step(clone_state(s0), coords, targets)
+    g2 = st.SIREN_BWD(params, cfg, plan, "bf16x2", coords, cot, bt)
+    assert torch.equal(l1, l2) and torch.equal(l1, l3)
+    for x, y, z in zip(one, again, small):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    for x, y in zip(st.flatten_params(g1, cfg), st.flatten_params(g2, cfg)):
+        assert torch.equal(x, y)
 
 
 def test_step_kernel_is_deterministic(dev):
@@ -347,7 +576,7 @@ def test_window_groups_leave_results_bit_equal(dev, h, monkeypatch):
 def test_training_kernels_validate(dev):
     cfg, model, tc, state, coords, targets = _train_setup(32, 2, 64, dev)
     wide = SirenSnakeTanhConfig(hidden_features=48)
-    with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+    with pytest.raises(ValueError, match=r"\(32, 64, 128, 256\)"):
         tloop.fused_step_plan(build_model("mlp", wide, fused=True), tc, 64)
     with pytest.raises(ValueError, match="hidden widths"):
         st.fused_siren_train_apply(_population(wide, 1, dev), wide, coords)

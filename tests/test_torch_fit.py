@@ -338,10 +338,11 @@ def test_train_from_signal_record_matches_jax(tmp_path, arch):
 
 def test_runner_refuses_what_it_does_not_port(tmp_path):
     sig, fs = _signal()
-    with pytest.raises(NotImplementedError, match="RFF branch"):
+    with pytest.raises(NotImplementedError, match="NeRF posenc"):
         trunner.train_from_signal(str(tmp_path), "x", sig, fs, arch="mlp",
                                   hidden=32, num_freq=4, fused=True,
-                                  total_steps=1, device="cpu")
+                                  encoding="nerf", total_steps=1,
+                                  device="cpu")
     with pytest.raises(ValueError, match="hidden widths"):
         trunner.train_from_signal(str(tmp_path), "y", sig, fs, arch="mlp",
                                   hidden=48, fused=True, total_steps=1,

@@ -401,8 +401,11 @@ def test_step_gates_and_width_error():
     # the int8 rate points use h=36..48: a fused fit there names the widths
     odd = build_model("mlp", SirenSnakeTanhConfig(hidden_features=48),
                       fused=True)
-    with pytest.raises(ValueError, match=r"\(32, 64, 128\)"):
+    with pytest.raises(ValueError, match=r"\(32, 64, 128, 256\)"):
         tloop.fused_step_plan(odd, tc, 512)
+    # h=256 is a kernel width: 32-row tiles
+    assert ss.step_block_rows(SirenSnakeTanhConfig(hidden_features=256),
+                              512) == 32
     cfg = tcodec.CodecConfig(hidden_features=40, fused=True, total_steps=1,
                              chunk_seconds=0.01)
     with pytest.raises(ValueError, match="hidden widths"):
@@ -470,11 +473,12 @@ def test_grad_reduce_launches_window_groups(monkeypatch):
                                                targets=targets,
                                                gmode="bf16x2")
     assert grads.shape == (k, g.layout.size)
-    assert loss_part.shape == (k * g.tiles,)
+    assert g.slices == g.tiles  # a short window: one tile per slice
+    assert loss_part.shape == (k * g.slices,)
     expect = []
     for w0, kn in ((0, 3), (3, 3), (6, 1)):
         expect += [("grad", kn, flat.data_ptr() + 4 * w0 * g.layout.size,
-                    loss_part.data_ptr() + 4 * w0 * g.tiles,
+                    loss_part.data_ptr() + 4 * w0 * g.slices,
                     targets.data_ptr() + 4 * w0 * n),
                    ("reduce", kn, grads.data_ptr() + 4 * w0 * g.layout.size,
                     sq_part.data_ptr() + 4 * w0 * sq_part.shape[1])]
