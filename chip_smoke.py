@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: the codec's decode
-path and its encode (training) path, and the runner's single-model fit of
-the KAN and of the production mlp.
+path and its encode (training) path, the runner's single-model fit of the
+KAN and of the production mlp, and the sharded fits on two ranks that share
+the card.
 
     python3 chip_smoke.py
 
@@ -90,6 +91,33 @@ the kernels compute the features in layer 0), weights from seed 0:
    accumulation, reduce, clip + Adam + best and bookkeeping, and the
    fit's steps/s and peak device memory against the grad scratch bound.
 
+The sharded fits (``fit(mesh=...)`` and ``multi_inr_fit(mesh=...)``), at the
+runner mlp shapes above and the headline encode, with two ranks that share
+the card: threads of this process, each with its own gloo group
+(``run_thread_ranks`` of tests/test_torch_cuda.py), the all-reduce staged
+through host memory:
+14. kernel E (``SIREN_GRAD``) on each of the fit's two row shards against
+   its plain version beside the 1-ulp control of phase 11, the two shards'
+   sum against D's grad accumulation over the whole clip, a shard with
+   limit 0 (exact zeros), two E calls (bit-equal); kernel F
+   (``SIREN_ADAM``) against ``adam_epilogue_plain`` on the all-reduced
+   buffer, with and without the best snapshot and the clip;
+15. served, with every launch count set to 0 before and read after each
+   run: the runner mlp raw and RFF fits on two ranks (RUNNER_SHARD_STEPS
+   steps: E and F launch once a step on each rank, D not at all; the first
+   loss within 1e-5 of the one-rank D fit's, the final loss within the
+   1-ulp control rule of phase 12, both ranks' states bit-equal), and, on a
+   machine with several cards, the same fits held to the same gates on
+   min(cards, 4) ranks with a card each (NCCL): this script under
+   ``torchrun``, each rank in ``sharded_fits_rank``; KAN_SHARD_STEPS
+   autograd steps of the runner KAN on two ranks (G and H per shard); the
+   headline encode with its 669 windows sharded over two ranks (every
+   window's loss history bit-equal to one rank's); the CLI ``fit`` under
+   ``torchrun --nproc-per-node 2`` on one card (gloo);
+16. timings: E per shard, the gloo all-reduce, F, its plain version and
+   ``torch.optim.Adam(fused=True).step()`` on one P-float tensor, the
+   sharded step against the one-rank D step.
+
 Every kernel's bound (the least time the card could take for the same
 work) is computed from the run's shapes: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak of the unit they
@@ -144,7 +172,8 @@ SNR_AGREE_DB = 0.5    # at CMP_STEPS, as tests/test_pallas_step.py:310
 SNR_AGREE_DB_MEDIAN = 1.0  # median per-hop SNR at FIT_STEPS
 # the KAN fit: the runner's KAN([1, h, h, 1]) at its default h
 KAN_LAYERS = (1, 256, 256, 1)
-KAN_FIT_STEPS = 200   # each CLI fit
+KAN_FIT_STEPS = 100   # each CLI fit (a depth cut: the run stays near
+#                       half its time limit)
 KAN_CMP_STEPS = 40    # kernel vs plain-version fit
 # the kernel and plain fits' final losses may differ by this many times the
 # 1-ulp control's gap, or by this relative floor, whichever is larger (on
@@ -164,6 +193,14 @@ RUNNER_CMP_STEPS = 40      # kernel vs plain-step fit
 # gap (the plain version with W0 one ulp off), or the f32 tolerance of the
 # card tests, whichever is larger; the same rule as the fits' comparison
 RUNNER_CTRL_X = 10.0
+# the sharded fits (phases 14-16): steps of each row-sharded runner mlp fit,
+# of the sharded KAN fit, of the window-sharded headline encode, and of the
+# torchrun CLI fit
+RUNNER_SHARD_STEPS = 40
+KAN_SHARD_STEPS = 3
+ENCODE_SHARD_STEPS = 50
+TORCHRUN_STEPS = 20
+NCCL_FITS = "nccl_fits.json"  # phase 15's NCCL leg, written by rank 0
 # the card's published peaks (NVIDIA H100 SXM, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
@@ -545,6 +582,26 @@ def kan_phases(np, torch, dev, clip):
     return out
 
 
+def runner_shapes(torch, dev):
+    """{"runner_mlp": None, "runner_mlp_rff": B}: the runner's RFF
+    projection for seed SEED (RUNNER_NUM_FREQ frequencies at sigma
+    RUNNER_SIGMA) on ``dev``."""
+    from inraudio_tpu_torch.experiments import runner as trunner
+    from inraudio_tpu_torch.models import rff_init
+    b = rff_init(
+        torch.Generator().manual_seed(trunner._RFF_SEED_OFFSET + SEED), 1,
+        RUNNER_NUM_FREQ, sigma=RUNNER_SIGMA, device=dev)
+    return {"runner_mlp": None, "runner_mlp_rff": b}
+
+
+def runner_model(rff_b):
+    """The runner's production mlp (fused), raw or owning ``rff_b``."""
+    from inraudio_tpu_torch.experiments import runner as trunner
+    return trunner.build_arch(
+        "mlp", 1 if rff_b is None else 2 * RUNNER_NUM_FREQ, RUNNER_H, 2, 2, 0,
+        RUNNER_OMEGA, 30.0, 0.5, fused=True, rff_b=rff_b)
+
+
 def runner_phases(np, torch, dev, clip):
     """Phases 11-13: the runner's production mlp at full width over the
     whole clip, raw and with RFF: its kernels against their plain versions,
@@ -553,8 +610,6 @@ def runner_phases(np, torch, dev, clip):
     from inraudio_tpu_torch.data import waveform_fitting, write_wav
     from inraudio_tpu_torch.eval.decode import decode_problem
     from inraudio_tpu_torch.eval.metrics import reconstruction_snr
-    from inraudio_tpu_torch.experiments import runner as trunner
-    from inraudio_tpu_torch.models import rff_init
     from inraudio_tpu_torch.ops import siren_fused as sf
     from inraudio_tpu_torch.ops import siren_step as ss
     from inraudio_tpu_torch.ops import siren_train as st
@@ -573,22 +628,13 @@ def runner_phases(np, torch, dev, clip):
     n = problem.coords.shape[0]
     coords = torch.from_numpy(problem.coords).to(dev)
     targets = torch.from_numpy(problem.targets[:, 0]).to(dev)[None]
-    # the runner's RFF projection for seed SEED
-    b = rff_init(torch.Generator().manual_seed(trunner._RFF_SEED_OFFSET + SEED),
-                 1, RUNNER_NUM_FREQ, sigma=RUNNER_SIGMA, device=dev)
-    shapes = {"runner_mlp": None, "runner_mlp_rff": b}
+    shapes = runner_shapes(torch, dev)
     gmode = st.grad_dot_mode()
     tc = tloop.TrainConfig()  # the runner's defaults: lr 1e-3, no clip
-
-    def model_for(rff_b):
-        return trunner.build_arch(
-            "mlp", 1 if rff_b is None else 2 * RUNNER_NUM_FREQ, RUNNER_H, 2,
-            2, 0, RUNNER_OMEGA, 30.0, 0.5, fused=True, rff_b=rff_b)
-
     out, fails, keep = {}, [], {}
     # ---- phase 11: the kernels against their plain versions ----
     for name, rb in shapes.items():
-        model = model_for(rb)
+        model = runner_model(rb)
         cfg = model.config
         bt = None if rb is None else sf._prep_rff_bt(rb)
         params = model.init(torch.Generator().manual_seed(SEED), dev)
@@ -869,6 +915,470 @@ def runner_phases(np, torch, dev, clip):
         out[name] = t
         del s0, r
     return out
+
+
+def _shard_inputs(torch, np, dev, coords, targets, rank, size, block):
+    """(coords, targets (1, rows), int32 limit, RowShard) of one rank's
+    rows, as the row-sharded fit lays them out."""
+    from inraudio_tpu_torch.parallel import Mesh, shard_problem_arrays
+    cs, ts, sh = shard_problem_arrays(Mesh(None, rank, size, dev), coords,
+                                      targets, block)
+    limit = torch.tensor([sh.valid], dtype=torch.int32, device=dev)
+    return cs, ts.reshape(1, -1), limit, sh
+
+
+def shard_phases(np, torch, dev, clip):
+    """Phases 14-16: kernels E and F at the runner mlp shapes against their
+    plain versions; the row-sharded fits (raw, RFF, the KAN's autograd
+    step), the window-sharded headline encode and the ``torchrun`` CLI,
+    served on two ranks that share the card; and their timings."""
+    from inraudio_tpu_torch.data import waveform_fitting
+    from inraudio_tpu_torch.models import KANConfig, build_model
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_step as ss
+    from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.train.multi_inr import (MultiINRConfig,
+                                                    multi_inr_fit)
+    from inraudio_tpu_torch.tree import tree_leaves, tree_map
+    from test_torch_cuda import (ADAM_RTOL, GRAD_BF16_MAX_RTOL, GRAD_F32_RTOL,
+                                 LOSS_RTOL, clone_state, is_bf16_grad,
+                                 perturb_layer0, run_thread_ranks)
+
+    wav = os.path.join(WORK, "runner_clip.wav")
+    problem = waveform_fitting(wav, 7.0)
+    x, y = problem.coords, problem.targets
+    n = x.shape[0]
+    coords = torch.from_numpy(x).to(dev)
+    targets = torch.from_numpy(y[:, 0]).to(dev)[None]
+    shapes = runner_shapes(torch, dev)
+    gmode = st.grad_dot_mode()
+    tol = GRAD_BF16_MAX_RTOL if is_bf16_grad(gmode) else GRAD_F32_RTOL
+    block = st.tile_rows(RUNNER_H)
+    tc = tloop.TrainConfig()  # the runner's defaults: lr 1e-3, no clip
+    out, fails, keep = {}, [], {}
+
+    # ---- phase 14: E and F against their plain versions ----
+    for name, rb in shapes.items():
+        model = runner_model(rb)
+        cfg = model.config
+        bt = None if rb is None else sf._prep_rff_bt(rb)
+        plan = sf.stack_plan(cfg, approx_sin=True, rff=rb is not None)
+        state = tloop.init_train_state(
+            model, torch.Generator().manual_seed(SEED), tc, dev, windows=1)
+        fs = ss.flat_state_from_train_state(state, cfg)
+        fs, _ = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                             rff_b=rb)(fs, coords, targets)
+        P = fs.params.shape[1]
+        pert = st.flatten_params(perturb_layer0(st.unflatten_params(
+            fs.params, cfg)), cfg)
+        total, errs, ctls = 0, [], []
+        for r in range(2):
+            cs, ts, limit, sh = _shard_inputs(torch, np, dev, x, y, r, 2,
+                                              block)
+            args = (cs, ts, limit, n, cfg, plan, gmode, bt)
+            kb = ss.SIREN_GRAD(fs.params, *args)
+            again = ss.SIREN_GRAD(fs.params, *args)
+            pb = ss.grad_plain(fs.params, *args)
+            cb = ss.grad_plain(pert, *args)
+            empty = ss.SIREN_GRAD(fs.params, cs, ts, torch.zeros_like(limit),
+                                  *args[3:])
+            torch.cuda.synchronize()
+            scale = float(pb[:P].abs().max())
+            err, ctl = float((kb - pb)[:P].abs().max()), \
+                float((cb - pb)[:P].abs().max())
+            lerr = abs(float(kb[P] - pb[P])) / float(pb[P])
+            lctl = abs(float(cb[P] - pb[P])) / float(pb[P])
+            limit_g = max(RUNNER_CTRL_X * ctl, tol * scale)
+            ok = (bool(torch.isfinite(kb).all()) and err <= limit_g
+                  and lerr <= max(RUNNER_CTRL_X * lctl, LOSS_RTOL)
+                  and torch.equal(kb, again) and not empty.any())
+            log(f"phase14 {name} E shard {r} (rows [{sh.start}, "
+                f"{sh.start + sh.rows}), {sh.valid} valid, 1/n_valid of "
+                f"{n}): grads max abs {err:.3e} of max |grad| {scale:.3e} "
+                f"(limit {limit_g:.3e} = max({RUNNER_CTRL_X} x control "
+                f"{ctl:.3e}, {tol} x max)); loss rel {lerr:.2e} (control "
+                f"{lctl:.2e}); repeat call bit-equal "
+                f"{torch.equal(kb, again)}; limit 0 gives zeros "
+                f"{not empty.any()}; {'ok' if ok else 'FAILED'}")
+            if not ok:
+                fails.append(f"{name} E shard {r}")
+            errs.append(err)
+            ctls.append(ctl)
+            total = total + kb
+            del pb, cb, again, empty
+        # the shards' sum (what the all-reduce forms) against D's grad
+        # accumulation over the whole clip
+        g = st.validate_grad_launch(fs.params, cfg, plan, coords, bt)
+        grads, _, loss_part = st.grad_reduce(
+            st.TRAIN_LIBRARY(), g, coords, fs.params,
+            torch.cuda.current_stream().cuda_stream, targets=targets,
+            gmode=gmode)
+        torch.cuda.synchronize()
+        scale = float(grads.abs().max())
+        gap = float((total[None, :P] - grads).abs().max())
+        lgap = abs(float(total[P] - loss_part.sum())) / float(total[P])
+        limit_s = max(RUNNER_CTRL_X * max(ctls), GRAD_F32_RTOL * scale)
+        ok = gap <= limit_s and lgap <= LOSS_RTOL
+        log(f"phase14 {name} shard 0 + shard 1 against D's grad "
+            f"accumulation over all {n} rows: grads max abs {gap:.3e} = "
+            f"{gap / scale:.2e} of max |grad| (limit {limit_s:.3e}), loss "
+            f"rel {lgap:.2e} (limit {LOSS_RTOL}); {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(f"{name} E sum")
+        # F on the all-reduced buffer, against adam_epilogue_plain
+        t = (fs.step + 1).to(torch.float32)
+        c1, c2 = 1.0 - 0.9 ** t, 1.0 - 0.999 ** t
+        ferr = 0.0
+        for track_best in (True, False):
+            for clip_norm in (0.0, 1.0):
+                a, p = clone_state(fs), clone_state(fs)
+                la = ss.SIREN_ADAM(a.params, a.mu, a.nu,
+                                   a.best_params if track_best else None,
+                                   total, a.lr, c1, c2, a.best_loss,
+                                   clip_norm)
+                ss.adam_epilogue_plain(
+                    p.params, p.mu, p.nu,
+                    p.best_params if track_best else None,
+                    total[:P].view(1, P), p.lr, c1, c2, total[P:P + 1],
+                    p.best_loss, clip_norm)
+                torch.cuda.synchronize()
+                gaps = {k: float((getattr(a, k) - getattr(p, k)).abs().max())
+                        for k in ("params", "mu", "nu", "best_params")}
+                ok = all(gaps[k] <= ADAM_RTOL * float(getattr(p, k).abs()
+                                                      .max()) for k in gaps)
+                ok = ok and float(la) == float(total[P])
+                exact = all(v == 0.0 for v in gaps.values())
+                ferr = max(ferr, gaps["params"])
+                log(f"phase14 {name} F (best {track_best}, clip {clip_norm}, "
+                    f"loss {float(total[P]):.6g} vs best "
+                    f"{float(fs.best_loss):.6g}"
+                    f"): max abs " + ", ".join(f"{k} {v:.3e}"
+                                               for k, v in gaps.items())
+                    + f" (limit {ADAM_RTOL} x each group's max; bit-equal "
+                    f"{exact}); {'ok' if ok else 'FAILED'}")
+                if not ok:
+                    fails.append(f"{name} F best={track_best} "
+                                 f"clip={clip_norm}")
+        out[(name, "grad_err")] = max(errs)
+        out[(name, "adam_err")] = ferr
+        keep[name] = dict(model=model, cfg=cfg, bt=bt, plan=plan, fs=fs,
+                          total=total, c1=c1, c2=c2, P=P)
+        del grads, loss_part
+    if fails:
+        raise AssertionError(f"phase 14 failed: {fails}")
+
+    # ---- phase 15: served on two ranks sharing the card ----
+    counters = launch_counters()
+
+    def served(fn):
+        """fn() with every launch count set to 0 before and read after."""
+        for c in counters.values():
+            c.launches = 0
+        res = fn()
+        return res, {k: c.launches for k, c in counters.items()}
+
+    def ranks_equal(results, get):
+        return all(torch.equal(p, q) for r in results[1:]
+                   for p, q in zip(tree_leaves(get(results[0])),
+                                   tree_leaves(get(r))))
+
+    stc = tloop.TrainConfig(total_steps=RUNNER_SHARD_STEPS,
+                            scan_chunk=RUNNER_SHARD_STEPS)
+    # where the machine has several cards, the same fits on min(cards, 4)
+    # ranks, one card each (NCCL), under torchrun; held below against the
+    # same one-rank fits as the two ranks sharing the card
+    cards = torch.cuda.device_count()
+    nccl = sharded_fits_torchrun(min(cards, 4)) if cards >= 2 else None
+    if nccl is None:
+        log(f"phase15 NCCL over several cards: not run ({cards} card)")
+
+    def check_fit(name, label, nranks, one, ulp, r):
+        """A sharded fit's record ``r`` (first and final loss, ranks
+        bit-equal, launches, steps/s) against the one-rank fit and its
+        1-ulp control."""
+        l1, lk, lu = (float(one.loss_history[0]),
+                      float(one.loss_history[-1]),
+                      float(ulp.loss_history[-1]))
+        l1s, ls, cnt = r["first"], r["final"], r["launches"]
+        limit = max(KAN_CMP_CONTROL_X * abs(lk - lu), KAN_CMP_FLOOR_REL * lk)
+        ok = (abs(l1s - l1) <= LOSS_RTOL * l1 and abs(ls - lk) <= limit
+              and r["ranks_equal"] and cnt["siren_step"] == 0
+              and cnt["siren_grad"] == nranks * RUNNER_SHARD_STEPS
+              and cnt["siren_adam"] == nranks * RUNNER_SHARD_STEPS)
+        log(f"phase15 {name} fit(mesh={label}), {RUNNER_SHARD_STEPS} steps: "
+            f"first loss {l1s:.9g} vs one rank {l1:.9g} (rel "
+            f"{abs(l1s - l1) / l1:.2e}, limit {LOSS_RTOL}); final loss "
+            f"sharded {ls:.9g} / one rank {lk:.9g} / perturbed one rank "
+            f"{lu:.9g}, gated |sharded - one| {abs(ls - lk):.3e} (limit "
+            f"{limit:.3e}); ranks bit-equal {r['ranks_equal']}; launches "
+            f"{cnt}; steps/s sharded {r['steps_s']:.2f} "
+            f"({1e3 / r['steps_s']:.3f} ms a step), one rank "
+            f"{one.steps_per_sec:.2f} ({1e3 / one.steps_per_sec:.3f} ms); "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(f"{name} sharded fit ({label})")
+
+    launches = {}
+    for name in shapes:
+        model = keep[name]["model"]
+        s0 = tloop.init_train_state(model, torch.Generator().manual_seed(SEED),
+                                    stc, dev)
+        one = tloop.fit(model, x, y, stc, state=s0, device=dev)
+        ulp = tloop.fit(model, x, y, stc, device=dev, state=s0._replace(
+            params=tree_map(lambda t: t * (1.0 + 2.0 ** -22), s0.params)))
+        res, cnt = served(lambda: run_thread_ranks(2, lambda m: tloop.fit(
+            model, x, y, stc, state=s0, mesh=m), device=dev))
+        launches[name] = cnt
+        check_fit(name, "2 ranks on one card, gloo", 2, one, ulp, dict(
+            first=float(res[0].loss_history[0]),
+            final=float(res[0].loss_history[-1]),
+            ranks_equal=ranks_equal(res, lambda r: r.state)
+            and np.array_equal(res[0].loss_history, res[1].loss_history),
+            launches=cnt, steps_s=res[0].steps_per_sec))
+        if nccl is not None:
+            check_fit(name, f"{nccl['size']} cards, {nccl['backend']}",
+                      nccl["size"], one, ulp, nccl[name])
+        keep[name].update(steps_s=res[0].steps_per_sec,
+                          one_steps_s=one.steps_per_sec)
+        del one, ulp, res
+    # the KAN: the autograd step on each shard (G and H), the gradients
+    # all-reduced
+    kmodel = build_model("kan", KANConfig(layers_hidden=KAN_LAYERS),
+                         fused=True)
+    ktc = tloop.TrainConfig(total_steps=KAN_SHARD_STEPS,
+                            scan_chunk=KAN_SHARD_STEPS)
+    ks0 = tloop.init_train_state(kmodel, torch.Generator().manual_seed(SEED),
+                                 ktc, dev)
+    kone = tloop.fit(kmodel, x, y, ktc, state=ks0, device=dev)
+    kres, cnt = served(lambda: run_thread_ranks(2, lambda m: tloop.fit(
+        kmodel, x, y, ktc, state=ks0, mesh=m), device=dev))
+    launches["runner_kan"] = cnt
+    l1, l1s = float(kone.loss_history[0]), float(kres[0].loss_history[0])
+    same = ranks_equal(kres, lambda r: r.state)
+    ok = (abs(l1s - l1) <= LOSS_RTOL * l1 and same
+          and cnt["kan_fwd"] == 2 * KAN_SHARD_STEPS
+          and cnt["kan_bwd"] == 2 * KAN_SHARD_STEPS)
+    log(f"phase15 runner KAN{KAN_LAYERS} fit(mesh=2 ranks), "
+        f"{KAN_SHARD_STEPS} autograd steps: losses "
+        f"{[float(v) for v in kres[0].loss_history]}"
+        f" vs one rank {[float(v) for v in kone.loss_history]} (first rel "
+        f"{abs(l1s - l1) / l1:.2e}, limit {LOSS_RTOL}); ranks bit-equal "
+        f"{same}; launches {cnt}; {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fails.append("KAN sharded fit")
+    del kone, kres
+    # the headline encode, its windows sharded over two ranks
+    spec = SHAPES["headline"]
+    _, hmodel, _, _, _ = train_population(np, torch, dev, clip, "headline",
+                                          spec)
+    mcfg = MultiINRConfig(chunk_seconds=spec["chunk_seconds"],
+                          overlap_fraction=spec["overlap"])
+    etc = tloop.TrainConfig(total_steps=ENCODE_SHARD_STEPS,
+                            **TRAIN["headline"])
+    eone = multi_inr_fit(hmodel, clip, FS, mcfg, etc, seed=SEED, device=dev)
+    eres, cnt = served(lambda: run_thread_ranks(2, lambda m: multi_inr_fit(
+        hmodel, clip, FS, mcfg, etc, seed=SEED, mesh=m), device=dev))
+    launches["headline_encode"] = cnt
+    same = all(np.array_equal(r.loss_history, eone.loss_history)
+               for r in eres)
+    ok = (same and eres[0].num_chunks == spec["expect"][2]
+          and cnt["siren_step"] == 2 * ENCODE_SHARD_STEPS
+          and ranks_equal(eres, lambda r: r.states))
+    log(f"phase15 headline encode, {eres[0].num_chunks} windows on 2 ranks, "
+        f"{ENCODE_SHARD_STEPS} steps: every window's loss history bit-equal "
+        f"to one rank's {same}; fit {eres[0].train_time_s:.3f} s vs one rank "
+        f"{eone.train_time_s:.3f} s; launches {cnt}; "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fails.append("headline window-sharded encode")
+    del eone, eres
+    out["launches"] = launches
+    # the CLI under torchrun, two ranks sharing the card (gloo)
+    tag = "mlp_torchrun"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "inraudio_tpu_torch", "fit",
+         "--device", "cuda", "--arch", "mlp", "--fused", "--filename", wav,
+         "--duration", "7.0", "--total-steps", str(TORCHRUN_STEPS),
+         "--experiment-path", WORK, "--tag", tag],
+        cwd=HERE, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
+    wall = time.perf_counter() - t0
+    folder = os.path.join(WORK, tag)
+    rec = {}
+    if os.path.exists(os.path.join(folder, "parameters.json")):
+        with open(os.path.join(folder, "parameters.json")) as f:
+            rec = json.load(f)
+    ok = (proc.returncode == 0 and "backend gloo" in proc.stderr
+          and proc.stdout.count('"ckpt"') == 1
+          and all(os.path.exists(os.path.join(folder, f))
+                  for f in ("output.wav", "saved_ckpt.npz"))
+          and np.isfinite(rec.get("best_loss", np.nan)))
+    log(f"phase15 torchrun --nproc-per-node 2 fit --device cuda --arch mlp "
+        f"--fused --total-steps {TORCHRUN_STEPS} (2 ranks on one card, "
+        f"gloo): rc={proc.returncode} in {wall:.1f} s, "
+        f"{rec.get('steps_per_sec', float('nan')):.2f} steps/s, best loss "
+        f"{rec.get('best_loss', float('nan')):.6g}; "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        log(proc.stderr[-3000:])
+        fails.append("torchrun CLI")
+    if fails:
+        raise AssertionError(f"phase 15 failed: {fails}")
+
+    # ---- phase 16: timings ----
+    for name, kp in keep.items():
+        cfg, plan, bt, fs, P = (kp[k] for k in ("cfg", "plan", "bt", "fs",
+                                                 "P"))
+        cs, ts, limit, sh = _shard_inputs(torch, np, dev, x, y, 0, 2, block)
+        args = (cs, ts, limit, n, cfg, plan, gmode, bt)
+        t = {}
+        t["grad"] = cuda_ms(torch, lambda: ss.SIREN_GRAD(fs.params, *args),
+                            10)
+        t["grad_plain"] = cuda_ms(torch, lambda: ss.grad_plain(
+            fs.params, *args), 3)
+        a = clone_state(fs)
+        tot, c1, c2 = kp["total"], kp["c1"], kp["c2"]
+        t["adam"] = cuda_ms(torch, lambda: ss.SIREN_ADAM(
+            a.params, a.mu, a.nu, a.best_params, tot, a.lr, c1, c2,
+            a.best_loss, 0.0), 50)
+        t["adam_plain"] = cuda_ms(torch, lambda: ss.adam_epilogue_plain(
+            a.params, a.mu, a.nu, a.best_params, tot[:P].view(1, P), a.lr,
+            c1, c2, tot[P:P + 1], a.best_loss, 0.0), 20)
+        p = torch.zeros(P, device=dev, requires_grad=True)
+        p.grad = tot[:P].clone()
+        opt = torch.optim.Adam([p], lr=1e-3, fused=True)
+        t["adam_library"] = cuda_ms(torch, opt.step, 50)
+        del p, opt
+
+        def allreduce(m, buf_len=P + 4, reps=20):
+            buf = torch.ones(buf_len, device=dev)
+            for _ in range(3):
+                m.all_reduce_(buf)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                m.all_reduce_(buf)
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / reps
+
+        t["allreduce"] = run_thread_ranks(2, allreduce, device=dev)[0]
+        t["step"] = 1e3 / kp["steps_s"]
+        t["one_step"] = 1e3 / kp["one_steps_s"]
+        n_params = sum(v[0].numel() for layer in st.unflatten_params(
+            fs.params, cfg)["layers"] for v in layer.values())
+        n_freq = 0 if bt is None else bt.shape[1]
+        t["grad_bound"] = siren_bounds(1, sh.rows, RUNNER_H, n_params,
+                                       n_freq)[2]
+        # F: g, p, mu, nu read and p, mu, nu written, and best (the old p)
+        # only where this loss improves on best_loss; ~12 fp32 operations an
+        # element
+        improved = float(tot[P]) < float(a.best_loss)
+        t["adam_bound"] = bound(4 * (7 + improved) * P, 0, 12 * P)
+        log(f"phase16 {name}: E per shard ({sh.rows} rows) "
+            f"{t['grad']:.3f} ms (plain {t['grad_plain']:.3f}, bound "
+            f"{t['grad_bound'][0]:.3f} ms, {t['grad_bound'][1]}); gloo "
+            f"all-reduce of {4 * (P + 4) / 1e6:.2f} MB through host memory "
+            f"{t['allreduce']:.3f} ms (host clock); F {t['adam']:.4f} ms "
+            f"(plain {t['adam_plain']:.4f}, bound {t['adam_bound'][0]:.4f} "
+            f"ms, {t['adam_bound'][1]}, best written {improved}; "
+            f"torch.optim.Adam(fused=True).step() "
+            f"on one {P}-float tensor {t['adam_library']:.4f} ms, no clip, "
+            f"no best); whole sharded step {t['step']:.3f} ms "
+            f"({kp['steps_s']:.2f} steps/s, 2 ranks on one card) vs the "
+            f"one-rank D step {t['one_step']:.3f} ms "
+            f"({kp['one_steps_s']:.2f} steps/s)")
+        out[name] = t
+    return out
+
+
+def launch_counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from inraudio_tpu_torch.ops import kan_fused as kf
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_step as ss
+    from inraudio_tpu_torch.ops import siren_train as st
+    return {"siren_stack": sf.SIREN_STACK, "siren_step": ss.SIREN_STEP,
+            "siren_bwd": st.SIREN_BWD, "siren_grad": ss.SIREN_GRAD,
+            "siren_adam": ss.SIREN_ADAM, "kan_fwd": kf.KAN_FWD,
+            "kan_bwd": kf.KAN_BWD}
+
+
+def sharded_fits_torchrun(nproc):
+    """Phase 15's NCCL leg: this script under ``torchrun --nproc-per-node
+    nproc``, one card a rank, each rank running ``sharded_fits_rank``.
+    Returns rank 0's record of the fits."""
+    path = os.path.join(WORK, NCCL_FITS)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), os.path.join(HERE, "chip_smoke.py")],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    log(f"phase15 torchrun --nproc-per-node {nproc} chip_smoke.py (the "
+        f"runner mlp fits, one card a rank): rc={proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or not os.path.exists(path):
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"phase 15: the fits on {nproc} cards failed")
+    with open(path) as f:
+        res = json.load(f)
+    if res["backend"] != "nccl" or res["size"] != nproc:
+        raise AssertionError(f"phase 15: {nproc} cards ran {res['size']} "
+                             f"ranks on {res['backend']}, not NCCL")
+    return res
+
+
+def sharded_fits_rank(torch):
+    """One rank of phase 15's NCCL leg (this script started by ``torchrun``,
+    ``WORLD_SIZE`` > 1): a 3-step warm-up fit, which also sets up NCCL's
+    communicator at its first collective, then the runner mlp fits, raw and
+    RFF, through ``fit`` on the default group's mesh, RUNNER_SHARD_STEPS
+    steps from seed SEED, every launch count set to 0 before each and summed
+    over the ranks after.  Rank 0 writes each fit's first and final loss,
+    steps/s, launches, and whether every rank's final state and loss
+    history equal its own bit for bit, to NCCL_FITS."""
+    import torch.distributed as dist
+    from inraudio_tpu_torch.data import waveform_fitting
+    from inraudio_tpu_torch.parallel import make_mesh
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.tree import tree_leaves
+    mesh = make_mesh("cuda")
+    problem = waveform_fitting(os.path.join(WORK, "runner_clip.wav"), 7.0)
+    x, y = problem.coords, problem.targets
+    stc = tloop.TrainConfig(total_steps=RUNNER_SHARD_STEPS,
+                            scan_chunk=RUNNER_SHARD_STEPS)
+    tloop.fit(runner_model(None), x, y,
+              dataclasses.replace(stc, total_steps=3), mesh=mesh)
+    counters = launch_counters()
+    out = {"backend": mesh.backend, "size": mesh.size}
+    for name, rb in runner_shapes(torch, mesh.device).items():
+        model = runner_model(rb)
+        s0 = tloop.init_train_state(model, torch.Generator().manual_seed(SEED),
+                                    stc, mesh.device)
+        for c in counters.values():
+            c.launches = 0
+        r = tloop.fit(model, x, y, stc, state=s0, mesh=mesh)
+        cnt = mesh.all_reduce_(torch.tensor(
+            [float(c.launches) for c in counters.values()],
+            device=mesh.device))
+        mine = torch.cat([t.reshape(-1).to(torch.float64) for t in
+                          tree_leaves(r.state)] + [torch.as_tensor(
+                              r.loss_history, dtype=torch.float64,
+                              device=mesh.device)])
+        every = mesh.all_gather(mine[None])
+        out[name] = {"first": float(r.loss_history[0]),
+                     "final": float(r.loss_history[-1]),
+                     "steps_s": r.steps_per_sec,
+                     "ranks_equal": bool((every == every[:1]).all()),
+                     "launches": {k: int(v) for k, v in
+                                  zip(counters, cnt.tolist())}}
+    if mesh.rank == 0:
+        with open(os.path.join(WORK, NCCL_FITS), "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
 
 
 def hop_median_snr(np, ref, rec, hop):
@@ -1196,6 +1706,13 @@ def main() -> int:
     from test_torch_cuda import (BF16_BULK_ATOL, BF16_BULK_SHARE,
                                  BF16_MAX_ATOL, F32_ATOL, check_close)
 
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return sharded_fits_rank(torch)
+
     smi = nvidia_smi()
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -1378,6 +1895,7 @@ def main() -> int:
     train = train_phases(np, torch, dev, clip, codec, ss, st, sf)
     kan = kan_phases(np, torch, dev, clip)
     runner = runner_phases(np, torch, dev, clip)
+    shard = shard_phases(np, torch, dev, clip)
 
     shutil.rmtree(WORK, ignore_errors=True)
     ms, plain_ms = timing[("headline", "deg11")]
@@ -1498,6 +2016,37 @@ def main() -> int:
             "ms": t["bwd"], "plain_ms": t["bwd_plain"],
             "bound_ms": cb_, "bound_by": cby, "library_ms": None,
             "shape": shape + ", bf16x2 grad tier",
+        }]
+        t = shard[name]
+        shape = shape.replace("launches from phase 12",
+                              "2 ranks sharing the card, launches from the "
+                              "sharded fit of phase 15")
+        kernels["kernels"] += [{
+            "name": "siren_grad_rff" if rff else "siren_grad",
+            "route": "cuda",
+            "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+            "replaces": "inraudio_tpu/ops/pallas_siren_step.py:348",
+            "launches": shard["launches"][name]["siren_grad"],
+            "max_abs_err": shard[(name, "grad_err")],
+            "ms": t["grad"], "plain_ms": t["grad_plain"],
+            "bound_ms": t["grad_bound"][0],
+            "bound_by": t["grad_bound"][1], "library_ms": None,
+            "shape": shape + ", one shard of two (154,112 rows), bf16x2 "
+                             "grad tier",
+        }, {
+            "name": "siren_adam_rff" if rff else "siren_adam",
+            "route": "cuda",
+            "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+            "replaces": "inraudio_tpu/ops/pallas_siren_step.py:491",
+            "launches": shard["launches"][name]["siren_adam"],
+            "max_abs_err": shard[(name, "adam_err")],
+            "ms": t["adam"], "plain_ms": t["adam_plain"],
+            "bound_ms": t["adam_bound"][0], "bound_by": t["adam_bound"][1],
+            "library_ms": t["adam_library"],
+            "shape": shape + ", clip + Adam + best of one model on the "
+                             "all-reduced grads; library: "
+                             "torch.optim.Adam(fused=True).step() without "
+                             "clip or best",
         }]
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))

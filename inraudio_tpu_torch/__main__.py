@@ -6,6 +6,12 @@ the modulated family and ``--target-bps`` are not ported yet), ``decode``
 and ``info`` subcommands of ``inraudio_tpu``'s CLI, plus ``--device``
 (default ``cuda``; it raises when there is no card rather than running on
 the CPU).  ``fit-multi`` and multi-input decode are not ported yet.
+
+``fit`` and ``encode`` run on several ranks under ``torchrun
+--nproc-per-node N -m inraudio_tpu_torch ...``: ``fit`` shards the clip's
+rows, ``encode`` its windows (``parallel.make_mesh``: NCCL when every rank
+has a card of its own, gloo when ranks share one).  Only rank 0 writes the
+outputs and prints the result line.
 """
 
 from __future__ import annotations
@@ -149,7 +155,8 @@ def main(argv=None) -> int:
                            "duration")}
         ckpt = train(args.experiment_path, args.tag, args.filename,
                      args.duration, **kw)
-        print(json.dumps({"ckpt": ckpt}))
+        if ckpt is not None:  # rank 0
+            print(json.dumps({"ckpt": ckpt}))
     elif args.cmd == "encode":
         import resource
         import time
@@ -160,6 +167,7 @@ def main(argv=None) -> int:
                             save_inr)
         from .data.audio_io import read_wav
         from .dsp import calculate_snr
+        from .parallel import make_mesh
         fs, sig = read_wav(args.input,
                            channel=None if args.all_channels else 0)
         sig = sig.astype(np.float32)
@@ -175,11 +183,14 @@ def main(argv=None) -> int:
                            "off": False}[args.side_quantize],
             **({"plateau_patience": args.plateau_patience}
                if args.plateau_patience is not None else {}))
+        mesh = make_mesh(args.device)
         t0 = time.time()
-        payload = encode(sig, fs, cfg, device=args.device)
+        payload = encode(sig, fs, cfg, mesh=mesh)
         enc_s = time.time() - t0
+        if mesh.rank != 0:
+            return _shutdown()
         path = save_inr(args.output, payload)
-        _, rec = decode(payload, args.device)
+        _, rec = decode(payload, mesh.device)
         stats = compression_stats(payload, path)
         stats["snr_db"] = round(float(calculate_snr(sig, rec)), 3)
         stats["path"] = path
@@ -234,6 +245,14 @@ def main(argv=None) -> int:
                 print(f"  {e['name']:>10} {e['dtype']:>8} {shape:>14} "
                       f"{e['enc']:>10} {e['stored_bytes']:>9} B "
                       f"({e['stored_bytes'] / max(e['raw_bytes'], 1):.2f} raw)")
+    return _shutdown()
+
+
+def _shutdown() -> int:
+    """Tear down the default process group a ``torchrun`` mesh set up."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
     return 0
 
 

@@ -39,6 +39,7 @@ from .device import resolve_device as _resolve_device
 from .models import (SirenSnakeTanhConfig, build_model, dequantize_params,
                      quantize_params)
 from .models.siren import tensor_from_numpy
+from .parallel.mesh import Mesh, resolve_mesh
 from .train.loop import TrainConfig
 from .train.multi_inr import (MultiINRConfig, batched_chunk_eval,
                               chunk_eval_fn, chunk_signal,
@@ -241,8 +242,12 @@ def _split_channels(signal: np.ndarray) -> list[np.ndarray]:
 
 def encode(signal: np.ndarray, sample_rate: int,
            cfg: CodecConfig | None = None,
-           device: torch.device | str = "cuda") -> dict[str, Any]:
+           device: torch.device | str | None = None,
+           mesh: Mesh | None = None) -> dict[str, Any]:
     """Fit the multi-INR on ``device`` and return the codec payload.
+    ``mesh`` (``parallel.make_mesh(device)`` when None) shards the windows
+    over its ranks and places the fit (a ``device`` given beside it must be
+    its own); every rank returns the same payload.
 
     ``signal`` is (n,) mono or (n, c): every channel's windows join one
     population, channel-major (window i of channel j at row j*k+i).  The
@@ -250,7 +255,8 @@ def encode(signal: np.ndarray, sample_rate: int,
     writes; ``trained_forward`` is 'fused_approx' for a fused fit (the
     kernels' bf16x3 matmuls and polynomial sin) and 'exact' otherwise."""
     cfg = cfg or CodecConfig()
-    dev = _resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh.device
     model_cfg = SirenSnakeTanhConfig(
         hidden_features=cfg.hidden_features, num_sine=cfg.num_sine,
         num_snake=cfg.num_snake, first_omega_0=cfg.first_omega_0,
@@ -267,8 +273,8 @@ def encode(signal: np.ndarray, sample_rate: int,
                     grad_clip_norm=cfg.grad_clip_norm,
                     plateau_patience=cfg.plateau_patience,
                     plateau_factor=cfg.plateau_factor),
-        seed=cfg.seed, device=dev,
-        max_chunks_per_batch=cfg.max_chunks_per_batch)
+        seed=cfg.seed, max_chunks_per_batch=cfg.max_chunks_per_batch,
+        mesh=mesh)
     res = results[0]
     params = tree_map(lambda *xs: torch.cat(xs).to(dev),
                       *[r.states.best_params for r in results])

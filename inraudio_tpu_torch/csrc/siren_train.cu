@@ -1,13 +1,17 @@
 // SirenWithSnakeTanh training kernels for Hopper (sm_90a), CUDA C++.
 //
-// Replaces two Pallas TPU kernels of the JAX package, with the RFF layer 0
+// Replaces four Pallas TPU kernels of the JAX package, with the RFF layer 0
 // they share (inraudio_tpu/ops/pallas_siren.py:_rff_features_in_kernel):
 //   inraudio_tpu/ops/pallas_siren_step.py:_step_kernel  (kernel D: the whole
 //       MSE step: forward recompute, masked MSE, backward, global-norm clip,
 //       Adam, best-params snapshot, in place)
 //   inraudio_tpu/ops/pallas_siren_train.py:_bwd_kernel  (kernel C: the
 //       backward of the stack for a supplied cotangent)
-// as three kernels:
+//   inraudio_tpu/ops/pallas_siren_step.py:_grad_kernel  (kernel E: one row
+//       shard's masked MSE loss and grads, for the row-sharded fit)
+//   inraudio_tpu/ops/pallas_siren_step.py:_adam_kernel  (kernel F: clip +
+//       Adam + best on the all-reduced grads of the row-sharded fit)
+// as four kernels:
 //   siren_grad_kernel   per (window, row slice): for each row tile of the
 //                       slice in order, the forward recompute, the cotangent
 //                       (D: 2 (out - tgt) / n on valid rows, and the tile's
@@ -19,8 +23,17 @@
 //   siren_adam_kernel   per (window, chunk): the window's norm and loss from
 //                       the chunk / slice partials (fixed order), then clip,
 //                       Adam and the best snapshot of the OLD params, in
-//                       place (D only).
-// C is grad + reduce; D is all three.
+//                       place (D only);
+//   siren_sqsum_kernel  per 1024-float chunk: the sum of squares of given
+//                       (all-reduced) grads, as the reduce computes it.
+// C is grad + reduce; D is grad + reduce + Adam.  E is grad + reduce with a
+// device row limit (rows at or past it carry no loss), the normaliser the
+// whole clip's 1 / n_valid from the host, and the shard's loss summed by the
+// reduce into the slot after its grads: one buffer [grads (P) | loss | pad]
+// that the fit all-reduces across ranks.  F is sqsum + Adam on that buffer:
+// the norm and the loss come from the all-reduced values, never from a
+// rank's own partials, so every rank clips by the global norm and applies
+// the same update.
 //
 // What bounds it on an H100 (by reading): per sample at h = 128 the step is
 // ~197k forward fp32 FMAs (bf16x3) plus ~262k backward (4 hidden layers x 2
@@ -56,7 +69,15 @@
 //   The slice count depends on the shapes only, so the wrappers' grouping
 //   of windows within SCRATCH_BYTES leaves every result bit-equal;
 // - grid-wide parallelism: slices x windows CTAs (8 per window at the
-//   headline, 173 at the codec default, 264 for one model over a clip).
+//   headline, 173 at the codec default, 264 for one model over a clip or
+//   over one shard of it);
+// - E is bit-deterministic per shard: its slices depend on the shard's own
+//   row tiles, and its limit is read once per thread from device memory (no
+//   host sync).  F is elementwise after a fixed-order norm, so ranks that
+//   hold the same all-reduced buffer and state stay bit-equal.  F must
+//   move 7 P floats (g, p, mu, nu read; p, mu, nu written), 8 P when the
+//   loss improves and best takes the old p (best is never read): it is
+//   bound by bytes, a few microseconds at the runner shapes.
 //
 // Numerics, as the JAX package (and the plain versions in
 // inraudio_tpu_torch/ops/siren_train.py and siren_step.py):
@@ -261,7 +282,8 @@ siren_grad_kernel(const float* __restrict__ coords,
                   const float* __restrict__ params,
                   float* __restrict__ partial, float* __restrict__ loss_part,
                   float* __restrict__ pre_buf, const float* __restrict__ tgt,
-                  const float* __restrict__ cot, const TrainArgs args, int n,
+                  const float* __restrict__ cot,
+                  const int* __restrict__ limit, const TrainArgs args, int n,
                   int tiles, int slices) {
   constexpr int TM = tile_rows<H>();
   constexpr int LD = H + 4;
@@ -305,6 +327,8 @@ siren_grad_kernel(const float* __restrict__ coords,
   const int c0 = cg * 4, c1 = H / 2 + cg * 4;
   const int ec = tid % H, es = tid / H;  // column-pass mapping
   const int LH = L - 1;
+  // E: rows at or past the device row limit carry no loss (null: every row)
+  const int n_lim = limit != nullptr ? min(n, __ldg(limit)) : n;
 
   // zero the pads between leaves of this slab (the reduce sums all P;
   // no tile writes a pad)
@@ -492,7 +516,7 @@ siren_grad_kernel(const float* __restrict__ coords,
         const float out = activate(args.kind[LH], pre, args.omega[LH], a,
                                    args.deg[LH]);
         float g = 0.0f, l = 0.0f;
-        if (row < n) {
+        if (row < n_lim) {
           if (cot != nullptr) {
             g = cot[win * n + row];
           } else {
@@ -731,10 +755,19 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
 __global__ void __launch_bounds__(kThreads)
 siren_reduce_kernel(const float* __restrict__ partial,
                     float* __restrict__ grads, float* __restrict__ sq_part,
-                    int slices, int P, int chunks) {
+                    const float* __restrict__ loss_part,
+                    float* __restrict__ loss_out, int slices, int P,
+                    int chunks) {
   __shared__ float scratch[kThreads / 32];
   const long long win = blockIdx.x / chunks;
   const int chunk = blockIdx.x % chunks;
+  if (loss_out != nullptr && chunk == 0 && threadIdx.x == 0) {
+    // E: the window's loss, its slices summed in order as the Adam kernel
+    // sums them
+    float loss = 0.0f;
+    for (int s = 0; s < slices; ++s) loss += loss_part[win * slices + s];
+    loss_out[win] = loss;
+  }
   const int e = chunk * kChunk + threadIdx.x * 4;
   float sq = 0.0f;
   if (e < P) {
@@ -797,11 +830,28 @@ siren_adam_kernel(const float* __restrict__ grads,
   }
 }
 
+// F's first half: each chunk's sum of squares of the given grads, in the
+// reduce's order (float4 lanes, then a fixed block tree).
+__global__ void __launch_bounds__(kThreads)
+siren_sqsum_kernel(const float* __restrict__ g, float* __restrict__ sq_part,
+                   int P) {
+  __shared__ float scratch[kThreads / 32];
+  const int e = blockIdx.x * kChunk + threadIdx.x * 4;
+  float sq = 0.0f;
+  if (e < P) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(g + e));
+    sq = ((v.x * v.x + v.y * v.y) + v.z * v.z) + v.w * v.w;
+  }
+  const float total = block_sum(sq, scratch);
+  if (threadIdx.x == 0) sq_part[blockIdx.x] = total;
+}
+
 template <int H>
 int launch_grad(const TrainArgs& args, const float* coords,
                 const float* params, float* partial, float* loss_part,
-                float* pre, const float* tgt, const float* cot, int k, int n,
-                int slices, cudaStream_t stream) {
+                float* pre, const float* tgt, const float* cot,
+                const int* limit, int k, int n, int slices,
+                cudaStream_t stream) {
   const size_t smem = train_smem_floats<H>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       siren_grad_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -813,7 +863,8 @@ int launch_grad(const TrainArgs& args, const float* coords,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   siren_grad_kernel<H><<<static_cast<unsigned>(blocks), kThreads, smem,
                          stream>>>(coords, params, partial, loss_part, pre,
-                                   tgt, cot, args, n, tiles, slices);
+                                   tgt, cot, limit, args, n, tiles,
+                                   slices);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -831,13 +882,15 @@ extern "C" {
 // (d, F) f32 = 2 pi B^T of an RFF model (n_freq = F > 0, layer 0's w is
 // (2F, h)), or null with n_freq = 0; fdeg: the features' trig degree.
 // slices: row slices per window, 1 <= slices <= the window's row tiles.
+// limit: device int32 (E's row limit: rows at or past it carry no loss), or
+// null for every row; inv_n / two_inv_n normalise the loss and cotangent.
 // Returns a cudaError_t value: 0 when accepted.
 int siren_grad(const void* coords, const void* params, void* partial,
                void* loss_part, void* pre, const void* tgt, const void* cot,
                const void* offs, const void* ints, const void* omegas,
                int n_layers, int k, int n, int d, int h, int P, int gmode,
                float inv_n, float two_inv_n, const void* bt, int n_freq,
-               int fdeg, int slices, void* stream) {
+               int fdeg, int slices, const void* limit, void* stream) {
   if (n_layers < 2 || n_layers > kMaxLayers || d < 1 || d > kMaxIn || k < 1 ||
       n < 1 || P < 1 || (P & 3) || (tgt == nullptr) == (cot == nullptr) ||
       slices < 1 || n_freq < 0 || (n_freq > 0) != (bt != nullptr))
@@ -872,19 +925,22 @@ int siren_grad(const void* coords, const void* params, void* partial,
   float* pr = static_cast<float*>(pre);
   const float* t = static_cast<const float*>(tgt);
   const float* ct = static_cast<const float*>(cot);
+  const int* lim = static_cast<const int*>(limit);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (h) {
-    case 32: return launch_grad<32>(args, c, p, part, lp, pr, t, ct, k, n, slices, s);
-    case 64: return launch_grad<64>(args, c, p, part, lp, pr, t, ct, k, n, slices, s);
-    case 128: return launch_grad<128>(args, c, p, part, lp, pr, t, ct, k, n, slices, s);
-    case 256: return launch_grad<256>(args, c, p, part, lp, pr, t, ct, k, n, slices, s);
+    case 32: return launch_grad<32>(args, c, p, part, lp, pr, t, ct, lim, k, n, slices, s);
+    case 64: return launch_grad<64>(args, c, p, part, lp, pr, t, ct, lim, k, n, slices, s);
+    case 128: return launch_grad<128>(args, c, p, part, lp, pr, t, ct, lim, k, n, slices, s);
+    case 256: return launch_grad<256>(args, c, p, part, lp, pr, t, ct, lim, k, n, slices, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// partial (k * slices, P) -> grads (k, P), sq_part (k, chunks).
-int siren_reduce(const void* partial, void* grads, void* sq_part, int k,
-                 int slices, int P, void* stream) {
+// partial (k * slices, P) -> grads (k, P), sq_part (k, chunks).  With
+// loss_out (E): loss_out[w] = the sum of loss_part[w * slices + s] over s.
+int siren_reduce(const void* partial, void* grads, void* sq_part,
+                 const void* loss_part, void* loss_out, int k, int slices,
+                 int P, void* stream) {
   if (k < 1 || slices < 1 || P < 1 || (P & 3))
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (P + kChunk - 1) / kChunk;
@@ -893,7 +949,8 @@ int siren_reduce(const void* partial, void* grads, void* sq_part, int k,
   siren_reduce_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(partial), static_cast<float*>(grads),
-      static_cast<float*>(sq_part), slices, P, chunks);
+      static_cast<float*>(sq_part), static_cast<const float*>(loss_part),
+      static_cast<float*>(loss_out), slices, P, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -919,6 +976,33 @@ int siren_adam(const void* grads, const void* sq_part, const void* loss_part,
       static_cast<const float*>(lr), static_cast<const float*>(c1),
       static_cast<const float*>(c2), static_cast<const float*>(best_loss),
       slices, P, chunks, clip);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F: buf (P + 4) = [grads (P) | loss | pad], all-reduced; sq_part (chunks)
+// scratch.  In place on params / mu / nu / best (P; best may be null) of
+// one model; loss_out (1) receives buf[P]; lr, c1, c2, best_loss (1) are
+// read.  The norm is that of buf's grads, the best snapshot taken when
+// buf[P] < best_loss.
+int siren_adam_global(const void* buf, void* sq_part, void* params, void* mu,
+                      void* nu, void* best, void* loss_out, const void* lr,
+                      const void* c1, const void* c2, const void* best_loss,
+                      int P, float clip, void* stream) {
+  if (P < 1 || (P & 3)) return static_cast<int>(cudaErrorInvalidValue);
+  const int chunks = (P + kChunk - 1) / kChunk;
+  const float* g = static_cast<const float*>(buf);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  siren_sqsum_kernel<<<chunks, kThreads, 0, s>>>(
+      g, static_cast<float*>(sq_part), P);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  siren_adam_kernel<<<chunks, kThreads, 0, s>>>(
+      g, static_cast<const float*>(sq_part), g + P,
+      static_cast<float*>(params), static_cast<float*>(mu),
+      static_cast<float*>(nu), static_cast<float*>(best),
+      static_cast<float*>(loss_out), static_cast<const float*>(lr),
+      static_cast<const float*>(c1), static_cast<const float*>(c2),
+      static_cast<const float*>(best_loss), 1, P, chunks, clip);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,7 +9,11 @@ package's schema.  ``train`` takes a wav file and returns the checkpoint
 path; ``train_from_signal`` takes an in-memory signal (coords in
 [-coord_scale, coord_scale]) and returns the reconstruction and residual.
 
-Every fit runs on ``device`` (default the card; it raises without one).
+Every fit runs on ``device`` (default the card; it raises without one),
+or on the ranks of ``mesh`` (``parallel.make_mesh(device)`` when None, so
+``torchrun --nproc-per-node N -m inraudio_tpu_torch fit ...`` shards the
+rows over N ranks; a device given beside a mesh must be its own); only
+rank 0 decodes and writes the artefacts.
 With ``num_freq``, the mlp owns its RFF encoding, as in the JAX runner: raw
 coordinates go to the fit and the decode, and a fused mlp folds the
 encoding into its kernels' layer 0.  Every other encoding (the NeRF
@@ -35,12 +39,12 @@ from ..data.audio_io import decimate as decimate_signal
 from ..data.audio_io import read_wav, write_wav
 from ..data.fittings import (FittingProblem, waveform_fitting,
                              waveform_fitting_from_array)
-from ..device import resolve_device
 from ..eval.decode import decode_problem
 from ..eval.metrics import (experiment_record, reconstruction_snr,
                             save_parameters)
 from ..models import (INRModel, KANConfig, SirenSnakeTanhConfig, build_model,
                       posenc_nerf, posenc_output_dim, rff_apply, rff_init)
+from ..parallel.mesh import Mesh, resolve_mesh
 from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.loop import TrainConfig, fit, init_train_state
 from ..utils.observability import MetricsLogger
@@ -131,9 +135,13 @@ def _run_experiment(
     last_linear: bool = True, grad_clip_norm: float = 0.0,
     plateau_factor: float = 0.8, plateau_patience: int = 200,
     update_grid_every: int = 0, encoding: str = "rff",
-    device: torch.device | str = "cuda") -> dict[str, Any]:
-    """The engine behind ``train`` and ``train_from_signal``."""
-    dev = resolve_device(device)
+    device: torch.device | str | None = None,
+    mesh: Mesh | None = None) -> dict[str, Any]:
+    """The engine behind ``train`` and ``train_from_signal``.  On ranks
+    other than 0 (``experiment_folder`` None there) it fits and returns
+    the result without decoding or writing anything."""
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh.device
     if fused and arch == "mlp" and num_freq and encoding == "nerf":
         raise NotImplementedError(
             "a fused mlp has no NeRF posenc layer 0 in its kernels; fit it "
@@ -159,12 +167,18 @@ def _run_experiment(
         template = init_train_state(model, generator, cfg, dev)
         state = load_checkpoint(prev_ckpt_path, template)
 
-    metrics = MetricsLogger(os.path.join(experiment_folder, "metrics.jsonl"))
-    metrics.log({"event": "config", "hparams": _scalars(hparams)})
+    metrics = None
+    if mesh.rank == 0:
+        metrics = MetricsLogger(os.path.join(experiment_folder,
+                                             "metrics.jsonl"))
+        metrics.log({"event": "config", "hparams": _scalars(hparams)})
     t0 = time.time()
     result = fit(model, enc_coords, problem.targets, cfg, generator=generator,
-                 state=state, metrics=metrics, device=dev)
+                 state=state, metrics=metrics, mesh=mesh)
     train_time = time.time() - t0
+    if mesh.rank != 0:
+        return {"ckpt": None, "result": result, "model": model,
+                "problem": problem}
 
     # an mse fit's own quality estimate gates a fused mlp's decode tier
     fit_snr_est = None
@@ -220,11 +234,13 @@ def train(experiment_path: str, tag: str, filename: str,
           grad_clip_norm: float = 0.0, plateau_factor: float = 0.8,
           plateau_patience: int = 200, update_grid_every: int = 0,
           encoding: str = "rff",
-          device: torch.device | str = "cuda") -> str:
-    """File-based experiment (the wave method) -> the checkpoint path.
-    Defaults are the reference runner's."""
-    device = resolve_device(device)
-    folder = make_experiment_folder(experiment_path, tag)
+          device: torch.device | str | None = None,
+          mesh: Mesh | None = None) -> str | None:
+    """File-based experiment (the wave method) -> the checkpoint path
+    (None on ranks other than 0).  Defaults are the reference runner's."""
+    mesh = resolve_mesh(mesh, device)
+    folder = (make_experiment_folder(experiment_path, tag) if mesh.rank == 0
+              else None)
     problem = build_problem("wave", filename, duration,
                             decimation=decimation)
     ref_rate, ref = read_wav(filename, channel=0)
@@ -255,8 +271,7 @@ def train(experiment_path: str, tag: str, filename: str,
         first_linear=first_linear, last_linear=last_linear,
         grad_clip_norm=grad_clip_norm, plateau_factor=plateau_factor,
         plateau_patience=plateau_patience,
-        update_grid_every=update_grid_every, encoding=encoding,
-        device=device)
+        update_grid_every=update_grid_every, encoding=encoding, mesh=mesh)
     return out["ckpt"]
 
 
@@ -278,12 +293,15 @@ def train_from_signal(experiment_path: str, tag: str,
                       plateau_factor: float = 0.8,
                       plateau_patience: int = 200,
                       update_grid_every: int = 0, encoding: str = "rff",
-                      device: torch.device | str = "cuda") -> dict[str, Any]:
+                      device: torch.device | str | None = None,
+                      mesh: Mesh | None = None) -> dict[str, Any]:
     """In-memory experiment: coords span [-coord_scale, coord_scale], the
     decode is de-normalised by the stored peak, and the residual
-    ``input - recovered`` is returned for band-split chaining."""
-    device = resolve_device(device)
-    folder = make_experiment_folder(experiment_path, tag)
+    ``input - recovered`` is returned for band-split chaining (on rank 0;
+    other ranks of ``mesh`` get the fit's result only)."""
+    mesh = resolve_mesh(mesh, device)
+    folder = (make_experiment_folder(experiment_path, tag) if mesh.rank == 0
+              else None)
     problem = waveform_fitting_from_array(input_signal, input_fs,
                                           decimation=decimation,
                                           coord_scale=coord_scale)
@@ -312,5 +330,4 @@ def train_from_signal(experiment_path: str, tag: str,
         hparams=hparams, fused=fused, first_linear=first_linear,
         last_linear=last_linear, grad_clip_norm=grad_clip_norm,
         plateau_factor=plateau_factor, plateau_patience=plateau_patience,
-        update_grid_every=update_grid_every, encoding=encoding,
-        device=device)
+        update_grid_every=update_grid_every, encoding=encoding, mesh=mesh)

@@ -1,4 +1,5 @@
-"""Build a CUDA source into a shared library with nvcc and load it with ctypes.
+"""Build a CUDA source into a shared library with nvcc and load it with ctypes,
+and count a kernel wrapper's launches.
 
 The library goes into ``inraudio_tpu_torch/csrc/build/<name>-<hash>/``, keyed
 by a hash of the sources and flags, and is built at first use: nothing is
@@ -14,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -64,3 +66,17 @@ def build_library(name: str, sources: list[str]) -> ctypes.CDLL:
         (lib.parent / "build.log").write_text(proc.stderr + proc.stdout)
         os.replace(tmp, lib)
     return ctypes.CDLL(str(lib))
+
+
+class LaunchCounter:
+    """A kernel wrapper's launch count: ``launches`` rises by one per launch
+    (``count``), nowhere else.  The increment holds a lock, since ranks on
+    threads of one process launch the same wrapper."""
+
+    def __init__(self):
+        self.launches = 0
+        self._lock = threading.Lock()
+
+    def count(self) -> None:
+        with self._lock:
+            self.launches += 1

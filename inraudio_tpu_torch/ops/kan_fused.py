@@ -36,7 +36,7 @@ from typing import Any
 import torch
 
 from ..models.kan import KANConfig, _scaled_spline_weight, b_splines
-from ._nvcc import build_library
+from ._nvcc import LaunchCounter, build_library
 from .siren_fused import _MODE_CODE, _check_tensor, _f32_dot_mode, _kernel_dot
 from .siren_train import _check_rc
 
@@ -314,12 +314,9 @@ def _split(lib, w_t, s: LayerShape, code: int, stream, *, rows: bool):
     return hi, lo
 
 
-class _KanFwdKernel:
+class _KanFwdKernel(LaunchCounter):
     """Kernel G: the stack forward, one launch per layer (plus W's split).
     ``launches`` rises by one per stack forward launched, nowhere else."""
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, layers, coords: torch.Tensor, order: int, mode: str):
         """layers [(grid, W^T)] and coords (n, d) on one CUDA device ->
@@ -344,7 +341,7 @@ class _KanFwdKernel:
                 x = y
                 if li < len(layers) - 1:
                     xs.append(y)
-        self.launches += 1
+        self.count()
         return x, xs
 
 
@@ -370,13 +367,10 @@ def layer_dw(lib, x, grid, g, s: LayerShape, order: int, code: int,
     return dw_t
 
 
-class _KanBwdKernel:
+class _KanBwdKernel(LaunchCounter):
     """Kernel H: the stack backward for a supplied output cotangent, per
     layer in reverse: dW (product over rows + fixed-order reduce) and, for
     layers > 0, dx.  ``launches`` rises by one per stack backward."""
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, layers, xs, g: torch.Tensor, order: int,
                  mode: str) -> list[torch.Tensor]:
@@ -404,7 +398,7 @@ class _KanBwdKernel:
                     thi.data_ptr(), tlo.data_ptr(), dx.data_ptr(), s.n,
                     s.din, s.dout, s.nk, order, code, fcx, ic, stream))
                 g = dx
-        self.launches += 1
+        self.count()
         return grads
 
 

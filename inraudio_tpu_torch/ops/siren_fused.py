@@ -37,7 +37,7 @@ from typing import Any
 import torch
 
 from ..models.siren import SirenSnakeTanhConfig
-from ._nvcc import build_library
+from ._nvcc import LaunchCounter, build_library
 
 Params = dict[str, Any]
 
@@ -285,13 +285,13 @@ def _check_rff_model(cfg: SirenSnakeTanhConfig, rff_b) -> None:
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
-class _SirenStackKernel:
+class _SirenStackKernel(LaunchCounter):
     """The built ``siren_stack`` library and its launch count (``launches``
     rises by one per kernel launch, nowhere else)."""
 
     def __init__(self):
+        super().__init__()
         self._lib = None
-        self.launches = 0
 
     def library(self):
         if self._lib is None:
@@ -367,7 +367,7 @@ class _SirenStackKernel:
                 stream)
         if rc != 0:
             raise RuntimeError(f"siren_stack launch failed: cudaError {rc}")
-        self.launches += 1
+        self.count()
         return out.unsqueeze(-1)
 
 

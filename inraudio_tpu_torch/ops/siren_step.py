@@ -16,6 +16,17 @@ window count and row count and mask the ragged tile themselves, so the
 step also takes the RFF model at h = 256, which the JAX package's VMEM
 gate sends to the two-kernel autodiff step (the same step up to rounding).
 An RFF model (``rff_b``) folds its Gaussian Fourier encoding into layer 0.
+
+The row-sharded fit (``train.loop.fit`` on a mesh of more than one rank)
+splits the step at the collective, as the JAX package's
+``make_sharded_fused_mse_train_step`` does: TPU kernel ``_grad_kernel``
+becomes ``SIREN_GRAD`` (kernel E: one shard's masked loss and grads, with
+a device row limit and the whole clip's 1 / n_valid), and ``_adam_kernel``
+becomes ``SIREN_ADAM`` (kernel F: clip by the norm of the all-reduced
+grads, Adam and the best snapshot, in place), with ``grad_plain`` and
+``adam_epilogue_plain`` as their plain versions.  E writes one buffer
+[grads (P) | loss | pad (3)]; the mesh all-reduces it, and F reads both the
+grads and the loss from it, so one collective serves a step.
 """
 
 from __future__ import annotations
@@ -25,20 +36,27 @@ from typing import NamedTuple
 import torch
 
 from ..models.siren import SirenSnakeTanhConfig
+from ._nvcc import LaunchCounter
 from .siren_fused import (_KERNEL_MAX_LAYERS, _KERNEL_WIDTHS, _MAX_SMALL_IN,
                           StackPlan, _check_tensor, _prep_rff_bt, stack_plan)
-from .siren_train import (TRAIN_LIBRARY, _check_rc, bwd_sweep_plain,
-                          flatten_params, fwd_pres_plain, grad_dot_mode,
-                          grad_reduce, tile_rows, unflatten_params,
-                          validate_grad_launch)
+from .siren_train import (CHUNK_FLOATS, TRAIN_LIBRARY, _check_rc,
+                          bwd_sweep_plain, flatten_params, fwd_pres_plain,
+                          grad_dot_mode, grad_reduce, tile_rows,
+                          unflatten_params, validate_grad_launch)
 
-__all__ = ["FlatTrainState", "SIREN_STEP", "flat_state_from_train_state",
-           "fused_mse_step_call", "make_fused_mse_train_step",
+__all__ = ["FlatTrainState", "SIREN_ADAM", "SIREN_GRAD", "SIREN_STEP",
+           "adam_epilogue_plain", "flat_state_from_train_state",
+           "fused_adam_call", "fused_mse_grad_call", "fused_mse_step_call",
+           "grad_plain", "make_fused_mse_train_step",
+           "make_sharded_fused_mse_train_step", "sharded_step_call",
            "step_block_rows", "step_plain", "step_supported",
            "train_state_from_flat"]
 
 # Adam constants (torch.optim.Adam defaults, as train.optim.AdamConfig)
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
+# floats after the grads in kernel E's buffer: the loss, then zeros, so the
+# buffer stays a multiple of 16 bytes
+_BUF_TAIL = 4
 
 
 def step_supported(cfg: SirenSnakeTanhConfig, n_rows: int = 1,
@@ -124,18 +142,47 @@ def step_plain(params, mu, nu, best, coords, targets, lr, c1, c2, best_loss,
     return loss
 
 
+def grad_plain(params, coords, targets, limit, n_valid: int,
+               cfg: SirenSnakeTanhConfig, plan: StackPlan, gmode: str,
+               bt=None) -> torch.Tensor:
+    """Kernel E in plain PyTorch: one shard's loss and gradient -> the
+    (P + 4,) buffer [grads | loss | 0 0 0].  ``params`` (1, P), ``coords``
+    (rows, d), ``targets`` (1, rows); rows at or past ``limit`` (an int32
+    (1,) tensor) carry no loss; the loss and its gradient are normalised by
+    the whole clip's ``n_valid``.  Same arguments as
+    ``fused_mse_grad_call``."""
+    inv_n = 1.0 / float(n_valid)
+    leaves = unflatten_params(params, cfg)
+    out, saved = fwd_pres_plain(leaves, plan, coords, bt)
+    rows = torch.arange(coords.shape[0], device=coords.device)
+    mask = (rows < limit.to(rows.dtype)).to(torch.float32)
+    err = (out[..., 0] - targets) * mask                     # (1, rows)
+    loss = torch.sum(err * err, dim=1) * inv_n
+    grads = bwd_sweep_plain((err * (2.0 * inv_n)).unsqueeze(-1), saved,
+                            leaves, plan, gmode)
+    buf = torch.zeros(params.shape[1] + _BUF_TAIL, dtype=torch.float32,
+                      device=coords.device)
+    buf[:params.shape[1]] = flatten_params(grads, cfg)[0]
+    buf[params.shape[1]] = loss[0]
+    return buf
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
-class _SirenStepKernel:
+def _check_same_device(ref_name: str, ref: torch.Tensor, **tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, {ref_name} on "
+                             f"{ref.device}")
+
+
+class _SirenStepKernel(LaunchCounter):
     """Kernel D: one whole train step for the population (grad
     accumulation, reduce, clip + Adam + best epilogue: three launches on
     the current stream, no host sync).  ``launches`` rises by one per step
     launched, nowhere else."""
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, params, mu, nu, best, coords, targets, lr, c1, c2,
                  best_loss, cfg: SirenSnakeTanhConfig, plan: StackPlan,
@@ -166,7 +213,7 @@ class _SirenStepKernel:
                 best_loss.data_ptr(), g.k, g.slices, g.layout.size,
                 float(clip_norm), stream)
             _check_rc("siren_adam", rc)
-        self.launches += 1
+        self.count()
         return loss
 
 
@@ -181,13 +228,9 @@ def fused_mse_step_call(params, mu, nu, best, coords, targets, lr, c1, c2,
     tensors take the plain version; CUDA tensors the kernel.  ``best``
     None leaves the best snapshot alone.  ``bt``: an RFF model's 2 pi B^T
     (d, F), with an rff plan."""
-    for name, t in (("params", params), ("mu", mu), ("nu", nu),
-                    ("best_params", best), ("targets", targets), ("lr", lr),
-                    ("c1", c1), ("c2", c2), ("best_loss", best_loss),
-                    ("rff_b", bt)):
-        if t is not None and t.device != coords.device:
-            raise ValueError(f"{name} is on {t.device}, coords on "
-                             f"{coords.device}")
+    _check_same_device("coords", coords, params=params, mu=mu, nu=nu,
+                       best_params=best, targets=targets, lr=lr, c1=c1,
+                       c2=c2, best_loss=best_loss, rff_b=bt)
     if coords.device.type == "cpu":
         return step_plain(params, mu, nu, best, coords, targets, lr, c1, c2,
                           best_loss, cfg, plan, gmode, n_valid, clip_norm, bt)
@@ -198,6 +241,126 @@ def fused_mse_step_call(params, mu, nu, best, coords, targets, lr, c1, c2,
                          f"n_valid={n_valid} must equal it")
     return SIREN_STEP(params, mu, nu, best, coords, targets, lr, c1, c2,
                       best_loss, cfg, plan, gmode, clip_norm, bt)
+
+
+class _SirenGradKernel(LaunchCounter):
+    """Kernel E: one row shard's masked MSE loss and gradient (grad
+    accumulation with a device row limit, then the reduce, which also sums
+    the shard's loss into the buffer: two launches, no host sync).
+    ``launches`` rises by one per shard launched, nowhere else."""
+
+    def __call__(self, params, coords, targets, limit, n_valid: int,
+                 cfg: SirenSnakeTanhConfig, plan: StackPlan, gmode: str,
+                 bt=None) -> torch.Tensor:
+        dev = coords.device
+        g = validate_grad_launch(params, cfg, plan, coords, bt)
+        if g.k != 1:
+            raise ValueError(f"kernel E takes one model, got {g.k} windows")
+        _check_tensor("targets", targets, dev, (1, g.n))
+        if not (isinstance(limit, torch.Tensor) and limit.device == dev
+                and limit.dtype == torch.int32 and limit.shape == (1,)):
+            raise ValueError("limit: expected an int32 (1,) tensor on "
+                             f"{dev}")
+        if n_valid < 1:
+            raise ValueError(f"n_valid must be positive, got {n_valid}")
+        lib = TRAIN_LIBRARY()
+        P = g.layout.size
+        buf = torch.empty((P + _BUF_TAIL,), dtype=torch.float32, device=dev)
+        buf[P + 1:].zero_()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            grad_reduce(lib, g, coords, params, stream, targets=targets,
+                        gmode=gmode, limit=limit, n_valid=n_valid,
+                        grads=buf[:P].view(1, P), loss_out=buf[P:P + 1])
+        self.count()
+        return buf
+
+
+SIREN_GRAD = _SirenGradKernel()
+
+
+def fused_mse_grad_call(params, coords, targets, limit, n_valid: int,
+                        cfg: SirenSnakeTanhConfig, plan: StackPlan,
+                        gmode: str, bt=None) -> torch.Tensor:
+    """One row shard's partial loss and gradient -> the (P + 4,) buffer
+    [grads (P) | loss | 0 0 0], the layout the mesh all-reduces and
+    ``fused_adam_call`` reads.  ``params`` (1, P) flat, ``coords`` (rows,
+    d) and ``targets`` (1, rows) the shard's (padded) rows, ``limit`` an
+    int32 (1,) tensor of its valid rows (0: an empty shard, whose buffer is
+    zero), ``n_valid`` the whole clip's valid rows.  CPU tensors take the
+    plain version; CUDA tensors kernel E."""
+    _check_same_device("coords", coords, params=params, targets=targets,
+                       limit=limit, rff_b=bt)
+    if coords.device.type == "cpu":
+        return grad_plain(params, coords, targets, limit, n_valid, cfg, plan,
+                          gmode, bt)
+    if coords.device.type != "cuda":
+        raise ValueError(f"no fused grad for device {coords.device}")
+    return SIREN_GRAD(params, coords, targets, limit, n_valid, cfg, plan,
+                      gmode, bt)
+
+
+class _SirenAdamKernel(LaunchCounter):
+    """Kernel F: the sum of squares of the all-reduced grads (fixed order),
+    then clip + Adam + best on one model's state, in place (two launches,
+    no host sync).  ``launches`` rises by one per update launched, nowhere
+    else."""
+
+    def __call__(self, params, mu, nu, best, buf, lr, c1, c2, best_loss,
+                 clip_norm: float) -> torch.Tensor:
+        dev = buf.device
+        P = params.shape[-1]
+        _check_tensor("buf", buf, dev, (P + _BUF_TAIL,), aligned=True)
+        for name, t in (("params", params), ("mu", mu), ("nu", nu),
+                        ("best_params", best)):
+            if t is not None:
+                _check_tensor(name, t, dev, (1, P), aligned=True)
+        for name, t in (("lr", lr), ("c1", c1), ("c2", c2),
+                        ("best_loss", best_loss)):
+            _check_tensor(name, t, dev, (1,))
+        if P % 4:
+            raise ValueError(f"kernel F takes P a multiple of 4, got {P}")
+        lib = TRAIN_LIBRARY()
+        loss = torch.empty((1,), dtype=torch.float32, device=dev)
+        sq = torch.empty((-(-P // CHUNK_FLOATS),), dtype=torch.float32,
+                         device=dev)
+        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.siren_adam_global(
+                buf.data_ptr(), sq.data_ptr(), params.data_ptr(),
+                mu.data_ptr(), nu.data_ptr(), ptr(best), loss.data_ptr(),
+                lr.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+                best_loss.data_ptr(), P, float(clip_norm), stream)
+            _check_rc("siren_adam_global", rc)
+        self.count()
+        return loss
+
+
+SIREN_ADAM = _SirenAdamKernel()
+
+
+def fused_adam_call(params, mu, nu, best, buf, lr, c1, c2, best_loss,
+                    clip_norm: float) -> torch.Tensor:
+    """Clip + Adam + best of one model from an all-reduced E buffer ``buf``
+    (P + 4,): ``params`` / ``mu`` / ``nu`` / ``best`` (1, P) updated in
+    place (``best`` None leaves the snapshot alone); the norm is that of
+    ``buf``'s grads and the best snapshot is taken when its loss is below
+    ``best_loss``.  Returns the loss (1,).  CPU tensors take the plain
+    version (``adam_epilogue_plain``); CUDA tensors kernel F."""
+    _check_same_device("buf", buf, params=params, mu=mu, nu=nu,
+                       best_params=best, lr=lr, c1=c1, c2=c2,
+                       best_loss=best_loss)
+    if buf.device.type == "cpu":
+        P = params.shape[-1]
+        loss = buf[P:P + 1].clone()
+        adam_epilogue_plain(params, mu, nu, best, buf[:P].view(1, P), lr, c1,
+                            c2, loss, best_loss, clip_norm)
+        return loss
+    if buf.device.type != "cuda":
+        raise ValueError(f"no fused Adam for device {buf.device}")
+    return SIREN_ADAM(params, mu, nu, best, buf, lr, c1, c2, best_loss,
+                      clip_norm)
 
 
 def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
@@ -248,6 +411,38 @@ def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
         return new_state, (loss, new_lr)
 
     return step
+
+
+def sharded_step_call(mesh, limit):
+    """A ``step_call`` for ``make_fused_mse_train_step`` on one rank of a
+    row-sharded fit: kernel E on this rank's rows (``limit``, an int32 (1,)
+    tensor, its valid rows; ``n_valid`` the whole clip's), the mesh's
+    all-reduce of E's buffer, then kernel F on the replicated result.
+    Every rank holds the same state (k = 1) and applies the same update, so
+    the ranks stay bit-equal."""
+    def call(params, mu, nu, best, coords, targets, lr, c1, c2, best_loss,
+             cfg, plan, gmode, n_valid, clip_norm, bt=None):
+        buf = fused_mse_grad_call(params, coords, targets, limit, n_valid,
+                                  cfg, plan, gmode, bt)
+        mesh.all_reduce_(buf)
+        return fused_adam_call(params, mu, nu, best, buf, lr, c1, c2,
+                               best_loss, clip_norm)
+
+    return call
+
+
+def make_sharded_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
+                                      n_valid: int, mesh, limit,
+                                      approx_sin: bool = False, rff_b=None):
+    """Build step(state: FlatTrainState, coords, targets) -> (state, (loss,
+    lr)) for one rank of a row-sharded fit of one model (``coords`` (rows,
+    d) and ``targets`` (1, rows) this rank's rows, ``limit`` their valid
+    count): ``make_fused_mse_train_step`` with ``sharded_step_call``, so
+    the plateau and best bookkeeping run on the all-reduced loss.  Port of
+    the JAX package's ``make_sharded_fused_mse_train_step``."""
+    return make_fused_mse_train_step(cfg, train_cfg, n_valid, approx_sin,
+                                     step_call=sharded_step_call(mesh, limit),
+                                     rff_b=rff_b)
 
 
 def flat_state_from_train_state(state, cfg: SirenSnakeTanhConfig

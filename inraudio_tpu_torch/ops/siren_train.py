@@ -43,7 +43,7 @@ from typing import Any
 import torch
 
 from ..models.siren import SirenSnakeTanhConfig
-from ._nvcc import build_library
+from ._nvcc import LaunchCounter, build_library
 from .siren_fused import (_KERNEL_MAX_LAYERS, _KERNEL_WIDTHS, _KIND_CODE,
                           _MAX_SMALL_IN, _MODE_CODE, SIREN_STACK, StackPlan,
                           _check_rff_model, _check_rff_plan, _check_tensor,
@@ -274,10 +274,12 @@ class _TrainLibrary:
         if self._lib is None:
             lib = build_library("siren_train", ["siren_train.cu"])
             lib.siren_grad.argtypes = ([_P] * 10 + [_I] * 7 + [_F, _F, _P]
-                                       + [_I] * 3 + [_P])
-            lib.siren_reduce.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+                                       + [_I] * 3 + [_P, _P])
+            lib.siren_reduce.argtypes = [_P] * 5 + [_I, _I, _I, _P]
             lib.siren_adam.argtypes = [_P] * 12 + [_I, _I, _I, _F, _P]
-            for fn in (lib.siren_grad, lib.siren_reduce, lib.siren_adam):
+            lib.siren_adam_global.argtypes = [_P] * 11 + [_I, _F, _P]
+            for fn in (lib.siren_grad, lib.siren_reduce, lib.siren_adam,
+                       lib.siren_adam_global):
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
@@ -354,10 +356,12 @@ def window_group(g: GradLaunch) -> int:
 
 def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
                 loss_part, w0: int, kn: int, *, targets=None, cot=None,
-                gmode: str) -> None:
+                gmode: str, limit=None, n_valid: int | None = None) -> None:
     """Grad-accumulation kernel over windows [w0, w0 + kn): each (window,
     row slice)'s partial grads into ``partial`` (kn * slices, P), its loss
-    into ``loss_part`` (k * slices) at the window's place."""
+    into ``loss_part`` (k * slices) at the window's place.  ``limit``: a
+    device int32 (1,) row limit (rows at or past it carry no loss; None:
+    every row); ``n_valid``: the loss's normaliser rows (None: n)."""
     L = len(g.plan.kinds)
     offs = g.layout.offsets(L)
     ints = []
@@ -370,56 +374,65 @@ def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
     c_om = (ctypes.c_float * L)(*g.plan.omegas)
     row = lambda t, width: 0 if t is None else t.data_ptr() + 4 * w0 * width
     n_freq = 0 if g.bt is None else g.bt.shape[1]
+    inv_n = 1.0 / float(g.n if n_valid is None else n_valid)
     rc = lib.siren_grad(
         coords.data_ptr(), row(flat, g.layout.size), partial.data_ptr(),
         row(loss_part, g.slices), pre.data_ptr(), row(targets, g.n),
         row(cot, g.n), ctypes.addressof(c_offs), ctypes.addressof(c_ints),
         ctypes.addressof(c_om), L, kn, g.n, g.d, g.h, g.layout.size,
-        _MODE_CODE[gmode], 1.0 / float(g.n), 2.0 * (1.0 / float(g.n)),
-        row(g.bt, 0), n_freq, g.plan.feature_degree, g.slices, stream)
+        _MODE_CODE[gmode], inv_n, 2.0 * inv_n, row(g.bt, 0), n_freq,
+        g.plan.feature_degree, g.slices, row(limit, 0), stream)
     _check_rc("siren_grad", rc)
 
 
 def launch_reduce(lib, g: GradLaunch, partial, grads, sq_part, w0: int,
-                  kn: int, stream) -> None:
+                  kn: int, stream, loss_part=None, loss_out=None) -> None:
     """Sum windows [w0, w0 + kn)'s row-slice partials in a fixed order into
     their rows of ``grads`` (k, P), and their per-chunk sums of squares
-    into ``sq_part`` (k, chunks)."""
+    into ``sq_part`` (k, chunks).  With ``loss_out`` (kernel E), also each
+    window's loss, its slices of ``loss_part`` (k * slices) summed in
+    order, into ``loss_out`` (k)."""
     rc = lib.siren_reduce(
         partial.data_ptr(), grads.data_ptr() + 4 * w0 * g.layout.size,
-        sq_part.data_ptr() + 4 * w0 * sq_part.shape[1], kn, g.slices,
-        g.layout.size, stream)
+        sq_part.data_ptr() + 4 * w0 * sq_part.shape[1],
+        0 if loss_out is None else loss_part.data_ptr() + 4 * w0 * g.slices,
+        0 if loss_out is None else loss_out.data_ptr() + 4 * w0, kn,
+        g.slices, g.layout.size, stream)
     _check_rc("siren_reduce", rc)
 
 
 def grad_reduce(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
-                cot=None, gmode: str):
+                cot=None, gmode: str, limit=None, n_valid: int | None = None,
+                grads=None, loss_out=None):
     """Each window's gradient, over groups of ``window_group`` windows that
     share one scratch -> (grads (k, P), sq_part (k, chunks), loss_part
-    (k * slices)).  All on the current stream, no host sync."""
+    (k * slices)).  All on the current stream, no host sync.  Kernel E
+    passes its row ``limit``, the whole clip's ``n_valid``, and ``grads``
+    / ``loss_out`` views of its packed buffer, which receive each window's
+    gradient and loss."""
     dev = coords.device
     f32 = dict(dtype=torch.float32, device=dev)
     kg = window_group(g)
     partial = torch.empty((kg * g.slices, g.layout.size), **f32)
     pre = torch.empty((kg * g.slices, len(g.plan.kinds), TILE_FLOATS), **f32)
-    grads = torch.empty((g.k, g.layout.size), **f32)
+    if grads is None:
+        grads = torch.empty((g.k, g.layout.size), **f32)
     sq_part = torch.empty((g.k, -(-g.layout.size // CHUNK_FLOATS)), **f32)
     loss_part = torch.empty((g.k * g.slices,), **f32)
     for w0 in range(0, g.k, kg):
         kn = min(kg, g.k - w0)
         launch_grad(lib, g, coords, flat, stream, partial, pre, loss_part,
-                    w0, kn, targets=targets, cot=cot, gmode=gmode)
-        launch_reduce(lib, g, partial, grads, sq_part, w0, kn, stream)
+                    w0, kn, targets=targets, cot=cot, gmode=gmode,
+                    limit=limit, n_valid=n_valid)
+        launch_reduce(lib, g, partial, grads, sq_part, w0, kn, stream,
+                      loss_part, loss_out)
     return grads, sq_part, loss_part
 
 
-class _SirenBwdKernel:
+class _SirenBwdKernel(LaunchCounter):
     """Kernel C: the backward of the stack for a supplied cotangent
     (grad accumulation + the fixed-order reduce).  ``launches`` rises by
     one per backward launched, nowhere else."""
-
-    def __init__(self):
-        self.launches = 0
 
     def __call__(self, params: Params, cfg: SirenSnakeTanhConfig,
                  plan: StackPlan, gmode: str, coords: torch.Tensor,
@@ -436,7 +449,7 @@ class _SirenBwdKernel:
             stream = torch.cuda.current_stream(coords.device).cuda_stream
             grads, _, _ = grad_reduce(lib, g, coords, flat, stream, cot=cot,
                                       gmode=gmode)
-        self.launches += 1
+        self.count()
         return unflatten_params(grads, cfg)
 
 

@@ -16,7 +16,13 @@ Two steps:
 
 ``fit`` trains one model on full-batch (coords, targets) in rounds of
 ``scan_chunk`` steps; a fused mlp goes through kernel D as a one-window
-population, every other model through ``make_train_step``.
+population, every other model through ``make_train_step``.  On a mesh of
+more than one rank (``parallel.make_mesh``) the rows are sharded: a fused
+mlp takes kernel E on each shard, one all-reduce and kernel F
+(``ops.siren_step.make_sharded_fused_mse_train_step``), every other model
+an autograd step whose local loss is normalised by the whole clip's rows
+and whose gradients are all-reduced in one buffer
+(``make_sharded_train_step``).
 
 Best-params semantics as the JAX package: ``track_best=True`` snapshots the
 parameters that produced the best loss; False keeps the initial ones.
@@ -31,9 +37,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..models import INRModel
 from ..models.siren import params_from_jax, params_to_numpy
+from ..parallel.mesh import Mesh, resolve_mesh, shard_problem_arrays
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from .losses import mse
 from .optim import (AdamConfig, AdamState, PlateauConfig, PlateauState,
@@ -108,10 +114,6 @@ def make_train_step(model: INRModel, cfg: TrainConfig):
     lr)).  With stacked state (leading k) ``targets`` is (k, n, out) and
     every window's loss, clip, Adam, plateau and best are its own."""
     _check_loss(cfg)
-    adam_cfg = AdamConfig(lr=cfg.learning_rate)
-    plateau_cfg = PlateauConfig(factor=cfg.plateau_factor,
-                                patience=cfg.plateau_patience,
-                                min_lr=cfg.min_learning_rate)
 
     def loss_fn(params, coords, targets):
         pred = model.apply(params, coords)
@@ -119,19 +121,41 @@ def make_train_step(model: INRModel, cfg: TrainConfig):
             return torch.mean(torch.square(pred - targets), dim=(1, 2))
         return mse(pred, targets)
 
+    update = _make_update(cfg)
+
     def train_step(state: TrainState, coords, targets):
-        leaves = [p.detach().requires_grad_(True)
-                  for p in tree_leaves(state.params)]
-        params = tree_unflatten(state.params, leaves)
-        with torch.enable_grad():
-            losses = loss_fn(params, coords, targets)
-            # a leaf the apply does not reach (a KAN's knot grid) gets a
-            # zero gradient, as under jax.grad
-            grads = torch.autograd.grad(losses.sum(), leaves,
-                                        allow_unused=True,
-                                        materialize_grads=True)
-        loss = losses.detach().to(torch.float32)
-        grads = tree_unflatten(state.params, list(grads))
+        loss, grads = _loss_and_grads(state, lambda p: loss_fn(p, coords,
+                                                               targets))
+        return update(state, loss, grads)
+
+    return train_step
+
+
+def _loss_and_grads(state: TrainState, loss_fn):
+    """Autograd of ``loss_fn(params)`` (one loss, or one per window) at the
+    state's params -> (loss, grads tree)."""
+    leaves = [p.detach().requires_grad_(True)
+              for p in tree_leaves(state.params)]
+    params = tree_unflatten(state.params, leaves)
+    with torch.enable_grad():
+        losses = loss_fn(params)
+        # a leaf the apply does not reach (a KAN's knot grid) gets a zero
+        # gradient, as under jax.grad
+        grads = torch.autograd.grad(losses.sum(), leaves, allow_unused=True,
+                                    materialize_grads=True)
+    return (losses.detach().to(torch.float32),
+            tree_unflatten(state.params, list(grads)))
+
+
+def _make_update(cfg: TrainConfig):
+    """(state, loss, grads) -> (state, (loss, lr)): clip, Adam, plateau and
+    the best snapshot, per window when the loss has a window axis."""
+    adam_cfg = AdamConfig(lr=cfg.learning_rate)
+    plateau_cfg = PlateauConfig(factor=cfg.plateau_factor,
+                                patience=cfg.plateau_patience,
+                                min_lr=cfg.min_learning_rate)
+
+    def update(state: TrainState, loss, grads):
         windows = loss.dim() == 1
         if cfg.grad_clip_norm > 0:
             grads = clip_by_global_norm(grads, cfg.grad_clip_norm, windows)
@@ -153,6 +177,37 @@ def make_train_step(model: INRModel, cfg: TrainConfig):
             best_loss=torch.where(improved, loss, state.best_loss),
             best_iter=torch.where(improved, opt.step - 1, state.best_iter))
         return new_state, (loss, new_lr)
+
+    return update
+
+
+def make_sharded_train_step(model: INRModel, cfg: TrainConfig, mesh: Mesh,
+                            n_valid: int, valid: int):
+    """One rank's autograd step of a row-sharded fit of one model:
+    (state, coords, targets) -> (state, (loss, lr)), ``coords`` /
+    ``targets`` this rank's (padded) rows of which the first ``valid`` are
+    real.  The local loss is sum(err^2) / ``n_valid`` (the whole clip's
+    rows); its gradients and the loss go through one all-reduce as one
+    buffer, then clip, Adam, plateau and best run on the replicated values,
+    as XLA's partitioner runs the JAX package's sharded step."""
+    _check_loss(cfg)
+    update = _make_update(cfg)
+    inv_n = 1.0 / float(n_valid)
+
+    def loss_fn(params, coords, targets):
+        err = (model.apply(params, coords) - targets)[:valid]
+        return torch.sum(torch.square(err)) * inv_n
+
+    def train_step(state: TrainState, coords, targets):
+        loss, grads = _loss_and_grads(
+            state, lambda p: loss_fn(p, coords, targets))
+        leaves = tree_leaves(grads)
+        buf = torch.cat([g.reshape(-1) for g in leaves] + [loss.reshape(1)])
+        mesh.all_reduce_(buf)
+        parts = torch.split(buf, [g.numel() for g in leaves] + [1])
+        grads = tree_unflatten(grads, [p.view_as(g)
+                                       for p, g in zip(parts, leaves)])
+        return update(state, parts[-1].reshape(()), grads)
 
     return train_step
 
@@ -248,39 +303,91 @@ def _one_window_step(model: INRModel, cfg: TrainConfig, state: TrainState,
     return carry, step, lambda c: tree_map(lambda t: t[0], from_flat(c))
 
 
+def _sharded_step(model: INRModel, cfg: TrainConfig, state: TrainState,
+                  coords: np.ndarray, targets: np.ndarray, mesh: Mesh):
+    """One rank of a row-sharded fit: kernels E + F for a model that
+    ``fused_step_plan`` admits (rows padded to whole row tiles per rank, as
+    the JAX fit pads them), the sharded autograd step otherwise.  Returns
+    (carry, step(carry) -> (carry, (loss, lr)), carry -> TrainState)."""
+    n = coords.shape[0]
+    block = fused_step_plan(model, cfg, -(-n // mesh.size))
+    if block is None:
+        cs, ts, sh = shard_problem_arrays(mesh, coords, targets)
+        train_step = make_sharded_train_step(model, cfg, mesh, n, sh.valid)
+        return state, (lambda c: train_step(c, cs, ts)), (lambda c: c)
+    from ..ops.siren_step import (flat_state_from_train_state,
+                                  make_sharded_fused_mse_train_step,
+                                  train_state_from_flat)
+    ctx = model.fused_step_ctx
+    mcfg = ctx["cfg"]
+    cs, ts, sh = shard_problem_arrays(mesh, coords, targets, block)
+    ts = ts.reshape(1, -1)
+    limit = torch.tensor([sh.valid], dtype=torch.int32, device=mesh.device)
+    sstep = make_sharded_fused_mse_train_step(
+        mcfg, cfg, n, mesh, limit, approx_sin=ctx["approx_sin"],
+        rff_b=ctx["rff_b"])
+    carry = flat_state_from_train_state(
+        tree_map(lambda t: t.unsqueeze(0), state), mcfg)
+
+    def step(carry):
+        carry, (loss, lr) = sstep(carry, cs, ts)
+        return carry, (loss[0], lr[0])
+
+    return carry, step, lambda c: tree_map(lambda t: t[0],
+                                           train_state_from_flat(c, mcfg))
+
+
 def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
         generator: torch.Generator | None = None,
         state: TrainState | None = None, checkpoint_every: int = 0,
         checkpoint_path: str | None = None, metrics=None,
-        device: torch.device | str = "cuda") -> FitResult:
+        device: torch.device | str | None = None,
+        mesh: Mesh | None = None) -> FitResult:
     """Fit one model to full-batch (coords (n, d), targets (n, out)) on
     ``device`` (default the card; without one it raises).
 
+    ``mesh`` (``parallel.make_mesh(device)`` when None: a world of one,
+    or every rank under ``torchrun``) places the fit: it runs on
+    ``mesh.device``, and a ``device`` given beside it must be that one
+    (``parallel.resolve_mesh``).  A mesh of one takes the single-device routes
+    (kernel D for a fused mlp, autograd otherwise).  On more ranks each
+    rank holds an equal shard of the rows and a copy of the state: a fused
+    mlp steps through kernel E on its shard, one all-reduce and kernel F;
+    every other model (the KAN with kernels G and H included) through the
+    sharded autograd step.  Every rank gets the same ``FitResult`` (its
+    ``train_time_s`` from the first rank's start to the last rank's end);
+    only rank 0 writes checkpoints.
+
     Rounds of ``scan_chunk`` steps read nothing back from the device.
     Between rounds: the grid refresh (``update_grid_every`` /
-    ``update_grid_batch``, Adam moments kept), a ``metrics`` JSONL record
-    (a ``utils.observability.MetricsLogger``), and a checkpoint of the
+    ``update_grid_batch``, Adam moments kept, from a strided subsample of
+    the whole clip on every rank), a ``metrics`` JSONL record (a
+    ``utils.observability.MetricsLogger``), and a checkpoint of the
     whole TrainState to ``checkpoint_path`` about every
     ``checkpoint_every`` steps.  ``state`` warm-starts; otherwise the state
     is drawn from ``generator`` (seed 0 when None).  Not ported: the
-    multi-device branch, the precision schedule, the profiler and the
-    per-row loss weight."""
+    precision schedule, the profiler and the per-row loss weight."""
     cfg = cfg or TrainConfig()
     _check_loss(cfg)
-    dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
+    dev = mesh.device
     if state is None:
         state = init_train_state(
             model, generator or torch.Generator().manual_seed(0), cfg, dev)
     else:
         state = tree_map(lambda t: t.to(dev), state)
     coords_d = torch.as_tensor(coords, dtype=torch.float32).to(dev)
-    targets_d = torch.as_tensor(np.asarray(targets, np.float32)).to(dev)
+    targets_np = np.asarray(targets, np.float32)
 
-    if fused_step_plan(model, cfg, coords_d.shape[0]) is not None:
+    if mesh.size > 1:
+        carry, step, unstack = _sharded_step(
+            model, cfg, state, coords_d.cpu().numpy(), targets_np, mesh)
+    elif fused_step_plan(model, cfg, coords_d.shape[0]) is not None:
         carry, step, unstack = _one_window_step(model, cfg, state, coords_d,
                                                 targets)
     else:
         train_step = make_train_step(model, cfg)
+        targets_d = torch.from_numpy(targets_np).to(dev)
         carry, unstack = state, (lambda c: c)
         step = lambda c: train_step(c, coords_d, targets_d)  # noqa: E731
 
@@ -321,12 +428,13 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
         if (checkpoint_every and checkpoint_path
                 and done - last_ckpt >= checkpoint_every
                 and done < cfg.total_steps):
-            from .checkpoint import save_checkpoint
-            save_checkpoint(checkpoint_path, unstack(carry),
-                            extra={"steps_done": done})
+            if mesh.rank == 0:
+                from .checkpoint import save_checkpoint
+                save_checkpoint(checkpoint_path, unstack(carry),
+                                extra={"steps_done": done})
             last_ckpt = done
     sync()
-    train_time = time.time() - t0
+    train_time = mesh.span(t0, time.time())
     state = unstack(carry)
     cat = lambda xs: (torch.cat(xs).cpu().numpy() if xs  # noqa: E731
                       else np.zeros((0,), np.float32))

@@ -6,7 +6,13 @@ Every window shares one coordinate grid, so the population is one stacked
 state with a leading window axis: ``_fit_chunk_population`` runs the
 whole-step kernel D (``ops.siren_step``) or the autograd step with kernel
 C's backward over all windows per step, in rounds of ``scan_chunk`` steps
-that read nothing back from the device.  Decoding evaluates the population
+that read nothing back from the device.  On a mesh of more than one rank
+(``parallel.make_mesh``) the windows are sharded: the population is padded
+to a multiple of the ranks, each rank trains its own windows with no
+collective inside a round, and one all-gather at the end leaves the whole
+result on every rank.  A window's arithmetic does not depend on which
+windows share its launch, so its history is the same on any number of
+ranks.  Decoding evaluates the population
 as one stacked call (``INRModel.apply_stacked``, the stack kernel on a
 card) and overlap-adds on the host in float64, exactly as the JAX package
 does.  Each window is peak-normalised; its scale restores the amplitude at
@@ -23,8 +29,8 @@ import numpy as np
 import torch
 
 from ..data.coords import get_coord
-from ..device import resolve_device
 from ..models import INRModel
+from ..parallel.mesh import Mesh, pad_to_multiple, resolve_mesh
 from ..tree import tree_map
 from .loop import (TrainConfig, TrainState, fused_step_plan,
                    init_train_state, make_train_step,
@@ -84,27 +90,31 @@ def _crossfade_window(n: int, overlap: int) -> np.ndarray:
 def multi_inr_fit(model: INRModel, signal: np.ndarray, sample_rate: int,
                   cfg: MultiINRConfig | None = None,
                   train_cfg: TrainConfig | None = None, seed: int = 0,
-                  device: torch.device | str = "cuda",
-                  max_chunks_per_batch: int | None = None) -> MultiINRResult:
+                  device: torch.device | str | None = None,
+                  max_chunks_per_batch: int | None = None,
+                  mesh: Mesh | None = None) -> MultiINRResult:
     """Fit one INR per window, all windows at once on ``device`` (default
     the card; without one it raises, pass "cpu" for the CPU).  The
     initial parameters are drawn from ``torch.Generator().manual_seed(
     seed)`` (the JAX package's PRNG key; the numbers differ, the
-    distributions match).  ``max_chunks_per_batch`` trains the population in batches of that many
-    windows, with finished states moved to the host, to bound device
-    memory for long clips."""
+    distributions match).  ``max_chunks_per_batch`` trains the population
+    in batches of that many windows, with finished states moved to the
+    host, to bound device memory for long clips.  ``mesh``
+    (``parallel.make_mesh(device)`` when None) shards the windows over its
+    ranks; the fit runs on ``mesh.device`` (a ``device`` given beside a
+    mesh must be that one)."""
     cfg = cfg or MultiINRConfig()
     train_cfg = train_cfg or TrainConfig()
-    device = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
     chunks, n, hop = chunk_signal(np.asarray(signal, dtype=np.float32),
                                   sample_rate, cfg)
     return _fit_chunks(model, chunks, n, hop, len(signal), train_cfg,
-                       torch.Generator().manual_seed(seed), device,
+                       torch.Generator().manual_seed(seed), mesh,
                        max_chunks_per_batch)
 
 
 def _fit_chunks(model, chunks, n, hop, signal_length, train_cfg, generator,
-                device, max_chunks_per_batch) -> MultiINRResult:
+                mesh, max_chunks_per_batch) -> MultiINRResult:
     """Train a (k, n) window population, optionally in batches (the
     ``max_chunks_per_batch`` memory bound).  Eager PyTorch compiles
     nothing, so the last batch is not padded."""
@@ -112,12 +122,11 @@ def _fit_chunks(model, chunks, n, hop, signal_length, train_cfg, generator,
     kb = max_chunks_per_batch
     if not kb or k <= kb:
         return _fit_chunk_population(model, chunks, n, hop, signal_length,
-                                     train_cfg, generator, device)
+                                     train_cfg, generator, mesh)
     parts = []
     for start in range(0, k, kb):
         r = _fit_chunk_population(model, chunks[start:start + kb], n, hop,
-                                  signal_length, train_cfg, generator,
-                                  device)
+                                  signal_length, train_cfg, generator, mesh)
         # finished states to the host before the next batch trains
         parts.append(r._replace(states=tree_map(lambda x: x.cpu(),
                                                 r.states)))
@@ -133,16 +142,17 @@ def _fit_chunks(model, chunks, n, hop, signal_length, train_cfg, generator,
 def multi_inr_fit_many(model: INRModel, signals: list[np.ndarray],
                        sample_rate: int, cfg: MultiINRConfig | None = None,
                        train_cfg: TrainConfig | None = None, seed: int = 0,
-                       device: torch.device | str = "cuda",
-                       max_chunks_per_batch: int | None = None
-                       ) -> list[MultiINRResult]:
+                       device: torch.device | str | None = None,
+                       max_chunks_per_batch: int | None = None,
+                       mesh: Mesh | None = None) -> list[MultiINRResult]:
     """Fit several clips as one population: each clip is chunked on its
     own (windows stay aligned to clip starts), the populations are
     concatenated and trained together, and the result is split back into
-    one ``MultiINRResult`` per clip.  ``device`` as ``multi_inr_fit``."""
+    one ``MultiINRResult`` per clip.  ``device`` and ``mesh`` as
+    ``multi_inr_fit``."""
     cfg = cfg or MultiINRConfig()
     train_cfg = train_cfg or TrainConfig()
-    device = resolve_device(device)
+    mesh = resolve_mesh(mesh, device)
     if not signals:
         return []
     per_clip = [chunk_signal(np.asarray(s, dtype=np.float32), sample_rate,
@@ -150,7 +160,7 @@ def multi_inr_fit_many(model: INRModel, signals: list[np.ndarray],
     n, hop = per_clip[0][1], per_clip[0][2]
     chunks = np.concatenate([c for c, _, _ in per_clip], axis=0)
     res = _fit_chunks(model, chunks, n, hop, chunks.shape[0] * n, train_cfg,
-                      torch.Generator().manual_seed(seed), device,
+                      torch.Generator().manual_seed(seed), mesh,
                       max_chunks_per_batch)
     out, start = [], 0
     for (c, _, _), sig in zip(per_clip, signals):
@@ -167,17 +177,29 @@ def multi_inr_fit_many(model: INRModel, signals: list[np.ndarray],
 
 
 def _fit_chunk_population(model, chunks, n, hop, signal_length, train_cfg,
-                          generator, device) -> MultiINRResult:
-    """Core of the fit: train a (k, n) window population on ``device``.
+                          generator, mesh: Mesh) -> MultiINRResult:
+    """Core of the fit: train a (k, n) window population on the mesh.
 
     A round of ``scan_chunk`` steps launches work and reads nothing back:
-    the per-step losses stay a device tensor until the fit ends."""
-    dev = torch.device(device)
+    the per-step losses stay a device tensor until the fit ends.  On more
+    than one rank the population is padded to a multiple of the ranks
+    (zero targets, window 0's initial state: the init of the real windows
+    does not depend on the mesh) and each rank trains its own contiguous
+    share; one all-gather ends the fit."""
+    dev = mesh.device
     k = chunks.shape[0]
     scales = np.maximum(np.max(np.abs(chunks), axis=1), 1e-9)
     targets = (chunks / scales[:, None])[..., None].astype(np.float32)
     coords = torch.from_numpy(get_coord(n, dim=1)).to(dev)
     states = init_train_state(model, generator, train_cfg, dev, windows=k)
+    if mesh.size > 1:
+        targets, _ = pad_to_multiple(targets, mesh.size)
+        kr = targets.shape[0] // mesh.size
+        own = slice(mesh.rank * kr, (mesh.rank + 1) * kr)
+        pad = targets.shape[0] - k
+        states = tree_map(lambda x: torch.cat(
+            [x, x[:1].expand(pad, *x.shape[1:])])[own].clone(), states)
+        targets = targets[own]
     fused = fused_step_plan(model, train_cfg, n) is not None
     if fused:
         vstep, to_flat, from_flat, prep_targets = make_vmapped_fused_step(
@@ -191,7 +213,7 @@ def _fit_chunk_population(model, chunks, n, hop, signal_length, train_cfg,
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     sync()
-    t0 = time.perf_counter()
+    t0 = time.time()
     hists = []
     done = 0
     while done < train_cfg.total_steps:
@@ -203,11 +225,15 @@ def _fit_chunk_population(model, chunks, n, hop, signal_length, train_cfg,
         hists.append(torch.stack(round_losses))
         done += m
     sync()
-    train_time = time.perf_counter() - t0
+    train_time = mesh.span(t0, time.time())
+    hist = torch.cat(hists) if hists else torch.zeros(
+        (0, targets_d.shape[0]), device=dev)
+    if mesh.size > 1:
+        states = tree_map(lambda x: mesh.all_gather(x)[:k], states)
+        hist = mesh.all_gather(hist.T).T[:, :k]
     if fused:
         states = from_flat(states)
-    hist = (torch.cat(hists).cpu().numpy() if hists
-            else np.zeros((0, k), np.float32))
+    hist = hist.cpu().numpy()
     return MultiINRResult(states=states, chunk_scales=scales,
                           chunk_length=n, hop=hop, num_chunks=k,
                           signal_length=signal_length, loss_history=hist,

@@ -1,16 +1,24 @@
-"""Card-only checks of the CUDA kernels (csrc/siren_stack.cu, the backward
-and whole-step kernels of csrc/siren_train.cu, each at widths 32 to 256 and
-with an RFF layer 0, and the KAN forward and backward kernels of
-csrc/kan.cu) against their plain PyTorch versions on the same card.
+"""Card-only checks of the CUDA kernels (csrc/siren_stack.cu, the backward,
+whole-step and row-shard kernels of csrc/siren_train.cu, each at widths 32
+to 256 and with an RFF layer 0, and the KAN forward and backward kernels of
+csrc/kan.cu) against their plain PyTorch versions on the same card, and a
+step of the row-sharded fit on two ranks sharing the card.  It also holds
+``run_thread_ranks``, the thread ranks that tests/test_torch_shard.py and
+chip_smoke.py run the sharded fits on.
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports no JAX, so the card's machine runs it without the tests' conftest:
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_cuda.py`` (``python3 chip_smoke.py`` does)."""
 
+import datetime
+import threading
+from typing import Any, Callable
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from inraudio_tpu_torch import codec
 from inraudio_tpu_torch.models import (KANConfig, SirenSnakeTanhConfig,
@@ -19,9 +27,48 @@ from inraudio_tpu_torch.ops import kan_fused as kf
 from inraudio_tpu_torch.ops import siren_fused as sf
 from inraudio_tpu_torch.ops import siren_step as ss
 from inraudio_tpu_torch.ops import siren_train as st
+from inraudio_tpu_torch.parallel import Mesh, make_mesh
 from inraudio_tpu_torch.train import loop as tloop
 
 pytestmark = pytest.mark.cuda
+
+
+def run_thread_ranks(size: int, fn: Callable[[Mesh], Any],
+                     device: torch.device | str = "cuda",
+                     timeout_s: float = 300.0) -> list:
+    """Run ``fn(mesh)`` on ``size`` ranks, one thread each in this process,
+    every rank on ``device`` with its own gloo group over the loopback
+    (ranks that share one card, or CPU ranks).  Returns the ranks' results
+    in rank order; re-raises the first rank's exception.  A rank that
+    fails leaves the others waiting in their next collective until
+    ``timeout_s``, when gloo raises there."""
+    store = dist.HashStore()
+    results: list = [None] * size
+    errors: list = [None] * size
+
+    def rank_main(rank: int) -> None:
+        try:
+            opts = dist.ProcessGroupGloo._Options()
+            opts._timeout = datetime.timedelta(seconds=timeout_s)
+            opts._devices = [dist.ProcessGroupGloo.create_device(
+                hostname="127.0.0.1")]
+            pg = dist.ProcessGroupGloo(dist.PrefixStore("ranks", store), rank,
+                                       size, opts)
+            results[rank] = fn(make_mesh(device, group=pg))
+        except BaseException as e:  # re-raised in the caller's thread
+            errors[rank] = e
+
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True)
+               for r in range(size)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for e in errors:
+        if e is not None:
+            raise e
+    return results
+
 
 TIERS = [kw for _, _, kw in sf._DECODE_TIERS] + [dict(approx_sin=False)]
 TIER_IDS = ["bf16-deg7", "mixed-bf16x2-deg7", "deg9", "deg11", "exact"]
@@ -586,6 +633,198 @@ def test_training_kernels_validate(dev):
         ss.make_fused_mse_train_step(cfg, tc, 64)(fs, coords.cpu(),
                                                   targets.cpu())
     assert ss.SIREN_STEP.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The row-sharded fit: E (one shard's loss and grads) and F (clip + Adam +
+# best on all-reduced grads)
+# ---------------------------------------------------------------------------
+
+# F against adam_epilogue_plain on one buffer: the same elementwise
+# expressions op by op (-fmad=false); only the norm's summation order
+# differs, which moves the clip scale by an ulp or so.
+ADAM_RTOL = 1e-6
+
+
+def shard_setup(h, f, n, dev, seed=0):
+    """(cfg, plan, bt, flat state (k = 1), coords (n, 1), targets (1, n))
+    of a raw (f = 0) or RFF (f frequencies) mlp, one step into its fit
+    (non-zero moments)."""
+    if f:
+        cfg, model, tc, state, coords, targets, b = _rff_train_setup(
+            h, f, 1, n, dev, seed)
+    else:
+        cfg, model, tc, state, coords, targets = _train_setup(h, 1, n, dev,
+                                                              seed)
+        b = None
+    fs = ss.flat_state_from_train_state(state, cfg)
+    fs, _ = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                         rff_b=b)(fs, coords, targets)
+    plan = sf.stack_plan(cfg, approx_sin=True, rff=b is not None)
+    bt = None if b is None else sf._prep_rff_bt(b)
+    return cfg, plan, bt, fs, coords, targets
+
+
+def _limit(rows, dev):
+    return torch.tensor([rows], dtype=torch.int32, device=dev)
+
+
+def check_grad_shard(fs, coords, targets, limit, n_valid, cfg, plan, gmode,
+                     bt):
+    """Kernel E against its plain version on one shard: the loss to
+    LOSS_RTOL, the grads to the grad tier's tolerance or, with an RFF
+    layer 0, to RFF_CTRL_X times the control (the plain version with layer
+    0 one ulp off).  Returns (kernel buffer, grad error, control gap)."""
+    P = fs.params.shape[1]
+    out = ss.SIREN_GRAD(fs.params, coords, targets, limit, n_valid, cfg,
+                        plan, gmode, bt)
+    ref = ss.grad_plain(fs.params, coords, targets, limit, n_valid, cfg,
+                        plan, gmode, bt)
+    pert = st.flatten_params(perturb_layer0(st.unflatten_params(
+        fs.params, cfg)), cfg)
+    ctl = ss.grad_plain(pert, coords, targets, limit, n_valid, cfg, plan,
+                        gmode, bt)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out[P], ref[P], rtol=LOSS_RTOL, atol=0)
+    assert torch.equal(out[P + 1:], torch.zeros(3, device=out.device))
+    err, c = _gap(out[:P], ref[:P]), _gap(ctl[:P], ref[:P])
+    if bt is None:
+        check_grads(out[None, :P], ref[None, :P], gmode)
+    else:
+        tol = (GRAD_BF16_MAX_RTOL if is_bf16_grad(gmode) else GRAD_F32_RTOL)
+        assert err <= max(RFF_CTRL_X * c, tol * float(ref[:P].abs().max())), \
+            (err, c)
+    return out, err, c
+
+
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
+@pytest.mark.parametrize("h,f", [(32, 0), (64, 0), (128, 0), (256, 0),
+                                 (32, 4), (256, 256)])
+def test_grad_kernel_matches_plain(dev, h, f, gmode):
+    """E on a tail shard: 1000 rows of which the first 700 are real, the
+    loss normalised by a whole clip of 2500 rows."""
+    cfg, plan, bt, fs, coords, targets = shard_setup(h, f, 1000, dev)
+    before = ss.SIREN_GRAD.launches
+    check_grad_shard(fs, coords, targets, _limit(700, dev), 2500, cfg, plan,
+                     gmode, bt)
+    assert ss.SIREN_GRAD.launches == before + 1
+
+
+@pytest.mark.parametrize("h,f", [(32, 0), (256, 256)])
+def test_grad_kernel_empty_shard_and_repeat(dev, h, f):
+    """A shard with limit 0 gives exact zeros; over a shard of more row
+    tiles than MAX_SLICES two calls are bit-equal."""
+    cfg, plan, bt, fs, coords, targets = shard_setup(h, f, 12000, dev)
+    gmode = st.grad_dot_mode()
+    empty = ss.SIREN_GRAD(fs.params, coords, targets, _limit(0, dev), 24000,
+                          cfg, plan, gmode, bt)
+    a = ss.SIREN_GRAD(fs.params, coords, targets, _limit(11000, dev), 24000,
+                      cfg, plan, gmode, bt)
+    b = ss.SIREN_GRAD(fs.params, coords, targets, _limit(11000, dev), 24000,
+                      cfg, plan, gmode, bt)
+    torch.cuda.synchronize()
+    assert not empty.any()
+    assert torch.equal(a, b) and a.any()
+
+
+@pytest.mark.parametrize("h,f", [(64, 0), (256, 256)])
+def test_grad_shards_sum_to_the_whole_clip(dev, h, f):
+    """Two shards' E buffers summed (what the all-reduce forms) against
+    the grad accumulation of D over the whole clip: each row's arithmetic
+    is the same, only the order of the sums over rows differs."""
+    n = 5000
+    cfg, plan, bt, fs, coords, targets = shard_setup(h, f, n, dev)
+    gmode = st.grad_dot_mode()
+    tm = st.tile_rows(h)
+    rows = -(-n // (2 * tm)) * tm  # each shard whole row tiles
+    total = 0
+    for r in range(2):
+        cs = torch.zeros(rows, 1, device=dev)
+        ts = torch.zeros(1, rows, device=dev)
+        valid = min(rows, n - r * rows)
+        cs[:valid] = coords[r * rows:r * rows + valid]
+        ts[0, :valid] = targets[0, r * rows:r * rows + valid]
+        total = total + ss.SIREN_GRAD(fs.params, cs, ts, _limit(valid, dev),
+                                      n, cfg, plan, gmode, bt)
+    g = st.validate_grad_launch(fs.params, cfg, plan, coords, bt)
+    with torch.cuda.device(dev):
+        grads, _, loss_part = st.grad_reduce(
+            st.TRAIN_LIBRARY(), g, coords, fs.params,
+            torch.cuda.current_stream(dev).cuda_stream, targets=targets,
+            gmode=gmode)
+    torch.cuda.synchronize()
+    P = g.layout.size
+    torch.testing.assert_close(total[P], loss_part.sum(), rtol=LOSS_RTOL,
+                               atol=0)
+    assert _gap(total[None, :P], grads) <= \
+        GRAD_F32_RTOL * float(grads.abs().max())
+
+
+@pytest.mark.parametrize("clip", [0.0, 1.0])
+@pytest.mark.parametrize("track_best", [True, False])
+def test_adam_kernel_matches_plain(dev, clip, track_best):
+    """F against adam_epilogue_plain on one all-reduced buffer, from a
+    state with non-zero moments, its loss below and above best_loss."""
+    cfg, plan, bt, fs, coords, targets = shard_setup(256, 0, 500, dev)
+    P = fs.params.shape[1]
+    gen = torch.Generator(dev).manual_seed(5)
+    for loss in (0.5 * float(fs.best_loss), 2.0 * float(fs.best_loss)):
+        buf = torch.zeros(P + 4, device=dev)
+        buf[:P] = torch.randn(P, device=dev, generator=gen) * 1e-2
+        buf[P] = loss
+        a, b = clone_state(fs), clone_state(fs)
+        c1 = torch.full((1,), 0.19, device=dev)  # t = 2
+        c2 = torch.full((1,), 1.0 - 0.999 ** 2, device=dev)
+        before = ss.SIREN_ADAM.launches
+        la = ss.SIREN_ADAM(a.params, a.mu, a.nu,
+                           a.best_params if track_best else None, buf, a.lr,
+                           c1, c2, a.best_loss, clip)
+        assert ss.SIREN_ADAM.launches == before + 1
+        ss.adam_epilogue_plain(b.params, b.mu, b.nu,
+                               b.best_params if track_best else None,
+                               buf[:P].view(1, P), b.lr, c1, c2, buf[P:P + 1],
+                               b.best_loss, clip)
+        torch.cuda.synchronize()
+        assert float(la) == loss
+        for name in ("params", "mu", "nu", "best_params"):
+            torch.testing.assert_close(getattr(a, name), getattr(b, name),
+                                       rtol=ADAM_RTOL, atol=1e-12)
+        assert torch.equal(a.best_params, fs.best_params) != (
+            track_best and loss < float(fs.best_loss))
+
+
+def test_sharded_step_on_two_ranks_matches_d(dev):
+    """One step of the row-sharded fit on two thread ranks of one card
+    (gloo, staged through host memory) against the one-rank D step from
+    the same state: the loss to LOSS_RTOL, the state to D's tolerance; the
+    ranks bit-equal; E and F launched on each rank, D not at all."""
+    from inraudio_tpu_torch.parallel import shard_problem_arrays
+    n, h = 3000, 128
+    cfg, model, tc, state, coords, targets = _train_setup(h, 1, n, dev)
+    fs0 = ss.flat_state_from_train_state(state, cfg)
+    a, (la, _) = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True)(
+        clone_state(fs0), coords, targets)
+    x, y = coords.cpu().numpy(), targets[0].cpu().numpy()
+
+    def rank(mesh):
+        cs, ts, sh = shard_problem_arrays(mesh, x, y, st.tile_rows(h))
+        step = ss.make_sharded_fused_mse_train_step(
+            cfg, tc, n, mesh, _limit(sh.valid, dev), approx_sin=True)
+        s, (loss, _) = step(clone_state(fs0), cs, ts.reshape(1, -1))
+        torch.cuda.synchronize()
+        return s, loss
+
+    counts = (ss.SIREN_GRAD.launches, ss.SIREN_ADAM.launches,
+              ss.SIREN_STEP.launches)
+    (s0, l0), (s1, l1) = run_thread_ranks(2, rank, device=dev)
+    assert (ss.SIREN_GRAD.launches, ss.SIREN_ADAM.launches,
+            ss.SIREN_STEP.launches) == (counts[0] + 2, counts[1] + 2,
+                                        counts[2])
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(p, q) for p, q in zip(s0, s1))
+    torch.testing.assert_close(l0, la, rtol=LOSS_RTOL, atol=0)
+    check_state(s0, a, tc.learning_rate, st.grad_dot_mode())
 
 
 # ---------------------------------------------------------------------------

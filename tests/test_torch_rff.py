@@ -336,11 +336,12 @@ class _RecordingLibrary:
 
     def siren_grad(self, coords, params, partial, loss_part, pre, tgt, cot,
                    offs, ints, omegas, n_layers, k, n, d, h, P, gmode, inv_n,
-                   two_inv_n, bt, n_freq, fdeg, slices, stream):
+                   two_inv_n, bt, n_freq, fdeg, slices, limit, stream):
         self.calls.append(("grad", k, slices, n_freq, loss_part, bt))
         return 0
 
-    def siren_reduce(self, partial, grads, sq_part, k, slices, P, stream):
+    def siren_reduce(self, partial, grads, sq_part, loss_part, loss_out, k,
+                     slices, P, stream):
         self.calls.append(("reduce", k, slices, grads))
         return 0
 

@@ -446,7 +446,8 @@ class _RecordingLibrary:
         self.calls.append(("grad", rest[4], params, loss_part, tgt))
         return 0
 
-    def siren_reduce(self, partial, grads, sq_part, k, tiles, P, stream):
+    def siren_reduce(self, partial, grads, sq_part, loss_part, loss_out, k,
+                     tiles, P, stream):
         self.calls.append(("reduce", k, grads, sq_part))
         return 0
 
