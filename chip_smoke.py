@@ -19,7 +19,9 @@ h=128, 2 sine + 2 snake layers) at two shapes:
 
 Phases, each of which fails the run:
 0. build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
-   print ptxas's register and spill lines;
+   print ptxas's register and spill lines, and the count of HMMA/HGMMA
+   instructions in the SASS of H's tensor-core kernels (cuobjdump -sass
+   beside nvcc; none there fails the run);
 1. per shape and per decode tier, the stack kernel against its plain
    PyTorch version on the card, max-abs within the stated tolerance;
 2. serving decode: full decode, three decode_range seeks (must equal the
@@ -62,7 +64,9 @@ seed 0), with ``csrc/kan.cu`` built in phase 0 beside the other sources:
    from one initial state (KAN_CMP_STEPS steps), whose final losses must
    agree within a limit set from a 1-ulp-perturbed kernel fit beside them;
 10. timings with CUDA events: G, H and a whole KAN step against their plain
-   versions, the fit's steps/s and its peak device memory.
+   versions, each layer's G and H's parts (the cotangent's bf16 split, dW,
+   the fixed-order reduce, W's split for dx, dx), the fit's steps/s and its
+   peak device memory.
 
 The runner's production mlp (``fit --arch mlp --fused`` at the CLI's
 defaults: h=256, omega0=22000, hidden omega 30, a_initial 0.5, 2 sine + 2
@@ -117,6 +121,22 @@ through host memory:
 16. timings: E per shard, the gloo all-reduce, F, its plain version and
    ``torch.optim.Adam(fused=True).step()`` on one P-float tensor, the
    sharded step against the one-rank D step.
+
+The codec's rate points below the kernel width (h = 36, 40 and 48, which
+the kernels run zero-padded to 64 with the model's own width passed to the
+training kernels):
+17. codec.encode(fused=True) at each point of WIDTH_POINTS (0.5 s windows,
+   WIDTH_STEPS steps, the refit through C where the point has one) with
+   every launch count read around it, the payload decoded on the card
+   through the stack kernel and held to the plain version's decode (its
+   samples at phase 1's tolerance for the decode's tier, and its SNR); at
+   h = 36, C against its plain backward on the refit's inputs (the
+   payload's dequantized params padded to 64, the refit's coords, the
+   gradient of its loss), with every padded slot's gradient exactly 0;
+   then, at each width, 3 steps of D against 3 plain steps from one padded
+   flat state (phase 5's tolerance), and WIDTH_D_STEPS steps of D, after
+   which every padded slot of params, best, mu and nu must be bit-zero
+   (padded snake a bit-one).
 
 Every kernel's bound (the least time the card could take for the same
 work) is computed from the run's shapes: the larger of the bytes it must
@@ -201,6 +221,19 @@ KAN_SHARD_STEPS = 3
 ENCODE_SHARD_STEPS = 50
 TORCHRUN_STEPS = 20
 NCCL_FITS = "nccl_fits.json"  # phase 15's NCCL leg, written by rank 0
+# phase 17: the codec's rate points below the kernel width 64 (the JAX
+# package's _RD_POINTS, inraudio_tpu/codec.py:122-134: 0.5 s windows, h,
+# quantize, refit steps), trained WIDTH_STEPS steps each (a depth cut: the
+# points train CodecConfig's 3000); the kernel decode's SNR may differ from
+# the plain version's by WIDTH_SNR_DB; C is held to its plain version at
+# WIDTH_C_H; WIDTH_D_STEPS steps of D from a flat state, whose padded slots
+# must stay bit-zero
+WIDTH_POINTS = ((36, "int8", 400), (40, "int8", 400), (48, "int8", 0),
+                (48, "float16", 0))
+WIDTH_STEPS = 300
+WIDTH_SNR_DB = 0.05
+WIDTH_C_H = 36
+WIDTH_D_STEPS = 100
 # the card's published peaks (NVIDIA H100 SXM, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
@@ -300,6 +333,26 @@ def ptxas_lines(build_log):
     for name, info in out:
         lines.setdefault(name, []).append(info)
     return [f"{name}: {'; '.join(infos)}" for name, infos in lines.items()]
+
+
+def sass_mma_counts(lib_path):
+    """{kernel: tensor-core instructions (HMMA / HGMMA) in its SASS} of a
+    built library, from ``cuobjdump -sass`` beside nvcc; None where the
+    toolkit has no cuobjdump."""
+    from inraudio_tpu_torch.ops._nvcc import find_nvcc
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
 
 
 def bound(bytes_moved, tensor_flop, f32_flop):
@@ -544,17 +597,38 @@ def kan_phases(np, torch, dev, clip):
         f"(plain {out['kan_bwd_plain_ms']:.3f} ms)")
     lib = kf.KAN_LIBRARY()
     stream = torch.cuda.current_stream().cuda_stream
-    parts = []
+    parts, out["kan_parts"] = [], []
     for li, (grid, w_t) in enumerate(layers):
         s = kf._layer_shape(xr[li], grid, w_t, order, li)
         g = torch.ones((n, s.dout), device=dev) / n
-        fwd = cuda_ms(torch, lambda: kf.KAN_FWD([(grid, w_t)], xr[li], order,
-                                                mode), 5)
-        dw = cuda_ms(torch, lambda: kf.layer_dw(lib, xr[li], grid, g, s,
-                                                order, 3, stream), 5)
-        parts.append(f"layer {li} ({s.din}->{s.dout}) G {fwd:.3f} ms, "
-                     f"dW {dw:.3f} ms")
-    log("phase10 per layer: " + "; ".join(parts))
+        plan = kf.dw_plan(s.n, s.din, s.dout, s.J, mode)
+        need_dx = li > 0
+        t = {"G": cuda_ms(torch, lambda: kf.KAN_FWD(
+            [(grid, w_t)], xr[li], order, mode), 5)}
+        # H's parts: the cotangent's bf16 split (tensor-core route), dW
+        # (the pass without dx, less the split and the reduce), dx (what
+        # asking for it adds: W's split and, on the tensor-core and narrow
+        # routes, its share of the one pass for both) and the fixed-order
+        # reduce
+        t["g split"] = (cuda_ms(torch, lambda: kf.split_g(
+            lib, g, s, plan, stream), 5) if plan.route == "tc" else 0.0)
+        partial = torch.zeros((plan.slices, s.dout, s.K), device=dev)
+        dw_t = torch.empty((s.dout, s.K), device=dev)
+        t["reduce"] = cuda_ms(torch, lambda: lib.kan_reduce(
+            partial.data_ptr(), dw_t.data_ptr(), s.dout * s.K, plan.slices,
+            1, stream), 5)
+        dw_only = cuda_ms(torch, lambda: kf.layer_backward(
+            lib, xr[li], grid, g, w_t, s, order, mode, stream, False), 5)
+        t["dW"] = dw_only - t["g split"] - t["reduce"]
+        if need_dx:
+            t["dx"] = cuda_ms(torch, lambda: kf.layer_backward(
+                lib, xr[li], grid, g, w_t, s, order, mode, stream, True),
+                5) - dw_only
+        del partial
+        out["kan_parts"].append(((li, s.din, s.dout, plan.route), t))
+        parts.append(f"layer {li} ({s.din}->{s.dout}, {plan.route}): "
+                     + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+    log("phase10 per layer (CUDA events): " + "; ".join(parts))
     del xr, cot, ref
     del feats, kern, plain, ulp, r0
     s0 = tloop.init_train_state(model, torch.Generator().manual_seed(SEED),
@@ -1306,6 +1380,165 @@ def launch_counters():
             "kan_bwd": kf.KAN_BWD}
 
 
+def width_phases(np, torch, dev, clip):
+    """Phase 17: the rate points at h = 36, 40 and 48, run zero-padded to
+    the kernel width 64 with the model's own width passed to the training
+    kernels: codec.encode(fused=True) through D (and C for the refit), the
+    payload decoded on the card through the stack kernel and held against
+    the plain version's decode, launch counts read around each; C against
+    its plain backward on the refit's inputs at WIDTH_C_H; then D against
+    its plain step from one padded flat state, and D alone from it, whose
+    padded slots must stay bit-zero."""
+    from inraudio_tpu_torch import codec
+    from inraudio_tpu_torch.data import get_coord
+    from inraudio_tpu_torch.dsp import calculate_snr
+    from inraudio_tpu_torch.models import SirenSnakeTanhConfig, build_model
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.train.multi_inr import (MultiINRConfig,
+                                                    chunk_signal)
+    from test_torch_cuda import (check_close, check_grads, check_state,
+                                 padded_slots, steps_kernel_vs_plain)
+
+    counters = launch_counters()
+    gmode = st.grad_dot_mode()
+    out = {"launches": {}, "snr": {}}
+    fails = []
+
+    def gate(name, check, *args):
+        """check(*args) -> its max abs difference; an AssertionError is a
+        failure of ``name``."""
+        try:
+            return check(*args)
+        except AssertionError as e:
+            log(f"phase17 {name}: FAILED {e}")
+            fails.append(name)
+            return float("nan")
+
+    chunks, n, _ = chunk_signal(clip, FS, MultiINRConfig(
+        chunk_seconds=0.5, overlap_fraction=codec.CodecConfig(
+            ).overlap_fraction))
+    scales = np.maximum(np.max(np.abs(chunks), axis=1), 1e-9)
+    targets = torch.from_numpy(chunks / scales[:, None]).to(dev)
+    coords = torch.from_numpy(get_coord(n, dim=1)).to(dev)
+    for h, quant, refit in WIDTH_POINTS:
+        name = f"h{h}-{quant}" + (f"-refit{refit}" if refit else "")
+        ccfg = codec.CodecConfig(chunk_seconds=0.5, hidden_features=h,
+                                 quantize=quant, refit_steps=refit,
+                                 total_steps=WIDTH_STEPS, fused=True,
+                                 seed=SEED)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        payload = codec.encode(clip, FS, ccfg, device=dev)
+        enc_s = time.perf_counter() - t0
+        enc = {k: c.launches for k, c in counters.items() if c.launches}
+        counters["siren_stack"].launches = 0
+        _, rec = codec.decode(payload, dev)
+        dec = counters["siren_stack"].launches
+        _, ref = codec.decode(payload, "cpu", fused=True)  # plain version
+        meta = payload["meta"]
+        cfg = codec._model_cfg_from_meta(meta)
+        kw = sf.auto_decode_kwargs(codec._routing_fit_snr(meta),
+                                   first_omega_0=cfg.first_omega_0)
+        err = gate(f"{name} decode", check_close, torch.from_numpy(rec),
+                   torch.from_numpy(ref), kw)
+        snr_k = float(calculate_snr(clip, rec))
+        snr_p = float(calculate_snr(clip, ref))
+        out["launches"][name] = {**enc, "decode siren_stack": dec}
+        out["snr"][name] = (snr_k, snr_p)
+        log(f"phase17 {name}: encode {WIDTH_STEPS} steps in {enc_s:.2f} s, "
+            f"k={meta['num_chunks']} windows of {meta['chunk_length']}, "
+            f"launches {enc}; decode on the card ({dec} stack launches, "
+            f"tier {kw}) max |kernel - plain| {err:.3e} (phase 1's limit "
+            f"for the tier), SNR {snr_k:.4f} dB, plain version {snr_p:.4f} "
+            f"dB (limit |diff| <= {WIDTH_SNR_DB} dB)")
+        if (enc.get("siren_step", 0) < WIDTH_STEPS
+                or enc.get("siren_bwd", 0) < refit or dec < 1
+                or rec.shape != clip.shape or not np.isfinite(rec).all()
+                or abs(snr_k - snr_p) > WIDTH_SNR_DB):
+            fails.append(name)
+        if not (refit and h == WIDTH_C_H):
+            continue
+        # C on the refit's inputs: its params (the payload's, dequantized
+        # and padded to the kernel width, as the refit pads them), its
+        # coords and the gradient of its MSE loss
+        params = sf.pad_params(codec.dequantize_inr_params(
+            payload["params"], dev), sf.kernel_width(h))
+        model = build_model("mlp", cfg, fused=True, approx_sin=True)
+        k = meta["num_chunks"]
+        cot = (2.0 / (k * n)) * (model.apply(params, coords)
+                                 - targets[..., None])
+        plan = sf.stack_plan(cfg, approx_sin=True)
+        gk = st.flatten_params(st.SIREN_BWD(params, cfg, plan, gmode, coords,
+                                            cot), cfg)
+        gp = st.flatten_params(st.backward_plain(params, plan, gmode, coords,
+                                                 cot), cfg)
+        torch.cuda.synchronize()
+        cerr = gate(f"C h={h}", check_grads, gk, gp, gmode)
+        pad = padded_slots(cfg)[0].to(dev)
+        zero = bool(torch.all(gk[:, pad] == 0))
+        log(f"phase17 C vs plain at h={h} (padded to 64) on the refit's "
+            f"inputs, {k} windows of {n} ({gmode} grad tier): max abs "
+            f"{cerr:.3e} of max |grad| {float(gp.abs().max()):.3e}; padded "
+            f"slots' gradients exactly 0: {zero}")
+        if not zero:
+            fails.append(f"C h={h} padded slots")
+        del gk, gp, params, cot
+    tc = tloop.TrainConfig(learning_rate=7e-4, grad_clip_norm=1.0)
+    for h in sorted({p[0] for p in WIDTH_POINTS}):
+        cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
+        model = build_model("mlp", cfg, fused=True, approx_sin=True)
+        state = tloop.init_train_state(
+            model, torch.Generator().manual_seed(SEED), tc, dev,
+            windows=targets.shape[0])
+        vstep, to_flat, _, _ = tloop.make_vmapped_fused_step(model, tc,
+                                                             coords)
+        fs = to_flat(state)
+        pad, snake = (m.to(dev) for m in padded_slots(cfg))
+
+        def held(s):
+            """Every padded slot of params, best, mu and nu bit-zero, the
+            padded snake a of params and best bit-one."""
+            return (all(bool(torch.all(t[:, pad & ~snake] == 0))
+                        for t in (s.params, s.best_params))
+                    and all(bool(torch.all(t[:, pad] == 0))
+                            for t in (s.mu, s.nu))
+                    and all(bool(torch.all(t[:, snake] == 1.0))
+                            for t in (s.params, s.best_params)))
+
+        a, b, gerr = steps_kernel_vs_plain(cfg, tc, coords, targets, fs)
+        torch.cuda.synchronize()
+        errs = gate(f"D h={h} vs plain", check_state, a, b, tc.learning_rate,
+                    gmode)
+        errs = errs if isinstance(errs, dict) else {"state": errs}
+        log(f"phase17 D vs plain at h={h} (padded to 64, {gmode} grad tier),"
+            f" 3 steps from one state over {targets.shape[0]} windows of {n}:"
+            f" first-step gradients max abs {gerr:.3e}; after 3 steps max abs"
+            f" " + ", ".join(f"{key} {v:.3e}" for key, v in errs.items())
+            + f" (lr {tc.learning_rate}); padded slots held in the kernel / "
+            f"plain state: {held(a)} / {held(b)}")
+        if not (held(a) and held(b)):
+            fails.append(f"D h={h} vs plain padded slots")
+        del a, b
+        counters["siren_step"].launches = 0
+        for _ in range(WIDTH_D_STEPS):
+            fs, (loss, _) = vstep(fs, targets)
+        torch.cuda.synchronize()
+        launches = counters["siren_step"].launches
+        ok = held(fs)
+        log(f"phase17 D at h={h} (padded to 64), {WIDTH_D_STEPS} steps over "
+            f"{targets.shape[0]} windows of {n}: {launches} launches, final "
+            f"mean loss {float(loss.mean()):.6g}; padded slots of params, "
+            f"best, mu and nu bit-zero, padded snake a bit-one: {ok}")
+        if not ok or launches != WIDTH_D_STEPS:
+            fails.append(f"D h={h}")
+    if fails:
+        raise AssertionError(f"phase 17 failed: {fails}")
+    return out
+
+
 def sharded_fits_torchrun(nproc):
     """Phase 15's NCCL leg: this script under ``torchrun --nproc-per-node
     nproc``, one card a rank, each rank running ``sharded_fits_rank``.
@@ -1681,6 +1914,18 @@ def build_kernels():
             f"{build_s[name]:.1f} s")
         for line in ptxas_lines((lib.parent / "build.log").read_text()):
             log(f"  ptxas: {line}")
+    # H's kernels on tensor cores: their SASS must hold HMMA / HGMMA
+    counts = sass_mma_counts(library_path("kan", ["kan.cu"]))
+    if counts is None:
+        log("  sass: the toolkit has no cuobjdump beside nvcc; the HMMA "
+            "count of H's kernels is not read")
+        return
+    for name, c in counts.items():
+        if "_tc_kernel" in name:
+            log(f"  sass: {c} HMMA/HGMMA instructions in {name}")
+    if not all(c > 0 for name, c in counts.items() if "_tc_kernel" in name) \
+            or not any("_tc_kernel" in name for name in counts):
+        raise RuntimeError("H's tensor-core kernels hold no HMMA/HGMMA")
 
 
 def main() -> int:
@@ -1896,6 +2141,7 @@ def main() -> int:
     kan = kan_phases(np, torch, dev, clip)
     runner = runner_phases(np, torch, dev, clip)
     shard = shard_phases(np, torch, dev, clip)
+    width_phases(np, torch, dev, clip)
 
     shutil.rmtree(WORK, ignore_errors=True)
     ms, plain_ms = timing[("headline", "deg11")]

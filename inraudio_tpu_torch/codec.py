@@ -39,6 +39,7 @@ from .device import resolve_device as _resolve_device
 from .models import (SirenSnakeTanhConfig, build_model, dequantize_params,
                      quantize_params)
 from .models.siren import tensor_from_numpy
+from .ops.siren_fused import kernel_width, pad_params, unpad_params
 from .parallel.mesh import Mesh, resolve_mesh
 from .train.loop import TrainConfig
 from .train.multi_inr import (MultiINRConfig, batched_chunk_eval,
@@ -158,9 +159,15 @@ def _refit_trainable(model, params: Any, mode: str, targets: torch.Tensor,
     """Core of the quantization-aware refit: Adam on the float32 leaves
     (layer-0 weights, every bias, snake a) around the FROZEN dequantized
     weight matrices of layers 1+, loss = mean squared error over the whole
-    (k, n, 1) population; returns the refitted trainable tree."""
+    (k, n, 1) population; returns the refitted trainable tree.  A fused
+    model between the kernel widths refits zero-padded to the next one
+    (padded once here, unpadded at the end): the kernels give its padded
+    slots exact zero gradients, so Adam leaves them at 0."""
     q = quantize_inr_params(params, mode, per_row=per_row)
     dq = dequantize_inr_params(q, coords.device)
+    h = model.config.hidden_features
+    width = kernel_width(h) if model.fused_step_ctx is not None else h
+    dq = pad_params(dq, width)
     frozen = [layer["w"] for layer in dq["layers"][1:]]
     trainable = {"layers": [
         {k: v for k, v in layer.items() if not (li > 0 and k == "w")}
@@ -179,7 +186,9 @@ def _refit_trainable(model, params: Any, mode: str, targets: torch.Tensor,
             grads = torch.autograd.grad(loss, leaves)
         trainable, opt = adam_update(
             opt, tree_unflatten(trainable, list(grads)), trainable, adam_cfg)
-    return trainable
+    if width == h:
+        return trainable
+    return tree_map(torch.Tensor.contiguous, unpad_params(trainable, h))
 
 
 def quantization_aware_refit(model, params: Any, mode: str,

@@ -248,7 +248,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[4][8],
                                            int next, float* Xhi, float* Xlo,
                                            int r0, int c0, int c1,
                                            float* pre_out, int pre_row0,
-                                           int pre_rows) {
+                                           int pre_rows, int live = H) {
   constexpr int LD = H + 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -260,7 +260,10 @@ __device__ __forceinline__ void store_tile(const float (&acc)[4][8],
       for (int q = 0; q < 4; ++q) {
         const int c = half * 4 + q;
         p[q] = (acc[i][c] + acc2[i][c]) + sb[cb + q];
-        v[q] = activate(kind, p[q], omega, sa[cb + q], deg);
+        // units at or past `live` (a model padded to the kernel width)
+        // output exactly 0
+        v[q] = cb + q < live ? activate(kind, p[q], omega, sa[cb + q], deg)
+                             : 0.0f;
       }
       if (pre_out != nullptr && pre_row0 + r0 + i < pre_rows)
         *reinterpret_cast<float4*>(pre_out + (long long)(pre_row0 + r0 + i) * H +

@@ -78,6 +78,18 @@
 //   move 7 P floats (g, p, mu, nu read; p, mu, nu written), 8 P when the
 //   loss improves and best takes the old p (best is never read): it is
 //   bound by bytes, a few microseconds at the runner shapes.
+// - widths between the kernel widths (36, 40, 48 of the codec's rate
+//   points): the wrappers zero-pad the model to the next H once per fit,
+//   and the kernel takes the model's own width h_real.  Every hidden unit
+//   at or past it outputs exactly 0, in the forward and where the backward
+//   recomputes its input from the saved pre.  Zero weights alone are not
+//   enough: a padded snake unit has pre = 0, and the polynomial cos(0) is
+//   not 1 (snake(0) = -9.2e-5 at degree 7, +6.0e-8 at degree 11), so the
+//   next layer's dW rows for it would be non-zero.  With the mask every
+//   padded slot gets an exact zero gradient, Adam keeps it at zero, and
+//   the loss and clip norm are the unpadded model's.  At h_real = H the
+//   mask is never taken and every result is bit-equal to the unmasked
+//   kernel's.
 //
 // Numerics, as the JAX package (and the plain versions in
 // inraudio_tpu_torch/ops/siren_train.py and siren_step.py):
@@ -119,6 +131,8 @@ struct TrainArgs {
   const float* bt;        // RFF: 2 pi B^T (d, F), or null
   int n_freq;             // F (0: raw layer 0)
   int fdeg;               // the RFF features' trig degree
+  int h_real;             // the model's own width: units at or past it
+                          // (zero padding up to H) output exactly 0
 };
 
 template <int H>
@@ -352,7 +366,9 @@ siren_grad_kernel(const float* __restrict__ coords,
     const float omega = args.omega[pl];
     const float a = args.off_a[pl] >= 0 ? wp[args.off_a[pl] + ec] : 1.0f;
     for (int r = es; r < TM; r += TPC) {
-      const float x = activate(kind, pt[r * H + ec], omega, a, deg);
+      const float x = ec < args.h_real
+                          ? activate(kind, pt[r * H + ec], omega, a, deg)
+                          : 0.0f;
       xsplit(x, gm, r1 + r * LD + ec, r1 + TM * LD + r * LD + ec);
     }
   };
@@ -447,7 +463,7 @@ siren_grad_kernel(const float* __restrict__ coords,
                       acc, acc2);
         __syncthreads();  // every thread has read the features
         store_tile<H>(acc, acc2, sb, sa, kind, omega, deg, next, Xhi, Xlo,
-                      r0, c0, c1, pre_tile, 0, TM);
+                      r0, c0, c1, pre_tile, 0, TM, args.h_real);
       } else {
         const float* w0 = wp + args.off_w[0];
         for (int e = tid; e < d * H; e += kThreads) r1[e] = w0[e];
@@ -457,8 +473,9 @@ siren_grad_kernel(const float* __restrict__ coords,
           float pre = sb[c];
           for (int q = 0; q < d; ++q) pre = pre + sc[r * d + q] * r1[q * H + c];
           pre_tile[e] = pre;
-          split_store(activate(kind, pre, omega, sa[c], deg), next, Xhi, Xlo,
-                      r * LD + c);
+          split_store(c < args.h_real ? activate(kind, pre, omega, sa[c], deg)
+                                      : 0.0f,
+                      next, Xhi, Xlo, r * LD + c);
         }
       }
     }
@@ -486,7 +503,7 @@ siren_grad_kernel(const float* __restrict__ coords,
       __syncthreads();
       store_tile<H>(acc, acc2, sb, sa, args.kind[li], args.omega[li],
                     args.deg[li], args.mode[li + 1], Xhi, Xlo, r0, c0, c1,
-                    pre_tile + li * kTileFloats, 0, TM);
+                    pre_tile + li * kTileFloats, 0, TM, args.h_real);
     }
     // head: h -> 1, then the cotangent
     {
@@ -888,12 +905,14 @@ extern "C" {
 int siren_grad(const void* coords, const void* params, void* partial,
                void* loss_part, void* pre, const void* tgt, const void* cot,
                const void* offs, const void* ints, const void* omegas,
-               int n_layers, int k, int n, int d, int h, int P, int gmode,
+               int n_layers, int k, int n, int d, int h, int h_real, int P,
+               int gmode,
                float inv_n, float two_inv_n, const void* bt, int n_freq,
                int fdeg, int slices, const void* limit, void* stream) {
   if (n_layers < 2 || n_layers > kMaxLayers || d < 1 || d > kMaxIn || k < 1 ||
       n < 1 || P < 1 || (P & 3) || (tgt == nullptr) == (cot == nullptr) ||
-      slices < 1 || n_freq < 0 || (n_freq > 0) != (bt != nullptr))
+      slices < 1 || n_freq < 0 || (n_freq > 0) != (bt != nullptr) ||
+      h_real < 1 || h_real > h)
     return static_cast<int>(cudaErrorInvalidValue);
   TrainArgs args;
   const int* o = static_cast<const int*>(offs);
@@ -918,6 +937,7 @@ int siren_grad(const void* coords, const void* params, void* partial,
   args.bt = static_cast<const float*>(bt);
   args.n_freq = n_freq;
   args.fdeg = fdeg;
+  args.h_real = h_real;
   const float* c = static_cast<const float*>(coords);
   const float* p = static_cast<const float*>(params);
   float* part = static_cast<float*>(partial);

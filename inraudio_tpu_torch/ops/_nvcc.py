@@ -1,11 +1,14 @@
 """Build a CUDA source into a shared library with nvcc and load it with ctypes,
 and count a kernel wrapper's launches.
 
-The library goes into ``inraudio_tpu_torch/csrc/build/<name>-<hash>/``, keyed
-by a hash of the sources and flags, and is built at first use: nothing is
-compiled when a module is imported.  A second process that finds the
-library built reuses it; concurrent builders write to private temporary
-names and rename atomically.
+The library goes into ``<root>/<name>-<hash>/``, keyed by a hash of the
+sources and flags, and is built at first use: nothing is compiled when a
+module is imported.  The root is ``inraudio_tpu_torch/csrc/build/`` where
+the package directory is writable (a checkout), else a per-user cache,
+``$XDG_CACHE_HOME/inraudio_tpu_torch`` or ``~/.cache/inraudio_tpu_torch``
+(an installed package; the wheel ships ``csrc/*.cu`` and ``*.cuh``).  A
+second process that finds the library built reuses it; concurrent builders
+write to private temporary names and rename atomically.
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_ROOT = CSRC / "build"
 
 # -fmad=false: no contraction of separate multiplies and adds, so every
 # elementwise expression rounds op by op as the JAX reference does; the
@@ -40,13 +42,29 @@ def find_nvcc() -> str:
                        "kernels are built on the machine with the card")
 
 
+def _writable(path: Path) -> bool:
+    return os.access(path, os.W_OK)
+
+
+def build_root() -> Path:
+    """Where the libraries are built: ``csrc/build`` beside the sources
+    when it exists writable or can be made there, else the per-user
+    cache."""
+    local = CSRC / "build"
+    if _writable(local if local.is_dir() else CSRC):
+        return local
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "inraudio_tpu_torch"
+
+
 def library_path(name: str, sources: list[str]) -> Path:
     h = hashlib.sha256()
     # the shared headers are part of every source
     for src in [*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))]:
         h.update((CSRC / src).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
+    return build_root() / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 def build_library(name: str, sources: list[str]) -> ctypes.CDLL:

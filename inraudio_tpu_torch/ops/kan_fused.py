@@ -99,36 +99,85 @@ def fwd_plan(din: int, dout: int, J: int) -> tuple[int, int]:
     return cg, fc
 
 
+# H's tensor-core kernel (csrc/kan.cu): K values per tile, rows per chunk;
+# the narrow kernel's feature lanes and row groups
+_TC_TK, _TC_RC = 64, 32
+_NW_F, _NW_RG = 32, 8
+_SMEM_MAX = 232448       # bytes a block may use on the H100
+_TC_MODES = ("bf16", "bf16x2", "bf16x3")
+
+
 @dataclasses.dataclass(frozen=True)
 class DwPlan:
-    """H's dW launch for one layer: column groups, input features per K
-    tile, rows per chunk, rows per slice, slices."""
+    """H's dW launch for one layer: its route ('tc': tensor cores, dout >=
+    8; 'narrow': dout < 8; 'fma': the highest tier on CUDA cores), its
+    column tile (tc: columns; narrow: outputs held, >= dout; fma: column
+    groups of 8), input features per K tile, rows per chunk, rows per
+    slice, slices."""
 
-    cg: int
+    route: str
+    tile: int
     fck: int
     rc: int
     rows_per_slice: int
     slices: int
 
 
-def dw_plan(n: int, din: int, dout: int, J: int) -> DwPlan:
+def dw_route(dout: int, mode: str) -> str:
+    if mode not in _TC_MODES:
+        return "fma"
+    return "tc" if dout >= 8 else "narrow"
+
+
+def _pow2_at_least(v: int, lo: int, hi: int) -> int:
+    t = lo
+    while t < v and t < hi:
+        t *= 2
+    return t
+
+
+def bwd_tc_smem(tn: int, fck: int, dx: bool) -> int:
+    """Dynamic shared memory of the tensor-core backward (kan.cu
+    bwd_tc_smem): A^T's planes, two stages of g's planes, the knots and,
+    with dx, W's planes and the parked GX."""
+    return (2 * _TC_TK * (_TC_RC + 8) * 2 + 2 * 2 * _TC_RC * (tn + 8) * 2
+            + fck * _KNOT_STRIDE * 4
+            + (2 * _TC_TK * (tn + 8) * 2 + _TC_RC * (_TC_TK + 1) * 4
+               if dx else 0))
+
+
+def dw_plan(n: int, din: int, dout: int, J: int,
+            mode: str = "bf16x3") -> DwPlan:
     """Enough slices of rows that the (K tile, column tile, slice) grid
-    fills the card; the slice count depends on the shapes alone, so the
-    summation order does not depend on the scratch budget."""
-    cg = _col_groups(dout, 16)
-    tmk, tn = 1024 // cg, 8 * cg
-    fck = min(din, tmk // J)
+    fills the card; the slice count depends on the shapes (and the tier's
+    route) alone, so the summation order does not depend on the scratch
+    budget."""
+    route = dw_route(dout, mode)
+    if route == "tc":
+        tile = _pow2_at_least(dout, 32, 256)
+        fck = min(din, _TC_TK // J)
+        rc = _TC_RC
+        tiles = -(-din // fck) * -(-dout // tile)
+    elif route == "narrow":
+        tile = _pow2_at_least(dout, 1, 8)
+        fck, rc = _NW_F, _NW_RG
+        tiles = -(-din // fck)
+    else:
+        tile = _col_groups(dout, 16)
+        tmk, tn = 1024 // tile, 8 * tile
+        fck = min(din, tmk // J)
 
-    def smem(rc):
-        return 4 * (2 * tmk * _ld(rc) + 2 * rc * tn + fck * _KNOT_STRIDE)
+        def smem(rc):
+            return 4 * (2 * tmk * _ld(rc) + 2 * rc * tn
+                        + fck * _KNOT_STRIDE)
 
-    rc = 4
-    while rc < 256 and smem(rc + 4) <= _SMEM_BUDGET:
-        rc += 4
-    tiles = -(-din // fck) * -(-dout // tn)
+        rc = 4
+        while rc < 256 and smem(rc + 4) <= _SMEM_BUDGET:
+            rc += 4
+        tiles = -(-din // fck) * -(-dout // tn)
     slices = max(1, min(-(-_TARGET_CTAS // tiles), -(-n // rc)))
     rows = -(-(-(-n // slices)) // rc) * rc
-    return DwPlan(cg, fck, rc, rows, -(-n // rows))
+    return DwPlan(route, tile, fck, rc, rows, -(-n // rows))
 
 
 def dw_group(plan: DwPlan, dout: int, K: int) -> int:
@@ -137,9 +186,17 @@ def dw_group(plan: DwPlan, dout: int, K: int) -> int:
     return max(1, min(plan.slices, SCRATCH_BYTES // (4 * dout * K)))
 
 
+def dx_fused(dout: int, mode: str) -> bool:
+    """Whether a layer's dx comes out of its dW pass (the tensor-core and
+    narrow routes; the tensor-core one needs every output in one column
+    tile, dout <= 256); else the FMA dx kernel runs after it."""
+    route = dw_route(dout, mode)
+    return route == "narrow" or (route == "tc" and dout <= 256)
+
+
 def dx_plan(din: int, dout: int, J: int) -> tuple[int, int]:
-    """H's dx launch for one layer: (input features per chunk, dout per
-    inner chunk)."""
+    """H's FMA dx launch for one layer (the highest tier, and dout > 256
+    in the others): (input features per chunk, dout per inner chunk)."""
     fcx = min(din, _DX_TN // J)
 
     def smem(ic):
@@ -242,12 +299,18 @@ class _KanLibrary:
     def __call__(self):
         if self._lib is None:
             lib = build_library("kan", ["kan.cu"])
-            lib.kan_split.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+            lib.kan_split.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+            lib.kan_gsplit.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I,
+                                                  _P]
             lib.kan_forward.argtypes = [_P] * 5 + [_I] * 8 + [_P]
             lib.kan_dw.argtypes = [_P] * 4 + [_I] * 12 + [_P]
+            lib.kan_bwd_tc.argtypes = ([_P] * 6 + [_I] + [_P] * 2
+                                       + [_I] * 11 + [_P])
+            lib.kan_bwd_narrow.argtypes = [_P] * 7 + [_I] * 10 + [_P]
             lib.kan_reduce.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _P]
             lib.kan_dx.argtypes = [_P] * 6 + [_I] * 8 + [_P]
-            for fn in (lib.kan_split, lib.kan_forward, lib.kan_dw,
+            for fn in (lib.kan_split, lib.kan_gsplit, lib.kan_forward,
+                       lib.kan_dw, lib.kan_bwd_tc, lib.kan_bwd_narrow,
                        lib.kan_reduce, lib.kan_dx):
                 fn.restype = ctypes.c_int
             self._lib = lib
@@ -303,14 +366,42 @@ def _layer_shape(x: torch.Tensor, grid: torch.Tensor, w_t: torch.Tensor,
 
 
 def _split(lib, w_t, s: LayerShape, code: int, stream, *, rows: bool):
-    """W's hi/lo planes: (K, dout) for G when ``rows``, else (dout, K)."""
+    """W's f32 hi/lo planes: (K, dout) for G when ``rows``, else (dout, K)
+    for H's FMA and narrow dx."""
     f32 = dict(dtype=torch.float32, device=w_t.device)
     shape = (s.K, s.dout) if rows else (s.dout, s.K)
     hi, lo = torch.empty(shape, **f32), torch.empty(shape, **f32)
     ptrs = (hi.data_ptr(), lo.data_ptr(), 0, 0) if rows else \
         (0, 0, hi.data_ptr(), lo.data_ptr())
-    _check_rc("kan_split", lib.kan_split(w_t.data_ptr(), *ptrs, s.dout, s.K,
-                                         code, stream))
+    _check_rc("kan_split", lib.kan_split(w_t.data_ptr(), *ptrs, 0, 0, 0,
+                                         s.dout, s.K, code, stream))
+    return hi, lo
+
+
+def split_w_bf16(lib, w_t, s: LayerShape, plan: DwPlan, code: int,
+                 stream):
+    """W's bf16 hi/lo planes (K, tile) for H's tensor-core dx: dout padded
+    to the column tile, zero past dout."""
+    bf = dict(dtype=torch.bfloat16, device=w_t.device)
+    shape = (s.K, plan.tile)
+    hi, lo = torch.zeros(shape, **bf), torch.zeros(shape, **bf)
+    _check_rc("kan_split", lib.kan_split(w_t.data_ptr(), 0, 0, 0, 0,
+                                         hi.data_ptr(), lo.data_ptr(),
+                                         plan.tile, s.dout, s.K, code,
+                                         stream))
+    return hi, lo
+
+
+def split_g(lib, g, s: LayerShape, plan: DwPlan, stream):
+    """The cotangent's bf16 hi/lo planes (n, ldg), ldg = dout padded to
+    whole tensor-core column tiles (zero past dout): the w role of the
+    tensor-core dW and the x role of the tensor-core dx."""
+    ldg = -(-s.dout // plan.tile) * plan.tile
+    bf = dict(dtype=torch.bfloat16, device=g.device)
+    hi, lo = torch.empty((s.n, ldg), **bf), torch.empty((s.n, ldg), **bf)
+    _check_rc("kan_gsplit", lib.kan_gsplit(g.data_ptr(), hi.data_ptr(),
+                                           lo.data_ptr(), s.n, s.dout, ldg,
+                                           stream))
     return hi, lo
 
 
@@ -345,39 +436,76 @@ class _KanFwdKernel(LaunchCounter):
         return x, xs
 
 
-def layer_dw(lib, x, grid, g, s: LayerShape, order: int, code: int,
-             stream) -> torch.Tensor:
-    """dW^T (dout, K) of one layer: slices of rows in groups of
-    ``dw_group``, each group's partial sums folded into the result in
-    slice order."""
-    plan = dw_plan(s.n, s.din, s.dout, s.J)
-    group = dw_group(plan, s.dout, s.K)
+def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
+                   mode: str, stream, need_dx: bool):
+    """One layer of H for the output cotangent ``g``: (dW^T (dout, K), dx
+    (n, din) or None).  dW goes over slices of rows in groups of
+    ``dw_group``, each group's partial sums folded into the result in slice
+    order; on the tensor-core and narrow routes the same launches write dx
+    (``dx_fused``), else the FMA dx kernel runs after them.  The planes
+    (the cotangent's and W's bf16 splits for the tensor cores, W^T's f32
+    split otherwise) are made here, once per layer."""
+    plan = dw_plan(s.n, s.din, s.dout, s.J, mode)
+    code = _MODE_CODE[mode]
+    fused = need_dx and dx_fused(s.dout, mode)
     f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((s.n, s.din), **f32) if need_dx else None
+    if plan.route == "tc":
+        ghi, glo = split_g(lib, g, s, plan, stream)
+        whi, wlo = (split_w_bf16(lib, w_t, s, plan, code, stream) if fused
+                    else (None, None))
+    elif need_dx:
+        thi, tlo = _split(lib, w_t, s, code, stream, rows=False)
+    group = dw_group(plan, s.dout, s.K)
     partial = torch.empty((group, s.dout, s.K), **f32)
     dw_t = torch.empty((s.dout, s.K), **f32)
+    dims = (s.n, s.din, s.dout, s.nk, order, code)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     for s0 in range(0, plan.slices, group):
         sg = min(group, plan.slices - s0)
-        _check_rc("kan_dw", lib.kan_dw(
-            x.data_ptr(), grid.data_ptr(), g.data_ptr(), partial.data_ptr(),
-            s.n, s.din, s.dout, s.nk, order, code, plan.cg, plan.fck,
-            plan.rc, plan.rows_per_slice, s0, sg, stream))
+        rows = (plan.rows_per_slice, s0, sg, stream)
+        out = ptr(dx) if fused else 0
+        if plan.route == "tc":
+            _check_rc("kan_bwd_tc", lib.kan_bwd_tc(
+                x.data_ptr(), grid.data_ptr(), ghi.data_ptr(),
+                glo.data_ptr(), ptr(whi), ptr(wlo), ghi.shape[1],
+                partial.data_ptr(), out, *dims, plan.tile, plan.fck, *rows))
+        elif plan.route == "narrow":
+            _check_rc("kan_bwd_narrow", lib.kan_bwd_narrow(
+                x.data_ptr(), grid.data_ptr(), g.data_ptr(),
+                ptr(thi) if fused else 0, ptr(tlo) if fused else 0,
+                partial.data_ptr(), out, *dims, plan.tile, *rows))
+        else:
+            _check_rc("kan_dw", lib.kan_dw(
+                x.data_ptr(), grid.data_ptr(), g.data_ptr(),
+                partial.data_ptr(), *dims, plan.tile, plan.fck, plan.rc,
+                *rows))
         _check_rc("kan_reduce", lib.kan_reduce(
             partial.data_ptr(), dw_t.data_ptr(), s.dout * s.K, sg,
             int(s0 == 0), stream))
-    return dw_t
+    if need_dx and not fused:
+        if plan.route == "tc":
+            thi, tlo = _split(lib, w_t, s, code, stream, rows=False)
+        fcx, ic = dx_plan(s.din, s.dout, s.J)
+        _check_rc("kan_dx", lib.kan_dx(
+            x.data_ptr(), grid.data_ptr(), g.data_ptr(), thi.data_ptr(),
+            tlo.data_ptr(), dx.data_ptr(), *dims, fcx, ic, stream))
+    return dw_t, dx
 
 
 class _KanBwdKernel(LaunchCounter):
     """Kernel H: the stack backward for a supplied output cotangent, per
     layer in reverse: dW (product over rows + fixed-order reduce) and, for
-    layers > 0, dx.  ``launches`` rises by one per stack backward."""
+    layers > 0, dx, one pass for both in the bf16 tiers: on tensor cores
+    (dout >= 8) or as weighted sums (dout < 8); CUDA-core FMAs in the
+    highest tier.
+    ``launches`` rises by one per stack backward."""
 
     def __call__(self, layers, xs, g: torch.Tensor, order: int,
                  mode: str) -> list[torch.Tensor]:
         dev = g.device
         _check_cuda("cotangent", dev)
         lib = KAN_LIBRARY()
-        code = _MODE_CODE[mode]
         grads: list[torch.Tensor] = [None] * len(layers)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -386,18 +514,8 @@ class _KanBwdKernel(LaunchCounter):
                 x = xs[li]
                 s = _layer_shape(x, grid, w_t, order, li)
                 _check_tensor("cotangent", g, dev, (s.n, s.dout))
-                grads[li] = layer_dw(lib, x, grid, g, s, order, code, stream)
-                if li == 0:
-                    break
-                thi, tlo = _split(lib, w_t, s, code, stream, rows=False)
-                fcx, ic = dx_plan(s.din, s.dout, s.J)
-                dx = torch.empty((s.n, s.din), dtype=torch.float32,
-                                 device=dev)
-                _check_rc("kan_dx", lib.kan_dx(
-                    x.data_ptr(), grid.data_ptr(), g.data_ptr(),
-                    thi.data_ptr(), tlo.data_ptr(), dx.data_ptr(), s.n,
-                    s.din, s.dout, s.nk, order, code, fcx, ic, stream))
-                g = dx
+                grads[li], g = layer_backward(lib, x, grid, g, w_t, s, order,
+                                              mode, stream, need_dx=li > 0)
         self.count()
         return grads
 

@@ -1,0 +1,131 @@
+"""Bit-for-bit A/B of the CUDA kernels' results between two trees of the
+repository, on one card.
+
+``save ROOT OUT`` imports ``inraudio_tpu_torch`` from the tree at ROOT,
+runs the results listed below on the card from fixed seeds, and saves them
+to OUT (``torch.save``); ``compare A B`` loads two such files and lists the
+results that are not bit-equal (exit code 1 if any).  Run it on a parent
+commit unpacked beside the checkout (``git archive``) and on the change, on
+the same card:
+
+    python3 inraudio_tpu_torch/ops/kernel_ab.py save PARENT parent.pt
+    python3 inraudio_tpu_torch/ops/kernel_ab.py save . change.pt
+    python3 inraudio_tpu_torch/ops/kernel_ab.py compare parent.pt change.pt
+
+The results (24), each at the kernel widths h = 32, 64, 128, 256 where it
+has an h: the stack kernel's output (3 windows x 700 rows, approx_sin),
+C's gradients (bf16x2 grad tier, a random cotangent), D's state (params,
+mu, nu, best) and loss after 3 steps; D's params after 2 steps of an RFF
+model (h = 256, 256 frequencies, 5000 rows); G's output (bf16x3) and H's
+dW per layer (highest tier) for KAN([1, 64, 64, 1]) and KAN([2, 32, 3])
+over 3000 rows.
+"""
+
+from __future__ import annotations
+
+import sys
+
+
+def save(root: str, dest: str) -> int:
+    sys.path.insert(0, root)
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from inraudio_tpu_torch.models import (KANConfig, SirenSnakeTanhConfig,
+                                           build_model, rff_init)
+    from inraudio_tpu_torch.ops import kan_fused as kf
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_step as ss
+    from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.ops._nvcc import build_library
+    from inraudio_tpu_torch.train import loop as tloop
+
+    # the tree's three libraries, one nvcc each, all started together
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda name: build_library(name, [name + ".cu"]),
+                      ("siren_stack", "siren_train", "kan")))
+    dev = torch.device("cuda")
+    out = {}
+    for h in (32, 64, 128, 256):
+        cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=300.0)
+        params = build_model("mlp", cfg).init(
+            torch.Generator().manual_seed(h), dev, windows=3)
+        coords = torch.linspace(-1, 1, 700, device=dev)[:, None]
+        out[f"stack{h}"] = sf.fused_siren_apply_stacked(params, cfg, coords,
+                                                        approx_sin=True)
+        plan = sf.stack_plan(cfg, approx_sin=True)
+        cot = torch.randn(3, 700, 1, device=dev,
+                          generator=torch.Generator(dev).manual_seed(1))
+        out[f"bwd{h}"] = st.flatten_params(
+            st.SIREN_BWD(params, cfg, plan, "bf16x2", coords, cot), cfg)
+        model = build_model("mlp", cfg, fused=True, approx_sin=True)
+        tc = tloop.TrainConfig(learning_rate=1e-3, grad_clip_norm=1.0)
+        state = tloop.init_train_state(model, torch.Generator().manual_seed(h),
+                                       tc, dev, windows=3)
+        fs = ss.flat_state_from_train_state(state, cfg)
+        step = ss.make_fused_mse_train_step(cfg, tc, 700, approx_sin=True)
+        tgt = 0.5 * torch.sin(7 * coords[:, 0])[None].repeat(3, 1)
+        for _ in range(3):
+            fs, (loss, _) = step(fs, coords, tgt)
+        out[f"step{h}"] = torch.cat([fs.params, fs.mu, fs.nu,
+                                     fs.best_params], 1)
+        out[f"loss{h}"] = loss
+    cfg = SirenSnakeTanhConfig(in_features=512, hidden_features=256,
+                               first_omega_0=300.0)
+    b = rff_init(torch.Generator().manual_seed(5), 1, 256, sigma=10.0,
+                 device=dev)
+    model = build_model("mlp", cfg, fused=True, approx_sin=True, rff_b=b)
+    tc = tloop.TrainConfig(learning_rate=1e-3)
+    state = tloop.init_train_state(model, torch.Generator().manual_seed(5),
+                                   tc, dev, windows=1)
+    fs = ss.flat_state_from_train_state(state, cfg)
+    step = ss.make_fused_mse_train_step(cfg, tc, 5000, approx_sin=True,
+                                        rff_b=b)
+    c = torch.linspace(-1, 1, 5000, device=dev)[:, None]
+    for _ in range(2):
+        fs, _ = step(fs, c, 0.3 * torch.sin(40 * c[:, 0])[None])
+    out["rff_step256"] = fs.params
+    for lh in ((1, 64, 64, 1), (2, 32, 3)):
+        p = build_model("kan", KANConfig(layers_hidden=lh)).init(
+            torch.Generator().manual_seed(0), dev)
+        flat = [t.detach().contiguous() for t in kf.flatten_kan_params(p)]
+        layers = list(zip(flat[0::2], flat[1::2]))
+        x = torch.rand(3000, lh[0], device=dev,
+                       generator=torch.Generator(dev).manual_seed(2)) * 2 - 1
+        out[f"G{lh}"], _ = kf.KAN_FWD(layers, x, 3, "bf16x3")
+        g = torch.randn(3000, lh[-1], device=dev,
+                        generator=torch.Generator(dev).manual_seed(3)) / 3000
+        _, xs = kf.KAN_FWD(layers, x, 3, "highest")
+        for i, t in enumerate(kf.KAN_BWD(layers, xs, g, 3, "highest")):
+            out[f"H-highest{lh}-{i}"] = t
+    torch.cuda.synchronize()
+    torch.save({k: v.cpu() for k, v in out.items()}, dest)
+    print(f"saved {len(out)} results of {root} to {dest}")
+    return 0
+
+
+def compare(a_path: str, b_path: str) -> int:
+    import torch
+
+    a, b = torch.load(a_path), torch.load(b_path)
+    if a.keys() != b.keys():
+        print("the files hold different results: "
+              f"{sorted(a.keys() ^ b.keys())}")
+        return 1
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    for k in a:
+        print(f"{k}: {tuple(a[k].shape)} "
+              f"{'bit-equal' if k not in differ else 'DIFFERS'}")
+    print(f"compared {len(a)} results; not bit-equal: {differ}")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    args = sys.argv[1:]
+    if len(args) == 3 and args[0] == "save":
+        sys.exit(save(args[1], args[2]))
+    if len(args) == 3 and args[0] == "compare":
+        sys.exit(compare(args[1], args[2]))
+    print(__doc__, file=sys.stderr)
+    sys.exit(2)

@@ -45,6 +45,68 @@ _MAX_SMALL_IN = 8
 _KERNEL_WIDTHS = (32, 64, 128, 256)
 _KERNEL_MAX_LAYERS = 16
 
+
+def kernel_width(h: int) -> int:
+    """The kernel width a model of hidden width ``h`` runs at: the smallest
+    of ``_KERNEL_WIDTHS`` that holds it.  Wider than 256 raises."""
+    for width in _KERNEL_WIDTHS:
+        if h <= width:
+            return width
+    raise ValueError(f"the fused kernels take hidden widths up to "
+                     f"{_KERNEL_WIDTHS[-1]}, got {h}")
+
+
+def _pad_to(v: torch.Tensor, dims: tuple[int, ...], width: int,
+            value: float) -> torch.Tensor:
+    """``v`` with each of its trailing ``dims`` (negative axes) grown to
+    ``width`` by ``value``."""
+    pad = [0] * (2 * max((-d for d in dims), default=0))
+    for d in dims:
+        pad[2 * (-d - 1) + 1] = width - v.shape[d]
+    if not any(pad):
+        return v
+    return torch.nn.functional.pad(v, pad, value=value)
+
+
+def _hidden_dims(key: str, li: int, n_layers: int) -> tuple[int, ...]:
+    """The trailing axes of leaf ``key`` of layer ``li`` that run over
+    hidden units."""
+    last = li == n_layers - 1
+    if key == "w":
+        return tuple(d for d, hidden in ((-1, not last), (-2, li > 0))
+                     if hidden)
+    return () if last else (-1,)
+
+
+def pad_params(params: Params, width: int, a_fill: float = 1.0) -> Params:
+    """A parameter tree (any leading window axes) zero-padded in its hidden
+    units to ``width``: padded weight rows and columns and biases are 0,
+    padded ``snake_a`` is ``a_fill`` (1.0 for parameters, where 0 would
+    divide by zero in the snake; 0.0 for Adam moments and gradients).  A
+    tree already at ``width`` comes back as it is."""
+    L = len(params["layers"])
+    return {"layers": [
+        {key: _pad_to(v, _hidden_dims(key, li, L), width,
+                      a_fill if key == "snake_a" else 0.0)
+         for key, v in layer.items()}
+        for li, layer in enumerate(params["layers"])]}
+
+
+def unpad_params(params: Params, h: int) -> Params:
+    """Views of a padded tree's first ``h`` hidden units: the inverse of
+    ``pad_params``."""
+    L = len(params["layers"])
+    out = []
+    for li, layer in enumerate(params["layers"]):
+        new = {}
+        for key, v in layer.items():
+            for d in _hidden_dims(key, li, L):
+                v = v.narrow(d, 0, h)
+            new[key] = v
+        out.append(new)
+    return {"layers": out}
+
+
 # Odd least-squares polynomials for sin on [-pi, pi], copied verbatim from
 # the JAX package (max abs error: deg 11 3.05e-07, deg 9 1.7e-05, deg 7
 # 6.6e-04).
@@ -117,6 +179,10 @@ class StackPlan:
     omegas: tuple[float, ...]
     modes: tuple[str | None, ...]
     degrees: tuple[int, ...]
+    # the model's own hidden width; a model zero-padded to a kernel width
+    # keeps its units from here on at exactly 0 in the training kernels
+    # and their plain versions
+    width: int
     feature_degree: int = 0
 
     @property
@@ -158,6 +224,7 @@ def stack_plan(cfg: SirenSnakeTanhConfig, compute_dtype=torch.float32,
         degrees.append(0 if kind == "sine_first" and exact_first_sin
                        else hidden_deg)
     return StackPlan(kinds, tuple(omegas), tuple(modes), tuple(degrees),
+                     cfg.hidden_features,
                      0 if exact_first_sin else hidden_deg)
 
 
@@ -310,13 +377,17 @@ class _SirenStackKernel(LaunchCounter):
         """Stacked params (k, ...) on one CUDA device, coords (n, d) ->
         (k, n, 1) float32, launched on the current stream.  ``bt`` (d, F):
         an RFF model's 2 pi B^T (layer 0's w is then (k, 2F, h)).  ``pre0``
-        (k, n, h) float32, if given, receives layer 0's pre-activation."""
+        (k, n, h) float32, if given, receives layer 0's pre-activation.  A
+        model whose h is not a kernel width is zero-padded to the next one
+        (``pad_params``): its output is the unpadded model's, since every
+        padded unit's outgoing weights are 0."""
         _check_rff_plan(plan, bt)
         dev = coords.device
         n, d = coords.shape
+        h = kernel_width(params["layers"][0]["w"].shape[-1])
+        params = pad_params(params, h)
         layers = params["layers"]
         k = layers[0]["w"].shape[0]
-        h = layers[0]["w"].shape[-1]
         L = len(layers)
         n_freq = 0 if bt is None else bt.shape[1]
         _check_tensor("coords", coords, dev, (n, d))
@@ -327,9 +398,6 @@ class _SirenStackKernel(LaunchCounter):
         if not 1 <= d <= _MAX_SMALL_IN:
             raise ValueError(f"kernel takes 1..{_MAX_SMALL_IN} raw input "
                              f"columns, got {d}")
-        if h not in _KERNEL_WIDTHS:
-            raise ValueError(f"kernel hidden width must be one of "
-                             f"{_KERNEL_WIDTHS}, got {h}")
         if not 2 <= L <= _KERNEL_MAX_LAYERS or len(plan.kinds) != L:
             raise ValueError(f"kernel takes 2..{_KERNEL_MAX_LAYERS} layers "
                              f"matching the plan, got {L}")

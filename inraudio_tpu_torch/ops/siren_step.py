@@ -37,8 +37,9 @@ import torch
 
 from ..models.siren import SirenSnakeTanhConfig
 from ._nvcc import LaunchCounter
-from .siren_fused import (_KERNEL_MAX_LAYERS, _KERNEL_WIDTHS, _MAX_SMALL_IN,
-                          StackPlan, _check_tensor, _prep_rff_bt, stack_plan)
+from .siren_fused import (_KERNEL_MAX_LAYERS, _MAX_SMALL_IN, StackPlan,
+                          _check_tensor, _prep_rff_bt, kernel_width,
+                          stack_plan, unpad_params)
 from .siren_train import (CHUNK_FLOATS, TRAIN_LIBRARY, _check_rc,
                           bwd_sweep_plain, flatten_params, fwd_pres_plain,
                           grad_dot_mode, grad_reduce, tile_rows,
@@ -63,30 +64,33 @@ def step_supported(cfg: SirenSnakeTanhConfig, n_rows: int = 1,
                    rff_b=None) -> bool:
     """Whether the whole-step kernel takes this model: one output, at most
     8 raw input columns (an RFF model's ``rff_b`` (F, d): d <= 8 and
-    in_features 2F), a kernel width and 2..16 layers."""
+    in_features 2F), h <= 256 (padded to the next kernel width) and 2..16
+    layers."""
     if rff_b is None:
         inputs_ok = 1 <= cfg.in_features <= _MAX_SMALL_IN
     else:
         f, d = rff_b.shape
         inputs_ok = 1 <= d <= _MAX_SMALL_IN and cfg.in_features == 2 * f
     return (cfg.out_features == 1 and inputs_ok
-            and cfg.hidden_features in _KERNEL_WIDTHS
+            and 1 <= cfg.hidden_features <= 256
             and 2 <= len(cfg.layer_kinds) <= _KERNEL_MAX_LAYERS
             and n_rows >= 1)
 
 
 def step_block_rows(cfg: SirenSnakeTanhConfig, n_rows: int,
                     rff_b=None) -> int | None:
-    """Rows per CTA of the step kernel (8192 / h: one (rows, h) tile is
-    32 KB at every width), or None when the kernel does not take it."""
+    """Rows per CTA of the step kernel (8192 / h at the kernel width h:
+    one (rows, h) tile is 32 KB at every width), or None when the kernel
+    does not take it."""
     if not step_supported(cfg, n_rows, rff_b):
         return None
-    return tile_rows(cfg.hidden_features)
+    return tile_rows(kernel_width(cfg.hidden_features))
 
 
 class FlatTrainState(NamedTuple):
     """A window population's TrainState with params / moments / best in the
-    flat (k, P) layout for the whole fit (flattened once per fit)."""
+    flat (k, P) layout for the whole fit (flattened, and a model between
+    the kernel widths zero-padded, once per fit)."""
     params: torch.Tensor        # (k, P) float32
     mu: torch.Tensor
     nu: torch.Tensor
@@ -447,22 +451,25 @@ def make_sharded_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
 
 def flat_state_from_train_state(state, cfg: SirenSnakeTanhConfig
                                 ) -> FlatTrainState:
-    """train.loop.TrainState (stacked) -> FlatTrainState (new buffers)."""
-    flat = lambda p: flatten_params(p, cfg)
+    """train.loop.TrainState (stacked) -> FlatTrainState (new buffers),
+    padded to the kernel width: padded snake a is 1 in params and best, 0
+    in the moments."""
+    flat = lambda p, a_fill=1.0: flatten_params(p, cfg, a_fill)
     return FlatTrainState(
-        params=flat(state.params), mu=flat(state.opt.mu),
-        nu=flat(state.opt.nu), best_params=flat(state.best_params),
+        params=flat(state.params), mu=flat(state.opt.mu, 0.0),
+        nu=flat(state.opt.nu, 0.0), best_params=flat(state.best_params),
         step=state.opt.step, lr=state.opt.lr,
         plateau_best=state.plateau.best, plateau_bad=state.plateau.num_bad,
         best_loss=state.best_loss, best_iter=state.best_iter)
 
 
 def train_state_from_flat(fstate: FlatTrainState, cfg: SirenSnakeTanhConfig):
-    """FlatTrainState -> train.loop.TrainState (leaves are views into the
-    flat buffers)."""
+    """FlatTrainState -> train.loop.TrainState at the model's own width
+    (leaves are views into the flat buffers)."""
     from ..train.loop import TrainState
     from ..train.optim import AdamState, PlateauState
-    unf = lambda flat: unflatten_params(flat, cfg)
+    unf = lambda flat: unpad_params(unflatten_params(flat, cfg),
+                                    cfg.hidden_features)
     return TrainState(
         params=unf(fstate.params),
         opt=AdamState(step=fstate.step, mu=unf(fstate.mu),

@@ -44,12 +44,13 @@ import torch
 
 from ..models.siren import SirenSnakeTanhConfig
 from ._nvcc import LaunchCounter, build_library
-from .siren_fused import (_KERNEL_MAX_LAYERS, _KERNEL_WIDTHS, _KIND_CODE,
-                          _MAX_SMALL_IN, _MODE_CODE, SIREN_STACK, StackPlan,
+from .siren_fused import (_KERNEL_MAX_LAYERS, _KIND_CODE, _MAX_SMALL_IN,
+                          _MODE_CODE, SIREN_STACK, StackPlan,
                           _check_rff_model, _check_rff_plan, _check_tensor,
                           _cos, _f32_dot_mode, _kernel_dot, _prep_rff_bt,
-                          _sin, rff_features_plain, rff_pre_plain,
-                          stack_forward_plain, stack_plan)
+                          _sin, kernel_width, pad_params, rff_features_plain,
+                          rff_pre_plain, stack_forward_plain, stack_plan,
+                          unpad_params)
 
 Params = dict[str, Any]
 
@@ -90,11 +91,12 @@ def grad_dot_mode() -> str:
 
 
 def check_kernel_width(cfg: SirenSnakeTanhConfig) -> None:
-    """The fused kernels take h in _KERNEL_WIDTHS; anything else raises
-    rather than routing elsewhere."""
-    if cfg.hidden_features not in _KERNEL_WIDTHS:
+    """The fused kernels take every h up to 256 (a width between the
+    kernel widths runs zero-padded to the next one); wider raises rather
+    than routing elsewhere."""
+    if not 1 <= cfg.hidden_features <= 256:
         raise ValueError(
-            f"the fused kernels take hidden widths {_KERNEL_WIDTHS}, got "
+            f"the fused kernels take hidden widths 1..256, got "
             f"{cfg.hidden_features}: train this width with fused=False")
 
 
@@ -106,10 +108,12 @@ def check_kernel_width(cfg: SirenSnakeTanhConfig) -> None:
 class FlatLayout:
     """Where each leaf lives in a window's flat float32 vector:
     ``leaves[i] = (layer, key, offset, shape)``, offsets multiples of 4;
-    ``size`` (P) a multiple of 4."""
+    ``size`` (P) a multiple of 4.  The shapes are at the kernel width
+    ``h``; a narrower model is zero-padded to it."""
 
     leaves: tuple[tuple[int, str, int, tuple[int, ...]], ...]
     size: int
+    h: int
 
     def offsets(self, n_layers: int) -> list[int]:
         """[w, b, a] offsets per layer (a = -1 where there is none)."""
@@ -126,7 +130,7 @@ def _round4(x: int) -> int:
 
 def flat_layout(cfg: SirenSnakeTanhConfig) -> FlatLayout:
     kinds = cfg.layer_kinds
-    h = cfg.hidden_features
+    h = kernel_width(cfg.hidden_features)
     leaves, off = [], 0
     for li, kind in enumerate(kinds):
         in_f = cfg.in_features if li == 0 else h
@@ -140,13 +144,17 @@ def flat_layout(cfg: SirenSnakeTanhConfig) -> FlatLayout:
             for s in shape:
                 size *= s
             off = _round4(off + size)
-    return FlatLayout(tuple(leaves), off)
+    return FlatLayout(tuple(leaves), off, h)
 
 
-def flatten_params(params: Params, cfg: SirenSnakeTanhConfig) -> torch.Tensor:
+def flatten_params(params: Params, cfg: SirenSnakeTanhConfig,
+                   a_fill: float = 1.0) -> torch.Tensor:
     """Stacked params (leading window axis k) -> a new contiguous (k, P)
-    float32 tensor, zero between leaves."""
+    float32 tensor, zero between leaves.  A tree at the model's own width
+    is padded to the layout's kernel width (``pad_params``; ``a_fill`` the
+    padded snake a: 1.0 for parameters, 0.0 for moments)."""
     layout = flat_layout(cfg)
+    params = pad_params(params, layout.h, a_fill)
     first = params["layers"][0]["w"]
     k = first.shape[0]
     flat = torch.zeros((k, layout.size), dtype=torch.float32,
@@ -159,7 +167,8 @@ def flatten_params(params: Params, cfg: SirenSnakeTanhConfig) -> torch.Tensor:
 
 
 def unflatten_params(flat: torch.Tensor, cfg: SirenSnakeTanhConfig) -> Params:
-    """(k, P) -> stacked params whose leaves are views into ``flat``."""
+    """(k, P) -> stacked params at the layout's kernel width, whose leaves
+    are views into ``flat`` (``unpad_params`` gives the model's own)."""
     layout = flat_layout(cfg)
     k = flat.shape[0]
     layers: list[Params] = [{} for _ in cfg.layer_kinds]
@@ -205,6 +214,11 @@ def fwd_pres_plain(params: Params, plan: StackPlan, coords: torch.Tensor,
             out = torch.tanh(pre)
         else:
             out = pre
+        if li < len(plan.kinds) - 1 and plan.width < out.shape[-1]:
+            # a model padded to a kernel width: its padded units output
+            # exactly 0, as in the kernel
+            out = torch.nn.functional.pad(
+                out[..., :plan.width], (0, out.shape[-1] - plan.width))
         saved.append((x, pre, a))
         x = out
     return x, saved
@@ -273,7 +287,7 @@ class _TrainLibrary:
     def __call__(self):
         if self._lib is None:
             lib = build_library("siren_train", ["siren_train.cu"])
-            lib.siren_grad.argtypes = ([_P] * 10 + [_I] * 7 + [_F, _F, _P]
+            lib.siren_grad.argtypes = ([_P] * 10 + [_I] * 8 + [_F, _F, _P]
                                        + [_I] * 3 + [_P, _P])
             lib.siren_reduce.argtypes = [_P] * 5 + [_I, _I, _I, _P]
             lib.siren_adam.argtypes = [_P] * 12 + [_I, _I, _I, _F, _P]
@@ -301,7 +315,7 @@ class GradLaunch:
     k: int
     n: int
     d: int
-    h: int
+    h: int         # the kernel width (the model's own is plan.width)
     tiles: int
     layout: FlatLayout
     plan: StackPlan
@@ -320,8 +334,11 @@ def validate_grad_launch(flat: torch.Tensor, cfg: SirenSnakeTanhConfig,
     n, d = coords.shape
     check_kernel_width(cfg)
     _check_rff_plan(plan, bt)
-    h = cfg.hidden_features
     layout = flat_layout(cfg)
+    h = layout.h
+    if not 1 <= plan.width <= h:
+        raise ValueError(f"the plan's width {plan.width} is not within the "
+                         f"kernel width {h}")
     L = len(plan.kinds)
     _check_tensor("coords", coords, dev, (n, d))
     in_f = cfg.in_features if bt is None else d
@@ -379,8 +396,9 @@ def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
         coords.data_ptr(), row(flat, g.layout.size), partial.data_ptr(),
         row(loss_part, g.slices), pre.data_ptr(), row(targets, g.n),
         row(cot, g.n), ctypes.addressof(c_offs), ctypes.addressof(c_ints),
-        ctypes.addressof(c_om), L, kn, g.n, g.d, g.h, g.layout.size,
-        _MODE_CODE[gmode], inv_n, 2.0 * inv_n, row(g.bt, 0), n_freq,
+        ctypes.addressof(c_om), L, kn, g.n, g.d, g.h, g.plan.width,
+        g.layout.size, _MODE_CODE[gmode], inv_n, 2.0 * inv_n, row(g.bt, 0),
+        n_freq,
         g.plan.feature_degree, g.slices, row(limit, 0), stream)
     _check_rc("siren_grad", rc)
 
@@ -438,8 +456,9 @@ class _SirenBwdKernel(LaunchCounter):
                  plan: StackPlan, gmode: str, coords: torch.Tensor,
                  cot: torch.Tensor, bt: torch.Tensor | None = None) -> Params:
         """Stacked params (k, ...) on one CUDA device, coords (n, d),
-        cotangent (k, n, 1) -> stacked grads (views into one (k, P)).
-        ``bt``: an RFF model's 2 pi B^T (d, F)."""
+        cotangent (k, n, 1) -> stacked grads (views into one (k, P)), at
+        the params' width (the model's own, or padded to the kernel
+        width).  ``bt``: an RFF model's 2 pi B^T (d, F)."""
         flat = flatten_params(params, cfg)
         g = validate_grad_launch(flat, cfg, plan, coords, bt)
         cot = cot.reshape(g.k, g.n)
@@ -450,7 +469,9 @@ class _SirenBwdKernel(LaunchCounter):
             grads, _, _ = grad_reduce(lib, g, coords, flat, stream, cot=cot,
                                       gmode=gmode)
         self.count()
-        return unflatten_params(grads, cfg)
+        grads = unflatten_params(grads, cfg)
+        h = params["layers"][0]["w"].shape[-1]
+        return grads if h == g.h else unpad_params(grads, h)
 
 
 SIREN_BWD = _SirenBwdKernel()

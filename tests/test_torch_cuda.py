@@ -118,8 +118,9 @@ def _population(cfg, k, dev, seed=0):
 
 
 @pytest.mark.parametrize("kw", TIERS, ids=TIER_IDS)
-@pytest.mark.parametrize("h", [32, 64, 128, 256])
+@pytest.mark.parametrize("h", [32, 64, 128, 256, 36, 40, 48])
 def test_kernel_matches_plain(dev, h, kw):
+    # 36, 40 and 48 (the codec's rate points) run zero-padded to 64
     cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
     params = _population(cfg, 3, dev)
     coords = torch.linspace(-1, 1, 300, device=dev)[:, None]  # ragged tile
@@ -170,7 +171,8 @@ def test_counts_launches_and_validates(dev):
     assert sf.SIREN_STACK.launches == before + 2
     with pytest.raises(ValueError, match="coords on"):
         sf.fused_siren_apply_stacked(params, cfg, coords.cpu())
-    wide = SirenSnakeTanhConfig(hidden_features=48)
+    # widths up to 256 run (padded between the kernel widths); wider raises
+    wide = SirenSnakeTanhConfig(hidden_features=320)
     with pytest.raises(ValueError, match="hidden width"):
         sf.fused_siren_apply_stacked(_population(wide, 1, dev), wide, coords)
     assert sf.SIREN_STACK.launches == before + 2
@@ -461,7 +463,7 @@ def _train_setup(h, k, n, dev, seed=0, lr=1e-3):
 
 
 @pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
-@pytest.mark.parametrize("h", [32, 64, 128, 256])
+@pytest.mark.parametrize("h", [32, 64, 128, 256, 36])
 def test_backward_kernel_matches_plain(dev, h, gmode):
     cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
     params = _population(cfg, 3, dev)
@@ -515,6 +517,50 @@ def test_step_kernel_matches_plain(dev, h, gmode, monkeypatch):
                                     ss.flat_state_from_train_state(state, cfg))
     assert ss.SIREN_STEP.launches == before + 3
     check_state(a, b, tc.learning_rate, gmode)
+
+
+def padded_slots(cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """(every padded slot, the padded snake a slots) of the flat layout of
+    a model between the kernel widths, as (P,) masks."""
+    layout = st.flat_layout(cfg)
+    h, L = cfg.hidden_features, len(cfg.layer_kinds)
+    pad = torch.zeros(layout.size, dtype=torch.bool)
+    snake = torch.zeros(layout.size, dtype=torch.bool)
+    for li, key, off, shape in layout.leaves:
+        real = torch.zeros(shape, dtype=torch.bool)
+        idx = [slice(None)] * len(shape)
+        for dim in sf._hidden_dims(key, li, L):
+            idx[dim] = slice(0, h)
+        real[tuple(idx)] = True
+        pad[off:off + real.numel()] = ~real.reshape(-1)
+        if key == "snake_a":
+            snake[off:off + real.numel()] = ~real.reshape(-1)
+    return pad, snake
+
+
+@pytest.mark.parametrize("h", [36, 40, 48])
+def test_step_kernel_at_padded_widths(dev, h, monkeypatch):
+    # D on a model between the kernel widths, padded to 64 once per fit,
+    # with its own width passed to the kernel: 3 steps against the plain
+    # step, and every padded slot bit-zero (snake a bit-one) after them
+    monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", "bf16x2")
+    cfg, model, tc, state, coords, targets = _train_setup(h, 3, 300, dev)
+    fs0 = ss.flat_state_from_train_state(state, cfg)
+    before = ss.SIREN_STEP.launches
+    a, b, _ = steps_kernel_vs_plain(cfg, tc, coords, targets, fs0)
+    assert ss.SIREN_STEP.launches == before + 3
+    check_state(a, b, tc.learning_rate, "bf16x2")
+    pad, snake = padded_slots(cfg)
+    assert pad.any() and snake.any()
+    pad, snake = pad.to(dev), snake.to(dev)
+    for group in (a.params, a.best_params):
+        assert torch.all(group[:, pad & ~snake] == 0)
+        assert torch.all(group[:, snake] == 1.0)
+    for group in (a.mu, a.nu):
+        assert torch.all(group[:, pad] == 0)
+    # and back at the model's own width
+    out = ss.train_state_from_flat(a, cfg)
+    assert out.params["layers"][1]["w"].shape == (3, h, h)
 
 
 @pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3"])
@@ -622,8 +668,8 @@ def test_window_groups_leave_results_bit_equal(dev, h, monkeypatch):
 
 def test_training_kernels_validate(dev):
     cfg, model, tc, state, coords, targets = _train_setup(32, 2, 64, dev)
-    wide = SirenSnakeTanhConfig(hidden_features=48)
-    with pytest.raises(ValueError, match=r"\(32, 64, 128, 256\)"):
+    wide = SirenSnakeTanhConfig(hidden_features=320)
+    with pytest.raises(ValueError, match="hidden widths 1..256"):
         tloop.fused_step_plan(build_model("mlp", wide, fused=True), tc, 64)
     with pytest.raises(ValueError, match="hidden widths"):
         st.fused_siren_train_apply(_population(wide, 1, dev), wide, coords)
@@ -851,7 +897,10 @@ KAN_CONFIGS = [dict(layers_hidden=(1, 32, 32, 1)),
                dict(layers_hidden=(1, 16, 1), grid_size=8, spline_order=2),
                dict(layers_hidden=(2, 32, 3), grid_size=6, spline_order=2),
                dict(layers_hidden=(1, 256, 256, 1)),
-               dict(layers_hidden=(512, 128, 128, 1))]
+               dict(layers_hidden=(512, 128, 128, 1)),
+               # dout > 256: dW over several tensor-core column tiles, then
+               # layer 1's dx on the FMA route
+               dict(layers_hidden=(1, 320, 320, 1))]
 KAN_IDS = ["x".join(map(str, c["layers_hidden"]))
            + f"-g{c.get('grid_size', 5)}o{c.get('spline_order', 3)}"
            for c in KAN_CONFIGS]

@@ -343,9 +343,10 @@ def test_runner_refuses_what_it_does_not_port(tmp_path):
                                   hidden=32, num_freq=4, fused=True,
                                   encoding="nerf", total_steps=1,
                                   device="cpu")
+    # h = 48 runs padded to the kernel width 64; wider than 256 raises
     with pytest.raises(ValueError, match="hidden widths"):
         trunner.train_from_signal(str(tmp_path), "y", sig, fs, arch="mlp",
-                                  hidden=48, fused=True, total_steps=1,
+                                  hidden=320, fused=True, total_steps=1,
                                   device="cpu")
     with pytest.raises(NotImplementedError, match="DSP slice"):
         trunner.build_problem("mdct", "x.wav", 1.0)

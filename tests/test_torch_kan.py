@@ -237,24 +237,65 @@ def test_fused_model_trains_through_the_port_loop():
     assert res.loss_history[-1] < 0.5 * res.loss_history[0]
 
 
-def test_plans_fit_the_kernels():
+def test_plans_fit_the_kernels(monkeypatch):
     """The launch plans stay within a CTA's shared memory and cover every
     feature, output column and row, at the runner shape and the narrow
-    test shapes."""
-    for din, dout, J, n in [(1, 256, 9, 308_207), (256, 256, 9, 308_207),
-                            (256, 1, 9, 308_207), (512, 128, 9, 308_207),
-                            (128, 128, 9, 308_207), (2, 32, 9, 300),
-                            (32, 3, 9, 300), (16, 1, 11, 7), (1, 16, 16, 1)]:
+    test shapes, for H's tensor-core, narrow and FMA routes; the dW slice
+    count depends on the shapes alone (never on the scratch budget)."""
+    shapes = [(1, 256, 9, 308_207), (256, 256, 9, 308_207),
+              (256, 1, 9, 308_207), (512, 128, 9, 308_207),
+              (128, 128, 9, 308_207), (2, 32, 9, 300), (32, 3, 9, 300),
+              (16, 1, 11, 7), (1, 16, 16, 1), (16, 16, 9, 3001),
+              (32, 32, 9, 3001), (2, 16, 9, 3001), (16, 3, 11, 3001),
+              (32, 3, 10, 3001), (1, 32, 9, 3001), (32, 1, 9, 3001),
+              (64, 320, 9, 3001), (1, 320, 9, 3001), (320, 320, 9, 3001),
+              (320, 1, 9, 3001)]
+    routes = set()
+    for din, dout, J, n in shapes:
         cg, fc = kf.fwd_plan(din, dout, J)
         assert cg in (1, 2, 4, 8, 16, 32) and 1 <= fc <= din
         assert 8 * cg >= min(dout, 256)
-        plan = kf.dw_plan(n, din, dout, J)
-        assert plan.fck * J <= 1024 // plan.cg and plan.rc % 4 == 0
-        assert plan.slices * plan.rows_per_slice >= n
-        assert (plan.slices - 1) * plan.rows_per_slice < n
-        assert 1 <= kf.dw_group(plan, dout, din * J) <= plan.slices
-        fcx, ic = kf.dx_plan(din, dout, J)
-        assert fcx * J <= 256 and ic % 4 == 0 and ic >= 4
+        for mode in ("bf16x3", "bf16x2", "bf16", "highest"):
+            plan = kf.dw_plan(n, din, dout, J, mode)
+            routes.add(plan.route)
+            assert plan.route == kf.dw_route(dout, mode)
+            if plan.route == "tc":
+                assert plan.tile in (32, 64, 128, 256) and plan.rc == 32
+                assert plan.tile >= min(dout, 256) and plan.fck * J <= 64
+                assert plan.rows_per_slice % 32 == 0
+                fused = kf.dx_fused(dout, mode)
+                assert fused == (dout <= 256)
+                assert kf.bwd_tc_smem(plan.tile, plan.fck,
+                                      fused) <= kf._SMEM_MAX
+            elif plan.route == "narrow":
+                assert plan.tile in (1, 2, 4, 8) and dout <= plan.tile
+                assert plan.fck == 32 and plan.rc == 8
+            else:
+                assert plan.fck * J <= 1024 // plan.tile
+                assert plan.rc % 4 == 0
+            assert plan.slices * plan.rows_per_slice >= n
+            assert (plan.slices - 1) * plan.rows_per_slice < n
+            assert 1 <= kf.dw_group(plan, dout, din * J) <= plan.slices
+            if kf.dx_fused(dout, mode):
+                routes.add("dx in the " + plan.route + " pass")
+            else:
+                routes.add("dx-fma")
+                fcx, ic = kf.dx_plan(din, dout, J)
+                assert fcx * J <= 256 and ic % 4 == 0 and ic >= 4
+    assert routes == {"tc", "narrow", "fma", "dx in the tc pass",
+                      "dx in the narrow pass", "dx-fma"}
+    # the runner shape: layer 1 on tensor cores with all 256 columns in one
+    # tile (bases once per row), the head narrow, both dx in their dW pass
+    assert kf.dw_plan(308_207, 256, 256, 9).tile == 256
+    assert kf.dw_plan(308_207, 256, 1, 9).route == "narrow"
+    assert kf.dx_fused(256, "bf16x3") and kf.dx_fused(1, "bf16x3")
+    assert not kf.dx_fused(512, "bf16x3") and not kf.dx_fused(256,
+                                                             "highest")
+    # the slice count is the shapes', whatever the scratch budget
+    before = [kf.dw_plan(n, din, dout, J) for din, dout, J, n in shapes]
+    monkeypatch.setattr(kf, "SCRATCH_BYTES", 4096)
+    assert [kf.dw_plan(n, din, dout, J)
+            for din, dout, J, n in shapes] == before
     with pytest.raises(ValueError, match="spline_order"):
         kf.check_kernel_config(5, 20)
     with pytest.raises(ValueError, match="spline_order"):

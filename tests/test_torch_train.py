@@ -398,15 +398,19 @@ def test_step_gates_and_width_error():
         tloop.make_train_step(tm, tloop.TrainConfig(loss_mode="mae"))
     assert not ss.step_supported(SirenSnakeTanhConfig(out_features=2,
                                                       hidden_features=32))
-    # the int8 rate points use h=36..48: a fused fit there names the widths
+    # the int8 rate points use h=36..48: a fused fit there runs padded to
+    # the next kernel width, h=64 (128-row tiles); wider than 256 raises
     odd = build_model("mlp", SirenSnakeTanhConfig(hidden_features=48),
                       fused=True)
-    with pytest.raises(ValueError, match=r"\(32, 64, 128, 256\)"):
-        tloop.fused_step_plan(odd, tc, 512)
+    assert tloop.fused_step_plan(odd, tc, 512) == 8192 // 64
+    wide = build_model("mlp", SirenSnakeTanhConfig(hidden_features=320),
+                       fused=True)
+    with pytest.raises(ValueError, match="hidden widths 1..256"):
+        tloop.fused_step_plan(wide, tc, 512)
     # h=256 is a kernel width: 32-row tiles
     assert ss.step_block_rows(SirenSnakeTanhConfig(hidden_features=256),
                               512) == 32
-    cfg = tcodec.CodecConfig(hidden_features=40, fused=True, total_steps=1,
+    cfg = tcodec.CodecConfig(hidden_features=320, fused=True, total_steps=1,
                              chunk_seconds=0.01)
     with pytest.raises(ValueError, match="hidden widths"):
         tcodec.encode(np.zeros(200, np.float32), 4000, cfg, device="cpu")
