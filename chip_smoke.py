@@ -20,8 +20,9 @@ h=128, 2 sine + 2 snake layers) at two shapes:
 Phases, each of which fails the run:
 0. build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
    print ptxas's register and spill lines, and the count of HMMA/HGMMA
-   instructions in the SASS of H's tensor-core kernels (cuobjdump -sass
-   beside nvcc; none there fails the run);
+   instructions in the SASS of the tensor-core kernels: H's, and every
+   instance of the SIREN grad kernel's sweep and dW kernels (cuobjdump
+   -sass beside nvcc; none in any of them fails the run);
 1. per shape and per decode tier, the stack kernel against its plain
    PyTorch version on the card, max-abs within the stated tolerance;
 2. serving decode: full decode, three decode_range seeks (must equal the
@@ -46,8 +47,10 @@ Phases, each of which fails the run:
    trajectories have parted, the median per-hop SNRs within 1 dB.  Beside
    each pair, a control: the kernel fit from the init times 1 + 2^-22;
 7. training timings with CUDA events: D vs the plain step and C vs the
-   plain backward at the headline shape, and the fit's steps/s and peak
-   device memory at both shapes.
+   plain backward at the headline shape, the grad accumulation's kernels
+   (weight split, sweep, dW) and the reduce timed apart beside the step's
+   plane and slab bytes, and the fit's steps/s and peak device memory at
+   both shapes.
 
 The KAN fit (the runner's ``fit --arch kan``), at the runner shape
 KAN([1, 256, 256, 1]) over the same clip (308,207 rows, f32, weights from
@@ -92,8 +95,10 @@ the kernels compute the features in layer 0), weights from seed 0:
    beside a 1-ulp-perturbed kernel fit, as phase 9;
 13. timings with CUDA events at both shapes: the stack kernel, C and D
    against their plain versions and bounds, the step's split into grad
-   accumulation, reduce, clip + Adam + best and bookkeeping, and the
-   fit's steps/s and peak device memory against the grad scratch bound.
+   accumulation (weight split, sweep, dW), reduce, clip + Adam + best and
+   bookkeeping, the step's plane and slab bytes, and the fit's steps/s and
+   peak device memory against the grad scratch bound (SCRATCH_BYTES +
+   PLANE_BYTES + state-sized groups).
 
 The sharded fits (``fit(mesh=...)`` and ``multi_inr_fit(mesh=...)``), at the
 runner mlp shapes above and the headline encode, with two ranks that share
@@ -118,7 +123,9 @@ through host memory:
    headline encode with its 669 windows sharded over two ranks (every
    window's loss history bit-equal to one rank's); the CLI ``fit`` under
    ``torchrun --nproc-per-node 2`` on one card (gloo);
-16. timings: E per shard, the gloo all-reduce, F, its plain version and
+16. timings: E per shard (and its weight split, sweep, dW and reduce
+   apart, with the shard's plane and slab bytes), the gloo all-reduce, F,
+   its plain version and
    ``torch.optim.Adam(fused=True).step()`` on one P-float tensor, the
    sharded step against the one-rank D step.
 
@@ -234,6 +241,10 @@ WIDTH_STEPS = 300
 WIDTH_SNR_DB = 0.05
 WIDTH_C_H = 36
 WIDTH_D_STEPS = 100
+# the CUDA kernels that serve C, D and E in the bf16 grad tiers (the
+# highest tier runs siren_grad_kernel in their place), for the kernels line
+TC_KERNELS = ["siren_wsplit_kernel", "siren_sweep_kernel", "siren_dw_kernel",
+              "siren_reduce_kernel"]
 # the card's published peaks (NVIDIA H100 SXM, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
@@ -318,6 +329,36 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def tc_split_ms(torch, st, g, coords, flat, iters, **kw):
+    """The tensor-core route of one grad_reduce call, timed kernel by
+    kernel (CUDA events over ``iters`` runs of each kind's launches, in
+    the call's order, after a whole call): {"siren_wsplit", "siren_sweep",
+    "siren_dw", "siren_reduce": ms a call}."""
+    lib = st.TRAIN_LIBRARY()
+    stream = torch.cuda.current_stream().cuda_stream
+    launches, _, scratch = st.tc_launches(lib, g, coords, flat, stream, **kw)
+    for _, run in launches:
+        run()
+    names = dict.fromkeys(name for name, _ in launches)
+    out = {name: cuda_ms(torch, lambda name=name: [
+        run() for kind, run in launches if kind == name], iters)
+        for name in names}
+    del scratch
+    return out
+
+
+def tc_bytes_line(st, g, gmode):
+    """The step's scratch traffic on the tensor-core route against the FMA
+    route's per-tile slabs (``st.tc_traffic``), for the logs."""
+    t = st.tc_traffic(g, gmode)
+    return (f"scratch traffic a call: planes {t['planes'] / 1e9:.3f} GB + "
+            f"slabs {t['slabs'] / 1e9:.3f} GB = "
+            f"{(t['planes'] + t['slabs']) / 1e9:.3f} GB (the FMA route's "
+            f"per-tile slabs {t['fma_slabs'] / 1e9:.3f} GB, "
+            f"{t['fma_slabs'] / (t['planes'] + t['slabs']):.1f}x); at "
+            f"3.35 TB/s {(t['planes'] + t['slabs']) / 3.35e9:.3f} ms")
 
 
 def ptxas_lines(build_log):
@@ -911,53 +952,52 @@ def runner_phases(np, torch, dev, clip):
                                                        targets), 10)
         t["step_plain"] = cuda_ms(torch, lambda: kp["pstep"](state, coords,
                                                              targets), 2)
-        # one step's split, CUDA events between its three launches
+        # one step's split: the grad accumulation's kernels and the reduce
+        # timed apart (tc_split_ms), then clip + Adam + best on their output
         lib = st.TRAIN_LIBRARY()
         g = st.validate_grad_launch(state.params, cfg, plan, coords, bt)
+        tp = st.tc_plan(g, gmode)
         stream = torch.cuda.current_stream().cuda_stream
-        f32 = dict(dtype=torch.float32, device=dev)
         P = g.layout.size
-        partial = torch.empty((g.slices, P), **f32)
-        pre = torch.empty((g.slices, len(plan.kinds), st.TILE_FLOATS), **f32)
-        loss_part = torch.empty((g.slices,), **f32)
-        grads = torch.empty((1, P), **f32)
-        sq_part = torch.empty((1, -(-P // st.CHUNK_FLOATS)), **f32)
-        loss = torch.empty((1,), **f32)
+        split = tc_split_ms(torch, st, g, coords, state.params, 10,
+                            targets=targets, gmode=gmode)
+        grads, sq_part, loss_part = st.grad_reduce(
+            lib, g, coords, state.params, stream, targets=targets,
+            gmode=gmode)
+        loss = torch.empty((1,), dtype=torch.float32, device=dev)
         tf = (state.step + 1).to(torch.float32)
         c1_, c2_ = 1.0 - 0.9 ** tf, 1.0 - 0.999 ** tf
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        split, iters = [0.0, 0.0, 0.0], 10
-        for it in range(iters + 2):  # 2 warm-ups
-            ev[0].record()
-            st.launch_grad(lib, g, coords, state.params, stream, partial, pre,
-                           loss_part, 0, 1, targets=targets, gmode=gmode)
-            ev[1].record()
-            st.launch_reduce(lib, g, partial, grads, sq_part, 0, 1, stream)
-            ev[2].record()
+
+        def adam():
             rc = lib.siren_adam(
                 grads.data_ptr(), sq_part.data_ptr(), loss_part.data_ptr(),
                 state.params.data_ptr(), state.mu.data_ptr(),
                 state.nu.data_ptr(), state.best_params.data_ptr(),
                 loss.data_ptr(), state.lr.data_ptr(), c1_.data_ptr(),
-                c2_.data_ptr(), state.best_loss.data_ptr(), 1, g.slices, P,
+                c2_.data_ptr(), state.best_loss.data_ptr(), 1, tp.slices, P,
                 float(tc.grad_clip_norm), stream)
-            ev[3].record()
-            torch.cuda.synchronize()
             if rc != 0:
                 raise RuntimeError(f"siren_adam launch failed: {rc}")
-            if it >= 2:
-                for i in range(3):
-                    split[i] += ev[i].elapsed_time(ev[i + 1]) / iters
-        del partial, pre, loss_part, grads, sq_part
-        t["grad"], t["reduce"], t["adam"] = split
+
+        t["adam"] = cuda_ms(torch, adam, 10)
+        del grads, sq_part, loss_part
+        t["split"] = split
+        t["grad"] = (split["siren_wsplit"] + split["siren_sweep"]
+                     + split["siren_dw"])
+        t["reduce"] = split["siren_reduce"]
+        parts = t["grad"] + t["reduce"] + t["adam"]
         log(f"phase13 {name}: stack kernel {t['stack']:.3f} ms (plain "
             f"{t['stack_plain']:.3f}), C {t['bwd']:.3f} ms (plain "
             f"{t['bwd_plain']:.3f}), whole step {t['step']:.3f} ms (plain "
             f"{t['step_plain']:.3f}); one step's split: grad accumulation "
-            f"{t['grad']:.3f} ms over {g.tiles} row tiles in {g.slices} "
-            f"slices, reduce {t['reduce']:.3f} ms, clip + Adam + best "
+            f"{t['grad']:.3f} ms over {g.tiles} row tiles in {tp.slices} "
+            f"slices, {len(st.tc_passes(tp.slices, tp.units))} pass(es) "
+            f"(weight split {split['siren_wsplit']:.3f}, sweep "
+            f"{split['siren_sweep']:.3f}, dW {split['siren_dw']:.3f}), "
+            f"reduce {t['reduce']:.3f} ms, clip + Adam + best "
             f"{t['adam']:.3f} ms, plateau / best bookkeeping and launch gaps "
-            f"{t['step'] - sum(split):.3f} ms (the step minus the three)")
+            f"{t['step'] - parts:.3f} ms (the step minus the parts)")
+        log(f"phase13 {name} {tc_bytes_line(st, g, gmode)}")
         # the fit's rate and peak memory against the scratch bound
         s0 = tloop.init_train_state(kp["model"],
                                     torch.Generator().manual_seed(SEED), tc,
@@ -969,15 +1009,20 @@ def runner_phases(np, torch, dev, clip):
                       dataclasses.replace(tc, total_steps=20, scan_chunk=10),
                       state=s0, device=dev)
         peak = torch.cuda.max_memory_allocated() - base
-        scratch = 4 * g.slices * (P + len(plan.kinds) * st.TILE_FLOATS)
-        allowed = st.SCRATCH_BYTES + 4 * 8 * P + 4 * 16 * n
+        group, pass_ = tp.scratch_bytes(P, len(plan.kinds))
+        allowed = (st.SCRATCH_BYTES + st.PLANE_BYTES + 4 * 8 * P
+                   + 4 * 16 * n)
         log(f"phase13 {name} fit 20 steps: {r.steps_per_sec:.2f} steps/s; "
             f"peak device memory {peak / 2**20:.1f} MiB above the "
-            f"{base / 2**20:.1f} MiB held before (grad scratch "
-            f"{scratch / 2**20:.1f} MiB = {g.slices} slices x (P={P} + "
-            f"{len(plan.kinds)} x 8192 floats); limit {allowed / 2**20:.1f} "
-            f"MiB = SCRATCH_BYTES {st.SCRATCH_BYTES / 2**20:.0f} MiB + 8 "
-            f"state-sized groups + 16 floats a row)")
+            f"{base / 2**20:.1f} MiB held before (grad scratch: slabs and "
+            f"weight planes {group / 2**20:.1f} MiB = {tp.slices} slices x "
+            f"P={P} floats + 2 x {tp.wq} bf16, planes and pres of a pass "
+            f"{pass_ / 2**20:.1f} MiB = {tp.units} units x ({tp.unit_elems} "
+            f"bf16 + {len(plan.kinds)} x 8192 floats); limit "
+            f"{allowed / 2**20:.1f} MiB = SCRATCH_BYTES "
+            f"{st.SCRATCH_BYTES / 2**20:.0f} MiB + PLANE_BYTES "
+            f"{st.PLANE_BYTES / 2**20:.0f} MiB + 8 state-sized groups + 16 "
+            f"floats a row)")
         if peak > allowed:
             raise AssertionError(f"{name}: the fit's peak memory exceeds the "
                                  "scratch bound")
@@ -1313,6 +1358,18 @@ def shard_phases(np, torch, dev, clip):
                             10)
         t["grad_plain"] = cuda_ms(torch, lambda: ss.grad_plain(
             fs.params, *args), 3)
+        gs = st.validate_grad_launch(fs.params, cfg, plan, cs, bt)
+        buf = torch.zeros(P + 4, device=dev)
+        t["split"] = tc_split_ms(torch, st, gs, cs, fs.params, 10,
+                                 targets=ts, gmode=gmode, limit=limit,
+                                 n_valid=n, grads=buf[:P].view(1, P),
+                                 loss_out=buf[P:P + 1])
+        log(f"phase16 {name} E shard 0: weight split "
+            f"{t['split']['siren_wsplit']:.3f} ms, sweep "
+            f"{t['split']['siren_sweep']:.3f} ms, dW "
+            f"{t['split']['siren_dw']:.3f} ms, reduce "
+            f"{t['split']['siren_reduce']:.3f} ms; "
+            f"{tc_bytes_line(st, gs, gmode)}")
         a = clone_state(fs)
         tot, c1, c2 = kp["total"], kp["c1"], kp["c2"]
         t["adam"] = cuda_ms(torch, lambda: ss.SIREN_ADAM(
@@ -1824,29 +1881,18 @@ def train_phases(np, torch, dev, clip, codec, ss, st, sf):
         params, plan, gmode, coords, cot), 5)
     log(f"phase7 C backward, headline: kernel {out['bwd_ms']:.3f} ms, plain "
         f"{out['bwd_plain_ms']:.3f} ms")
-    # where a kernel step's time goes: the grad accumulation alone, its
-    # reduce, the whole of D (adds clip + Adam + best), and the step with
-    # its (k,) plateau / best bookkeeping in torch ops
-    lib = st.TRAIN_LIBRARY()
+    # where a kernel step's time goes: the grad accumulation's kernels
+    # (the weights' bf16 split, the sweep, dW) and the reduce, timed apart,
+    # the whole of D (adds clip + Adam + best), and the step with its (k,)
+    # plateau / best bookkeeping in torch ops
     g = st.validate_grad_launch(state.params, cfg, plan, coords)
-    stream = torch.cuda.current_stream().cuda_stream
-    kg = st.window_group(g)
-    f32 = dict(dtype=torch.float32, device=dev)
-    partial = torch.empty((kg * g.tiles, g.layout.size), **f32)
-    pre = torch.empty((kg * g.tiles, len(plan.kinds), st.TILE_FLOATS), **f32)
-    loss_part = torch.empty((k * g.tiles,), **f32)
-
-    def grad_only():
-        for w0 in range(0, k, kg):
-            st.launch_grad(lib, g, coords, state.params, stream, partial,
-                           pre, loss_part, w0, min(kg, k - w0),
-                           targets=targets, gmode=gmode)
-
-    grad_ms = cuda_ms(torch, grad_only, 10)
-    del partial, pre, loss_part
-    reduce_ms = cuda_ms(torch, lambda: st.grad_reduce(
-        lib, g, coords, state.params, stream, targets=targets,
-        gmode=gmode), 10) - grad_ms
+    tp = st.tc_plan(g, gmode)
+    split = tc_split_ms(torch, st, g, coords, state.params, 10,
+                        targets=targets, gmode=gmode)
+    out["split"] = split
+    grad_ms = split["siren_wsplit"] + split["siren_sweep"] + split["siren_dw"]
+    reduce_ms = split["siren_reduce"]
+    kg = tp.windows
     tf = (state.step + 1).to(torch.float32)
     c1, c2 = 1.0 - 0.9 ** tf, 1.0 - 0.999 ** tf
     d_ms = cuda_ms(torch, lambda: ss.SIREN_STEP(
@@ -1854,11 +1900,14 @@ def train_phases(np, torch, dev, clip, codec, ss, st, sf):
         state.lr, c1, c2, state.best_loss, cfg, plan, gmode,
         tc.grad_clip_norm), 10)
     log(f"phase7 D breakdown, headline ({-(-k // kg)} window groups of <= "
-        f"{kg}): grad accumulation {grad_ms:.3f} ms, "
-        f"reduce {reduce_ms:.3f} ms, clip + Adam + best "
+        f"{kg}, {tp.slices} row slices a window, passes of <= {tp.units} "
+        f"units): grad accumulation {grad_ms:.3f} ms (weight split "
+        f"{split['siren_wsplit']:.3f}, sweep {split['siren_sweep']:.3f}, dW "
+        f"{split['siren_dw']:.3f}), reduce {reduce_ms:.3f} ms, clip + Adam + best "
         f"{d_ms - grad_ms - reduce_ms:.3f} ms (D {d_ms:.3f} ms), plateau / "
         f"best bookkeeping {out['step_ms'] - d_ms:.3f} ms (step "
         f"{out['step_ms']:.3f} ms)")
+    log(f"phase7 headline {tc_bytes_line(st, g, gmode)}")
     del a, state, params
     for name in SHAPES:
         sp = SHAPES[name]
@@ -1914,18 +1963,26 @@ def build_kernels():
             f"{build_s[name]:.1f} s")
         for line in ptxas_lines((lib.parent / "build.log").read_text()):
             log(f"  ptxas: {line}")
-    # H's kernels on tensor cores: their SASS must hold HMMA / HGMMA
-    counts = sass_mma_counts(library_path("kan", ["kan.cu"]))
-    if counts is None:
-        log("  sass: the toolkit has no cuobjdump beside nvcc; the HMMA "
-            "count of H's kernels is not read")
-        return
-    for name, c in counts.items():
-        if "_tc_kernel" in name:
+    # the tensor-core kernels (H's, and the SIREN grad kernel's sweep and
+    # dW in every bf16 tier): their SASS must hold HMMA / HGMMA
+    for lib_name, marks in (("kan", ("_tc_kernel",)),
+                            ("siren_train", ("siren_sweep_kernel",
+                                             "siren_dw_kernel"))):
+        counts = sass_mma_counts(library_path(lib_name, [lib_name + ".cu"]))
+        if counts is None:
+            log("  sass: the toolkit has no cuobjdump beside nvcc; the HMMA "
+                "count of the tensor-core kernels is not read")
+            return
+        tc = {name: c for name, c in counts.items()
+              if any(m in name for m in marks)}
+        for name, c in tc.items():
             log(f"  sass: {c} HMMA/HGMMA instructions in {name}")
-    if not all(c > 0 for name, c in counts.items() if "_tc_kernel" in name) \
-            or not any("_tc_kernel" in name for name in counts):
-        raise RuntimeError("H's tensor-core kernels hold no HMMA/HGMMA")
+        for m in marks:
+            if not any(m in name for name in tc):
+                raise RuntimeError(f"{lib_name}: no {m} instance in the SASS")
+        if not all(c > 0 for c in tc.values()):
+            raise RuntimeError(f"{lib_name}: a tensor-core kernel holds no "
+                               "HMMA/HGMMA")
 
 
 def main() -> int:
@@ -2181,6 +2238,8 @@ def main() -> int:
         "bound_by": step_by,
         "library_ms": None,
         "shape": "headline k=669 n=512 h=128, one whole train step",
+        "cuda_kernels": TC_KERNELS + ["siren_adam_kernel"],
+        "split_ms": train["split"],
     }, {
         "name": "siren_bwd",
         "route": "cuda",
@@ -2194,6 +2253,7 @@ def main() -> int:
         "bound_by": bwd_by,
         "library_ms": None,
         "shape": "headline k=669 n=512 h=128, bf16x2 grad tier",
+        "cuda_kernels": TC_KERNELS,
     }, {
         "name": "kan_fwd",
         "route": "cuda",
@@ -2252,6 +2312,8 @@ def main() -> int:
             "ms": t["step"], "plain_ms": t["step_plain"],
             "bound_ms": db_, "bound_by": dby, "library_ms": None,
             "shape": shape + ", one whole train step",
+            "cuda_kernels": TC_KERNELS + ["siren_adam_kernel"],
+            "split_ms": t["split"], "adam_ms": t["adam"],
         }, {
             "name": "siren_bwd_" + name.replace("_mlp", ""),
             "route": "cuda",
@@ -2262,6 +2324,7 @@ def main() -> int:
             "ms": t["bwd"], "plain_ms": t["bwd_plain"],
             "bound_ms": cb_, "bound_by": cby, "library_ms": None,
             "shape": shape + ", bf16x2 grad tier",
+            "cuda_kernels": TC_KERNELS,
         }]
         t = shard[name]
         shape = shape.replace("launches from phase 12",
@@ -2279,6 +2342,7 @@ def main() -> int:
             "bound_by": t["grad_bound"][1], "library_ms": None,
             "shape": shape + ", one shard of two (154,112 rows), bf16x2 "
                              "grad tier",
+            "cuda_kernels": TC_KERNELS, "split_ms": t["split"],
         }, {
             "name": "siren_adam_rff" if rff else "siren_adam",
             "route": "cuda",

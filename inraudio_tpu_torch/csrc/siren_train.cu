@@ -11,7 +11,10 @@
 //       shard's masked MSE loss and grads, for the row-sharded fit)
 //   inraudio_tpu/ops/pallas_siren_step.py:_adam_kernel  (kernel F: clip +
 //       Adam + best on the all-reduced grads of the row-sharded fit)
-// as four kernels:
+// In the bf16, bf16x2 and bf16x3 tiers the grad accumulation runs on the
+// tensor cores (siren_wsplit_kernel, siren_sweep_kernel, siren_dw_kernel:
+// see "The tensor-core route" below); the highest tier, and every kernel
+// below, as follows:
 //   siren_grad_kernel   per (window, row slice): for each row tile of the
 //                       slice in order, the forward recompute, the cotangent
 //                       (D: 2 (out - tgt) / n on valid rows, and the tile's
@@ -36,10 +39,15 @@
 // the same update.
 //
 // What bounds it on an H100 (by reading): per sample at h = 128 the step is
-// ~197k forward fp32 FMAs (bf16x3) plus ~262k backward (4 hidden layers x 2
-// products x 2 passes at the default bf16x2 grad tier), all on CUDA cores
-// (at h = 256 four times that, and an F = 256 RFF layer 0 adds ~0.65M).  So
-// the grad kernel is fp32-FMA bound like siren_stack.cu; the reduce and
+// ~197k forward multiply-adds (bf16x3: three bf16 passes) plus ~262k
+// backward (4 hidden layers x 2 products x 2 passes at the default bf16x2
+// grad tier); at h = 256 four times that, and an F = 256 RFF layer 0 adds
+// ~0.65M.  On the 989 TFLOP/s bf16 tensor cores that is the bound (1.1 ms a
+// runner mlp step of 308,207 rows); with every product as fp32 FMAs on CUDA
+// cores (siren_grad_kernel) the step took 65 ms.  The tensor-core route
+// keeps the forward and the dgrad's hi.hi as fp32 FMAs in the reference's
+// order (see "The tensor-core route"), so its sweep is bound by those FMAs
+// and by its elementwise phases, not by the tensor cores.  The reduce and
 // Adam passes are memory bound.
 //
 // Design choices (the TPU kernel kept 7-9 copies of a window's parameters
@@ -108,7 +116,9 @@
 //   p - lr (m / c1) / (sqrt(v / c2) + 1e-8), op by op (-fmad=false, no fast
 //   math), with c1 = 1 - 0.9^t and c2 = 1 - 0.999^t per window from the host.
 
-#include "siren_common.cuh"
+#include <algorithm>
+
+#include "mma_common.cuh"
 
 namespace {
 
@@ -758,6 +768,1119 @@ siren_grad_kernel(const float* __restrict__ coords,
   if (tid == 0 && cot == nullptr) loss_part[blockIdx.x] = loss_acc;
 }
 
+// ===========================================================================
+// The tensor-core route: every grad launch whose grad tier and forward tiers
+// (layers 1+, and an RFF layer 0) are bf16, bf16x2 or bf16x3.  The highest
+// tier is an exact f32 product, which no tensor-core pass gives: it keeps
+// siren_grad_kernel above, as its own route.
+//
+// Three launches a pass, then the reduce:
+// - siren_wsplit_kernel: each window's h x h weights (and an RFF W0) into
+//   packed bf16 hi/lo planes, once per launch group (the w-role split);
+// - siren_sweep_kernel, per unit = (window, row slice), over the tiles of
+//   one row chunk of its slice: the forward recompute, the cotangent, the
+//   head (narrow FMAs), and the dgrad sweep, with W streamed in K-slabs of
+//   packed bf16 planes by cp.async (two stages; W^T read from W's rows).
+//   For each h x h layer it writes dW's operands once, as bf16 planes, into
+//   the unit's scratch: x_in's hi (and lo in bf16x3) and gpre's hi (and lo
+//   in bf16x2 / bf16x3); for an RFF model gpre0's.  db, da, the head's dW
+//   and a raw layer 0's dW go to the unit's slab as before (its first tile
+//   stores, later tiles add: a few H floats a layer);
+// - siren_dw_kernel, per (unit, output tile of a layer): dW = x_in^T gpre
+//   (and the RFF dW0 = [cos; sin]^T gpre0, the features recomputed from the
+//   coordinates) as one large-K tensor-core product over the chunk's rows
+//   (mma.sync m16n8k16 on ldmatrix fragments), accumulated in registers in
+//   a fixed order; each element is written once per chunk (the first chunk
+//   stores, later chunks add, in chunk order).
+// A unit's slab is thus written once per chunk instead of read and written
+// back on every row tile.  Numerics: the x role rounded and the w role split
+// as _kernel_dot does, hi.hi apart from the cross terms, summed at the end;
+// a raw layer 0 exact f32; sin / cos and -fmad=false as above.  Where the
+// products run:
+// - dW, and an RFF layer 0's forward: every term on the tensor cores, a
+//   pass per term; each step's hi.hi in a fresh accumulator, added in f32;
+// - the dgrad: the cross term on the tensor cores, hi.hi as fp32 FMAs in k
+//   order (the plain version's own order);
+// - the forward of layers 1+: every term as fp32 FMAs, in the FMA kernel's
+//   chains, so its pres are that kernel's bit for bit.
+// Why not everything on the tensor cores: the tensor core sums 16 products
+// at a time (with truncation), and an ulp of difference in a pre is
+// multiplied by omega in the next sine and flips the bf16 rounding of later
+// operands.  On an H100 an all-mma sweep was faster but moved C's bf16x3
+// gradients past the card tests' f32 bound (2e-6 of the largest) and D's
+// bf16x2 state past its bulk bound; with only hi.hi in the reference's
+// order the card tests passed, but the headline encode's 300-step fit left
+// the plain-step fit by more than chip_smoke's 1 dB of median per-hop SNR.
+// With the whole forward in the FMA kernel's order every gate passes.
+// Determinism: no float atomics; the slices and chunks are functions of the
+// shapes (ops/siren_train.py: tc_plan), so the grouping of windows and
+// units into passes leaves every result bit-equal.
+// ===========================================================================
+
+typedef __nv_bfloat162 bf162;
+
+// The cross terms of one mma step of a tier (hi.lo, and lo.hi in bf16x3),
+// summed in a fresh accumulator and added to cross by an f32 add.
+template <int MODE>
+__device__ __forceinline__ void cross_mma(float (&cross)[4],
+                                          const unsigned (&ahi)[4],
+                                          const unsigned (&alo)[4],
+                                          unsigned bh0, unsigned bh1,
+                                          unsigned bl0, unsigned bl1) {
+  if (MODE == kBf16) return;
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_bf16(t, ahi, bl0, bl1);
+  if (MODE == kBf16x3) mma_bf16(t, alo, bh0, bh1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) cross[q] += t[q];
+}
+
+// One mma step of a tier, as tier_mma (mma_common.cuh), but each of the
+// step's two sums (hi.hi, and the cross terms) is formed in a fresh
+// accumulator and added to hh / cross by an f32 add: the tensor core sums a
+// step's products and its accumulator with truncation, which over a long K
+// (every row of a slice in dW) drifts past an f32 chain of rounded adds.
+template <int MODE>
+__device__ __forceinline__ void tier_mma_f32(float (&hh)[4],
+                                             float (&cross)[4],
+                                             const unsigned (&ahi)[4],
+                                             const unsigned (&alo)[4],
+                                             unsigned bh0, unsigned bh1,
+                                             unsigned bl0, unsigned bl1) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_bf16(t, ahi, bh0, bh1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) hh[q] += t[q];
+  cross_mma<MODE>(cross, ahi, alo, bh0, bh1, bl0, bl1);
+}
+
+// Which of the sweep's h x h products run as fp32 FMAs in the reference's
+// k order, the rest on mma.sync: 2 (the route) every term of the forward
+// and the dgrad's hi.hi; 1 the hi.hi of both; 0 none.  1 and 0 fail the
+// gates against the plain versions (PERF.md §6); ops/sweep_ab.py builds
+// them to time them and to read those gates.
+#ifndef SIREN_SWEEP_SEQ
+#define SIREN_SWEEP_SEQ 2
+#endif
+
+template <int H>
+struct Tc {
+  static constexpr int TM = tile_rows<H>();
+  static constexpr int LDB = H + 8;           // X / G plane pitch (bf16)
+  static constexpr int LDX = H + 4;           // dX pitch (f32)
+  static constexpr int KS = H < 64 ? H : 64;  // W slab depth
+  static constexpr int WN = H / 32;           // warps along the columns
+  // one W slab plane: KS rows x H (forward) or H rows x KS (dgrad)
+  static constexpr int WSP =
+      KS * (H + 8) > H * (KS + 8) ? KS * (H + 8) : H * (KS + 8);
+  static constexpr size_t smem_bytes() {
+    return static_cast<size_t>(2 * TM * LDB) * 2  // X / G planes
+           + static_cast<size_t>(4 * WSP) * 2     // 2 stages x hi / lo
+           + static_cast<size_t>(TM * LDX) * 4    // dX
+           + static_cast<size_t>(2 * H + TM * kMaxIn + 5 * TM + 2 * kThreads) * 4;
+  }
+};
+
+static_assert(Tc<32>::smem_bytes() <= 232448, "sweep smem h=32");
+static_assert(Tc<64>::smem_bytes() <= 232448, "sweep smem h=64");
+static_assert(Tc<128>::smem_bytes() <= 232448, "sweep smem h=128");
+static_assert(Tc<256>::smem_bytes() <= 232448, "sweep smem h=256");
+
+// Planes of a unit's scratch: for each h x h layer x_in hi, [x_in lo in
+// bf16x3], gpre hi, [gpre lo in bf16x2 / bf16x3], each (rows_cap x H); then
+// an RFF model's gpre0 hi, [lo].  ops/siren_train.py: tc_unit_planes.
+__host__ __device__ inline int tc_x_planes(int gm) { return gm == kBf16x3 ? 2 : 1; }
+__host__ __device__ inline int tc_g_planes(int gm) { return gm == kBf16 ? 1 : 2; }
+
+// One K-slab's product on the tensor cores for the warp's 32 x 32 block of
+// a (TM x H) output: A (TM rows, pitch LDB) from column acol0, in the x
+// role; B the slab in shared memory, in the w role: (KS x H, pitch H + 8)
+// read with .trans (the forward: W's rows), or (H x KS, pitch KS + 8) read
+// as is (the dgrad: columns of W, i.e. rows of W^T).  With HH every term
+// of the tier (hi.hi into hh, the cross terms into cr), else the cross
+// terms alone (hi.hi runs as FMAs: seq_hh_slab, seq_fwd_slab).
+template <int H, int MODE, bool DGRAD, bool HH>
+__device__ __forceinline__ void tc_slab(const bf16* Ah, const bf16* Al,
+                                        int acol0, const bf16* Bh,
+                                        const bf16* Bl, int ksteps,
+                                        float (&hh)[2][4][4],
+                                        float (&cr)[2][4][4]) {
+  using C = Tc<H>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (warp / C::WN) * 32, n0 = (warp % C::WN) * 32;
+#pragma unroll 1
+  for (int s = 0; s < ksteps; ++s) {
+    const int kk = s * 16;
+    unsigned ah[2][4], al[2][4] = {};
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int off = (r0 + mi * 16 + (lane & 15)) * C::LDB + acol0 + kk +
+                      (lane >> 4) * 8;
+      ldsm_x4(ah[mi], Ah + off);
+      if (MODE == kBf16x3) ldsm_x4(al[mi], Al + off);
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; nj += 2) {
+      unsigned bh[4], bl[4] = {};
+      if (DGRAD) {
+        const int off = (n0 + nj * 8 + (lane & 7) + (lane >> 4) * 8) *
+                            (C::KS + 8) + kk + ((lane >> 3) & 1) * 8;
+        ldsm_x4(bh, Bh + off);
+        if (MODE != kBf16) ldsm_x4(bl, Bl + off);
+      } else {
+        const int off = (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * (H + 8) +
+                        n0 + nj * 8 + (lane >> 4) * 8;
+        ldsm_x4_t(bh, Bh + off);
+        if (MODE != kBf16) ldsm_x4_t(bl, Bl + off);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        if (!HH) {
+          cross_mma<MODE>(cr[mi][nj], ah[mi], al[mi], bh[0], bh[1], bl[0],
+                          bl[1]);
+          cross_mma<MODE>(cr[mi][nj + 1], ah[mi], al[mi], bh[2], bh[3],
+                          bl[2], bl[3]);
+        } else {
+          tier_mma_f32<MODE>(hh[mi][nj], cr[mi][nj], ah[mi], al[mi], bh[0],
+                             bh[1], bl[0], bl[1]);
+          tier_mma_f32<MODE>(hh[mi][nj + 1], cr[mi][nj + 1], ah[mi], al[mi],
+                             bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+    }
+  }
+}
+
+template <int H, bool DGRAD, bool HH>
+__device__ __forceinline__ void tc_slab_dispatch(int mode, const bf16* Ah,
+                                                 const bf16* Al, int acol0,
+                                                 const bf16* Bh,
+                                                 const bf16* Bl, int ksteps,
+                                                 float (&hh)[2][4][4],
+                                                 float (&cr)[2][4][4]) {
+  if (mode == kBf16x3)
+    tc_slab<H, kBf16x3, DGRAD, HH>(Ah, Al, acol0, Bh, Bl, ksteps, hh, cr);
+  else if (mode == kBf16x2)
+    tc_slab<H, kBf16x2, DGRAD, HH>(Ah, Al, acol0, Bh, Bl, ksteps, hh, cr);
+  else if (HH)  // bf16 has no cross term
+    tc_slab<H, kBf16, DGRAD, HH>(Ah, Al, acol0, Bh, Bl, ksteps, hh, cr);
+}
+
+// hh += the hi.hi term of one dgrad K-slab as fp32 FMAs in k order, the
+// order of the plain version's (and the FMA kernel's) f32 product, for the
+// warp's 32 x 32 block: gpre's hi plane from column acol0, W^T's hi slab
+// (H x KS, pitch KS + 8).  The products are exact, so every FMA rounds as
+// the reference's does.
+template <int H>
+__device__ __forceinline__ void seq_hh_slab(const bf16* Ah, int acol0,
+                                            const bf16* Wh, int kn,
+                                            float (&hh)[2][4][4]) {
+  using C = Tc<H>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (warp / C::WN) * 32 + (lane >> 2);
+  const int c0 = (warp % C::WN) * 32 + (lane & 3) * 2;
+#pragma unroll 2
+  for (int k = 0; k < kn; ++k) {
+    float x[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        x[mi][half] = __bfloat162float(
+            Ah[(r0 + mi * 16 + half * 8) * C::LDB + acol0 + k]);
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const bf16* wc = Wh + (c0 + nj * 8) * (C::KS + 8) + k;
+      const float w0 = __bfloat162float(wc[0]);
+      const float w1 = __bfloat162float(wc[C::KS + 8]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          hh[mi][nj][half * 2] = fmaf(x[mi][half], w0, hh[mi][nj][half * 2]);
+          hh[mi][nj][half * 2 + 1] =
+              fmaf(x[mi][half], w1, hh[mi][nj][half * 2 + 1]);
+        }
+    }
+  }
+}
+
+// hh and cr += one forward K-slab of every term of the tier as fp32 FMAs in
+// k order, the FMA kernel's chains (dense_tile: hi.hi; then hi.lo and, in
+// bf16x3, lo.hi interleaved per k).
+template <int H, int MODE>
+__device__ __forceinline__ void seq_fwd_slab(const bf16* Xh, const bf16* Xl,
+                                             int acol0, const bf16* Wh,
+                                             const bf16* Wl, int kn,
+                                             float (&hh)[2][4][4],
+                                             float (&cr)[2][4][4]) {
+  using C = Tc<H>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (warp / C::WN) * 32 + (lane >> 2);
+  const int c0 = (warp % C::WN) * 32 + (lane & 3) * 2;
+#pragma unroll 1
+  for (int k = 0; k < kn; ++k) {
+    float xh[2][2], xl[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int idx = (r0 + mi * 16 + half * 8) * C::LDB + acol0 + k;
+        xh[mi][half] = __bfloat162float(Xh[idx]);
+        xl[mi][half] = MODE == kBf16x3 ? __bfloat162float(Xl[idx]) : 0.0f;
+      }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      const bf162 h2 = *reinterpret_cast<const bf162*>(
+          Wh + k * (H + 8) + c0 + nj * 8);
+      const bf162 l2 = *reinterpret_cast<const bf162*>(
+          Wl + k * (H + 8) + c0 + nj * 8);
+      const float wh[2] = {__bfloat162float(h2.x), __bfloat162float(h2.y)};
+      const float wl[2] = {__bfloat162float(l2.x), __bfloat162float(l2.y)};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float& h = hh[mi][nj][half * 2 + q];
+            float& c = cr[mi][nj][half * 2 + q];
+            h = fmaf(xh[mi][half], wh[q], h);
+            if (MODE == kBf16x2 || MODE == kBf16x3)
+              c = fmaf(xh[mi][half], wl[q], c);
+          }
+      if (MODE == kBf16x3) {
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              cr[mi][nj][half * 2 + q] =
+                  fmaf(xl[mi][half], wh[q], cr[mi][nj][half * 2 + q]);
+      }
+    }
+  }
+}
+
+// Rows [k0, k0 + KS) of a (K x H) bf16 plane pair into a forward slab
+// (pitch H + 8); rows at or past K are zero.
+template <int H>
+__device__ __forceinline__ void issue_fwd_slab(bf16* dh, bf16* dl,
+                                               const bf16* sh, const bf16* sl,
+                                               int k0, int K) {
+  constexpr int VR = H / 8;  // 16-byte vectors a row
+  for (int e = threadIdx.x; e < Tc<H>::KS * VR; e += kThreads) {
+    const int r = e / VR, v = e % VR;
+    const bool ok = k0 + r < K;
+    const long long src = ok ? static_cast<long long>(k0 + r) * H + v * 8 : 0;
+    const int dst = r * (H + 8) + v * 8;
+    cp_async16(dh + dst, sh + src, ok ? 16 : 0);
+    cp_async16(dl + dst, sl + src, ok ? 16 : 0);
+  }
+}
+
+// Columns [c0, c0 + KS) of every row of an (H x H) bf16 plane pair into a
+// dgrad slab (H rows, pitch KS + 8).
+template <int H>
+__device__ __forceinline__ void issue_dgrad_slab(bf16* dh, bf16* dl,
+                                                 const bf16* sh,
+                                                 const bf16* sl, int c0) {
+  constexpr int KS = Tc<H>::KS, VR = KS / 8;
+  for (int e = threadIdx.x; e < H * VR; e += kThreads) {
+    const int j = e / VR, v = e % VR;
+    const long long src = static_cast<long long>(j) * H + c0 + v * 8;
+    const int dst = j * (KS + 8) + v * 8;
+    cp_async16(dh + dst, sh + src, 16);
+    cp_async16(dl + dst, sl + src, 16);
+  }
+}
+
+// One (TM x H) x (K x H) product (the forward, K = H or 2F rows of W) or
+// (TM x H) x (H x H)^T (the dgrad) on the tensor cores, W's planes (global,
+// per window) streamed through two slab stages by cp.async.
+template <int H, bool DGRAD>
+__device__ __forceinline__ void tc_product(int mode, const bf16* Ah,
+                                           const bf16* Al, const bf16* wh,
+                                           const bf16* wl, int K, bf16* Ws,
+                                           float (&hh)[2][4][4],
+                                           float (&cr)[2][4][4]) {
+  constexpr int KS = Tc<H>::KS, WSP = Tc<H>::WSP;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hh[mi][nj][q] = cr[mi][nj][q] = 0.0f;
+  const int ns = (K + KS - 1) / KS;
+  auto issue = [&](int s, int st) {
+    bf16* dh = Ws + st * 2 * WSP;
+    if (DGRAD)
+      issue_dgrad_slab<H>(dh, dh + WSP, wh, wl, s * KS);
+    else
+      issue_fwd_slab<H>(dh, dh + WSP, wh, wl, s * KS, K);
+  };
+  __syncthreads();  // A is complete; the slab stages are free
+  issue(0, 0);
+  cp_async_commit();
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // slab s has landed; slab s - 1 is consumed
+    if (s + 1 < ns) issue(s + 1, (s + 1) & 1);
+    cp_async_commit();
+    const bf16* bh = Ws + (s & 1) * 2 * WSP;
+    const int kn = K - s * KS < KS ? K - s * KS : KS;
+    if constexpr (SIREN_SWEEP_SEQ == 0) {  // every term on mma
+      tc_slab_dispatch<H, DGRAD, true>(mode, Ah, Al, s * KS, bh, bh + WSP,
+                                       (kn + 15) / 16, hh, cr);
+    } else if constexpr (DGRAD || SIREN_SWEEP_SEQ == 1) {
+      // hi.hi in the reference's order, the cross terms on mma
+      if constexpr (DGRAD)
+        seq_hh_slab<H>(Ah, s * KS, bh, kn, hh);
+      else
+        seq_fwd_slab<H, kBf16>(Ah, Al, s * KS, bh, bh + WSP, kn, hh, cr);
+      tc_slab_dispatch<H, DGRAD, false>(mode, Ah, Al, s * KS, bh, bh + WSP,
+                                        (kn + 15) / 16, hh, cr);
+    } else if (mode == kBf16x3) {  // every term in the reference's order
+      seq_fwd_slab<H, kBf16x3>(Ah, Al, s * KS, bh, bh + WSP, kn, hh, cr);
+    } else if (mode == kBf16x2) {
+      seq_fwd_slab<H, kBf16x2>(Ah, Al, s * KS, bh, bh + WSP, kn, hh, cr);
+    } else {
+      seq_fwd_slab<H, kBf16>(Ah, Al, s * KS, bh, bh + WSP, kn, hh, cr);
+    }
+  }
+}
+
+// The warp's accumulators -> pre = (hh + cr) + b, saved to pre_out (TM x H
+// f32), and the activation (0 at or past `live`) split into the X planes
+// and, as the next layer's x_in for dW, into xg (rows of H: hi, and lo at
+// xg + xlo when xlo > 0).
+template <int H>
+__device__ __forceinline__ void store_tc(const float (&hh)[2][4][4],
+                                         const float (&cr)[2][4][4],
+                                         const float* sb, const float* sa,
+                                         int kind, float omega, int deg,
+                                         bf16* Xh, bf16* Xl, float* pre_out,
+                                         int live, bf16* xg, long long xlo) {
+  using C = Tc<H>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (warp / C::WN) * 32, n0 = (warp % C::WN) * 32;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + mi * 16 + gid + half * 8;
+        const int col = n0 + nj * 8 + tig * 2;
+        float p[2], v[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          p[q] = (hh[mi][nj][half * 2 + q] + cr[mi][nj][half * 2 + q]) +
+                 sb[col + q];
+          v[q] = col + q < live
+                     ? activate(kind, p[q], omega, sa[col + q], deg)
+                     : 0.0f;
+        }
+        *reinterpret_cast<float2*>(pre_out + row * H + col) =
+            make_float2(p[0], p[1]);
+        bf162 hi, lo;
+        split_bf16(v[0], &hi.x, &lo.x);
+        split_bf16(v[1], &hi.y, &lo.y);
+        *reinterpret_cast<bf162*>(Xh + row * C::LDB + col) = hi;
+        *reinterpret_cast<bf162*>(Xl + row * C::LDB + col) = lo;
+        if (xg != nullptr) {
+          *reinterpret_cast<bf162*>(xg + row * H + col) = hi;
+          if (xlo > 0) *reinterpret_cast<bf162*>(xg + xlo + row * H + col) = lo;
+        }
+      }
+}
+
+// The warp's accumulators -> dX = hh + cr (TM x H f32, pitch LDX).
+template <int H>
+__device__ __forceinline__ void store_dx(const float (&hh)[2][4][4],
+                                         const float (&cr)[2][4][4],
+                                         float* dX) {
+  using C = Tc<H>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (warp / C::WN) * 32, n0 = (warp % C::WN) * 32;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = r0 + mi * 16 + gid + half * 8;
+        const int col = n0 + nj * 8 + tig * 2;
+        *reinterpret_cast<float2*>(dX + row * C::LDX + col) = make_float2(
+            hh[mi][nj][half * 2] + cr[mi][nj][half * 2],
+            hh[mi][nj][half * 2 + 1] + cr[mi][nj][half * 2 + 1]);
+      }
+}
+
+// Each window's h x h weights (layers 1 .. L-2, then an RFF W0 (2F x h))
+// split into packed bf16 hi / lo planes: (k, wq) each, wq = (L - 2) h^2 +
+// 2F h.  The w role of every tensor-core product of the step.
+__global__ void __launch_bounds__(kThreads)
+siren_wsplit_kernel(const float* __restrict__ params, bf16* __restrict__ whi,
+                    bf16* __restrict__ wlo, const TrainArgs args, int h,
+                    long long wq, int k) {
+  const long long hh = static_cast<long long>(h) * h;
+  const long long nhh = (args.n_layers - 2) * hh;
+  const long long total = wq * k;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long w = e / wq, i = e % wq;
+    const long long src =
+        i < nhh ? args.off_w[1 + i / hh] + i % hh : args.off_w[0] + (i - nhh);
+    split_bf16(params[w * args.P + src], whi + e, wlo + e);
+  }
+}
+
+// One unit (window, row slice) over the row tiles of chunk `chunk` of its
+// slice: forward recompute, cotangent, head, dgrad sweep; dW's operands
+// into the unit's planes (local row = row - the chunk's first row).
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+siren_sweep_kernel(const float* __restrict__ coords,
+                   const float* __restrict__ params,
+                   const bf16* __restrict__ whi, const bf16* __restrict__ wlo,
+                   float* __restrict__ partial, float* __restrict__ loss_part,
+                   float* __restrict__ pre_buf, bf16* __restrict__ planes,
+                   const float* __restrict__ tgt,
+                   const float* __restrict__ cot,
+                   const int* __restrict__ limit, const TrainArgs args,
+                   int n, int tiles, int slices, int u0, int chunk,
+                   int chunk_tiles, int rows_cap, long long unit_elems,
+                   long long wq) {
+  using C = Tc<H>;
+  constexpr int TM = C::TM, LDB = C::LDB, LDX = C::LDX, KS = C::KS;
+  constexpr int WSP = C::WSP;
+  constexpr int TPR = kThreads / TM;   // head forward: threads per row
+  constexpr int TPC = kThreads / H;    // column passes: threads per column
+  constexpr int RPT = TM / TPC;        // column passes: rows per thread (32)
+  static_assert(RPT % 8 == 0, "rows per thread in chunks of 8");
+  extern __shared__ float4 smem4[];
+  bf16* Xh = reinterpret_cast<bf16*>(smem4);  // X planes, then G planes
+  bf16* Xl = Xh + TM * LDB;
+  bf16* Ws = Xl + TM * LDB;                   // [stage][hi, lo][WSP]
+  float* dX = reinterpret_cast<float*>(Ws + 4 * WSP);
+  float* sb = dX + TM * LDX;
+  float* sa = sb + H;
+  float* sc = sa + H;
+  float* shp = sc + TM * kMaxIn;       // head pre
+  float* shg = shp + TM;               // head gpre (f32)
+  float* shh = shg + TM;               // head gpre hi
+  float* shl = shh + TM;               // head gpre lo
+  float* sl = shl + TM;                // per-row loss
+  float* red = sl + TM;                // 2 * kThreads column partials
+
+  const int tid = threadIdx.x;
+  const int u = u0 + blockIdx.x;
+  const long long win = u / slices;
+  const int slice = u % slices;
+  const int t_begin = static_cast<int>(static_cast<long long>(slice) * tiles /
+                                       slices);
+  const int t_end = static_cast<int>(static_cast<long long>(slice + 1) *
+                                     tiles / slices);
+  const int c0t = t_begin + chunk * chunk_tiles;
+  if (c0t >= t_end) return;
+  const int c1t = min(t_end, c0t + chunk_tiles);
+  const int d = args.d;
+  const int L = args.n_layers;
+  const int LH = L - 1;
+  const int gm = args.gmode;
+  const int F = args.n_freq;
+  const float* wp = params + win * args.P;
+  const bf16* wh = whi + win * wq;
+  const bf16* wl = wlo + win * wq;
+  const long long HH = static_cast<long long>(H) * H;
+  float* slab = partial + static_cast<long long>(u) * args.P;
+  float* pre_tile = pre_buf + static_cast<long long>(blockIdx.x) * L * kTileFloats;
+  bf16* up = planes + blockIdx.x * unit_elems;
+  const long long RCH = static_cast<long long>(rows_cap) * H;
+  const int npl = tc_x_planes(gm) + tc_g_planes(gm);
+  const long long xlo = gm == kBf16x3 ? RCH : 0;  // x_in's lo plane
+  const int ec = tid % H, es = tid / H;  // column-pass mapping
+  const int n_lim = limit != nullptr ? min(n, __ldg(limit)) : n;
+
+  if (chunk == 0 && tid == 0) {  // zero the pads between leaves of the slab
+    for (int li = 0; li < L; ++li) {
+      const int in_f = li == 0 ? (F > 0 ? 2 * F : d) : H;
+      const int out_f = li == L - 1 ? 1 : H;
+      int ends[3] = {args.off_w[li] + in_f * out_f, args.off_b[li] + out_f,
+                     args.off_a[li] >= 0 ? args.off_a[li] + out_f : -1};
+      for (int q = 0; q < 3; ++q)
+        for (int e = ends[q]; e >= 0 && (e & 3); ++e) slab[e] = 0.0f;
+    }
+  }
+  float loss_acc = 0.0f;  // thread 0: the chunk's loss
+
+  for (int t = c0t; t < c1t; ++t) {
+    const bool first = t == t_begin;
+    const int row0 = t * TM;
+    const long long lr0 = static_cast<long long>(t - c0t) * TM;
+    __syncthreads();  // the previous tile is done with shared memory
+
+    // ================= forward recompute, saving each pre =================
+    {
+      for (int e = tid; e < H; e += kThreads) {
+        sb[e] = wp[args.off_b[0] + e];
+        sa[e] = args.off_a[0] >= 0 ? wp[args.off_a[0] + e] : 1.0f;
+      }
+      for (int e = tid; e < TM * d; e += kThreads) {
+        const int row = row0 + e / d;
+        sc[e] = row < n ? coords[(long long)row * d + e % d] : 0.0f;
+      }
+      const int kind = args.kind[0], deg = args.deg[0];
+      const float omega = args.omega[0];
+      // x_in of layer 1, for dW (none when layer 1 is the head)
+      bf16* xg0 = L > 2 ? up + lr0 * H : nullptr;
+      if (F > 0) {
+        // [cos v, sin v] W0 by K-slabs: the features of the slab into the
+        // X planes (the forward tier's split), W0's slab by cp.async
+        const int K = 2 * F;
+        const bf16* w0h = wh + (L - 2) * HH;
+        const bf16* w0l = wl + (L - 2) * HH;
+        float hh[2][4][4], cr[2][4][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) hh[mi][nj][q] = cr[mi][nj][q] = 0.0f;
+        for (int k0 = 0; k0 < K; k0 += KS) {
+          const int kn = K - k0 < KS ? K - k0 : KS;
+          const int kn16 = (kn + 15) & ~15;
+          __syncthreads();  // the previous slab is consumed
+          issue_fwd_slab<H>(Ws, Ws + WSP, w0h, w0l, k0, K);
+          cp_async_commit();
+          for (int e = tid; e < TM * kn16; e += kThreads) {
+            const int r = e / kn16, j = e % kn16;
+            const float v = j < kn ? rff_feature(sc + r * d, args.bt, d, F,
+                                                 k0 + j, args.fdeg)
+                                   : 0.0f;
+            split_bf16(v, Xh + r * LDB + j, Xl + r * LDB + j);
+          }
+          cp_async_wait<0>();
+          __syncthreads();
+          tc_slab_dispatch<H, false, true>(args.mode[0], Xh, Xl, 0, Ws,
+                                           Ws + WSP, kn16 / 16, hh, cr);
+        }
+        __syncthreads();  // every warp has read the features
+        store_tc<H>(hh, cr, sb, sa, kind, omega, deg, Xh, Xl, pre_tile,
+                    args.h_real, xg0, xlo);
+      } else {
+        const float* w0 = wp + args.off_w[0];
+        for (int e = tid; e < d * H; e += kThreads) dX[e] = w0[e];
+        __syncthreads();
+        for (int e = tid; e < TM * H; e += kThreads) {
+          const int r = e / H, c = e % H;
+          float pre = sb[c];
+          for (int q = 0; q < d; ++q) pre = pre + sc[r * d + q] * dX[q * H + c];
+          pre_tile[e] = pre;
+          bf16* xh = Xh + r * LDB + c;
+          bf16* xl = Xl + r * LDB + c;
+          split_bf16(c < args.h_real ? activate(kind, pre, omega, sa[c], deg)
+                                     : 0.0f,
+                     xh, xl);
+          if (xg0 != nullptr) {
+            xg0[e] = *xh;
+            if (xlo > 0) xg0[xlo + e] = *xl;
+          }
+        }
+      }
+    }
+    for (int li = 1; li < L - 1; ++li) {
+      float hh[2][4][4], cr[2][4][4];
+      float nb = 0.0f, na = 1.0f;  // layer li's bias and a, loaded early
+      if (tid < H) {
+        nb = wp[args.off_b[li] + tid];
+        if (args.off_a[li] >= 0) na = wp[args.off_a[li] + tid];
+      }
+      tc_product<H, false>(args.mode[li], Xh, Xl, wh + (li - 1) * HH,
+                           wl + (li - 1) * HH, H, Ws, hh, cr);
+      __syncthreads();  // every warp has read X and the bias of layer li-1
+      if (tid < H) {
+        sb[tid] = nb;
+        sa[tid] = na;
+      }
+      __syncthreads();
+      store_tc<H>(hh, cr, sb, sa, args.kind[li], args.omega[li], args.deg[li],
+                  Xh, Xl, pre_tile + li * kTileFloats, args.h_real,
+                  li + 1 < L - 1 ? up + li * npl * RCH + lr0 * H : nullptr,
+                  xlo);
+    }
+    // head: h -> 1 (narrow FMAs), then the cotangent
+    {
+      const int mode = args.mode[LH];
+      __syncthreads();
+      for (int j = tid; j < H; j += kThreads) {
+        const float w = wp[args.off_w[LH] + j];
+        const float hi = bf16r(w);
+        dX[j] = hi;
+        dX[H + j] = bf16r(w - hi);
+      }
+      __syncthreads();
+      const int r = tid / TPR, s = tid % TPR;
+      const bf16* xh = Xh + r * LDB;
+      const bf16* xl = Xl + r * LDB;
+      float acc = 0.0f, acc2 = 0.0f;
+      for (int j = s; j < H; j += TPR) {
+        const float xv = __bfloat162float(xh[j]);
+        acc = fmaf(xv, dX[j], acc);
+        if (mode == kBf16x2 || mode == kBf16x3) acc2 = fmaf(xv, dX[H + j], acc2);
+        if (mode == kBf16x3) acc2 = fmaf(__bfloat162float(xl[j]), dX[j], acc2);
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off /= 2) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        acc2 += __shfl_xor_sync(0xffffffffu, acc2, off);
+      }
+      if (s == 0) {
+        const int row = row0 + r;
+        const float pre = (acc + acc2) + wp[args.off_b[LH]];
+        const float a = args.off_a[LH] >= 0 ? wp[args.off_a[LH]] : 1.0f;
+        const float out = activate(args.kind[LH], pre, args.omega[LH], a,
+                                   args.deg[LH]);
+        float g = 0.0f, l = 0.0f;
+        if (row < n_lim) {
+          if (cot != nullptr) {
+            g = cot[win * n + row];
+          } else {
+            const float err = out - tgt[win * n + row];
+            l = err * err;
+            g = err * args.two_inv_n;
+          }
+        }
+        shp[r] = pre;
+        shg[r] = g;
+        sl[r] = l;
+      }
+    }
+    __syncthreads();
+    if (tid == 0 && cot == nullptr) {
+      float s = 0.0f;
+      for (int r = 0; r < TM; ++r) s += sl[r];
+      loss_acc = t == c0t ? s * args.inv_n : loss_acc + s * args.inv_n;
+    }
+
+    // ================= backward =================
+    // head: gpre, db, dW (h x 1) from the X planes (the head's input, the
+    // grad tier's rounding: hi, and lo in bf16x3), and dX (TM x h)
+    {
+      const int kind = args.kind[LH];
+      const float a = args.off_a[LH] >= 0 ? wp[args.off_a[LH]] : 1.0f;
+      for (int r = tid; r < TM; r += kThreads) {
+        float ga = 0.0f;
+        const float gp = dact(kind, shp[r], args.omega[LH], a, args.deg[LH],
+                              shg[r], &ga);
+        shg[r] = gp;
+        shp[r] = ga;
+        wsplit(gp, gm, shh + r, shl + r);
+      }
+      __syncthreads();
+      if (tid == 0) {
+        float db = 0.0f, da = 0.0f;
+        for (int r = 0; r < TM; ++r) {
+          db += shg[r];
+          da += shp[r];
+        }
+        put(slab + args.off_b[LH], db, first);
+        if (args.off_a[LH] >= 0) put(slab + args.off_a[LH], da, first);
+      }
+      float acc = 0.0f, acc2 = 0.0f;
+      for (int r = es; r < TM; r += TPC) {
+        const float xh = __bfloat162float(Xh[r * LDB + ec]);
+        acc = fmaf(xh, shh[r], acc);
+        if (gm == kBf16x2 || gm == kBf16x3) acc2 = fmaf(xh, shl[r], acc2);
+        if (gm == kBf16x3)
+          acc2 = fmaf(__bfloat162float(Xl[r * LDB + ec]), shh[r], acc2);
+      }
+      red[es * H + ec] = acc;
+      red[kThreads + es * H + ec] = acc2;
+      __syncthreads();
+      if (es == 0) {
+        float s1 = red[ec], s2 = red[kThreads + ec];
+        for (int q = 1; q < TPC; ++q) {
+          s1 += red[q * H + ec];
+          s2 += red[kThreads + q * H + ec];
+        }
+        put(slab + args.off_w[LH] + ec, s1 + s2, first);
+      }
+      float whv, wlv;
+      wsplit(wp[args.off_w[LH] + ec], gm, &whv, &wlv);
+      for (int r = es; r < TM; r += TPC) {
+        float gh, gl;
+        xsplit(shg[r], gm, &gh, &gl);
+        dX[r * LDX + ec] = tier_mul(gh, gl, whv, wlv, gm);
+      }
+      __syncthreads();
+    }
+
+    // hidden layers, last to first; then layer 0
+    for (int li = L - 2; li >= 0; --li) {
+      // ---- gpre = dX * act'(pre) into the G planes (and the unit's
+      // planes); db, da ----
+      {
+        const float* pt = pre_tile + li * kTileFloats;
+        const int kind = args.kind[li], deg = args.deg[li];
+        const float omega = args.omega[li];
+        const float a = args.off_a[li] >= 0 ? wp[args.off_a[li] + ec] : 1.0f;
+        bf16* gph = nullptr;  // the unit's gpre planes of this layer
+        if (li > 0)
+          gph = up + ((li - 1) * npl + tc_x_planes(gm)) * RCH;
+        else if (F > 0)
+          gph = up + (L - 2) * npl * RCH;
+        float db = 0.0f, da = 0.0f;
+        for (int i0 = 0; i0 < RPT; i0 += 8) {
+          float pv[8];  // the pres of 8 rows, loaded before any store
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            pv[i] = pt[(es + (i0 + i) * TPC) * H + ec];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int r = es + (i0 + i) * TPC;
+            float ga = 0.0f;
+            const float gp = dact(kind, pv[i], omega, a, deg,
+                                  dX[r * LDX + ec], &ga);
+            db += gp;
+            da += ga;
+            bf16 hi, lo;
+            split_bf16(gp, &hi, &lo);
+            Xh[r * LDB + ec] = hi;
+            Xl[r * LDB + ec] = lo;
+            if (gph != nullptr) {
+              const long long idx = (lr0 + r) * H + ec;
+              gph[idx] = hi;
+              if (gm != kBf16) gph[RCH + idx] = lo;
+            }
+          }
+        }
+        red[es * H + ec] = db;
+        red[kThreads + es * H + ec] = da;
+        __syncthreads();
+        if (es == 0) {
+          float s1 = red[ec], s2 = red[kThreads + ec];
+          for (int q = 1; q < TPC; ++q) {
+            s1 += red[q * H + ec];
+            s2 += red[kThreads + q * H + ec];
+          }
+          put(slab + args.off_b[li] + ec, s1, first);
+          if (args.off_a[li] >= 0) put(slab + args.off_a[li] + ec, s2, first);
+        }
+      }
+      if (li == 0) break;
+      // ---- dX = gpre W^T on the tensor cores ----
+      {
+        float hh[2][4][4], cr[2][4][4];
+        tc_product<H, true>(gm, Xh, Xl, wh + (li - 1) * HH, wl + (li - 1) * HH,
+                            H, Ws, hh, cr);
+        store_dx<H>(hh, cr, dX);  // dX was last read before the G planes
+        __syncthreads();
+      }
+    }
+
+    // ---- a raw layer 0's dW: coords^T gpre0, rows split over TPC ----
+    if (F == 0) {
+      __syncthreads();
+      float acc[kMaxIn], acc2[kMaxIn];
+#pragma unroll
+      for (int q = 0; q < kMaxIn; ++q) acc[q] = acc2[q] = 0.0f;
+      for (int r = es; r < TM; r += TPC) {
+        const float gh = __bfloat162float(Xh[r * LDB + ec]);
+        const float gl = __bfloat162float(Xl[r * LDB + ec]);
+#pragma unroll
+        for (int q = 0; q < kMaxIn; ++q) {
+          if (q < d) {
+            float xh, xl;
+            xsplit(sc[r * d + q], gm, &xh, &xl);
+            acc[q] = fmaf(xh, gh, acc[q]);
+            if (gm == kBf16x2 || gm == kBf16x3) acc2[q] = fmaf(xh, gl, acc2[q]);
+            if (gm == kBf16x3) acc2[q] = fmaf(xl, gh, acc2[q]);
+          }
+        }
+      }
+      float* part = dX;  // (TPC, d, H) x 2
+      for (int q = 0; q < d; ++q) {
+        part[(es * d + q) * H + ec] = acc[q];
+        part[TPC * d * H + (es * d + q) * H + ec] = acc2[q];
+      }
+      __syncthreads();
+      if (es == 0) {
+        for (int q = 0; q < d; ++q) {
+          float s1 = part[q * H + ec], s2 = part[TPC * d * H + q * H + ec];
+          for (int grp = 1; grp < TPC; ++grp) {
+            s1 += part[(grp * d + q) * H + ec];
+            s2 += part[TPC * d * H + (grp * d + q) * H + ec];
+          }
+          put(slab + args.off_w[0] + q * H + ec, s1 + s2, first);
+        }
+      }
+    }
+  }
+  if (tid == 0 && cot == nullptr)
+    loss_part[u] = chunk == 0 ? loss_acc : loss_part[u] + loss_acc;
+}
+
+template <int H>
+struct Dw {
+  static constexpr int BM = H < 128 ? H : 128;  // output tile: dW rows
+  static constexpr int BN = BM;                 // and columns
+  static constexpr int WM = 2;                  // warps along the rows
+  static constexpr int WN = BN >= 64 ? 4 : 2;   // and the columns
+  static constexpr int MT = BM / WM / 16;       // m16 tiles a warp
+  static constexpr int NT = BN / WN / 8;        // n8 tiles a warp (even)
+  static constexpr int RC = 64;                 // rows a stage (dW's K)
+  static constexpr int AP = BM + 8, BP = BN + 8;
+  static constexpr int STAGE = 2 * RC * AP + 2 * RC * BP;  // bf16
+  static constexpr size_t smem_bytes() {
+    return static_cast<size_t>(2 * STAGE) * 2;
+  }
+};
+
+static_assert(Dw<256>::smem_bytes() <= 232448, "dW smem");
+static_assert(Dw<32>::NT % 2 == 0 && Dw<64>::NT % 2 == 0, "n8 tile pairs");
+
+// dW of one output tile (blockIdx.y) of one unit (blockIdx.x) over the rows
+// of chunk `chunk` of its slice: x_in^T gpre for an h x h layer, or [cos;
+// sin]^T gpre0 for an RFF layer 0 with the features recomputed from the
+// coordinates (x role: rounded in the grad tier).  Both operands are k-major
+// (rows) in shared memory and reach the mma through ldmatrix .trans; the
+// accumulators run over every row of the chunk in order, and the tile is
+// written once (chunk 0 stores, later chunks add).
+template <int H, int MODE>
+__global__ void __launch_bounds__(kThreads, 1)
+siren_dw_kernel(const float* __restrict__ coords, float* __restrict__ partial,
+                const bf16* __restrict__ planes, const TrainArgs args, int n,
+                int tiles, int slices, int u0, int chunk, int chunk_tiles,
+                int rows_cap, long long unit_elems) {
+  using D = Dw<H>;
+  constexpr int TM = tile_rows<H>();
+  constexpr int BM = D::BM, BN = D::BN, AP = D::AP, BP = D::BP, RC = D::RC;
+  constexpr int CT = H / BN;  // column tiles of a layer
+  extern __shared__ float4 smem4[];
+  bf16* sm = reinterpret_cast<bf16*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int u = u0 + blockIdx.x;
+  const int slice = u % slices;
+  const int t_begin = static_cast<int>(static_cast<long long>(slice) * tiles /
+                                       slices);
+  const int t_end = static_cast<int>(static_cast<long long>(slice + 1) *
+                                     tiles / slices);
+  const int c0t = t_begin + chunk * chunk_tiles;
+  if (c0t >= t_end) return;
+  const int K = (min(t_end, c0t + chunk_tiles) - c0t) * TM;  // rows
+  const long long row_base = static_cast<long long>(c0t) * TM;
+  const int L = args.n_layers, nh = L - 2, F = args.n_freq, d = args.d;
+  const long long RCH = static_cast<long long>(rows_cap) * H;
+  const int npl = tc_x_planes(MODE) + tc_g_planes(MODE);
+  const bf16* up = planes + blockIdx.x * unit_elems;
+  const int tpl = CT * CT;
+  const bool rff = static_cast<int>(blockIdx.y) >= nh * tpl;
+  const int tt = rff ? blockIdx.y - nh * tpl : blockIdx.y % tpl;
+  const int j0 = (tt / CT) * BM, c0 = (tt % CT) * BN;
+  const bf16 *ah = nullptr, *bh;
+  int M;
+  float* out = partial + static_cast<long long>(u) * args.P;
+  if (!rff) {
+    const int q = blockIdx.y / tpl;
+    ah = up + q * npl * RCH;
+    bh = ah + tc_x_planes(MODE) * RCH;
+    M = H;
+    out += args.off_w[q + 1];
+  } else {
+    bh = up + nh * npl * RCH;
+    M = 2 * F;
+    out += args.off_w[0];
+  }
+
+  // rows [kc * RC, + RC) of the chunk into stage st (rows past K zero)
+  auto load = [&](int kc, int st) {
+    bf16* sAh = sm + st * D::STAGE;
+    bf16* sAl = sAh + RC * AP;
+    bf16* sBh = sAl + RC * AP;
+    bf16* sBl = sBh + RC * BP;
+    const int r0 = kc * RC;
+    for (int e = tid; e < RC * (BN / 8); e += kThreads) {
+      const int r = e / (BN / 8), v = e % (BN / 8);
+      const bool ok = r0 + r < K;
+      const long long src = (ok ? r0 + r : 0) * static_cast<long long>(H) +
+                            c0 + v * 8;
+      cp_async16(sBh + r * BP + v * 8, bh + src, ok ? 16 : 0);
+      if (MODE != kBf16) cp_async16(sBl + r * BP + v * 8, bh + RCH + src,
+                                    ok ? 16 : 0);
+    }
+    if (!rff) {
+      for (int e = tid; e < RC * (BM / 8); e += kThreads) {
+        const int r = e / (BM / 8), v = e % (BM / 8);
+        const bool ok = r0 + r < K;
+        const long long src = (ok ? r0 + r : 0) * static_cast<long long>(H) +
+                              j0 + v * 8;
+        cp_async16(sAh + r * AP + v * 8, ah + src, ok ? 16 : 0);
+        if (MODE == kBf16x3) cp_async16(sAl + r * AP + v * 8, ah + RCH + src,
+                                        ok ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < RC * BM; e += kThreads) {
+        const int r = e / BM, j = e % BM;
+        const long long row = row_base + r0 + r;
+        float v = 0.0f;
+        if (r0 + r < K && row < n && j0 + j < M)
+          v = rff_feature(coords + row * d, args.bt, d, F, j0 + j, args.fdeg);
+        const bf16 hi = __float2bfloat16_rn(v);
+        sAh[r * AP + j] = hi;
+        if (MODE == kBf16x3)
+          sAl[r * AP + j] = __float2bfloat16_rn(v - __bfloat162float(hi));
+      }
+    }
+  };
+
+  const int wm = warp / D::WN, wn = warp % D::WN;
+  const bool active = warp < D::WM * D::WN;
+  const int m0 = wm * (BM / D::WM), n0 = wn * (BN / D::WN);
+  float hh[D::MT][D::NT][4], cr[D::MT][D::NT][4];
+#pragma unroll
+  for (int mi = 0; mi < D::MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < D::NT; ++nj)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) hh[mi][nj][q] = cr[mi][nj][q] = 0.0f;
+  const int nck = (K + RC - 1) / RC;
+  load(0, 0);
+  cp_async_commit();
+  for (int kc = 0; kc < nck; ++kc) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage kc has landed; stage kc - 1 is consumed
+    if (kc + 1 < nck) load(kc + 1, (kc + 1) & 1);
+    cp_async_commit();
+    if (!active) continue;
+    const bf16* sAh = sm + (kc & 1) * D::STAGE;
+    const bf16* sAl = sAh + RC * AP;
+    const bf16* sBh = sAl + RC * AP;
+    const bf16* sBl = sBh + RC * BP;
+#pragma unroll
+    for (int ks = 0; ks < RC; ks += 16) {
+      unsigned af[D::MT][4], al[D::MT][4] = {};
+#pragma unroll
+      for (int mi = 0; mi < D::MT; ++mi) {
+        const int off = (ks + (lane & 7) + ((lane >> 4) & 1) * 8) * AP + m0 +
+                        mi * 16 + ((lane >> 3) & 1) * 8;
+        ldsm_x4_t(af[mi], sAh + off);
+        if (MODE == kBf16x3) ldsm_x4_t(al[mi], sAl + off);
+      }
+#pragma unroll
+      for (int nj = 0; nj < D::NT; nj += 2) {
+        const int off = (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * BP + n0 +
+                        nj * 8 + (lane >> 4) * 8;
+        unsigned bf[4], bl[4] = {};
+        ldsm_x4_t(bf, sBh + off);
+        if (MODE != kBf16) ldsm_x4_t(bl, sBl + off);
+#pragma unroll
+        for (int mi = 0; mi < D::MT; ++mi) {
+          tier_mma_f32<MODE>(hh[mi][nj], cr[mi][nj], af[mi], al[mi], bf[0], bf[1],
+                         bl[0], bl[1]);
+          tier_mma_f32<MODE>(hh[mi][nj + 1], cr[mi][nj + 1], af[mi], al[mi],
+                         bf[2], bf[3], bl[2], bl[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < D::MT; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < D::NT; ++nj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = j0 + m0 + mi * 16 + gid + half * 8;
+        if (j >= M) continue;
+        const int c = c0 + n0 + nj * 8 + tig * 2;
+        float2* p = reinterpret_cast<float2*>(out + static_cast<long long>(j) * H + c);
+        float2 v = make_float2(hh[mi][nj][half * 2] + cr[mi][nj][half * 2],
+                               hh[mi][nj][half * 2 + 1] +
+                                   cr[mi][nj][half * 2 + 1]);
+        if (chunk > 0) {
+          const float2 o = *p;
+          v = make_float2(o.x + v.x, o.y + v.y);
+        }
+        *p = v;
+      }
+}
+
+template <int H>
+int launch_sweep(const TrainArgs& args, const float* coords,
+                 const float* params, const bf16* whi, const bf16* wlo,
+                 float* partial, float* loss_part, float* pre, bf16* planes,
+                 const float* tgt, const float* cot, const int* limit, int n,
+                 int slices, int u0, int units, int chunk, int chunk_tiles,
+                 int rows_cap, long long unit_elems, long long wq,
+                 cudaStream_t stream) {
+  const size_t smem = Tc<H>::smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(
+      siren_sweep_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (n + tile_rows<H>() - 1) / tile_rows<H>();
+  const int per = min(chunk_tiles, (tiles + slices - 1) / slices);
+  if (slices > tiles || chunk_tiles < 1 || rows_cap < per * tile_rows<H>())
+    return static_cast<int>(cudaErrorInvalidValue);
+  siren_sweep_kernel<H><<<units, kThreads, smem, stream>>>(
+      coords, params, whi, wlo, partial, loss_part, pre, planes, tgt, cot,
+      limit, args, n, tiles, slices, u0, chunk, chunk_tiles, rows_cap,
+      unit_elems, wq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int H, int MODE>
+int launch_dw_mode(const TrainArgs& args, const float* coords,
+                   float* partial, const bf16* planes, int n, int slices,
+                   int u0, int units, int chunk, int chunk_tiles,
+                   int rows_cap, long long unit_elems, cudaStream_t stream) {
+  using D = Dw<H>;
+  const size_t smem = D::smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(
+      siren_dw_kernel<H, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (n + tile_rows<H>() - 1) / tile_rows<H>();
+  const int ct = H / D::BN;
+  const int ny = (args.n_layers - 2) * ct * ct +
+                 (args.n_freq > 0 ? (2 * args.n_freq + D::BM - 1) / D::BM * ct
+                                  : 0);
+  if (ny == 0) return 0;  // no h x h layer and a raw layer 0
+  siren_dw_kernel<H, MODE><<<dim3(units, ny), kThreads, smem, stream>>>(
+      coords, partial, planes, args, n, tiles, slices, u0, chunk,
+      chunk_tiles, rows_cap, unit_elems);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int H>
+int launch_dw(const TrainArgs& args, const float* coords, float* partial,
+              const bf16* planes, int n, int slices, int u0, int units,
+              int chunk, int chunk_tiles, int rows_cap, long long unit_elems,
+              cudaStream_t stream) {
+  switch (args.gmode) {
+    case kBf16x3:
+      return launch_dw_mode<H, kBf16x3>(args, coords, partial, planes, n,
+                                        slices, u0, units, chunk, chunk_tiles,
+                                        rows_cap, unit_elems, stream);
+    case kBf16x2:
+      return launch_dw_mode<H, kBf16x2>(args, coords, partial, planes, n,
+                                        slices, u0, units, chunk, chunk_tiles,
+                                        rows_cap, unit_elems, stream);
+    default:
+      return launch_dw_mode<H, kBf16>(args, coords, partial, planes, n,
+                                      slices, u0, units, chunk, chunk_tiles,
+                                      rows_cap, unit_elems, stream);
+  }
+}
+
 // Block-wide sum of one float per thread in a fixed order.
 __device__ __forceinline__ float block_sum(float v, float* scratch) {
   for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -885,6 +2008,49 @@ int launch_grad(const TrainArgs& args, const float* coords,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The kernels' arguments from the wrapper's host arrays: offs = w, b, a
+// offsets per layer; ints = kind, forward mode, degree per layer.
+TrainArgs make_args(const void* offs, const void* ints, const void* omegas,
+                    int n_layers, int d, int P, int gmode, float inv_n,
+                    float two_inv_n, const void* bt, int n_freq, int fdeg,
+                    int h_real) {
+  TrainArgs args;
+  const int* o = static_cast<const int*>(offs);
+  const int* q = static_cast<const int*>(ints);
+  const float* om = static_cast<const float*>(omegas);
+  for (int l = 0; l < kMaxLayers; ++l) {
+    const bool live = l < n_layers;
+    args.off_w[l] = live ? o[3 * l] : 0;
+    args.off_b[l] = live ? o[3 * l + 1] : 0;
+    args.off_a[l] = live ? o[3 * l + 2] : -1;
+    args.kind[l] = live ? q[3 * l] : kLinear;
+    args.mode[l] = live ? q[3 * l + 1] : kHighest;
+    args.deg[l] = live ? q[3 * l + 2] : 0;
+    args.omega[l] = live ? om[l] : 0.0f;
+  }
+  args.n_layers = n_layers;
+  args.d = d;
+  args.P = P;
+  args.gmode = gmode;
+  args.inv_n = inv_n;
+  args.two_inv_n = two_inv_n;
+  args.bt = static_cast<const float*>(bt);
+  args.n_freq = n_freq;
+  args.fdeg = fdeg;
+  args.h_real = h_real;
+  return args;
+}
+
+// Whether the tensor-core route takes these tiers: the grad tier and the
+// forward tier of every product (layers 1+, and an RFF layer 0) in bf16,
+// bf16x2 or bf16x3.
+bool tc_tiers(const TrainArgs& a) {
+  if (a.gmode == kHighest) return false;
+  for (int l = a.n_freq > 0 ? 0 : 1; l < a.n_layers; ++l)
+    if (a.mode[l] == kHighest) return false;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -914,30 +2080,9 @@ int siren_grad(const void* coords, const void* params, void* partial,
       slices < 1 || n_freq < 0 || (n_freq > 0) != (bt != nullptr) ||
       h_real < 1 || h_real > h)
     return static_cast<int>(cudaErrorInvalidValue);
-  TrainArgs args;
-  const int* o = static_cast<const int*>(offs);
-  const int* q = static_cast<const int*>(ints);
-  const float* om = static_cast<const float*>(omegas);
-  for (int l = 0; l < kMaxLayers; ++l) {
-    const bool live = l < n_layers;
-    args.off_w[l] = live ? o[3 * l] : 0;
-    args.off_b[l] = live ? o[3 * l + 1] : 0;
-    args.off_a[l] = live ? o[3 * l + 2] : -1;
-    args.kind[l] = live ? q[3 * l] : kLinear;
-    args.mode[l] = live ? q[3 * l + 1] : kHighest;
-    args.deg[l] = live ? q[3 * l + 2] : 0;
-    args.omega[l] = live ? om[l] : 0.0f;
-  }
-  args.n_layers = n_layers;
-  args.d = d;
-  args.P = P;
-  args.gmode = gmode;
-  args.inv_n = inv_n;
-  args.two_inv_n = two_inv_n;
-  args.bt = static_cast<const float*>(bt);
-  args.n_freq = n_freq;
-  args.fdeg = fdeg;
-  args.h_real = h_real;
+  const TrainArgs args = make_args(offs, ints, omegas, n_layers, d, P, gmode,
+                                   inv_n, two_inv_n, bt, n_freq, fdeg,
+                                   h_real);
   const float* c = static_cast<const float*>(coords);
   const float* p = static_cast<const float*>(params);
   float* part = static_cast<float*>(partial);
@@ -1024,6 +2169,115 @@ int siren_adam_global(const void* buf, void* sq_part, void* params, void* mu,
       static_cast<const float*>(c1), static_cast<const float*>(c2),
       static_cast<const float*>(best_loss), 1, P, chunks, clip);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// The tensor-core route (bf16, bf16x2, bf16x3 tiers).  Windows are those of
+// one launch group: the caller offsets params / tgt / cot / loss_part to the
+// group's first window, and whi / wlo (k, wq) bf16, wq = (n_layers - 2) h^2
+// + 2 n_freq h, hold that group's planes (siren_wsplit).  A unit u = w *
+// slices + s is window w's row slice s; partial (k * slices, P) and
+// loss_part (k * slices) are indexed by it.  A pass runs units [u0, u0 +
+// units) over the tiles of chunk `chunk` of their slices (chunk_tiles
+// tiles a chunk); its pre (units, n_layers, 8192) f32 and planes (units,
+// unit_elems) bf16 scratch are indexed by u - u0, each unit's planes
+// rows_cap rows of h.  Every call returns a cudaError_t value: 0 when
+// accepted.
+int siren_wsplit(const void* params, void* whi, void* wlo, const void* offs,
+                 const void* ints, const void* omegas, int n_layers, int k,
+                 int h, int P, int n_freq, void* stream) {
+  if (n_layers < 2 || n_layers > kMaxLayers || k < 1 || P < 1 || n_freq < 0 ||
+      (h != 32 && h != 64 && h != 128 && h != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TrainArgs args = make_args(offs, ints, omegas, n_layers, 1, P,
+                                   kBf16x2, 1.0f, 2.0f, nullptr, n_freq, 0,
+                                   h);
+  const long long wq = static_cast<long long>(n_layers - 2) * h * h +
+                       2LL * n_freq * h;
+  if (wq == 0) return 0;
+  const long long blocks = std::min((wq * k + kThreads - 1) / kThreads,
+                                    65536LL);
+  siren_wsplit_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(params), static_cast<bf16*>(whi),
+      static_cast<bf16*>(wlo), args, h, wq, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int siren_sweep(const void* coords, const void* params, const void* whi,
+                const void* wlo, void* partial, void* loss_part, void* pre,
+                void* planes, const void* tgt, const void* cot,
+                const void* offs, const void* ints, const void* omegas,
+                int n_layers, int n, int d, int h, int h_real, int P,
+                int gmode, float inv_n, float two_inv_n, const void* bt,
+                int n_freq, int fdeg, int slices, int u0, int units,
+                int chunk, int chunk_tiles, int rows_cap,
+                long long unit_elems, const void* limit, void* stream) {
+  if (n_layers < 2 || n_layers > kMaxLayers || d < 1 || d > kMaxIn ||
+      n < 1 || P < 1 || (P & 3) || (tgt == nullptr) == (cot == nullptr) ||
+      slices < 1 || u0 < 0 || units < 1 || chunk < 0 || n_freq < 0 ||
+      (n_freq > 0) != (bt != nullptr) || h_real < 1 || h_real > h)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TrainArgs args = make_args(offs, ints, omegas, n_layers, d, P, gmode,
+                                   inv_n, two_inv_n, bt, n_freq, fdeg,
+                                   h_real);
+  if (!tc_tiers(args)) return static_cast<int>(cudaErrorInvalidValue);
+  const long long wq = static_cast<long long>(n_layers - 2) * h * h +
+                       2LL * n_freq * h;
+  const float* c = static_cast<const float*>(coords);
+  const float* p = static_cast<const float*>(params);
+  const bf16* wh = static_cast<const bf16*>(whi);
+  const bf16* wl = static_cast<const bf16*>(wlo);
+  float* part = static_cast<float*>(partial);
+  float* lp = static_cast<float*>(loss_part);
+  float* pr = static_cast<float*>(pre);
+  bf16* pl = static_cast<bf16*>(planes);
+  const float* t = static_cast<const float*>(tgt);
+  const float* ct = static_cast<const float*>(cot);
+  const int* lim = static_cast<const int*>(limit);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define SWEEP(H)                                                            \
+  launch_sweep<H>(args, c, p, wh, wl, part, lp, pr, pl, t, ct, lim, n,       \
+                  slices, u0, units, chunk, chunk_tiles, rows_cap,           \
+                  unit_elems, wq, s)
+  switch (h) {
+    case 32: return SWEEP(32);
+    case 64: return SWEEP(64);
+    case 128: return SWEEP(128);
+    case 256: return SWEEP(256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SWEEP
+}
+
+int siren_dw(const void* coords, void* partial, const void* planes,
+             const void* offs, const void* ints, const void* omegas,
+             int n_layers, int n, int d, int h, int P, int gmode,
+             const void* bt, int n_freq, int fdeg, int slices, int u0,
+             int units, int chunk, int chunk_tiles, int rows_cap,
+             long long unit_elems, void* stream) {
+  if (n_layers < 2 || n_layers > kMaxLayers || d < 1 || d > kMaxIn ||
+      n < 1 || P < 1 || (P & 3) || slices < 1 || u0 < 0 || units < 1 ||
+      chunk < 0 || chunk_tiles < 1 || n_freq < 0 ||
+      (n_freq > 0) != (bt != nullptr) || gmode == kHighest)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TrainArgs args = make_args(offs, ints, omegas, n_layers, d, P, gmode,
+                                   1.0f, 2.0f, bt, n_freq, fdeg, h);
+  const float* c = static_cast<const float*>(coords);
+  float* part = static_cast<float*>(partial);
+  const bf16* pl = static_cast<const bf16*>(planes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DW(H)                                                               \
+  launch_dw<H>(args, c, part, pl, n, slices, u0, units, chunk, chunk_tiles,  \
+               rows_cap, unit_elems, s)
+  switch (h) {
+    case 32: return DW(32);
+    case 64: return DW(64);
+    case 128: return DW(128);
+    case 256: return DW(256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DW
 }
 
 }  // extern "C"

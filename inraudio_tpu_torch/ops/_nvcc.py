@@ -58,24 +58,27 @@ def build_root() -> Path:
     return Path(cache) / "inraudio_tpu_torch"
 
 
-def library_path(name: str, sources: list[str]) -> Path:
+def library_path(name: str, sources: list[str],
+                 defines: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     # the shared headers are part of every source
     for src in [*sources, *sorted(p.name for p in CSRC.glob("*.cuh"))]:
         h.update((CSRC / src).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     return build_root() / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
-def build_library(name: str, sources: list[str]) -> ctypes.CDLL:
+def build_library(name: str, sources: list[str],
+                  defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Compile ``sources`` (paths relative to ``csrc/``) unless already built
-    and return the loaded library.  ``build.log`` beside it holds nvcc's
-    output, including ptxas's register and shared-memory report."""
-    lib = library_path(name, sources)
+    and return the loaded library; ``defines`` are extra ``-D`` flags.
+    ``build.log`` beside it holds nvcc's output, including ptxas's register
+    and shared-memory report."""
+    lib = library_path(name, sources, defines)
     if not lib.exists():
         lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [find_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
                *[str(CSRC / s) for s in sources]]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -12,13 +12,18 @@ the same card:
     python3 inraudio_tpu_torch/ops/kernel_ab.py save . change.pt
     python3 inraudio_tpu_torch/ops/kernel_ab.py compare parent.pt change.pt
 
-The results (24), each at the kernel widths h = 32, 64, 128, 256 where it
+The results (36), each at the kernel widths h = 32, 64, 128, 256 where it
 has an h: the stack kernel's output (3 windows x 700 rows, approx_sin),
-C's gradients (bf16x2 grad tier, a random cotangent), D's state (params,
-mu, nu, best) and loss after 3 steps; D's params after 2 steps of an RFF
-model (h = 256, 256 frequencies, 5000 rows); G's output (bf16x3) and H's
-dW per layer (highest tier) for KAN([1, 64, 64, 1]) and KAN([2, 32, 3])
-over 3000 rows.
+C's gradients (bf16x2 and highest grad tiers, a random cotangent), D's
+state (params, mu, nu, best) and loss after 3 steps; E's buffer (grads and
+loss) for the first window's initial state on a shard of its 700 rows
+with a row limit of 500 and a clip of 900 valid rows (bf16x2 and
+highest); D's params after 2 steps of an RFF model (h = 256, 256
+frequencies, 5000 rows); G's output (bf16x3) and H's dW per layer (highest
+tier) for KAN([1, 64, 64, 1]) and KAN([2, 32, 3]) over 3000 rows.  The
+bf16-tier C, D and E results follow the grad kernel's route; the stack
+kernel's, G's, H's and every highest-tier result are the ones a change of
+the bf16 route must leave bit-equal.
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ def save(root: str, dest: str) -> int:
                           generator=torch.Generator(dev).manual_seed(1))
         out[f"bwd{h}"] = st.flatten_params(
             st.SIREN_BWD(params, cfg, plan, "bf16x2", coords, cot), cfg)
+        out[f"bwd-highest{h}"] = st.flatten_params(
+            st.SIREN_BWD(params, cfg, plan, "highest", coords, cot), cfg)
         model = build_model("mlp", cfg, fused=True, approx_sin=True)
         tc = tloop.TrainConfig(learning_rate=1e-3, grad_clip_norm=1.0)
         state = tloop.init_train_state(model, torch.Generator().manual_seed(h),
@@ -66,6 +73,11 @@ def save(root: str, dest: str) -> int:
         fs = ss.flat_state_from_train_state(state, cfg)
         step = ss.make_fused_mse_train_step(cfg, tc, 700, approx_sin=True)
         tgt = 0.5 * torch.sin(7 * coords[:, 0])[None].repeat(3, 1)
+        limit = torch.tensor([500], dtype=torch.int32, device=dev)
+        for gmode in ("bf16x2", "highest"):
+            out[f"E-{gmode}{h}"] = ss.SIREN_GRAD(
+                fs.params[:1].contiguous(), coords, tgt[:1], limit, 900, cfg,
+                plan, gmode)
         for _ in range(3):
             fs, (loss, _) = step(fs, coords, tgt)
         out[f"step{h}"] = torch.cat([fs.params, fs.mu, fs.nu,

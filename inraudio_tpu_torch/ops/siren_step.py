@@ -214,7 +214,8 @@ class _SirenStepKernel(LaunchCounter):
                 grads.data_ptr(), sq_part.data_ptr(), loss_part.data_ptr(),
                 params.data_ptr(), mu.data_ptr(), nu.data_ptr(), ptr(best),
                 loss.data_ptr(), lr.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-                best_loss.data_ptr(), g.k, g.slices, g.layout.size,
+                best_loss.data_ptr(), g.k, loss_part.shape[0] // g.k,
+                g.layout.size,
                 float(clip_norm), stream)
             _check_rc("siren_adam", rc)
         self.count()

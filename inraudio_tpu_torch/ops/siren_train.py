@@ -20,9 +20,17 @@ RFF layer 0 (``rff_b``) takes its features (cos v, sin v) in the forward
 tier, and its dW is the grad-tier product [cos v; sin v]^T gpre, with the
 features on the rounded side; B gets no gradient.
 
-The grad kernel's scratch is bounded per window: a window of more row
-tiles than ``MAX_SLICES`` goes through ``MAX_SLICES`` row slices, each CTA
-walking its slice's tiles in order into one slab of partial grads.
+Two routes compute a window's gradient (``grad_reduce``).  The bf16 tiers
+(every product's tier bf16, bf16x2 or bf16x3: ``tc_route``) run on the
+tensor cores: a sweep kernel per (window, row slice) does the forward
+recompute, the cotangent and the dgrad sweep and writes dW's operands once
+as bf16 planes, then a dW kernel forms each layer's x_in^T gpre over the
+slice's rows in registers and writes it once; ``tc_plan`` fixes the slices,
+row chunks and passes from the shapes.  The highest tier (an exact f32
+product) runs the FMA kernel, each CTA walking its slice's row tiles into
+one slab of partial grads.  Both bound their scratch per window whatever
+the clip's length: at most ``MAX_SLICES`` row slices, and planes for at
+most ``CHUNK_TILES`` row tiles of each.
 
 Parameters cross the kernel in one flat (k, P) float32 buffer per window
 population (``flat_layout``): each leaf at a 16-byte-aligned offset, zero
@@ -69,6 +77,15 @@ SCRATCH_BYTES = 1 << 30
 MAX_SLICES = 264
 
 
+# the tensor-core route: the planes and pres of one pass of units (window,
+# row slice) stay within PLANE_BYTES; a slice's planes cover at most
+# CHUNK_TILES row tiles at a time (a longer slice goes through row chunks
+# whose dW add up in chunk order)
+TC_MODES = ("bf16x3", "bf16x2", "bf16")
+PLANE_BYTES = 2 << 30
+CHUNK_TILES = 128
+
+
 def tile_rows(h: int) -> int:
     return TILE_FLOATS // h
 
@@ -78,6 +95,105 @@ def row_slices(tiles: int) -> int:
     shapes only, never of SCRATCH_BYTES, so the grouping of windows leaves
     every result bit-equal."""
     return min(tiles, MAX_SLICES)
+
+
+def tc_route(plan: StackPlan, gmode: str) -> bool:
+    """Whether the tensor-core kernels take this step: the grad tier and
+    the forward tier of every product (layers 1+, and an RFF layer 0) in
+    bf16, bf16x2 or bf16x3.  The highest tier, an exact f32 product, keeps
+    the FMA kernel."""
+    modes = [m for li, m in enumerate(plan.modes) if li > 0 or m is not None]
+    return gmode in TC_MODES and all(m in TC_MODES for m in modes)
+
+
+def tc_slices(tiles: int, h: int) -> int:
+    """Row slices of a window on the tensor-core route: at least h^2 / 4096
+    row tiles (2h rows) a slice, so that a slice's slab (P floats, written
+    once) stays small beside the planes of its rows, and at most
+    MAX_SLICES.  A function of the shapes only."""
+    return min(MAX_SLICES, tiles, -(-tiles // max(1, h * h // 4096)))
+
+
+def tc_unit_planes(n_layers: int, gmode: str, rff: bool) -> int:
+    """bf16 planes of h values a row that the sweep saves for the dW
+    kernel: per h x h layer x_in's hi (and lo in bf16x3) and gpre's hi (and
+    lo in bf16x2 / bf16x3); an RFF model's gpre0 planes after them."""
+    x = 2 if gmode == "bf16x3" else 1
+    gp = 1 if gmode == "bf16" else 2
+    return (n_layers - 2) * (x + gp) + (gp if rff else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class TcPlan:
+    """The tensor-core route's structure for one grad launch: ``slices`` a
+    window, its row chunks (``chunks`` of at most ``chunk_tiles`` tiles,
+    ``rows_cap`` rows of planes a unit), a unit's planes (``unit_elems``
+    bf16), the weight planes a window (``wq`` bf16 each of hi and lo), the
+    windows of a launch group and the units of a pass."""
+
+    slices: int
+    chunk_tiles: int
+    chunks: int
+    rows_cap: int
+    unit_elems: int
+    wq: int
+    windows: int
+    units: int
+
+    def scratch_bytes(self, P: int, n_layers: int) -> tuple[int, int]:
+        """(bytes of a launch group's slabs, losses and weight planes,
+        bytes of a pass's planes and pres)."""
+        group = self.windows * (self.slices * (4 * P + 4) + 4 * self.wq)
+        unit = 2 * self.unit_elems + 4 * n_layers * TILE_FLOATS
+        return group, self.units * unit
+
+
+def tc_plan(g: "GradLaunch", gmode: str) -> TcPlan:
+    """Slices and chunks from the shapes alone; windows a group within
+    SCRATCH_BYTES (slabs and weight planes) and units a pass within
+    PLANE_BYTES (planes and pres), at least one of each.  Neither grouping
+    changes a result: every unit's rows are its own, its chunks run in
+    order, and the reduce sums the slices in order."""
+    h, L = g.h, len(g.plan.kinds)
+    n_freq = 0 if g.bt is None else g.bt.shape[1]
+    slices = tc_slices(g.tiles, h)
+    per_slice = -(-g.tiles // slices)
+    chunks = -(-per_slice // CHUNK_TILES)
+    rows_cap = min(CHUNK_TILES, per_slice) * tile_rows(h)
+    unit_elems = (tc_unit_planes(L, gmode, n_freq > 0) * rows_cap * h)
+    wq = (L - 2) * h * h + 2 * n_freq * h
+    per_window = slices * (4 * g.layout.size + 4) + 4 * wq
+    windows = max(1, min(g.k, SCRATCH_BYTES // per_window))
+    per_unit = 2 * unit_elems + 4 * L * TILE_FLOATS
+    units = max(1, min(windows * slices, PLANE_BYTES // per_unit))
+    return TcPlan(slices, CHUNK_TILES, chunks, rows_cap, unit_elems, wq,
+                  windows, units)
+
+
+def tc_traffic(g: "GradLaunch", gmode: str) -> dict[str, int]:
+    """Device-memory bytes a step of the tensor-core route moves through
+    its scratch: ``planes``, dW's operands written by the sweep and read by
+    the dW kernel, and ``slabs``, each unit's slab written once a chunk and
+    read by the reduce.  ``fma_slabs`` is the FMA route's slab traffic at
+    the same shapes: a tile's dW added into its slice's slab (P floats read
+    and written) on every row tile."""
+    tp = tc_plan(g, gmode)
+    n_freq = 0 if g.bt is None else g.bt.shape[1]
+    rows = g.tiles * tile_rows(g.h)
+    per_row = 2 * g.h * tc_unit_planes(len(g.plan.kinds), gmode, n_freq > 0)
+    P4 = 4 * g.layout.size
+    return {"planes": 2 * g.k * rows * per_row,
+            "slabs": g.k * tp.slices * (tp.chunks + 1) * P4,
+            "fma_slabs": g.k * 2 * g.tiles * P4}
+
+
+def tc_passes(units: int, per_pass: int) -> list[tuple[int, int]]:
+    """(first unit, units) of each pass over ``units`` units, at most
+    ``per_pass`` a pass, in passes of equal size (the last may be
+    smaller)."""
+    passes = -(-units // per_pass)
+    size = -(-units // passes)
+    return [(u0, min(size, units - u0)) for u0 in range(0, units, size)]
 
 
 def grad_dot_mode() -> str:
@@ -276,24 +392,34 @@ def backward_plain(params: Params, plan: StackPlan, gmode: str,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 
 class _TrainLibrary:
-    """``csrc/siren_train.cu`` built once per process (at first use)."""
+    """``csrc/siren_train.cu`` built once per process (at first use), with
+    extra ``-D`` flags ``defines`` (none on every route)."""
 
-    def __init__(self):
+    def __init__(self, defines: tuple[str, ...] = ()):
         self._lib = None
+        self.defines = defines
 
     def __call__(self):
         if self._lib is None:
-            lib = build_library("siren_train", ["siren_train.cu"])
+            lib = build_library("siren_train", ["siren_train.cu"],
+                                self.defines)
             lib.siren_grad.argtypes = ([_P] * 10 + [_I] * 8 + [_F, _F, _P]
                                        + [_I] * 3 + [_P, _P])
             lib.siren_reduce.argtypes = [_P] * 5 + [_I, _I, _I, _P]
             lib.siren_adam.argtypes = [_P] * 12 + [_I, _I, _I, _F, _P]
             lib.siren_adam_global.argtypes = [_P] * 11 + [_I, _F, _P]
+            lib.siren_wsplit.argtypes = [_P] * 6 + [_I] * 5 + [_P]
+            lib.siren_sweep.argtypes = ([_P] * 13 + [_I] * 7 + [_F, _F, _P]
+                                        + [_I] * 8 + [_L, _P, _P])
+            lib.siren_dw.argtypes = ([_P] * 6 + [_I] * 6 + [_P] + [_I] * 8
+                                     + [_L, _P])
             for fn in (lib.siren_grad, lib.siren_reduce, lib.siren_adam,
-                       lib.siren_adam_global):
+                       lib.siren_adam_global, lib.siren_wsplit,
+                       lib.siren_sweep, lib.siren_dw):
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
@@ -363,7 +489,9 @@ def validate_grad_launch(flat: torch.Tensor, cfg: SirenSnakeTanhConfig,
 
 
 def window_group(g: GradLaunch) -> int:
-    """Windows per grad + reduce launch: as many as ``SCRATCH_BYTES`` of
+    """Windows per grad + reduce launch of the FMA route (the highest
+    tier; ``tc_plan`` groups the tensor-core route's): as many as
+    ``SCRATCH_BYTES`` of
     partial grads and saved pre-activations hold, at least one.  A window
     takes at most ``MAX_SLICES`` slabs (row slices), so the scratch of a
     step is bounded whatever the clip's length."""
@@ -379,6 +507,24 @@ def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
     into ``loss_part`` (k * slices) at the window's place.  ``limit``: a
     device int32 (1,) row limit (rows at or past it carry no loss; None:
     every row); ``n_valid``: the loss's normaliser rows (None: n)."""
+    offs, ints, om = _layer_arrays(g)
+    row = lambda t, width: 0 if t is None else t.data_ptr() + 4 * w0 * width
+    n_freq = 0 if g.bt is None else g.bt.shape[1]
+    inv_n = 1.0 / float(g.n if n_valid is None else n_valid)
+    rc = lib.siren_grad(
+        coords.data_ptr(), row(flat, g.layout.size), partial.data_ptr(),
+        row(loss_part, g.slices), pre.data_ptr(), row(targets, g.n),
+        row(cot, g.n), ctypes.addressof(offs), ctypes.addressof(ints),
+        ctypes.addressof(om), len(g.plan.kinds), kn, g.n, g.d, g.h,
+        g.plan.width, g.layout.size, _MODE_CODE[gmode], inv_n, 2.0 * inv_n,
+        row(g.bt, 0), n_freq, g.plan.feature_degree, g.slices, row(limit, 0),
+        stream)
+    _check_rc("siren_grad", rc)
+
+
+def _layer_arrays(g: GradLaunch):
+    """The kernels' per-layer host arrays: int32 [w, b, a offsets] and
+    int32 [kind, forward mode, degree] per layer, and float omegas."""
     L = len(g.plan.kinds)
     offs = g.layout.offsets(L)
     ints = []
@@ -386,48 +532,112 @@ def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
         ints += [_KIND_CODE[g.plan.kinds[li]],
                  _MODE_CODE[g.plan.modes[li] or "highest"],
                  g.plan.degrees[li]]
-    c_offs = (ctypes.c_int32 * len(offs))(*offs)
-    c_ints = (ctypes.c_int32 * len(ints))(*ints)
-    c_om = (ctypes.c_float * L)(*g.plan.omegas)
-    row = lambda t, width: 0 if t is None else t.data_ptr() + 4 * w0 * width
-    n_freq = 0 if g.bt is None else g.bt.shape[1]
-    inv_n = 1.0 / float(g.n if n_valid is None else n_valid)
-    rc = lib.siren_grad(
-        coords.data_ptr(), row(flat, g.layout.size), partial.data_ptr(),
-        row(loss_part, g.slices), pre.data_ptr(), row(targets, g.n),
-        row(cot, g.n), ctypes.addressof(c_offs), ctypes.addressof(c_ints),
-        ctypes.addressof(c_om), L, kn, g.n, g.d, g.h, g.plan.width,
-        g.layout.size, _MODE_CODE[gmode], inv_n, 2.0 * inv_n, row(g.bt, 0),
-        n_freq,
-        g.plan.feature_degree, g.slices, row(limit, 0), stream)
-    _check_rc("siren_grad", rc)
+    return ((ctypes.c_int32 * len(offs))(*offs),
+            (ctypes.c_int32 * len(ints))(*ints),
+            (ctypes.c_float * L)(*g.plan.omegas))
 
 
 def launch_reduce(lib, g: GradLaunch, partial, grads, sq_part, w0: int,
-                  kn: int, stream, loss_part=None, loss_out=None) -> None:
-    """Sum windows [w0, w0 + kn)'s row-slice partials in a fixed order into
-    their rows of ``grads`` (k, P), and their per-chunk sums of squares
-    into ``sq_part`` (k, chunks).  With ``loss_out`` (kernel E), also each
-    window's loss, its slices of ``loss_part`` (k * slices) summed in
-    order, into ``loss_out`` (k)."""
+                  kn: int, stream, loss_part=None, loss_out=None,
+                  slices: int | None = None) -> None:
+    """Sum windows [w0, w0 + kn)'s row-slice partials (``slices`` a window,
+    default the FMA route's) in a fixed order into their rows of ``grads``
+    (k, P), and their per-chunk sums of squares into ``sq_part`` (k,
+    chunks).  With ``loss_out`` (kernel E), also each window's loss, its
+    slices of ``loss_part`` (k * slices) summed in order, into ``loss_out``
+    (k)."""
+    slices = g.slices if slices is None else slices
     rc = lib.siren_reduce(
         partial.data_ptr(), grads.data_ptr() + 4 * w0 * g.layout.size,
         sq_part.data_ptr() + 4 * w0 * sq_part.shape[1],
-        0 if loss_out is None else loss_part.data_ptr() + 4 * w0 * g.slices,
+        0 if loss_out is None else loss_part.data_ptr() + 4 * w0 * slices,
         0 if loss_out is None else loss_out.data_ptr() + 4 * w0, kn,
-        g.slices, g.layout.size, stream)
+        slices, g.layout.size, stream)
     _check_rc("siren_reduce", rc)
+
+
+def tc_launches(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
+                cot=None, gmode: str, limit=None, n_valid: int | None = None,
+                grads=None, loss_out=None):
+    """The tensor-core route of ``grad_reduce`` (``tc_plan``) as its
+    launches in order: per launch group the weights' bf16 planes
+    (``siren_wsplit``), then per row chunk and pass of units the sweep and
+    the dW kernel, then the reduce.  Returns ([(kernel name, launch)],
+    (grads, sq_part, loss_part), scratch): the outputs are filled once
+    every launch has run, and the caller holds ``scratch`` (the buffers
+    and host arrays the launches point at) while they run."""
+    dev = coords.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf16 = dict(dtype=torch.bfloat16, device=dev)
+    tp = tc_plan(g, gmode)
+    S, kg, L, P = tp.slices, tp.windows, len(g.plan.kinds), g.layout.size
+    partial = torch.empty((kg * S, P), **f32)
+    pre = torch.empty((tp.units, L, TILE_FLOATS), **f32)
+    planes = torch.empty((tp.units, max(1, tp.unit_elems)), **bf16)
+    whi = torch.empty((kg, max(1, tp.wq)), **bf16)
+    wlo = torch.empty_like(whi)
+    if grads is None:
+        grads = torch.empty((g.k, P), **f32)
+    sq_part = torch.empty((g.k, -(-P // CHUNK_FLOATS)), **f32)
+    loss_part = torch.empty((g.k * S,), **f32)
+    arrays = _layer_arrays(g)
+    n_freq = 0 if g.bt is None else g.bt.shape[1]
+    inv_n = 1.0 / float(g.n if n_valid is None else n_valid)
+    bt = 0 if g.bt is None else g.bt.data_ptr()
+    lim = 0 if limit is None else limit.data_ptr()
+    gm = _MODE_CODE[gmode]
+    ptrs = [ctypes.addressof(a) for a in arrays]
+    launches = []
+
+    def call(name, *args):
+        launches.append((name, lambda: _check_rc(name, getattr(lib, name)(
+            *args))))
+
+    for w0 in range(0, g.k, kg):
+        kn = min(kg, g.k - w0)
+        row = lambda t, width: 0 if t is None else (t.data_ptr()
+                                                    + 4 * w0 * width)
+        call("siren_wsplit", row(flat, P), whi.data_ptr(), wlo.data_ptr(),
+             *ptrs, L, kn, g.h, P, n_freq, stream)
+        for chunk in range(tp.chunks):
+            for u0, nu in tc_passes(kn * S, tp.units):
+                call("siren_sweep", coords.data_ptr(), row(flat, P),
+                     whi.data_ptr(), wlo.data_ptr(), partial.data_ptr(),
+                     row(loss_part, S), pre.data_ptr(), planes.data_ptr(),
+                     row(targets, g.n), row(cot, g.n), *ptrs, L, g.n, g.d,
+                     g.h, g.plan.width, P, gm, inv_n, 2.0 * inv_n, bt, n_freq,
+                     g.plan.feature_degree, S, u0, nu, chunk, tp.chunk_tiles,
+                     tp.rows_cap, tp.unit_elems, lim, stream)
+                call("siren_dw", coords.data_ptr(), partial.data_ptr(),
+                     planes.data_ptr(), *ptrs, L, g.n, g.d, g.h, P, gm, bt,
+                     n_freq, g.plan.feature_degree, S, u0, nu, chunk,
+                     tp.chunk_tiles, tp.rows_cap, tp.unit_elems, stream)
+        launches.append(("siren_reduce", lambda w0=w0, kn=kn: launch_reduce(
+            lib, g, partial, grads, sq_part, w0, kn, stream, loss_part,
+            loss_out, slices=S)))
+    scratch = (partial, pre, planes, whi, wlo, arrays)
+    return launches, (grads, sq_part, loss_part), scratch
 
 
 def grad_reduce(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
                 cot=None, gmode: str, limit=None, n_valid: int | None = None,
                 grads=None, loss_out=None):
-    """Each window's gradient, over groups of ``window_group`` windows that
-    share one scratch -> (grads (k, P), sq_part (k, chunks), loss_part
-    (k * slices)).  All on the current stream, no host sync.  Kernel E
-    passes its row ``limit``, the whole clip's ``n_valid``, and ``grads``
-    / ``loss_out`` views of its packed buffer, which receive each window's
-    gradient and loss."""
+    """Each window's gradient -> (grads (k, P), sq_part (k, chunks),
+    loss_part (k * slices)).  All on the current stream, no host sync.
+    Kernel E passes its row ``limit``, the whole clip's ``n_valid``, and
+    ``grads`` / ``loss_out`` views of its packed buffer, which receive each
+    window's gradient and loss.  The bf16 tiers take the tensor-core route
+    (``tc_route``); the highest tier the FMA kernel, over groups of
+    ``window_group`` windows that share one scratch."""
+    if tc_route(g.plan, gmode):
+        launches, out, scratch = tc_launches(
+            lib, g, coords, flat, stream, targets=targets, cot=cot,
+            gmode=gmode, limit=limit, n_valid=n_valid, grads=grads,
+            loss_out=loss_out)
+        for _, run in launches:
+            run()
+        del scratch  # the stream orders its reuse after these launches
+        return out
     dev = coords.device
     f32 = dict(dtype=torch.float32, device=dev)
     kg = window_group(g)

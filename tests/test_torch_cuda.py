@@ -462,8 +462,8 @@ def _train_setup(h, k, n, dev, seed=0, lr=1e-3):
     return cfg, model, tc, state, coords, targets
 
 
-@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
-@pytest.mark.parametrize("h", [32, 64, 128, 256, 36])
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest", "bf16", "bf16x3"])
+@pytest.mark.parametrize("h", [32, 64, 128, 256, 36, 40, 48])
 def test_backward_kernel_matches_plain(dev, h, gmode):
     cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
     params = _population(cfg, 3, dev)
@@ -479,7 +479,7 @@ def test_backward_kernel_matches_plain(dev, h, gmode):
                 gmode)
 
 
-@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest", "bf16", "bf16x3"])
 @pytest.mark.parametrize("h,f,d", [(32, 4, 1), (64, 37, 2), (256, 256, 1)])
 def test_rff_backward_kernel_matches_plain(dev, h, f, d, gmode):
     cfg, params, b, bt = _rff_model(h, f, dev, d=d)
@@ -507,7 +507,7 @@ def test_rff_autograd_runs_both_kernels(dev):
     assert all(torch.isfinite(g).all() and g.any() for g in grads)
 
 
-@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3"])
+@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3", "bf16", "highest"])
 @pytest.mark.parametrize("h", [32, 64, 128, 256])
 def test_step_kernel_matches_plain(dev, h, gmode, monkeypatch):
     monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
@@ -538,18 +538,19 @@ def padded_slots(cfg) -> tuple[torch.Tensor, torch.Tensor]:
     return pad, snake
 
 
+@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3", "highest"])
 @pytest.mark.parametrize("h", [36, 40, 48])
-def test_step_kernel_at_padded_widths(dev, h, monkeypatch):
+def test_step_kernel_at_padded_widths(dev, h, gmode, monkeypatch):
     # D on a model between the kernel widths, padded to 64 once per fit,
     # with its own width passed to the kernel: 3 steps against the plain
     # step, and every padded slot bit-zero (snake a bit-one) after them
-    monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", "bf16x2")
+    monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
     cfg, model, tc, state, coords, targets = _train_setup(h, 3, 300, dev)
     fs0 = ss.flat_state_from_train_state(state, cfg)
     before = ss.SIREN_STEP.launches
     a, b, _ = steps_kernel_vs_plain(cfg, tc, coords, targets, fs0)
     assert ss.SIREN_STEP.launches == before + 3
-    check_state(a, b, tc.learning_rate, "bf16x2")
+    check_state(a, b, tc.learning_rate, gmode)
     pad, snake = padded_slots(cfg)
     assert pad.any() and snake.any()
     pad, snake = pad.to(dev), snake.to(dev)
@@ -563,7 +564,7 @@ def test_step_kernel_at_padded_widths(dev, h, monkeypatch):
     assert out.params["layers"][1]["w"].shape == (3, h, h)
 
 
-@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3"])
+@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3", "bf16"])
 @pytest.mark.parametrize("h,f", [(32, 4), (256, 256)])
 def test_rff_step_kernel_matches_plain(dev, h, f, gmode, monkeypatch):
     monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
@@ -615,7 +616,10 @@ def test_rff_step_over_row_slices_is_deterministic_and_budget_free(
     again, (l2, _) = step(clone_state(s0), coords, targets)
     g1 = st.SIREN_BWD(params, cfg, plan, "bf16x2", coords, cot, bt)
     monkeypatch.setattr(st, "SCRATCH_BYTES", 1)
+    monkeypatch.setattr(st, "PLANE_BYTES", 1)
     assert st.window_group(g) == 1 and g.slices == st.MAX_SLICES
+    tp = st.tc_plan(g, "bf16x2")
+    assert (tp.windows, tp.units) == (1, 1)  # every unit its own pass
     small, (l3, _) = step(clone_state(s0), coords, targets)
     g2 = st.SIREN_BWD(params, cfg, plan, "bf16x2", coords, cot, bt)
     assert torch.equal(l1, l2) and torch.equal(l1, l3)
@@ -657,6 +661,15 @@ def test_window_groups_leave_results_bit_equal(dev, h, monkeypatch):
                                 * st.TILE_FLOATS)
     monkeypatch.setattr(st, "SCRATCH_BYTES", 2 * per_window)
     assert st.window_group(g) == 2  # groups of 2, 2, 1
+    # the tensor-core route (this step's bf16x2 grads): groups of windows
+    # within SCRATCH_BYTES and passes of 3 units within PLANE_BYTES
+    tp = st.tc_plan(g, "bf16x2")
+    group, _ = tp.scratch_bytes(g.layout.size, len(plan.kinds))
+    monkeypatch.setattr(st, "SCRATCH_BYTES", 2 * group // tp.windows)
+    monkeypatch.setattr(st, "PLANE_BYTES", tp.scratch_bytes(
+        g.layout.size, len(plan.kinds))[1] // tp.units * 3)
+    tp = st.tc_plan(g, "bf16x2")
+    assert (tp.windows, tp.units) == (2, 3) and tp.slices > 1
     two, (l2, _) = step(clone_state(s0), coords, targets)
     g2 = st.SIREN_BWD(params, cfg, plan, "bf16x2", coords, cot)
     assert torch.equal(l1, l2)
@@ -744,9 +757,9 @@ def check_grad_shard(fs, coords, targets, limit, n_valid, cfg, plan, gmode,
     return out, err, c
 
 
-@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest", "bf16", "bf16x3"])
 @pytest.mark.parametrize("h,f", [(32, 0), (64, 0), (128, 0), (256, 0),
-                                 (32, 4), (256, 256)])
+                                 (32, 4), (256, 256), (40, 0)])
 def test_grad_kernel_matches_plain(dev, h, f, gmode):
     """E on a tail shard: 1000 rows of which the first 700 are real, the
     loss normalised by a whole clip of 2500 rows."""
@@ -757,12 +770,12 @@ def test_grad_kernel_matches_plain(dev, h, f, gmode):
     assert ss.SIREN_GRAD.launches == before + 1
 
 
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
 @pytest.mark.parametrize("h,f", [(32, 0), (256, 256)])
-def test_grad_kernel_empty_shard_and_repeat(dev, h, f):
+def test_grad_kernel_empty_shard_and_repeat(dev, h, f, gmode):
     """A shard with limit 0 gives exact zeros; over a shard of more row
-    tiles than MAX_SLICES two calls are bit-equal."""
+    tiles than MAX_SLICES two calls are bit-equal (both routes)."""
     cfg, plan, bt, fs, coords, targets = shard_setup(h, f, 12000, dev)
-    gmode = st.grad_dot_mode()
     empty = ss.SIREN_GRAD(fs.params, coords, targets, _limit(0, dev), 24000,
                           cfg, plan, gmode, bt)
     a = ss.SIREN_GRAD(fs.params, coords, targets, _limit(11000, dev), 24000,
@@ -772,6 +785,86 @@ def test_grad_kernel_empty_shard_and_repeat(dev, h, f):
     torch.cuda.synchronize()
     assert not empty.any()
     assert torch.equal(a, b) and a.any()
+
+
+@pytest.mark.parametrize("gmode", ["bf16", "bf16x2", "bf16x3", "highest"])
+@pytest.mark.parametrize("kernel", ["C", "D", "E"])
+def test_repeat_calls_are_bit_equal(dev, kernel, gmode, monkeypatch):
+    """Two calls of C, D or E from one state give bit-equal results, on
+    both routes (RFF, h = 256, a window of 375 row tiles)."""
+    monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
+    cfg, plan, bt, fs, coords, targets = shard_setup(256, 64, 12000, dev)
+    if kernel == "C":
+        params = st.unflatten_params(fs.params, cfg)
+        cot = torch.randn(1, 12000, 1, device=dev,
+                          generator=torch.Generator(dev).manual_seed(4))
+        runs = [st.flatten_params(st.SIREN_BWD(params, cfg, plan, gmode,
+                                               coords, cot, bt), cfg)
+                for _ in range(2)]
+    elif kernel == "D":
+        runs = []
+        for _ in range(2):
+            state = clone_state(fs)
+            loss = ss.SIREN_STEP(state.params, state.mu, state.nu,
+                                 state.best_params, coords, targets,
+                                 state.lr, torch.full_like(state.lr, 0.19),
+                                 torch.full_like(state.lr, 0.002),
+                                 state.best_loss, cfg, plan, gmode, 1.0, bt)
+            runs.append(torch.cat([loss, *[t.reshape(-1).float()
+                                           for t in state]]))
+    else:
+        runs = [ss.SIREN_GRAD(fs.params, coords, targets,
+                              _limit(11000, dev), 24000, cfg, plan, gmode,
+                              bt) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.isfinite(runs[0]).all() and runs[0].any()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3"])
+def test_row_chunks_match_plain_and_are_budget_free(dev, gmode, monkeypatch):
+    """A window of more row tiles than MAX_SLICES whose slices go through
+    row chunks (CHUNK_TILES cut to 4: 24 slices of 15-16 tiles in 4
+    chunks): C, D and E against their plain versions, and each bit-equal
+    whatever the passes (PLANE_BYTES) and groups (SCRATCH_BYTES)."""
+    monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
+    monkeypatch.setattr(st, "CHUNK_TILES", 4)
+    n = 12000  # 375 row tiles of 32
+    cfg, model, tc, state, coords, targets, b = _rff_train_setup(
+        256, 64, 2, n, dev)
+    plan = sf.stack_plan(cfg, approx_sin=True, rff=True)
+    bt = sf._prep_rff_bt(b)
+    fs = ss.flat_state_from_train_state(state, cfg)
+    g = st.validate_grad_launch(fs.params, cfg, plan, coords, bt)
+    tp = st.tc_plan(g, gmode)
+    assert g.tiles == 375 > st.MAX_SLICES
+    assert (tp.slices, tp.chunks) == (24, 4)
+    params = st.unflatten_params(fs.params, cfg)
+    cot = torch.randn(2, n, 1, device=dev,
+                      generator=torch.Generator(dev).manual_seed(3))
+    check_rff_backward(params, cfg, plan, gmode, coords, cot, bt)
+    check_rff_steps(cfg, tc, coords, targets, state, b)
+    one = fs.params[:1].clone()
+    check_grad_shard(fs._replace(params=one), coords, targets[:1],
+                     _limit(n - 500, dev), n, cfg, plan, gmode, bt)
+    step = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True, rff_b=b)
+    a, (la, _) = step(clone_state(fs), coords, targets)
+    ga = st.SIREN_BWD(params, cfg, plan, gmode, coords, cot, bt)
+    ea = ss.SIREN_GRAD(one, coords, targets[:1], _limit(n - 500, dev), n,
+                       cfg, plan, gmode, bt)
+    monkeypatch.setattr(st, "SCRATCH_BYTES", 1)
+    monkeypatch.setattr(st, "PLANE_BYTES", 1)
+    assert (st.tc_plan(g, gmode).windows, st.tc_plan(g, gmode).units) == \
+        (1, 1)
+    b2, (lb, _) = step(clone_state(fs), coords, targets)
+    gb = st.SIREN_BWD(params, cfg, plan, gmode, coords, cot, bt)
+    eb = ss.SIREN_GRAD(one, coords, targets[:1], _limit(n - 500, dev), n,
+                       cfg, plan, gmode, bt)
+    assert torch.equal(la, lb) and torch.equal(ea, eb)
+    for x, y in zip(a, b2):
+        assert torch.equal(x, y)
+    for x, y in zip(st.flatten_params(ga, cfg), st.flatten_params(gb, cfg)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("h,f", [(64, 0), (256, 256)])

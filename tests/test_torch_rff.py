@@ -369,9 +369,9 @@ def test_row_slices_bound_a_long_window():
 
 
 def test_grad_reduce_passes_slices_and_rff(monkeypatch):
-    """The launches' pointers and counts for a sliced RFF window: partial
-    and pre are sized by slices, loss_part is (k * slices), and the grad
-    launch gets B's pointer and F."""
+    """The FMA route's (highest tier) launches' pointers and counts for a
+    sliced RFF window: partial and pre are sized by slices, loss_part is
+    (k * slices), and the grad launch gets B's pointer and F."""
     f, k, n = 4, 3, 3000
     cfg = SirenSnakeTanhConfig(in_features=2 * f, hidden_features=32,
                                num_sine=1, num_snake=1)
@@ -389,7 +389,7 @@ def test_grad_reduce_passes_slices_and_rff(monkeypatch):
     assert st.window_group(g) == 2
     lib = _RecordingLibrary()
     grads, sq_part, loss_part = st.grad_reduce(
-        lib, g, coords, flat, 0, targets=torch.zeros(k, n), gmode="bf16x2")
+        lib, g, coords, flat, 0, targets=torch.zeros(k, n), gmode="highest")
     assert loss_part.shape == (k * 5,)
     expect = []
     for w0, kn in ((0, 2), (2, 1)):
@@ -405,7 +405,7 @@ def test_grad_reduce_passes_slices_and_rff(monkeypatch):
     rg = st.validate_grad_launch(rflat, raw, sf.stack_plan(raw), coords)
     lib = _RecordingLibrary()
     st.grad_reduce(lib, rg, coords, rflat, 0, targets=torch.zeros(1, n),
-                   gmode="bf16x2")
+                   gmode="highest")
     assert lib.calls[0][3] == 0 and lib.calls[0][5] == 0
 
 

@@ -457,9 +457,10 @@ class _RecordingLibrary:
 
 
 def test_grad_reduce_launches_window_groups(monkeypatch):
-    # the grad kernels' scratch is tiles * (P + 8192 L) floats per window:
-    # a population goes through grad + reduce in groups that fit
-    # SCRATCH_BYTES, each launch offset to its group's first window
+    # the FMA route's (highest tier) scratch is tiles * (P + 8192 L) floats
+    # per window: a population goes through grad + reduce in groups that
+    # fit SCRATCH_BYTES, each launch offset to its group's first window
+    # (tests/test_torch_grad_plan.py holds the tensor-core route's)
     cfg = SirenSnakeTanhConfig(**CFG)
     plan = sf.stack_plan(cfg, approx_sin=True)
     k, n = 7, 300
@@ -476,7 +477,7 @@ def test_grad_reduce_launches_window_groups(monkeypatch):
     lib = _RecordingLibrary()
     grads, sq_part, loss_part = st.grad_reduce(lib, g, coords, flat, 0,
                                                targets=targets,
-                                               gmode="bf16x2")
+                                               gmode="highest")
     assert grads.shape == (k, g.layout.size)
     assert g.slices == g.tiles  # a short window: one tile per slice
     assert loss_part.shape == (k * g.slices,)
