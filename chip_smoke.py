@@ -20,9 +20,9 @@ h=128, 2 sine + 2 snake layers) at two shapes:
 Phases, each of which fails the run:
 0. build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
    print ptxas's register and spill lines, and the count of HMMA/HGMMA
-   instructions in the SASS of the tensor-core kernels: H's, and every
-   instance of the SIREN grad kernel's sweep and dW kernels (cuobjdump
-   -sass beside nvcc; none in any of them fails the run);
+   instructions in the SASS of the tensor-core kernels: G's and H's, and
+   every instance of the SIREN grad kernel's sweep and dW kernels
+   (cuobjdump -sass beside nvcc; none in any of them fails the run);
 1. per shape and per decode tier, the stack kernel against its plain
    PyTorch version on the card, max-abs within the stated tolerance;
 2. serving decode: full decode, three decode_range seeks (must equal the
@@ -57,7 +57,8 @@ KAN([1, 256, 256, 1]) over the same clip (308,207 rows, f32, weights from
 seed 0), with ``csrc/kan.cu`` built in phase 0 beside the other sources:
 8. kernel G (forward) and kernel H (backward) against their plain versions
    over the full clip, the cotangent that of the MSE loss against the
-   clip; two H calls from one state, which must be bit-equal;
+   clip; two G calls from one input and two H calls from one state, each
+   pair bit-equal;
 9. served through the entry points, in process, with the launch counts set
    to 0 before and read after: the CLI ``fit --device cuda --arch kan
    --fused --hidden 256`` on the clip as a wav (KAN_FIT_STEPS steps), whose
@@ -67,9 +68,9 @@ seed 0), with ``csrc/kan.cu`` built in phase 0 beside the other sources:
    from one initial state (KAN_CMP_STEPS steps), whose final losses must
    agree within a limit set from a 1-ulp-perturbed kernel fit beside them;
 10. timings with CUDA events: G, H and a whole KAN step against their plain
-   versions, each layer's G and H's parts (the cotangent's bf16 split, dW,
-   the fixed-order reduce, W's split for dx, dx), the fit's steps/s and its
-   peak device memory.
+   versions, each layer's G with its route against its plain version and
+   H's parts (the cotangent's bf16 split, dW, the fixed-order reduce, W's
+   split for dx, dx), the fit's steps/s and its peak device memory.
 
 The runner's production mlp (``fit --arch mlp --fused`` at the CLI's
 defaults: h=256, omega0=22000, hidden omega 30, a_initial 0.5, 2 sine + 2
@@ -541,12 +542,18 @@ def kan_phases(np, torch, dev, clip):
         f"abs {out['kan_bwd_err']:.3e} (largest ratio to max |dW| "
         f"{bwd_ratio:.2e}); the plain "
         f"forward's peak {plain_peak / 2**30:.2f} GiB")
+    gout2, xs2 = kf.KAN_FWD(layers, coords, order, mode)
+    torch.cuda.synchronize()
+    if not (torch.equal(gout, gout2)
+            and all(torch.equal(a, b) for a, b in zip(xs, xs2))):
+        raise AssertionError("two G calls from one input differ")
+    log("phase8 two G calls from one input: bit-equal")
     gk2 = kf.KAN_BWD(layers, xr, cot, order, mode)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(gk, gk2)):
         raise AssertionError("two H calls from one state differ")
     log("phase8 two H calls from one state: bit-equal")
-    del gout, xs, gk, gk2, gp
+    del gout, xs, gout2, xs2, gk, gk2, gp
 
     # ---- phase 9: the KAN fit served through the entry points ----
     wav = os.path.join(WORK, "kan_clip.wav")
@@ -643,9 +650,12 @@ def kan_phases(np, torch, dev, clip):
         s = kf._layer_shape(xr[li], grid, w_t, order, li)
         g = torch.ones((n, s.dout), device=dev) / n
         plan = kf.dw_plan(s.n, s.din, s.dout, s.J, mode)
+        fplan = kf.fwd_plan(s.din, s.dout, s.J, mode)
         need_dx = li > 0
         t = {"G": cuda_ms(torch, lambda: kf.KAN_FWD(
-            [(grid, w_t)], xr[li], order, mode), 5)}
+            [(grid, w_t)], xr[li], order, mode), 5),
+             "plain G": cuda_ms(torch, lambda: kf.kan_layer_forward_plain(
+                 xr[li], grid, w_t, order, mode), 3)}
         # H's parts: the cotangent's bf16 split (tensor-core route), dW
         # (the pass without dx, less the split and the reduce), dx (what
         # asking for it adds: W's split and, on the tensor-core and narrow
@@ -666,8 +676,10 @@ def kan_phases(np, torch, dev, clip):
                 lib, xr[li], grid, g, w_t, s, order, mode, stream, True),
                 5) - dw_only
         del partial
-        out["kan_parts"].append(((li, s.din, s.dout, plan.route), t))
-        parts.append(f"layer {li} ({s.din}->{s.dout}, {plan.route}): "
+        out["kan_parts"].append(((li, s.din, s.dout, fplan.route,
+                                  plan.route), t))
+        parts.append(f"layer {li} ({s.din}->{s.dout}, G {fplan.route} "
+                     f"tile {fplan.tile} fc {fplan.fc}, H {plan.route}): "
                      + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
     log("phase10 per layer (CUDA events): " + "; ".join(parts))
     del xr, cot, ref
@@ -1963,9 +1975,10 @@ def build_kernels():
             f"{build_s[name]:.1f} s")
         for line in ptxas_lines((lib.parent / "build.log").read_text()):
             log(f"  ptxas: {line}")
-    # the tensor-core kernels (H's, and the SIREN grad kernel's sweep and
-    # dW in every bf16 tier): their SASS must hold HMMA / HGMMA
-    for lib_name, marks in (("kan", ("_tc_kernel",)),
+    # the tensor-core kernels (G's and H's, and the SIREN grad kernel's
+    # sweep and dW in every bf16 tier): their SASS must hold HMMA / HGMMA
+    for lib_name, marks in (("kan", ("kan_fwd_tc_kernel",
+                                     "kan_bwd_tc_kernel")),
                             ("siren_train", ("siren_sweep_kernel",
                                              "siren_dw_kernel"))):
         counts = sass_mma_counts(library_path(lib_name, [lib_name + ".cu"]))
@@ -2267,6 +2280,8 @@ def main() -> int:
         "bound_by": g_by,
         "library_ms": None,
         "shape": kan_shape,
+        "cuda_kernels": ["kan_split_kernel", "kan_fwd_tc_kernel",
+                         "kan_fwd_narrow_kernel"],
     }, {
         "name": "kan_bwd",
         "route": "cuda",

@@ -84,8 +84,107 @@ def _col_groups(width: int, cap: int) -> int:
     return cg
 
 
-def fwd_plan(din: int, dout: int, J: int) -> tuple[int, int]:
-    """G's (column groups, input features per chunk) for one layer."""
+# H's tensor-core kernel (csrc/kan.cu): K values per tile, rows per chunk;
+# the narrow kernel's feature lanes and row groups
+_TC_TK, _TC_RC = 64, 32
+_NW_F, _NW_RG = 32, 8
+# G's kernels: threads a CTA (the narrow kernel's rows, one a thread); the
+# tensor-core kernel's rows a tile and most features a chunk; the narrow
+# kernel's features a chunk
+_THREADS = 256
+_FW_TM = 64
+_FW_MAX_FC = 2 * _THREADS // _FW_TM   # kFwPairs * kThreads / kFwTM
+_NF_FC = 32
+_SMEM_MAX = 232448       # bytes a block may use on the H100
+_TC_MODES = ("bf16", "bf16x2", "bf16x3")
+
+
+def layer_route(dout: int, mode: str) -> str:
+    """G's and H's route for a layer: 'tc' (tensor cores, dout >= 8) or
+    'narrow' (dout < 8) in the bf16 tiers, 'fma' (CUDA-core FMAs) in the
+    highest."""
+    if mode not in _TC_MODES:
+        return "fma"
+    return "tc" if dout >= 8 else "narrow"
+
+
+def _pow2_at_least(v: int, lo: int, hi: int) -> int:
+    t = lo
+    while t < v and t < hi:
+        t *= 2
+    return t
+
+
+def _round16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """G's launch for one layer: its route (``layer_route``), its column
+    tile (tc: columns, 64..256; narrow: outputs held, >= dout; fma: column
+    groups of 8), input features per chunk, rows per tile."""
+
+    route: str
+    tile: int
+    fc: int
+    tm: int
+
+
+def fwd_tc_smem(tn: int, fc: int, J: int) -> int:
+    """Dynamic shared memory of the tensor-core G (kan.cu fwd_tc_smem): two
+    buffers of A's bf16 planes, two stages of W's, two of knots."""
+    kcp = _round16(fc * J)
+    return (2 * 2 * _FW_TM * (kcp + 8) * 2 + 2 * 2 * kcp * (tn + 8) * 2
+            + 2 * fc * _KNOT_STRIDE * 4)
+
+
+def fwd_narrow_smem(no: int, J: int) -> int:
+    """Dynamic shared memory of the narrow G (kan.cu fwd_narrow_smem): the
+    rows' inputs, W's f32 planes and the knots of one feature chunk."""
+    return 4 * (_THREADS * (_NF_FC + 1) + 2 * _NF_FC * J * no
+                + _NF_FC * _KNOT_STRIDE)
+
+
+def _fc_steps(din: int, fc: int, J: int) -> int:
+    """k16 steps of the tensor-core G over din features in chunks of fc
+    (each chunk's K padded to a multiple of 16)."""
+    full, last = divmod(din, fc)
+    return full * _round16(fc * J) // 16 + _round16(last * J) // 16
+
+
+# the tensor-core G's chunk cost, in k16 steps of its product: a round of
+# the A build (one (row, feature) pair a thread) weighs 8, a chunk's
+# barrier 2.  At the runner's layer 1 the build takes about twice the
+# product's time, and 8 features a chunk (two rounds of 256 pairs, 160
+# steps) beat 7 (two rounds, the second a quarter full; 147 steps) by 6%
+# (ops/kan_fwd_ab.py on an H100).
+_FW_ROUND, _FW_CHUNK = 8, 2
+
+
+def _fc_cost(din: int, fc: int, J: int) -> int:
+    chunks = [min(fc, din - f0) for f0 in range(0, din, fc)]
+    rounds = sum(-(-_FW_TM * nf // _THREADS) for nf in chunks)
+    return (_fc_steps(din, fc, J) + _FW_ROUND * rounds
+            + _FW_CHUNK * len(chunks))
+
+
+def fwd_plan(din: int, dout: int, J: int, mode: str = "bf16x3") -> FwdPlan:
+    """G's launch for one layer.  tc: the column tile is the least power of
+    two >= dout in 64..256, and the chunk (at most _FW_MAX_FC features: two
+    (row, feature) pairs a thread) the one of least ``_fc_cost`` within
+    shared memory, ties to the larger.  fma: the column groups that cover
+    dout (<= 32) and the most features a chunk within _SMEM_BUDGET."""
+    route = layer_route(dout, mode)
+    if route == "tc":
+        tile = _pow2_at_least(dout, 64, 256)
+        fits = [fc for fc in range(1, min(din, _FW_MAX_FC) + 1)
+                if fwd_tc_smem(tile, fc, J) <= _SMEM_MAX]
+        fc = min(fits, key=lambda fc: (_fc_cost(din, fc, J), -fc))
+        return FwdPlan(route, tile, fc, _FW_TM)
+    if route == "narrow":
+        return FwdPlan(route, _pow2_at_least(dout, 1, 8), min(din, _NF_FC),
+                       _THREADS)
     cg = _col_groups(dout, 32)
     tm, tn = 1024 // cg, 8 * cg
 
@@ -96,15 +195,7 @@ def fwd_plan(din: int, dout: int, J: int) -> tuple[int, int]:
     fc = 1
     while fc < din and smem(fc + 1) <= _SMEM_BUDGET:
         fc += 1
-    return cg, fc
-
-
-# H's tensor-core kernel (csrc/kan.cu): K values per tile, rows per chunk;
-# the narrow kernel's feature lanes and row groups
-_TC_TK, _TC_RC = 64, 32
-_NW_F, _NW_RG = 32, 8
-_SMEM_MAX = 232448       # bytes a block may use on the H100
-_TC_MODES = ("bf16", "bf16x2", "bf16x3")
+    return FwdPlan(route, cg, fc, tm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,19 +214,6 @@ class DwPlan:
     slices: int
 
 
-def dw_route(dout: int, mode: str) -> str:
-    if mode not in _TC_MODES:
-        return "fma"
-    return "tc" if dout >= 8 else "narrow"
-
-
-def _pow2_at_least(v: int, lo: int, hi: int) -> int:
-    t = lo
-    while t < v and t < hi:
-        t *= 2
-    return t
-
-
 def bwd_tc_smem(tn: int, fck: int, dx: bool) -> int:
     """Dynamic shared memory of the tensor-core backward (kan.cu
     bwd_tc_smem): A^T's planes, two stages of g's planes, the knots and,
@@ -152,7 +230,7 @@ def dw_plan(n: int, din: int, dout: int, J: int,
     fills the card; the slice count depends on the shapes (and the tier's
     route) alone, so the summation order does not depend on the scratch
     budget."""
-    route = dw_route(dout, mode)
+    route = layer_route(dout, mode)
     if route == "tc":
         tile = _pow2_at_least(dout, 32, 256)
         fck = min(din, _TC_TK // J)
@@ -190,7 +268,7 @@ def dx_fused(dout: int, mode: str) -> bool:
     """Whether a layer's dx comes out of its dW pass (the tensor-core and
     narrow routes; the tensor-core one needs every output in one column
     tile, dout <= 256); else the FMA dx kernel runs after it."""
-    route = dw_route(dout, mode)
+    route = layer_route(dout, mode)
     return route == "narrow" or (route == "tc" and dout <= 256)
 
 
@@ -303,6 +381,9 @@ class _KanLibrary:
             lib.kan_gsplit.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I,
                                                   _P]
             lib.kan_forward.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+            lib.kan_forward_tc.argtypes = ([_P] * 4 + [_I, _P] + [_I] * 8
+                                           + [_P])
+            lib.kan_forward_narrow.argtypes = [_P] * 5 + [_I] * 7 + [_P]
             lib.kan_dw.argtypes = [_P] * 4 + [_I] * 12 + [_P]
             lib.kan_bwd_tc.argtypes = ([_P] * 6 + [_I] + [_P] * 2
                                        + [_I] * 11 + [_P])
@@ -310,6 +391,7 @@ class _KanLibrary:
             lib.kan_reduce.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _P]
             lib.kan_dx.argtypes = [_P] * 6 + [_I] * 8 + [_P]
             for fn in (lib.kan_split, lib.kan_gsplit, lib.kan_forward,
+                       lib.kan_forward_tc, lib.kan_forward_narrow,
                        lib.kan_dw, lib.kan_bwd_tc, lib.kan_bwd_narrow,
                        lib.kan_reduce, lib.kan_dx):
                 fn.restype = ctypes.c_int
@@ -366,8 +448,8 @@ def _layer_shape(x: torch.Tensor, grid: torch.Tensor, w_t: torch.Tensor,
 
 
 def _split(lib, w_t, s: LayerShape, code: int, stream, *, rows: bool):
-    """W's f32 hi/lo planes: (K, dout) for G when ``rows``, else (dout, K)
-    for H's FMA and narrow dx."""
+    """W's f32 hi/lo planes: (K, dout) for G's narrow and FMA kernels when
+    ``rows``, else (dout, K) for H's FMA and narrow dx."""
     f32 = dict(dtype=torch.float32, device=w_t.device)
     shape = (s.K, s.dout) if rows else (s.dout, s.K)
     hi, lo = torch.empty(shape, **f32), torch.empty(shape, **f32)
@@ -378,17 +460,14 @@ def _split(lib, w_t, s: LayerShape, code: int, stream, *, rows: bool):
     return hi, lo
 
 
-def split_w_bf16(lib, w_t, s: LayerShape, plan: DwPlan, code: int,
-                 stream):
-    """W's bf16 hi/lo planes (K, tile) for H's tensor-core dx: dout padded
-    to the column tile, zero past dout."""
+def split_w_bf16(lib, w_t, s: LayerShape, ldw: int, code: int, stream):
+    """W's bf16 hi/lo planes (K, ldw) for the tensor-core G and dx: dout
+    padded to whole column tiles, zero past dout."""
     bf = dict(dtype=torch.bfloat16, device=w_t.device)
-    shape = (s.K, plan.tile)
-    hi, lo = torch.zeros(shape, **bf), torch.zeros(shape, **bf)
+    hi, lo = torch.zeros((s.K, ldw), **bf), torch.zeros((s.K, ldw), **bf)
     _check_rc("kan_split", lib.kan_split(w_t.data_ptr(), 0, 0, 0, 0,
-                                         hi.data_ptr(), lo.data_ptr(),
-                                         plan.tile, s.dout, s.K, code,
-                                         stream))
+                                         hi.data_ptr(), lo.data_ptr(), ldw,
+                                         s.dout, s.K, code, stream))
     return hi, lo
 
 
@@ -405,8 +484,38 @@ def split_g(lib, g, s: LayerShape, plan: DwPlan, stream):
     return hi, lo
 
 
+def layer_forward(lib, x, grid, w_t, s: LayerShape, order: int, mode: str,
+                  stream) -> torch.Tensor:
+    """One layer of G: y (n, dout) on the route of ``fwd_plan``, with W's
+    planes made here: bf16 (K, whole column tiles) for the tensor cores,
+    f32 (K, dout) for the narrow and FMA kernels."""
+    plan = fwd_plan(s.din, s.dout, s.J, mode)
+    code = _MODE_CODE[mode]
+    y = torch.empty((s.n, s.dout), dtype=torch.float32, device=x.device)
+    dims = (s.n, s.din, s.dout, s.nk, order, code)
+    if plan.route == "tc":
+        ldw = -(-s.dout // plan.tile) * plan.tile
+        whi, wlo = split_w_bf16(lib, w_t, s, ldw, code, stream)
+        _check_rc("kan_forward_tc", lib.kan_forward_tc(
+            x.data_ptr(), grid.data_ptr(), whi.data_ptr(), wlo.data_ptr(),
+            ldw, y.data_ptr(), *dims, plan.tile, plan.fc, stream))
+        return y
+    whi, wlo = _split(lib, w_t, s, code, stream, rows=True)
+    if plan.route == "narrow":
+        _check_rc("kan_forward_narrow", lib.kan_forward_narrow(
+            x.data_ptr(), grid.data_ptr(), whi.data_ptr(), wlo.data_ptr(),
+            y.data_ptr(), *dims, plan.tile, stream))
+    else:
+        _check_rc("kan_forward", lib.kan_forward(
+            x.data_ptr(), grid.data_ptr(), whi.data_ptr(), wlo.data_ptr(),
+            y.data_ptr(), *dims, plan.tile, plan.fc, stream))
+    return y
+
+
 class _KanFwdKernel(LaunchCounter):
-    """Kernel G: the stack forward, one launch per layer (plus W's split).
+    """Kernel G: the stack forward, one launch per layer (plus W's split):
+    on tensor cores (dout >= 8) or as weighted sums per row (dout < 8) in
+    the bf16 tiers, CUDA-core FMAs in the highest.
     ``launches`` rises by one per stack forward launched, nowhere else."""
 
     def __call__(self, layers, coords: torch.Tensor, order: int, mode: str):
@@ -415,23 +524,14 @@ class _KanFwdKernel(LaunchCounter):
         dev = coords.device
         _check_cuda("coords", dev)
         lib = KAN_LIBRARY()
-        code = _MODE_CODE[mode]
         x, xs = coords, [coords]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             for li, (grid, w_t) in enumerate(layers):
                 s = _layer_shape(x, grid, w_t, order, li)
-                whi, wlo = _split(lib, w_t, s, code, stream, rows=True)
-                cg, fc = fwd_plan(s.din, s.dout, s.J)
-                y = torch.empty((s.n, s.dout), dtype=torch.float32,
-                                device=dev)
-                _check_rc("kan_forward", lib.kan_forward(
-                    x.data_ptr(), grid.data_ptr(), whi.data_ptr(),
-                    wlo.data_ptr(), y.data_ptr(), s.n, s.din, s.dout, s.nk,
-                    order, code, cg, fc, stream))
-                x = y
+                x = layer_forward(lib, x, grid, w_t, s, order, mode, stream)
                 if li < len(layers) - 1:
-                    xs.append(y)
+                    xs.append(x)
         self.count()
         return x, xs
 
@@ -452,8 +552,8 @@ def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
     dx = torch.empty((s.n, s.din), **f32) if need_dx else None
     if plan.route == "tc":
         ghi, glo = split_g(lib, g, s, plan, stream)
-        whi, wlo = (split_w_bf16(lib, w_t, s, plan, code, stream) if fused
-                    else (None, None))
+        whi, wlo = (split_w_bf16(lib, w_t, s, plan.tile, code, stream)
+                    if fused else (None, None))
     elif need_dx:
         thi, tlo = _split(lib, w_t, s, code, stream, rows=False)
     group = dw_group(plan, s.dout, s.K)

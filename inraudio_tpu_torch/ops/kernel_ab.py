@@ -12,18 +12,22 @@ the same card:
     python3 inraudio_tpu_torch/ops/kernel_ab.py save . change.pt
     python3 inraudio_tpu_torch/ops/kernel_ab.py compare parent.pt change.pt
 
-The results (36), each at the kernel widths h = 32, 64, 128, 256 where it
+The results (43), each at the kernel widths h = 32, 64, 128, 256 where it
 has an h: the stack kernel's output (3 windows x 700 rows, approx_sin),
 C's gradients (bf16x2 and highest grad tiers, a random cotangent), D's
 state (params, mu, nu, best) and loss after 3 steps; E's buffer (grads and
 loss) for the first window's initial state on a shard of its 700 rows
 with a row limit of 500 and a clip of 900 valid rows (bf16x2 and
 highest); D's params after 2 steps of an RFF model (h = 256, 256
-frequencies, 5000 rows); G's output (bf16x3) and H's dW per layer (highest
-tier) for KAN([1, 64, 64, 1]) and KAN([2, 32, 3]) over 3000 rows.  The
-bf16-tier C, D and E results follow the grad kernel's route; the stack
-kernel's, G's, H's and every highest-tier result are the ones a change of
-the bf16 route must leave bit-equal.
+frequencies, 5000 rows); for KAN([1, 64, 64, 1]) and KAN([2, 32, 3]) over
+3000 rows: G's output in the bf16x3 and highest tiers, G's bf16x3 output
+of each layer alone on a fixed input of its width, and H's dW per layer
+(highest tier).  The bf16-tier C, D and E results follow the grad
+kernel's route, and G's bf16x3 results of a layer with dout >= 8 (and so
+both stacks' bf16x3 outputs) the tensor-core G's; the stack kernel's,
+H's, every highest-tier result and G's bf16x3 output of a layer with dout
+< 8 (the narrow G, tile_gemm's chains) are the ones that must stay
+bit-equal across those changes.
 """
 
 from __future__ import annotations
@@ -106,6 +110,12 @@ def save(root: str, dest: str) -> int:
         x = torch.rand(3000, lh[0], device=dev,
                        generator=torch.Generator(dev).manual_seed(2)) * 2 - 1
         out[f"G{lh}"], _ = kf.KAN_FWD(layers, x, 3, "bf16x3")
+        out[f"G-highest{lh}"], _ = kf.KAN_FWD(layers, x, 3, "highest")
+        gen = torch.Generator(dev).manual_seed(4)
+        for i, layer in enumerate(layers):
+            xi = torch.rand(3000, layer[0].shape[0], device=dev,
+                            generator=gen) * 2.2 - 1.1
+            out[f"G-layer{lh}-{i}"], _ = kf.KAN_FWD([layer], xi, 3, "bf16x3")
         g = torch.randn(3000, lh[-1], device=dev,
                         generator=torch.Generator(dev).manual_seed(3)) / 3000
         _, xs = kf.KAN_FWD(layers, x, 3, "highest")

@@ -971,13 +971,15 @@ def test_sharded_step_on_two_ranks_matches_d(dev):
 # ---------------------------------------------------------------------------
 
 # kernel vs plain, both in the bf16x3 or highest tier: the kernel sums
-# each row's K = in * J products in its own order (sequential fmaf per
-# chunk), the plain version through cuBLAS, and expf differs from
-# torch.exp by an ulp.  A layer output is bounded relative to its term
-# scale, max over rows of sum_k |A_k| |W_k| (outputs that cancel to well
-# below their terms carry the terms' rounding); a gradient relative to its
-# largest |value|.  On the H100 at the runner shape over the full clip
-# (chip_smoke.py phase 8): 2.7e-7 of the term scale, 3.5e-6 of max |dW|.
+# each row's K = in * J products in its own order (sequential fmaf chains,
+# or 16 at a time on the tensor cores), the plain version through cuBLAS,
+# and expf differs from torch.exp by an ulp.  A layer output is bounded
+# relative to its term scale, max over rows of sum_k |A_k| |W_k| (outputs
+# that cancel to well below their terms carry the terms' rounding); a
+# gradient relative to its largest |value|.  On the H100 at the runner
+# shape over the full clip (chip_smoke.py phase 8): 2.7e-7 of the term
+# scale with G's products as FMA chains, 1.09e-6 on the tensor cores;
+# 7.7e-6 of max |dW|.
 KAN_RTOL = 2e-5
 KAN_GRAD_RTOL = 1e-4
 # one-pass bf16 roundings of A flip with an ulp of silu or a basis: a
@@ -1046,10 +1048,23 @@ def kan_setup(cfg_kw, n, dev, seed=0):
     return list(zip(flat[0::2], flat[1::2])), coords, cot
 
 
+def kan_fwd_routes(layers, mode) -> list[str]:
+    """G's route of each layer (kf.fwd_plan) in the tier."""
+    return [kf.fwd_plan(grid.shape[0], w_t.shape[0],
+                        w_t.shape[1] // grid.shape[0], mode).route
+            for grid, w_t in layers]
+
+
 @pytest.mark.parametrize("cfg_kw", KAN_CONFIGS, ids=KAN_IDS)
 def test_kan_kernels_match_plain(dev, cfg_kw):
     order = KANConfig(**cfg_kw).spline_order
     layers, coords, cot = kan_setup(cfg_kw, 3001, dev)
+    # 3001 rows: a part tile on both routes (64 rows a tensor-core tile,
+    # 256 a narrow CTA); every config has a tensor-core layer, and a head
+    # with dout < 8 takes the narrow route
+    heads = [w_t.shape[0] for _, w_t in layers]
+    assert kan_fwd_routes(layers, "bf16x3") == [
+        "tc" if d >= 8 else "narrow" for d in heads]
     out, xs = kf.KAN_FWD(layers, coords, order, "bf16x3")
     ref, xs_ref = kf.kan_forward_plain(layers, coords, order, "bf16x3")
     gk = kf.KAN_BWD(layers, xs_ref, cot, order, "bf16x3")
@@ -1060,20 +1075,60 @@ def test_kan_kernels_match_plain(dev, cfg_kw):
         check_kan(a, b, KAN_GRAD_RTOL)
 
 
+@pytest.mark.parametrize("cfg_kw", KAN_CONFIGS, ids=KAN_IDS)
 @pytest.mark.parametrize("mode", ["highest", "bf16x2", "bf16"])
-def test_kan_kernels_every_tier(dev, mode):
-    cfg_kw = dict(layers_hidden=(1, 64, 64, 1))
+def test_kan_kernels_every_tier(dev, mode, cfg_kw):
+    order = KANConfig(**cfg_kw).spline_order
     layers, coords, cot = kan_setup(cfg_kw, 2000, dev)
     exact = mode == "highest"
-    out, xs = kf.KAN_FWD(layers, coords, 3, mode)
-    ref, xs_ref = kf.kan_forward_plain(layers, coords, 3, mode)
-    gk = kf.KAN_BWD(layers, xs_ref, cot, 3, mode)
-    gp = kf.kan_backward_plain(layers, xs_ref, cot, 3, mode)
+    out, xs = kf.KAN_FWD(layers, coords, order, mode)
+    ref, xs_ref = kf.kan_forward_plain(layers, coords, order, mode)
+    gk = kf.KAN_BWD(layers, xs_ref, cot, order, mode)
+    gp = kf.kan_backward_plain(layers, xs_ref, cot, order, mode)
     torch.cuda.synchronize()
-    check_kan_outputs(layers, xs, out, xs_ref, ref, 3,
+    check_kan_outputs(layers, xs, out, xs_ref, ref, order,
                       KAN_RTOL if exact else KAN_BF16_RTOL)
     for a, b in zip(gk, gp):
         check_kan(a, b, KAN_GRAD_RTOL if exact else KAN_BF16_RTOL)
+
+
+def test_kan_forward_is_deterministic(dev):
+    """Two G calls from one input are bit-equal on both routes (no float
+    atomics; every output element is summed by one thread or one mma
+    fragment in a fixed order), including a layer of two column tiles."""
+    for cfg_kw in (dict(layers_hidden=(1, 256, 256, 1)),
+                   dict(layers_hidden=(1, 320, 320, 3))):
+        layers, coords, _ = kan_setup(cfg_kw, 6000, dev)
+        a, xa = kf.KAN_FWD(layers, coords, 3, "bf16x3")
+        b, xb = kf.KAN_FWD(layers, coords, 3, "bf16x3")
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        assert all(torch.equal(p, q) for p, q in zip(xa, xb))
+
+
+def test_kan_forward_highest_keeps_the_fma_route(dev):
+    """The highest tier's G is the FMA kernel (tile_gemm), exact f32
+    products in k order; its C entry takes that tier only."""
+    cfg_kw = dict(layers_hidden=(2, 32, 32, 3))
+    layers, coords, _ = kan_setup(cfg_kw, 1000, dev)
+    assert kan_fwd_routes(layers, "highest") == ["fma"] * 3
+    out, xs = kf.KAN_FWD(layers, coords, 3, "highest")
+    ref, xs_ref = kf.kan_forward_plain(layers, coords, 3, "highest")
+    torch.cuda.synchronize()
+    check_kan_outputs(layers, xs, out, xs_ref, ref, 3)
+    lib = kf.KAN_LIBRARY()
+    grid, w_t = layers[0]
+    s = kf._layer_shape(coords, grid, w_t, 3, 0)
+    plan = kf.fwd_plan(s.din, s.dout, s.J, "highest")
+    stream = torch.cuda.current_stream().cuda_stream
+    whi, wlo = kf._split(lib, w_t, s, kf._MODE_CODE["bf16x3"], stream,
+                         rows=True)
+    y = torch.empty((s.n, s.dout), device=dev)
+    assert lib.kan_forward(coords.data_ptr(), grid.data_ptr(),
+                           whi.data_ptr(), wlo.data_ptr(), y.data_ptr(),
+                           s.n, s.din, s.dout, s.nk, 3,
+                           kf._MODE_CODE["bf16x3"], plan.tile, plan.fc,
+                           stream) != 0
 
 
 def test_kan_backward_is_deterministic_and_budget_free(dev, monkeypatch):

@@ -237,28 +237,81 @@ def test_fused_model_trains_through_the_port_loop():
     assert res.loss_history[-1] < 0.5 * res.loss_history[0]
 
 
+# (din, dout, J, rows): the runner KAN's and the RFF recipe's layers over
+# the clip, and the layers of the card tests' KANs
+PLAN_SHAPES = [(1, 256, 9, 308_207), (256, 256, 9, 308_207),
+               (256, 1, 9, 308_207), (512, 128, 9, 308_207),
+               (128, 128, 9, 308_207), (2, 32, 9, 300), (32, 3, 9, 300),
+               (16, 1, 11, 7), (1, 16, 16, 1), (16, 16, 9, 3001),
+               (32, 32, 9, 3001), (2, 16, 9, 3001), (16, 3, 11, 3001),
+               (32, 3, 10, 3001), (1, 32, 9, 3001), (32, 1, 9, 3001),
+               (64, 320, 9, 3001), (1, 320, 9, 3001), (320, 320, 9, 3001),
+               (320, 1, 9, 3001)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=["x".join(map(str, s)) for s in PLAN_SHAPES])
+def test_forward_plan_fits_the_kernels(shape):
+    """G's plan for one layer in every tier: the route by (dout, tier), the
+    shared memory within a CTA's, and every input feature, output column
+    and row covered by the chunks, column tiles and row tiles launched."""
+    din, dout, J, n = shape
+    for mode in ("bf16x3", "bf16x2", "bf16", "highest"):
+        plan = kf.fwd_plan(din, dout, J, mode)
+        assert plan.route == kf.layer_route(dout, mode)
+        if mode == "highest":
+            assert plan.route == "fma"
+        else:
+            assert plan.route == ("tc" if dout >= 8 else "narrow")
+        assert 1 <= plan.fc <= din
+        if plan.route == "tc":
+            assert plan.tile in (64, 128, 256) and plan.tm == 64
+            assert plan.tile >= min(dout, 256)
+            # at most two (row, feature) pairs of a chunk a thread
+            assert plan.tm * plan.fc <= 2 * 256
+            assert kf.fwd_tc_smem(plan.tile, plan.fc, J) <= kf._SMEM_MAX
+            col_tiles = -(-dout // plan.tile)
+            # the chunks' K, each padded to whole k16 steps
+            chunks = [min(plan.fc, din - f0) for f0 in range(0, din,
+                                                             plan.fc)]
+            assert sum(chunks) == din
+            assert kf._fc_steps(din, plan.fc, J) == sum(
+                -(-c * J // 16) for c in chunks)
+        elif plan.route == "narrow":
+            assert plan.tile in (1, 2, 4, 8) and dout <= plan.tile
+            assert plan.tm == 256 and plan.fc == min(din, 32)
+            assert kf.fwd_narrow_smem(plan.tile, J) <= kf._SMEM_MAX
+            col_tiles = 1
+        else:
+            assert plan.tile in (1, 2, 4, 8, 16, 32)
+            assert plan.tm == 1024 // plan.tile
+            tn = 8 * plan.tile
+            assert tn >= min(dout, 256)
+            kcp = kf._round4(plan.fc * J)
+            assert 4 * (2 * plan.tm * kf._ld(kcp) + 2 * kcp * tn
+                        + plan.fc * kf._KNOT_STRIDE) <= kf._SMEM_MAX
+            col_tiles = -(-dout // tn)
+        # every output column: the column tiles, each of plan.tile columns
+        # (fma: 8 a group) or every output held (narrow)
+        width = {"tc": plan.tile, "narrow": plan.tile,
+                 "fma": 8 * plan.tile}[plan.route]
+        assert col_tiles * width >= dout > (col_tiles - 1) * width
+        row_tiles = -(-n // plan.tm)
+        assert row_tiles * plan.tm >= n > (row_tiles - 1) * plan.tm
+
+
 def test_plans_fit_the_kernels(monkeypatch):
     """The launch plans stay within a CTA's shared memory and cover every
     feature, output column and row, at the runner shape and the narrow
     test shapes, for H's tensor-core, narrow and FMA routes; the dW slice
     count depends on the shapes alone (never on the scratch budget)."""
-    shapes = [(1, 256, 9, 308_207), (256, 256, 9, 308_207),
-              (256, 1, 9, 308_207), (512, 128, 9, 308_207),
-              (128, 128, 9, 308_207), (2, 32, 9, 300), (32, 3, 9, 300),
-              (16, 1, 11, 7), (1, 16, 16, 1), (16, 16, 9, 3001),
-              (32, 32, 9, 3001), (2, 16, 9, 3001), (16, 3, 11, 3001),
-              (32, 3, 10, 3001), (1, 32, 9, 3001), (32, 1, 9, 3001),
-              (64, 320, 9, 3001), (1, 320, 9, 3001), (320, 320, 9, 3001),
-              (320, 1, 9, 3001)]
+    shapes = PLAN_SHAPES
     routes = set()
     for din, dout, J, n in shapes:
-        cg, fc = kf.fwd_plan(din, dout, J)
-        assert cg in (1, 2, 4, 8, 16, 32) and 1 <= fc <= din
-        assert 8 * cg >= min(dout, 256)
         for mode in ("bf16x3", "bf16x2", "bf16", "highest"):
             plan = kf.dw_plan(n, din, dout, J, mode)
             routes.add(plan.route)
-            assert plan.route == kf.dw_route(dout, mode)
+            assert plan.route == kf.layer_route(dout, mode)
             if plan.route == "tc":
                 assert plan.tile in (32, 64, 128, 256) and plan.rc == 32
                 assert plan.tile >= min(dout, 256) and plan.fck * J <= 64
@@ -285,7 +338,12 @@ def test_plans_fit_the_kernels(monkeypatch):
     assert routes == {"tc", "narrow", "fma", "dx in the tc pass",
                       "dx in the narrow pass", "dx-fma"}
     # the runner shape: layer 1 on tensor cores with all 256 columns in one
-    # tile (bases once per row), the head narrow, both dx in their dW pass
+    # tile (bases once per row), the head narrow, in G as in H, and both dx
+    # in their dW pass
+    assert kf.fwd_plan(256, 256, 9) == kf.FwdPlan("tc", 256, 8, 64)
+    assert kf.fwd_plan(1, 256, 9).tile == 256
+    assert kf.fwd_plan(256, 1, 9) == kf.FwdPlan("narrow", 1, 32, 256)
+    assert kf.fwd_plan(256, 256, 9, "highest").route == "fma"
     assert kf.dw_plan(308_207, 256, 256, 9).tile == 256
     assert kf.dw_plan(308_207, 256, 1, 9).route == "narrow"
     assert kf.dx_fused(256, "bf16x3") and kf.dx_fused(1, "bf16x3")
