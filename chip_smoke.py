@@ -20,11 +20,15 @@ h=128, 2 sine + 2 snake layers) at two shapes:
 Phases, each of which fails the run:
 0. build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
    print ptxas's register and spill lines, and the count of HMMA/HGMMA
-   instructions in the SASS of the tensor-core kernels: G's and H's, and
-   every instance of the SIREN grad kernel's sweep and dW kernels
-   (cuobjdump -sass beside nvcc; none in any of them fails the run);
+   instructions in the SASS of the tensor-core kernels: G's and H's, every
+   instance of the SIREN grad kernel's sweep and dW kernels, and the stack
+   forward's tensor-core kernel at every width (cuobjdump -sass beside
+   nvcc; none in any of them fails the run);
 1. per shape and per decode tier, the stack kernel against its plain
-   PyTorch version on the card, max-abs within the stated tolerance;
+   PyTorch version on the card, max-abs within the stated tolerance, with
+   the route of each call (``stack_launch``: the tensor-core kernel in the
+   bf16 tiers, the FMA kernel where a layer is highest; phases 4, 11 and 13
+   print theirs too);
 2. serving decode: full decode, three decode_range seeks (must equal the
    full decode's slice), an upsample=2 decode and a CLI subprocess, with
    the stack kernel's launch count read around the in-process requests;
@@ -246,6 +250,9 @@ WIDTH_D_STEPS = 100
 # highest tier runs siren_grad_kernel in their place), for the kernels line
 TC_KERNELS = ["siren_wsplit_kernel", "siren_sweep_kernel", "siren_dw_kernel",
               "siren_reduce_kernel"]
+# the CUDA kernels that serve the stack forward (A, B, B-RFF) in the bf16
+# tiers (a plan with a highest layer runs siren_stack_kernel in their place)
+STACK_KERNELS = ["siren_stack_split_kernel", "siren_stack_tc_kernel"]
 # the card's published peaks (NVIDIA H100 SXM, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
@@ -785,7 +792,9 @@ def runner_phases(np, torch, dev, clip):
             ok = (bool(torch.isfinite(kout).all()) and err <= limit
                   and pre_err <= RFF_PRE_RTOL * pre_scale)
             errs.append(err)
-            log(f"phase11 {name} stack tier={tier} kwargs={kw}: output max "
+            route = sf.stack_launch(plan, RUNNER_H, n).route
+            log(f"phase11 {name} stack tier={tier} route={route} kwargs={kw}"
+                f": output max "
                 f"abs {err:.3e} (limit {limit:.3e} = max({RUNNER_CTRL_X} x "
                 f"control {c:.3e}, {floor})), {bulk:.4f} of rows within "
                 f"{BF16_BULK_ATOL}; layer-0 pre max abs "
@@ -998,7 +1007,9 @@ def runner_phases(np, torch, dev, clip):
                      + split["siren_dw"])
         t["reduce"] = split["siren_reduce"]
         parts = t["grad"] + t["reduce"] + t["adam"]
-        log(f"phase13 {name}: stack kernel {t['stack']:.3f} ms (plain "
+        route = sf.stack_launch(plan, RUNNER_H, n).route
+        log(f"phase13 {name}: stack kernel ({route} route) "
+            f"{t['stack']:.3f} ms (plain "
             f"{t['stack_plain']:.3f}), C {t['bwd']:.3f} ms (plain "
             f"{t['bwd_plain']:.3f}), whole step {t['step']:.3f} ms (plain "
             f"{t['step_plain']:.3f}); one step's split: grad accumulation "
@@ -1975,12 +1986,14 @@ def build_kernels():
             f"{build_s[name]:.1f} s")
         for line in ptxas_lines((lib.parent / "build.log").read_text()):
             log(f"  ptxas: {line}")
-    # the tensor-core kernels (G's and H's, and the SIREN grad kernel's
-    # sweep and dW in every bf16 tier): their SASS must hold HMMA / HGMMA
+    # the tensor-core kernels (G's and H's, the SIREN grad kernel's sweep
+    # and dW in every bf16 tier, and the stack forward's at every width):
+    # their SASS must hold HMMA / HGMMA
     for lib_name, marks in (("kan", ("kan_fwd_tc_kernel",
                                      "kan_bwd_tc_kernel")),
                             ("siren_train", ("siren_sweep_kernel",
-                                             "siren_dw_kernel"))):
+                                             "siren_dw_kernel")),
+                            ("siren_stack", ("siren_stack_tc_kernel",))):
         counts = sass_mma_counts(library_path(lib_name, [lib_name + ".cu"]))
         if counts is None:
             log("  sass: the toolkit has no cuobjdump beside nvcc; the HMMA "
@@ -1990,6 +2003,11 @@ def build_kernels():
               if any(m in name for m in marks)}
         for name, c in tc.items():
             log(f"  sass: {c} HMMA/HGMMA instructions in {name}")
+        if lib_name == "siren_stack":
+            lib = library_path(lib_name, [lib_name + ".cu"])
+            for line in ptxas_lines((lib.parent / "build.log").read_text()):
+                if "siren_stack_tc_kernel" in line:
+                    log(f"  stack tc kernel registers: {line}")
         for m in marks:
             if not any(m in name for name in tc):
                 raise RuntimeError(f"{lib_name}: no {m} instance in the SASS")
@@ -2067,14 +2085,16 @@ def main() -> int:
             codec._decode_grid(payload["meta"]["chunk_length"], 1)).to(dev)
         for tier in TIER_FITS:
             kw = tier_kwargs(tier, cfg)
+            plan = sf.stack_plan(cfg, **kw)
+            route = sf.stack_launch(plan, 128, coords.shape[0]).route
             out = sf.fused_siren_apply_stacked(params, cfg, coords, **kw)
-            ref = sf.stack_forward_plain(params, sf.stack_plan(cfg, **kw),
-                                         coords)
+            ref = sf.stack_forward_plain(params, plan, coords)
             torch.cuda.synchronize()
             err = check_close(out, ref, kw)
             errs[(name, tier)] = err
-            log(f"phase1 {name} tier={tier} kwargs={kw} max_abs_err={err:.3e}"
-                f" out_absmax={float(ref.abs().max()):.4f}")
+            log(f"phase1 {name} tier={tier} route={route} kwargs={kw} "
+                f"max_abs_err={err:.3e} "
+                f"out_absmax={float(ref.abs().max()):.4f}")
         del params
 
     # ---- phase 2: serving through the entry points ----
@@ -2164,7 +2184,9 @@ def main() -> int:
             ms2 = cuda_ms(torch, lambda: sf.fused_siren_apply_stacked(
                 params, cfg, coords, **kw), 20)
             timing[(name, tier)] = (min(ms, ms2), plain_ms)
-            log(f"phase4 {name} tier={tier}: kernel {ms:.3f}/{ms2:.3f} ms "
+            route = sf.stack_launch(plan, 128, coords.shape[0]).route
+            log(f"phase4 {name} tier={tier} route={route}: kernel "
+                f"{ms:.3f}/{ms2:.3f} ms "
                 f"({samples / min(ms, ms2) / 1e3:.1f} Msamples/s), plain "
                 f"{plain_ms:.3f} ms ({samples / plain_ms / 1e3:.1f} "
                 f"Msamples/s), {samples} window-samples")
@@ -2238,6 +2260,7 @@ def main() -> int:
         "bound_by": stack_by,
         "library_ms": None,
         "shape": "headline k=669 n=512 h=128, deg11 tier",
+        "cuda_kernels": STACK_KERNELS,
     }, {
         "name": "siren_step",
         "route": "cuda",
@@ -2317,6 +2340,7 @@ def main() -> int:
             "ms": t["stack"], "plain_ms": t["stack_plain"],
             "bound_ms": sb_, "bound_by": sby, "library_ms": None,
             "shape": shape + ", training forward tier (bf16x3, deg 11)",
+            "cuda_kernels": STACK_KERNELS,
         }, {
             "name": "siren_step_" + name.replace("_mlp", ""),
             "route": "cuda",

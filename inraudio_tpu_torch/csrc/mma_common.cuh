@@ -1,7 +1,9 @@
-// Tensor-core helpers shared by kan.cu and siren_train.cu: packed bf16
-// planes in shared memory, ldmatrix fragments, mma.sync m16n8k16 (bf16 ->
-// f32), cp.async staging, and one mma step of a bf16 tier (a pass per term,
-// hi.hi apart from the cross terms).  Internal linkage, as siren_common.cuh.
+// Tensor-core helpers shared by kan.cu, siren_train.cu and siren_stack.cu:
+// packed bf16 planes in shared memory, ldmatrix fragments, mma.sync
+// m16n8k16 (bf16 -> f32), cp.async staging, and one mma step of a bf16 tier
+// (a pass per term, hi.hi apart from the cross terms), accumulated in the
+// tensor core or in fresh accumulators added by f32 adds.  Internal
+// linkage, as siren_common.cuh.
 
 #pragma once
 
@@ -10,6 +12,7 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __nv_bfloat162 bf162;
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -53,6 +56,12 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// bar.sync on named barrier `id` (1..15; 0 is __syncthreads) for `threads`
+// threads, a multiple of 32
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads));
+}
+
 // one mma step of a tier: the A operand (x role, rounded) and B (w role,
 // split); hh += Ahi.Bhi, cross += Ahi.Blo (bf16x2, bf16x3) + Alo.Bhi (bf16x3)
 template <int MODE>
@@ -64,6 +73,41 @@ __device__ __forceinline__ void tier_mma(float (&hh)[4], float (&cross)[4],
   mma_bf16(hh, ahi, bh0, bh1);
   if (MODE == kBf16x2 || MODE == kBf16x3) mma_bf16(cross, ahi, bl0, bl1);
   if (MODE == kBf16x3) mma_bf16(cross, alo, bh0, bh1);
+}
+
+// The cross terms of one mma step of a tier (hi.lo, and lo.hi in bf16x3),
+// summed in a fresh accumulator and added to cross by an f32 add.
+template <int MODE>
+__device__ __forceinline__ void cross_mma(float (&cross)[4],
+                                          const unsigned (&ahi)[4],
+                                          const unsigned (&alo)[4],
+                                          unsigned bh0, unsigned bh1,
+                                          unsigned bl0, unsigned bl1) {
+  if (MODE == kBf16) return;
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_bf16(t, ahi, bl0, bl1);
+  if (MODE == kBf16x3) mma_bf16(t, alo, bh0, bh1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) cross[q] += t[q];
+}
+
+// One mma step of a tier, as tier_mma, but each of the step's two sums
+// (hi.hi, and the cross terms) is formed in a fresh accumulator and added to
+// hh / cross by an f32 add: the tensor core sums a step's products and its
+// accumulator with truncation, which over a long K (every row of a slice in
+// dW) drifts past an f32 chain of rounded adds.
+template <int MODE>
+__device__ __forceinline__ void tier_mma_f32(float (&hh)[4],
+                                             float (&cross)[4],
+                                             const unsigned (&ahi)[4],
+                                             const unsigned (&alo)[4],
+                                             unsigned bh0, unsigned bh1,
+                                             unsigned bl0, unsigned bl1) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_bf16(t, ahi, bh0, bh1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) hh[q] += t[q];
+  cross_mma<MODE>(cross, ahi, alo, bh0, bh1, bl0, bl1);
 }
 
 __device__ __forceinline__ void split_bf16(float v, bf16* hi, bf16* lo) {

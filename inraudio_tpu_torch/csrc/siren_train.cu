@@ -817,43 +817,6 @@ siren_grad_kernel(const float* __restrict__ coords,
 // units into passes leaves every result bit-equal.
 // ===========================================================================
 
-typedef __nv_bfloat162 bf162;
-
-// The cross terms of one mma step of a tier (hi.lo, and lo.hi in bf16x3),
-// summed in a fresh accumulator and added to cross by an f32 add.
-template <int MODE>
-__device__ __forceinline__ void cross_mma(float (&cross)[4],
-                                          const unsigned (&ahi)[4],
-                                          const unsigned (&alo)[4],
-                                          unsigned bh0, unsigned bh1,
-                                          unsigned bl0, unsigned bl1) {
-  if (MODE == kBf16) return;
-  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_bf16(t, ahi, bl0, bl1);
-  if (MODE == kBf16x3) mma_bf16(t, alo, bh0, bh1);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) cross[q] += t[q];
-}
-
-// One mma step of a tier, as tier_mma (mma_common.cuh), but each of the
-// step's two sums (hi.hi, and the cross terms) is formed in a fresh
-// accumulator and added to hh / cross by an f32 add: the tensor core sums a
-// step's products and its accumulator with truncation, which over a long K
-// (every row of a slice in dW) drifts past an f32 chain of rounded adds.
-template <int MODE>
-__device__ __forceinline__ void tier_mma_f32(float (&hh)[4],
-                                             float (&cross)[4],
-                                             const unsigned (&ahi)[4],
-                                             const unsigned (&alo)[4],
-                                             unsigned bh0, unsigned bh1,
-                                             unsigned bl0, unsigned bl1) {
-  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_bf16(t, ahi, bh0, bh1);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) hh[q] += t[q];
-  cross_mma<MODE>(cross, ahi, alo, bh0, bh1, bl0, bl1);
-}
-
 // Which of the sweep's h x h products run as fp32 FMAs in the reference's
 // k order, the rest on mma.sync: 2 (the route) every term of the forward
 // and the dgrad's hi.hi; 1 the hi.hi of both; 0 none.  1 and 0 fail the

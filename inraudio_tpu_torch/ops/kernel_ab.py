@@ -12,22 +12,27 @@ the same card:
     python3 inraudio_tpu_torch/ops/kernel_ab.py save . change.pt
     python3 inraudio_tpu_torch/ops/kernel_ab.py compare parent.pt change.pt
 
-The results (43), each at the kernel widths h = 32, 64, 128, 256 where it
-has an h: the stack kernel's output (3 windows x 700 rows, approx_sin),
-C's gradients (bf16x2 and highest grad tiers, a random cotangent), D's
-state (params, mu, nu, best) and loss after 3 steps; E's buffer (grads and
-loss) for the first window's initial state on a shard of its 700 rows
-with a row limit of 500 and a clip of 900 valid rows (bf16x2 and
-highest); D's params after 2 steps of an RFF model (h = 256, 256
-frequencies, 5000 rows); for KAN([1, 64, 64, 1]) and KAN([2, 32, 3]) over
-3000 rows: G's output in the bf16x3 and highest tiers, G's bf16x3 output
-of each layer alone on a fixed input of its width, and H's dW per layer
-(highest tier).  The bf16-tier C, D and E results follow the grad
-kernel's route, and G's bf16x3 results of a layer with dout >= 8 (and so
-both stacks' bf16x3 outputs) the tensor-core G's; the stack kernel's,
-H's, every highest-tier result and G's bf16x3 output of a layer with dout
-< 8 (the narrow G, tile_gemm's chains) are the ones that must stay
-bit-equal across those changes.
+The results (55), each at the kernel widths h = 32, 64, 128, 256 where it
+has an h: the stack kernel's output (3 windows x 700 rows, approx_sin) in
+the default bf16x3 tier, in the highest tier and in the decode's bf16 and
+mixed (bf16 / bf16x2) degree-7 tiers; C's gradients (bf16x2 and highest
+grad tiers, a random cotangent), D's state (params, mu, nu, best) and loss
+after 3 steps; E's buffer (grads and loss) for the first window's initial
+state on a shard of its 700 rows with a row limit of 500 and a clip of 900
+valid rows (bf16x2 and highest); D's params after 2 steps of an RFF model
+(h = 256, 256 frequencies, 5000 rows); for KAN([1, 64, 64, 1]) and
+KAN([2, 32, 3]) over 3000 rows: G's output in the bf16x3 and highest
+tiers, G's bf16x3 output of each layer alone on a fixed input of its
+width, and H's dW per layer (highest tier).  The bf16-tier C, D and E
+results follow the grad kernel's route, G's bf16x3 results of a layer
+with dout >= 8 (and so both stacks' bf16x3 outputs) the tensor-core G's,
+and the stack's bf16x3 outputs (``stack{h}``) its tensor-core route.  H's,
+every highest-tier result (``stack-highest{h}``: the stack's FMA kernel),
+the stack's bf16 and mixed outputs (``stack-bf16{h}``, ``stack-mixed{h}``:
+the tensor-core kernel runs those tiers' products as the FMA kernel's
+chains) and G's bf16x3 output of a layer with dout < 8 (the narrow G,
+tile_gemm's chains) are the ones that must stay bit-equal across those
+changes.
 """
 
 from __future__ import annotations
@@ -63,6 +68,14 @@ def save(root: str, dest: str) -> int:
         coords = torch.linspace(-1, 1, 700, device=dev)[:, None]
         out[f"stack{h}"] = sf.fused_siren_apply_stacked(params, cfg, coords,
                                                         approx_sin=True)
+        out[f"stack-highest{h}"] = sf.fused_siren_apply_stacked(
+            params, cfg, coords, approx_sin=True, f32_mode="highest")
+        out[f"stack-bf16{h}"] = sf.fused_siren_apply_stacked(
+            params, cfg, coords, approx_sin=True, sin_poly_degree=7,
+            compute_dtype=torch.bfloat16)
+        out[f"stack-mixed{h}"] = sf.fused_siren_apply_stacked(
+            params, cfg, coords, approx_sin=True, sin_poly_degree=7,
+            mixed_matmul=True, f32_mode="bf16x2")
         plan = sf.stack_plan(cfg, approx_sin=True)
         cot = torch.randn(3, 700, 1, device=dev,
                           generator=torch.Generator(dev).manual_seed(1))

@@ -352,9 +352,62 @@ def _check_rff_model(cfg: SirenSnakeTanhConfig, rff_b) -> None:
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
+_TC_MODES = ("bf16", "bf16x2", "bf16x3")
+# the tensor-core kernel's shapes per kernel width (csrc/siren_stack.cu:
+# Tc<H>): rows a pass (16 warps of 32 x 32 blocks, H / 32 of them across a
+# row), the most rows a CTA holds, and W's rows a shared-memory slab (the
+# whole W up to 128; two stages of 64 rows at 256)
+_TC_PASS_ROWS = {32: 512, 64: 256, 128: 128, 256: 64}
+_TC_MAX_ROWS = {32: 512, 64: 256, 128: 256, 256: 64}
+
+
+@dataclasses.dataclass(frozen=True)
+class StackLaunch:
+    """How the stack kernel runs a plan at a width: ``route`` "tc" (the
+    tensor-core kernel, every product layer in a bf16 tier) or "fma" (the
+    FMA kernel), ``rows`` of a window a CTA covers, ``slab`` rows of W a
+    shared-memory stage holds, ``smem`` bytes of shared memory a CTA
+    takes."""
+
+    route: str
+    rows: int
+    slab: int
+    smem: int
+
+
+def stack_launch(plan: StackPlan, h: int, n: int) -> StackLaunch:
+    """The route and tile of a stack call from the plan, the kernel width
+    ``h`` (32, 64, 128 or 256) and the rows ``n`` alone: never from the
+    window count, so that a k = 1 call is window i of a stacked call bit
+    for bit.  The tensor-core route holds up to 256 rows (512 at h = 32,
+    64 at h = 256), fewer where n needs fewer passes."""
+    if h not in _KERNEL_WIDTHS:
+        raise ValueError(f"kernel widths are {_KERNEL_WIDTHS}, got {h}")
+    products = plan.modes[1:] + ((plan.modes[0],) if plan.rff else ())
+    if all(m in _TC_MODES for m in products):
+        step = _TC_PASS_ROWS[h]
+        rows = min(_TC_MAX_ROWS[h], -(-max(n, 1) // step) * step)
+        slab, stages = (h, 1) if h <= 128 else (64, 2)
+        smem = (2 * rows * (h + 8) * 2 + stages * 2 * slab * (h + 8) * 2
+                + (4 * h + rows * _MAX_SMALL_IN) * 4)
+        return StackLaunch("tc", rows, slab, smem)
+    rows, slab = 8192 // h, (h if h <= 128 else 64)
+    smem = (2 * slab * h + 2 * rows * (h + 4) + 2 * h
+            + rows * _MAX_SMALL_IN) * 4
+    return StackLaunch("fma", rows, slab, smem)
+
+
+def tc_plane_elems(plan: StackPlan, h: int, k: int, n_freq: int) -> int:
+    """bf16 elements of the tensor-core route's weight planes for k
+    windows: hi and lo of each hidden layer's (h, h) W and of an RFF
+    layer 0's (2F, h)."""
+    return k * 2 * h * (2 * n_freq + (len(plan.kinds) - 2) * h)
+
+
 class _SirenStackKernel(LaunchCounter):
     """The built ``siren_stack`` library and its launch count (``launches``
-    rises by one per kernel launch, nowhere else)."""
+    rises by one per call that launches the kernel, nowhere else; a
+    tensor-core call launches the weight split before it)."""
 
     def __init__(self):
         super().__init__()
@@ -368,6 +421,13 @@ class _SirenStackKernel(LaunchCounter):
                            + [ctypes.c_void_p] + [ctypes.c_int] * 2
                            + [ctypes.c_void_p] * 2)
             fn.restype = ctypes.c_int
+            fn = lib.siren_stack_forward_tc
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                           + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p] * 2
+                           + [ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_void_p])
+            fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
@@ -380,7 +440,8 @@ class _SirenStackKernel(LaunchCounter):
         (k, n, h) float32, if given, receives layer 0's pre-activation.  A
         model whose h is not a kernel width is zero-padded to the next one
         (``pad_params``): its output is the unpadded model's, since every
-        padded unit's outgoing weights are 0."""
+        padded unit's outgoing weights are 0.  The route is
+        ``stack_launch``'s."""
         _check_rff_plan(plan, bt)
         dev = coords.device
         n, d = coords.shape
@@ -426,13 +487,20 @@ class _SirenStackKernel(LaunchCounter):
         c_ints = (ctypes.c_int32 * len(ints))(*ints)
         c_omegas = (ctypes.c_float * L)(*plan.omegas)
         lib = self.library()
+        launch = stack_launch(plan, h, n)
+        args = (coords.data_ptr(), out.data_ptr(), ctypes.addressof(c_ptrs),
+                ctypes.addressof(c_ints), ctypes.addressof(c_omegas), L, k, n,
+                d, h, ptr(bt), n_freq, plan.feature_degree, ptr(pre0))
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.siren_stack_forward(
-                coords.data_ptr(), out.data_ptr(), ctypes.addressof(c_ptrs),
-                ctypes.addressof(c_ints), ctypes.addressof(c_omegas), L, k, n,
-                d, h, ptr(bt), n_freq, plan.feature_degree, ptr(pre0),
-                stream)
+            if launch.route == "tc":
+                planes = torch.empty(tc_plane_elems(plan, h, k, n_freq),
+                                     dtype=torch.bfloat16, device=dev)
+                rc = lib.siren_stack_forward_tc(
+                    *args, planes.data_ptr(), planes.numel(), launch.rows,
+                    stream)
+            else:
+                rc = lib.siren_stack_forward(*args, stream)
         if rc != 0:
             raise RuntimeError(f"siren_stack launch failed: cudaError {rc}")
         self.count()

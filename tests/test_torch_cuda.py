@@ -11,6 +11,7 @@ imports no JAX, so the card's machine runs it without the tests' conftest:
 ``python -m pytest --noconftest -p no:cacheprovider -m cuda
 tests/test_torch_cuda.py`` (``python3 chip_smoke.py`` does)."""
 
+import ctypes
 import datetime
 import threading
 from typing import Any, Callable
@@ -124,9 +125,72 @@ def test_kernel_matches_plain(dev, h, kw):
     cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
     params = _population(cfg, 3, dev)
     coords = torch.linspace(-1, 1, 300, device=dev)[:, None]  # ragged tile
+    plan = sf.stack_plan(cfg, **kw)
+    # every tier here is bf16-class: the tensor-core route
+    assert sf.stack_launch(plan, sf.kernel_width(h), 300).route == "tc"
     out = sf.fused_siren_apply_stacked(params, cfg, coords, **kw)
-    ref = sf.stack_forward_plain(params, sf.stack_plan(cfg, **kw), coords)
+    ref = sf.stack_forward_plain(params, plan, coords)
     check_close(out, ref, kw)
+
+
+def test_stack_forward_is_deterministic(dev):
+    """Two calls from one input are bit-equal on both routes (no float
+    atomics; every output is summed by one mma fragment or one thread in a
+    fixed order), raw and RFF, at a multi-pass and a streamed width."""
+    for h, kw in ((128, dict(approx_sin=True)), (256, dict(approx_sin=True)),
+                  (64, dict(approx_sin=True, f32_mode="highest"))):
+        cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=300.0)
+        params = _population(cfg, 3, dev)
+        coords = torch.linspace(-1, 1, 700, device=dev)[:, None]
+        a = sf.fused_siren_apply_stacked(params, cfg, coords, **kw)
+        b = sf.fused_siren_apply_stacked(params, cfg, coords, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), (h, kw)
+    cfg, params, b, _ = _rff_model(256, 64, dev)
+    coords = torch.rand(900, 1, device=dev) * 2 - 1
+    one = sf.fused_siren_apply(params, cfg, coords, rff_b=b, approx_sin=True)
+    two = sf.fused_siren_apply(params, cfg, coords, rff_b=b, approx_sin=True)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("h", [32, 64, 128, 256])
+def test_stack_highest_keeps_the_fma_route(dev, h):
+    """A plan with a `highest` layer runs the FMA kernel (exact f32
+    products, which no bf16 tensor-core pass gives); the tensor-core entry
+    refuses it."""
+    cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=300.0)
+    params = _population(cfg, 2, dev)
+    coords = torch.linspace(-1, 1, 300, device=dev)[:, None]
+    kw = dict(approx_sin=True, f32_mode="highest")
+    plan = sf.stack_plan(cfg, **kw)
+    assert sf.stack_launch(plan, h, 300).route == "fma"
+    out = sf.fused_siren_apply_stacked(params, cfg, coords, **kw)
+    check_close(out, sf.stack_forward_plain(params, plan, coords), kw)
+    # the mixed tier with highest sine layers keeps it too
+    mixed = sf.stack_plan(cfg, mixed_matmul=True, f32_mode="highest")
+    assert sf.stack_launch(mixed, h, 300).route == "fma"
+    lib = sf.SIREN_STACK.library()
+    layers = params["layers"]
+    ptrs = (ctypes.c_uint64 * (3 * len(layers)))(*[
+        v for p in layers for v in (p["w"].data_ptr(), p["b"].data_ptr(),
+                                    p["snake_a"].data_ptr()
+                                    if "snake_a" in p else 0)])
+    ints = (ctypes.c_int32 * (3 * len(layers)))(*[
+        v for li, kind in enumerate(plan.kinds)
+        for v in (sf._KIND_CODE[kind], sf._MODE_CODE[plan.modes[li] or
+                                                    "highest"],
+                  plan.degrees[li])])
+    omegas = (ctypes.c_float * len(layers))(*plan.omegas)
+    out2 = torch.empty((2, 300), device=dev)
+    planes = torch.empty(sf.tc_plane_elems(plan, h, 2, 0),
+                         dtype=torch.bfloat16, device=dev)
+    rc = lib.siren_stack_forward_tc(
+        coords.data_ptr(), out2.data_ptr(), ctypes.addressof(ptrs),
+        ctypes.addressof(ints), ctypes.addressof(omegas), len(layers), 2,
+        300, 1, h, None, 0, 0, None, planes.data_ptr(), planes.numel(),
+        sf._TC_PASS_ROWS[h], torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 @pytest.mark.parametrize("cfg_kw,kw", [
@@ -223,6 +287,7 @@ def test_rff_kernel_matches_plain(dev, h, f, d, kw):
     out = sf.fused_siren_apply(params, cfg, coords, rff_b=b, **kw)
     assert sf.SIREN_STACK.launches == before + 1
     plan = sf.stack_plan(cfg, rff=True, **kw)
+    assert sf.stack_launch(plan, h, 1000).route == "tc"
     ref = sf.stack_forward_plain(params, plan, coords, bt)
     ctrl = sf.stack_forward_plain(perturb_layer0(params), plan, coords, bt)
     assert torch.isfinite(out).all()
