@@ -52,9 +52,10 @@ Phases, each of which fails the run:
    each pair, a control: the kernel fit from the init times 1 + 2^-22;
 7. training timings with CUDA events: D vs the plain step and C vs the
    plain backward at the headline shape, the grad accumulation's kernels
-   (weight split, sweep, dW) and the reduce timed apart beside the step's
-   plane and slab bytes, and the fit's steps/s and peak device memory at
-   both shapes.
+   (weight split, sweep, dW), the reduce and the epilogue (clip + Adam +
+   best: ``launch_adam``'s scale and Adam kernels, timed directly, against
+   their byte bound) apart beside the step's plane and slab bytes, and the
+   fit's steps/s and peak device memory at both shapes.
 
 The KAN fit (the runner's ``fit --arch kan``), at the runner shape
 KAN([1, 256, 256, 1]) over the same clip (308,207 rows, f32, weights from
@@ -100,8 +101,8 @@ the kernels compute the features in layer 0), weights from seed 0:
    beside a 1-ulp-perturbed kernel fit, as phase 9;
 13. timings with CUDA events at both shapes: the stack kernel, C and D
    against their plain versions and bounds, the step's split into grad
-   accumulation (weight split, sweep, dW), reduce, clip + Adam + best and
-   bookkeeping, the step's plane and slab bytes, and the fit's steps/s and
+   accumulation (weight split, sweep, dW), reduce, clip + Adam + best (its
+   device time, ``device_ms``) and bookkeeping, the step's plane and slab bytes, and the fit's steps/s and
    peak device memory against the grad scratch bound (SCRATCH_BYTES +
    PLANE_BYTES + state-sized groups).
 
@@ -129,10 +130,15 @@ through host memory:
    window's loss history bit-equal to one rank's); the CLI ``fit`` under
    ``torchrun --nproc-per-node 2`` on one card (gloo);
 16. timings: E per shard (and its weight split, sweep, dW and reduce
-   apart, with the shard's plane and slab bytes), the gloo all-reduce, F,
-   its plain version and
-   ``torch.optim.Adam(fused=True).step()`` on one P-float tensor, the
-   sharded step against the one-rank D step.
+   apart, with the shard's plane and slab bytes), the gloo all-reduce, F
+   and its plain version, the sharded step against the one-rank D step.
+   F's device time comes from F_ITERS raw entry launches
+   (``lib.siren_adam_global``, no Python checks) queued behind a sleep
+   kernel (``device_ms``), hot and with FLUSH_BYTES rewritten between
+   launches outside the events, at clip 0 and 1.0, against its byte
+   bound; ``SIREN_ADAM``'s host time a call apart; and
+   ``torch.optim.Adam(fused=True).step()`` on one P-float tensor timed the
+   same two ways.
 
 The codec's rate points below the kernel width (h = 36, 40 and 48, which
 the kernels run zero-padded to 64 with the model's own width passed to the
@@ -253,6 +259,13 @@ TC_KERNELS = ["siren_wsplit_kernel", "siren_sweep_kernel", "siren_dw_kernel",
 # the CUDA kernels that serve the stack forward (A, B, B-RFF) in the bf16
 # tiers (a plan with a highest layer runs siren_stack_kernel in their place)
 STACK_KERNELS = ["siren_stack_split_kernel", "siren_stack_tc_kernel"]
+# the optimizer epilogue's kernels: D's (after the reduce) and F's
+ADAM_KERNELS = ["siren_scale_kernel", "siren_adam_kernel"]
+F_KERNELS = ["siren_adam_global_kernel"]
+# F's device time (phase 16): back-to-back calls, and the bytes a flush
+# writes between calls to evict the 50 MB L2
+F_ITERS = 200
+FLUSH_BYTES = 128 << 20
 # the card's published peaks (NVIDIA H100 SXM, 700 W)
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
@@ -337,6 +350,59 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters, flush=None):
+    """Device ms per call of ``fn`` -> (ms, queued).  The calls are queued
+    behind a sleep kernel longer than their host time, so the device runs
+    them back to back whatever the host costs: CUDA events around the
+    ``iters`` calls (hot L2), or with ``flush`` (a call that rewrites more
+    than the L2) events around each call and the flush between calls,
+    outside them.  ``queued``: whether the host had queued every call
+    before the sleep ended (else the time may hold host gaps)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        if flush is not None:
+            flush()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(iters if flush is not None else 1)]
+    # at most 2 GHz: the sleep lasts at least four times the host time of
+    # the calls (the events' records add to it)
+    torch.cuda._sleep(int(8e9 * host_s) + 2_000_000)
+    if flush is None:
+        pairs[0][0].record()
+        for _ in range(iters):
+            fn()
+        pairs[0][1].record()
+    else:
+        for start, end in pairs:
+            start.record()
+            fn()
+            end.record()
+            flush()
+    queued = not pairs[0][0].query()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters, queued
+
+
+def host_ms(torch, fn, iters):
+    """Host ms per call of ``fn`` (its enqueue: no synchronise inside)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return ms
 
 
 def tc_split_ms(torch, st, g, coords, flat, iters, **kw):
@@ -985,22 +1051,15 @@ def runner_phases(np, torch, dev, clip):
         grads, sq_part, loss_part = st.grad_reduce(
             lib, g, coords, state.params, stream, targets=targets,
             gmode=gmode)
-        loss = torch.empty((1,), dtype=torch.float32, device=dev)
+        loss, scale = (torch.empty((1,), device=dev) for _ in range(2))
         tf = (state.step + 1).to(torch.float32)
         c1_, c2_ = 1.0 - 0.9 ** tf, 1.0 - 0.999 ** tf
-
-        def adam():
-            rc = lib.siren_adam(
-                grads.data_ptr(), sq_part.data_ptr(), loss_part.data_ptr(),
-                state.params.data_ptr(), state.mu.data_ptr(),
-                state.nu.data_ptr(), state.best_params.data_ptr(),
-                loss.data_ptr(), state.lr.data_ptr(), c1_.data_ptr(),
-                c2_.data_ptr(), state.best_loss.data_ptr(), 1, tp.slices, P,
-                float(tc.grad_clip_norm), stream)
-            if rc != 0:
-                raise RuntimeError(f"siren_adam launch failed: {rc}")
-
-        t["adam"] = cuda_ms(torch, adam, 10)
+        # device time: at k = 1 the epilogue is microseconds, below the
+        # host time of its launches
+        t["adam"] = device_ms(torch, lambda: ss.launch_adam(
+            lib, grads, sq_part, loss_part, state.params, state.mu, state.nu,
+            state.best_params, loss, scale, state.lr, c1_, c2_,
+            state.best_loss, tc.grad_clip_norm, stream), F_ITERS)[0]
         del grads, sq_part, loss_part
         t["split"] = split
         t["grad"] = (split["siren_wsplit"] + split["siren_sweep"]
@@ -1393,19 +1452,52 @@ def shard_phases(np, torch, dev, clip):
             f"{t['split']['siren_dw']:.3f} ms, reduce "
             f"{t['split']['siren_reduce']:.3f} ms; "
             f"{tc_bytes_line(st, gs, gmode)}")
+        # F: its device time from raw entry launches (no Python checks),
+        # hot and with the L2 flushed between launches, at clip 0 (the
+        # runner's) and 1.0; the wrapper's host time apart; the library
+        # call's device time the same two ways
         a = clone_state(fs)
         tot, c1, c2 = kp["total"], kp["c1"], kp["c2"]
-        t["adam"] = cuda_ms(torch, lambda: ss.SIREN_ADAM(
+        lib = st.TRAIN_LIBRARY()
+        stream = torch.cuda.current_stream().cuda_stream
+        flush_buf = torch.empty(FLUSH_BYTES // 4, device=dev)
+        flush = lambda: flush_buf.add_(1.0)  # noqa: E731
+        floss = torch.empty((1,), device=dev)
+        fsq = torch.empty((-(-P // st.CHUNK_FLOATS),), device=dev)
+        fdev, queued = {}, []
+        for clip_norm in (0.0, 1.0):
+            args = ss.adam_global_args(
+                lib, a.params, a.mu, a.nu, a.best_params, tot, a.lr, c1, c2,
+                a.best_loss, floss, fsq, clip_norm, stream)
+
+            def raw(args=args):
+                if lib.siren_adam_global(*args) != 0:
+                    raise RuntimeError("siren_adam_global launch failed")
+
+            for label, fl in (("hot", None), ("flushed", flush)):
+                fdev[(clip_norm, label)], q = device_ms(torch, raw, F_ITERS,
+                                                        fl)
+                queued.append(q)
+        t["adam"] = fdev[(0.0, "hot")]
+        t["adam_dev"] = {f"clip{c}_{label}": v
+                         for (c, label), v in fdev.items()}
+        t["adam_grid"] = args[12]
+        t["adam_host"] = host_ms(torch, lambda: ss.SIREN_ADAM(
             a.params, a.mu, a.nu, a.best_params, tot, a.lr, c1, c2,
-            a.best_loss, 0.0), 50)
+            a.best_loss, 0.0), F_ITERS)
         t["adam_plain"] = cuda_ms(torch, lambda: ss.adam_epilogue_plain(
             a.params, a.mu, a.nu, a.best_params, tot[:P].view(1, P), a.lr,
             c1, c2, tot[P:P + 1], a.best_loss, 0.0), 20)
         p = torch.zeros(P, device=dev, requires_grad=True)
         p.grad = tot[:P].clone()
         opt = torch.optim.Adam([p], lr=1e-3, fused=True)
-        t["adam_library"] = cuda_ms(torch, opt.step, 50)
-        del p, opt
+        t["adam_library"], q1 = device_ms(torch, opt.step, F_ITERS)
+        t["adam_library_flushed"], q2 = device_ms(torch, opt.step, F_ITERS,
+                                                  flush)
+        t["adam_library_host"] = host_ms(torch, opt.step, F_ITERS)
+        queued += [q1, q2]
+        t["adam_queued"] = all(queued)
+        del p, opt, flush_buf
 
         def allreduce(m, buf_len=P + 4, reps=20):
             buf = torch.ones(buf_len, device=dev)
@@ -1431,18 +1523,29 @@ def shard_phases(np, torch, dev, clip):
         # element
         improved = float(tot[P]) < float(a.best_loss)
         t["adam_bound"] = bound(4 * (7 + improved) * P, 0, 12 * P)
+        fb = t["adam_bound"][0]
+        log(f"phase16 {name} F (siren_adam_global_kernel, one cooperative "
+            f"launch of {t['adam_grid']} CTAs over {-(-P // st.CHUNK_FLOATS)}"
+            f" chunks of {P} floats), device time from {F_ITERS} raw entry "
+            f"launches queued behind a sleep: " + ", ".join(
+                f"{key} {v:.4f} ms ({100 * fb / v:.1f}% of the bound)"
+                for key, v in t["adam_dev"].items())
+            + f"; bound {fb:.4f} ms ({t['adam_bound'][1]}, best written "
+            f"{improved}); SIREN_ADAM's host time {t['adam_host']:.4f} ms a "
+            f"call; torch.optim.Adam(fused=True).step() on one {P}-float "
+            f"tensor (no clip, no best): device hot "
+            f"{t['adam_library']:.4f} ms, flushed "
+            f"{t['adam_library_flushed']:.4f} ms, host "
+            f"{t['adam_library_host']:.4f} ms a call; every run queued "
+            f"before the device reached it {t['adam_queued']}")
         log(f"phase16 {name}: E per shard ({sh.rows} rows) "
             f"{t['grad']:.3f} ms (plain {t['grad_plain']:.3f}, bound "
             f"{t['grad_bound'][0]:.3f} ms, {t['grad_bound'][1]}); gloo "
             f"all-reduce of {4 * (P + 4) / 1e6:.2f} MB through host memory "
             f"{t['allreduce']:.3f} ms (host clock); F {t['adam']:.4f} ms "
-            f"(plain {t['adam_plain']:.4f}, bound {t['adam_bound'][0]:.4f} "
-            f"ms, {t['adam_bound'][1]}, best written {improved}; "
-            f"torch.optim.Adam(fused=True).step() "
-            f"on one {P}-float tensor {t['adam_library']:.4f} ms, no clip, "
-            f"no best); whole sharded step {t['step']:.3f} ms "
-            f"({kp['steps_s']:.2f} steps/s, 2 ranks on one card) vs the "
-            f"one-rank D step {t['one_step']:.3f} ms "
+            f"(plain {t['adam_plain']:.4f}); whole sharded step "
+            f"{t['step']:.3f} ms ({kp['steps_s']:.2f} steps/s, 2 ranks on "
+            f"one card) vs the one-rank D step {t['one_step']:.3f} ms "
             f"({kp['one_steps_s']:.2f} steps/s)")
         out[name] = t
     return out
@@ -1905,8 +2008,9 @@ def train_phases(np, torch, dev, clip, codec, ss, st, sf):
     log(f"phase7 C backward, headline: kernel {out['bwd_ms']:.3f} ms, plain "
         f"{out['bwd_plain_ms']:.3f} ms")
     # where a kernel step's time goes: the grad accumulation's kernels
-    # (the weights' bf16 split, the sweep, dW) and the reduce, timed apart,
-    # the whole of D (adds clip + Adam + best), and the step with its (k,)
+    # (the weights' bf16 split, the sweep, dW), the reduce and the epilogue
+    # (clip + Adam + best: the scale and Adam kernels on one reduce's
+    # output), each timed apart, the whole of D, and the step with its (k,)
     # plateau / best bookkeeping in torch ops
     g = st.validate_grad_launch(state.params, cfg, plan, coords)
     tp = st.tc_plan(g, gmode)
@@ -1922,13 +2026,38 @@ def train_phases(np, torch, dev, clip, codec, ss, st, sf):
         state.params, state.mu, state.nu, state.best_params, coords, targets,
         state.lr, c1, c2, state.best_loss, cfg, plan, gmode,
         tc.grad_clip_norm), 10)
+    lib = st.TRAIN_LIBRARY()
+    stream = torch.cuda.current_stream().cuda_stream
+    grads, sq_part, loss_part = st.grad_reduce(
+        lib, g, coords, state.params, stream, targets=targets, gmode=gmode)
+    e = clone_state(state)
+    eloss, escale = (torch.empty((k,), device=dev) for _ in range(2))
+    adam_ms = cuda_ms(torch, lambda: ss.launch_adam(
+        lib, grads, sq_part, loss_part, e.params, e.mu, e.nu, e.best_params,
+        eloss, escale, e.lr, c1, c2, e.best_loss, tc.grad_clip_norm,
+        stream), 20)
+    P = g.layout.size
+    improved = int((eloss < e.best_loss).sum())
+    # g, p, mu, nu read and p, mu, nu written for every window, best (the
+    # old p) for the windows whose loss improved; ~12 fp32 operations an
+    # element
+    out["adam_bound"] = bound(4 * P * (7 * k + improved), 0, 12 * k * P)
+    out["adam_ms"] = adam_ms
+    del grads, sq_part, loss_part, e
+    log(f"phase7 D epilogue (clip + Adam + best: siren_scale_kernel + "
+        f"siren_adam_kernel, {k * ss.adam_spans(P)} CTAs), headline, "
+        f"timed directly: {adam_ms:.4f} ms, bound "
+        f"{out['adam_bound'][0]:.4f} ms ({out['adam_bound'][1]}; "
+        f"{improved} of {k} windows write best), "
+        f"{100 * out['adam_bound'][0] / adam_ms:.1f}% of the bound")
     log(f"phase7 D breakdown, headline ({-(-k // kg)} window groups of <= "
         f"{kg}, {tp.slices} row slices a window, passes of <= {tp.units} "
         f"units): grad accumulation {grad_ms:.3f} ms (weight split "
         f"{split['siren_wsplit']:.3f}, sweep {split['siren_sweep']:.3f}, dW "
-        f"{split['siren_dw']:.3f}), reduce {reduce_ms:.3f} ms, clip + Adam + best "
-        f"{d_ms - grad_ms - reduce_ms:.3f} ms (D {d_ms:.3f} ms), plateau / "
-        f"best bookkeeping {out['step_ms'] - d_ms:.3f} ms (step "
+        f"{split['siren_dw']:.3f}), reduce {reduce_ms:.3f} ms, clip + Adam + "
+        f"best {adam_ms:.3f} ms, launch gaps "
+        f"{d_ms - grad_ms - reduce_ms - adam_ms:.3f} ms (D {d_ms:.3f} ms), "
+        f"plateau / best bookkeeping {out['step_ms'] - d_ms:.3f} ms (step "
         f"{out['step_ms']:.3f} ms)")
     log(f"phase7 headline {tc_bytes_line(st, g, gmode)}")
     del a, state, params
@@ -2274,8 +2403,9 @@ def main() -> int:
         "bound_by": step_by,
         "library_ms": None,
         "shape": "headline k=669 n=512 h=128, one whole train step",
-        "cuda_kernels": TC_KERNELS + ["siren_adam_kernel"],
-        "split_ms": train["split"],
+        "cuda_kernels": TC_KERNELS + ADAM_KERNELS,
+        "split_ms": train["split"], "adam_ms": train["adam_ms"],
+        "adam_bound_ms": train["adam_bound"][0],
     }, {
         "name": "siren_bwd",
         "route": "cuda",
@@ -2351,7 +2481,7 @@ def main() -> int:
             "ms": t["step"], "plain_ms": t["step_plain"],
             "bound_ms": db_, "bound_by": dby, "library_ms": None,
             "shape": shape + ", one whole train step",
-            "cuda_kernels": TC_KERNELS + ["siren_adam_kernel"],
+            "cuda_kernels": TC_KERNELS + ADAM_KERNELS,
             "split_ms": t["split"], "adam_ms": t["adam"],
         }, {
             "name": "siren_bwd_" + name.replace("_mlp", ""),
@@ -2393,9 +2523,13 @@ def main() -> int:
             "bound_ms": t["adam_bound"][0], "bound_by": t["adam_bound"][1],
             "library_ms": t["adam_library"],
             "shape": shape + ", clip + Adam + best of one model on the "
-                             "all-reduced grads; library: "
-                             "torch.optim.Adam(fused=True).step() without "
-                             "clip or best",
+                             "all-reduced grads; ms: device time, hot, clip "
+                             "0; library: torch.optim.Adam(fused=True)"
+                             ".step() without clip or best, device time, "
+                             "hot",
+            "cuda_kernels": F_KERNELS, "device_ms": t["adam_dev"],
+            "host_ms": t["adam_host"],
+            "library_flushed_ms": t["adam_library_flushed"],
         }]
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))

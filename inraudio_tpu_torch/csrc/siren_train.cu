@@ -23,20 +23,24 @@
 //                       slab of a global partial-grad buffer;
 //   siren_reduce_kernel per (window, 1024-float chunk): the window's slabs
 //                       summed in slice order, and the chunk's sum of squares;
-//   siren_adam_kernel   per (window, chunk): the window's norm and loss from
-//                       the chunk / slice partials (fixed order), then clip,
-//                       Adam and the best snapshot of the OLD params, in
-//                       place (D only);
-//   siren_sqsum_kernel  per 1024-float chunk: the sum of squares of given
-//                       (all-reduced) grads, as the reduce computes it.
-// C is grad + reduce; D is grad + reduce + Adam.  E is grad + reduce with a
-// device row limit (rows at or past it carry no loss), the normaliser the
-// whole clip's 1 / n_valid from the host, and the shard's loss summed by the
-// reduce into the slot after its grads: one buffer [grads (P) | loss | pad]
-// that the fit all-reduces across ranks.  F is sqsum + Adam on that buffer:
-// the norm and the loss come from the all-reduced values, never from a
-// rank's own partials, so every rank clips by the global norm and applies
-// the same update.
+//   siren_scale_kernel  one CTA per window: the window's norm and loss
+//                       from the chunk / slice partials, summed once in
+//                       index order, -> its clip scale and loss (D);
+//   siren_adam_kernel   per (window, 4096-float span): clip, Adam and the
+//                       best snapshot of the OLD params, in place, as float4
+//                       streams, four float4 a thread in flight (D);
+//   siren_adam_global_kernel  F in one cooperative launch: each 1024-float
+//                       chunk's sum of squares as the reduce computes it, a
+//                       grid-wide sync, the norm summed in chunk order by
+//                       every CTA, then the same update over the chunks.
+// C is grad + reduce; D is grad + reduce + scale + Adam.  E is grad + reduce
+// with a device row limit (rows at or past it carry no loss), the
+// normaliser the whole clip's 1 / n_valid from the host, and the shard's
+// loss summed by the reduce into the slot after its grads: one buffer
+// [grads (P) | loss | pad] that the fit all-reduces across ranks.  F reads
+// that buffer: the norm and the loss come from the all-reduced values,
+// never from a rank's own partials, so every rank clips by the global norm
+// and applies the same update.
 //
 // What bounds it on an H100 (by reading): per sample at h = 128 the step is
 // ~197k forward multiply-adds (bf16x3: three bf16 passes) plus ~262k
@@ -118,12 +122,14 @@
 
 #include <algorithm>
 
+#include <cooperative_groups.h>
+
 #include "mma_common.cuh"
 
 namespace {
 
 constexpr int kTileFloats = 8192;  // TM * H at every width
-constexpr int kChunk = 1024;       // floats per CTA of reduce / Adam
+constexpr int kChunk = 1024;       // floats per CTA of the reduce, F's chunk
 
 struct TrainArgs {
   int off_w[kMaxLayers];  // leaf offsets in a window's flat vector
@@ -1888,65 +1894,224 @@ siren_reduce_kernel(const float* __restrict__ partial,
   if (threadIdx.x == 0) sq_part[win * chunks + chunk] = total;
 }
 
-__global__ void __launch_bounds__(kThreads)
-siren_adam_kernel(const float* __restrict__ grads,
-                  const float* __restrict__ sq_part,
-                  const float* __restrict__ loss_part,
-                  float* __restrict__ params, float* __restrict__ mu,
-                  float* __restrict__ nu, float* __restrict__ best,
-                  float* __restrict__ loss_out, const float* __restrict__ lr,
-                  const float* __restrict__ c1, const float* __restrict__ c2,
-                  const float* __restrict__ best_loss, int slices, int P,
-                  int chunks, float clip) {
-  constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
-  constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
-  constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
-  __shared__ float s_scale, s_loss;
-  const long long win = blockIdx.x / chunks;
-  const int chunk = blockIdx.x % chunks;
-  if (threadIdx.x == 0) {
-    float sq = 0.0f, loss = 0.0f;
-    for (int c = 0; c < chunks; ++c) sq += sq_part[win * chunks + c];
-    for (int s = 0; s < slices; ++s) loss += loss_part[win * slices + s];
-    float scale = 1.0f;
-    if (clip > 0.0f) scale = fminf(1.0f, clip / fmaxf(sqrtf(sq), 1e-20f));
-    s_scale = scale;
-    s_loss = loss;
-    if (chunk == 0) loss_out[win] = loss;
+// ---------------------------------------------------------------------------
+// The optimizer epilogue: clip + Adam + best snapshot (D's last two launches,
+// and F).  Replaces the last-tile epilogue of
+// inraudio_tpu/ops/pallas_siren_step.py:_step_kernel and that file's
+// _adam_kernel.  It is bound by bytes: g, p, mu and nu read once and p, mu,
+// nu (and best, where the window improved) written once, 7-8 floats an
+// element against ~12 fp32 operations.  So each window's norm is computed
+// once (siren_scale_kernel; in F by each CTA after a grid-wide sync), and
+// the update streams float4s, several a thread in flight, each warp's
+// access a run of 512 contiguous bytes.  The summation order fixes the
+// clip scale bit for bit: the chunk sums of squares in the reduce's order,
+// the chunks and the loss slices in index order; the element expression
+// rounds op by op (-fmad=false).
+// ---------------------------------------------------------------------------
+
+constexpr float kB1 = 0.9f, kB2 = 0.999f, kEps = 1e-8f;
+constexpr float kOneMinusB1 = static_cast<float>(1.0 - 0.9);
+constexpr float kOneMinusB2 = static_cast<float>(1.0 - 0.999);
+// float4 a thread of siren_adam_kernel, loaded before any is updated
+constexpr int kAdamVec = 4;
+// floats of one siren_adam_kernel CTA (a window's span): 4096
+constexpr int kAdamSpan = kThreads * kAdamVec * 4;
+static_assert(kAdamSpan % kChunk == 0, "a span is whole chunks");
+
+// One element: clip and Adam -> the new p (mu and nu updated in place).
+// The order of every operation is the reference's.
+__device__ __forceinline__ float adam_elem(float g, float p_old, float& mu,
+                                           float& nu, float scale, bool clip,
+                                           float lr, float c1, float c2) {
+  if (clip) g = g * scale;
+  const float m = kB1 * mu + kOneMinusB1 * g;
+  const float v = kB2 * nu + kOneMinusB2 * g * g;
+  mu = m;
+  nu = v;
+  return p_old - lr * (m / c1) / (sqrtf(v / c2) + kEps);
+}
+
+__device__ __forceinline__ void adam_float4(const float4 g, float4& p,
+                                            float4& m, float4& v,
+                                            float scale, bool clip, float lr,
+                                            float c1, float c2) {
+  p.x = adam_elem(g.x, p.x, m.x, v.x, scale, clip, lr, c1, c2);
+  p.y = adam_elem(g.y, p.y, m.y, v.y, scale, clip, lr, c1, c2);
+  p.z = adam_elem(g.z, p.z, m.z, v.z, scale, clip, lr, c1, c2);
+  p.w = adam_elem(g.w, p.w, m.w, v.w, scale, clip, lr, c1, c2);
+}
+
+// The clip scale of a sum of squares (1 without a clip).
+__device__ __forceinline__ float clip_scale(float sq, float clip) {
+  float scale = 1.0f;
+  if (clip > 0.0f) scale = fminf(1.0f, clip / fmaxf(sqrtf(sq), 1e-20f));
+  return scale;
+}
+
+// The sum of src[0, n) in index order from 0, as one thread adds it up,
+// with the loads coalesced and in flight together: staged through shared
+// memory kThreads at a time, then added by thread 0.  Valid in thread 0;
+// every thread of the CTA calls it.
+__device__ float ordered_sum(const float* src, int n, float* staged) {
+  float s = 0.0f;
+  for (int i0 = 0; i0 < n; i0 += kThreads) {
+    const int m = min(kThreads, n - i0);
+    if (threadIdx.x < m) staged[threadIdx.x] = __ldcg(src + i0 + threadIdx.x);
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int i = 0; i < m; ++i) s += staged[i];
+    __syncthreads();
   }
-  __syncthreads();
-  const int e0 = chunk * kChunk + threadIdx.x * 4;
-  if (e0 >= P) return;
-  const float lr_w = lr[win], c1_w = c1[win], c2_w = c2[win];
-  const bool improved = s_loss < best_loss[win];
-  for (int q = 0; q < 4; ++q) {
-    const long long e = win * P + e0 + q;
-    float g = grads[e];
-    if (clip > 0.0f) g = g * s_scale;
-    const float p_old = params[e];
-    if (best != nullptr && improved) best[e] = p_old;
-    const float m = kB1 * mu[e] + kOneMinusB1 * g;
-    const float v = kB2 * nu[e] + kOneMinusB2 * g * g;
-    mu[e] = m;
-    nu[e] = v;
-    params[e] = p_old - lr_w * (m / c1_w) / (sqrtf(v / c2_w) + kEps);
+  return s;
+}
+
+// D: one CTA per window.  Its chunks' sums of squares and its slices'
+// losses, each summed in index order -> scale[w] and loss_out[w].
+__global__ void __launch_bounds__(kThreads)
+siren_scale_kernel(const float* __restrict__ sq_part,
+                   const float* __restrict__ loss_part,
+                   float* __restrict__ scale, float* __restrict__ loss_out,
+                   int slices, int chunks, float clip) {
+  __shared__ float staged[kThreads];
+  const long long w = blockIdx.x;
+  const float sq = ordered_sum(sq_part + w * chunks, chunks, staged);
+  const float loss = ordered_sum(loss_part + w * slices, slices, staged);
+  if (threadIdx.x == 0) {
+    scale[w] = clip_scale(sq, clip);
+    loss_out[w] = loss;
   }
 }
 
-// F's first half: each chunk's sum of squares of the given grads, in the
-// reduce's order (float4 lanes, then a fixed block tree).
+// D: per (window, span of kAdamSpan floats); thread t updates the float4s t,
+// t + 256, t + 512, t + 768 of its span, all four loaded first.  P is a
+// multiple of 4, so no float4 crosses a window.
 __global__ void __launch_bounds__(kThreads)
-siren_sqsum_kernel(const float* __restrict__ g, float* __restrict__ sq_part,
-                   int P) {
-  __shared__ float scratch[kThreads / 32];
-  const int e = blockIdx.x * kChunk + threadIdx.x * 4;
-  float sq = 0.0f;
-  if (e < P) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(g + e));
-    sq = ((v.x * v.x + v.y * v.y) + v.z * v.z) + v.w * v.w;
+siren_adam_kernel(const float* __restrict__ grads,
+                  const float* __restrict__ scale,
+                  const float* __restrict__ loss,
+                  float* __restrict__ params, float* __restrict__ mu,
+                  float* __restrict__ nu, float* __restrict__ best,
+                  const float* __restrict__ lr, const float* __restrict__ c1,
+                  const float* __restrict__ c2,
+                  const float* __restrict__ best_loss, int P, int spans,
+                  float clip) {
+  const long long win = blockIdx.x / spans;
+  const int span = blockIdx.x % spans;
+  const int q = P / 4;  // float4 a window
+  const int f0 = span * (kAdamSpan / 4) + threadIdx.x;
+  const float sc = __ldg(scale + win), lr_w = __ldg(lr + win),
+              c1_w = __ldg(c1 + win), c2_w = __ldg(c2 + win);
+  const bool improved = best != nullptr &&
+                        __ldg(loss + win) < __ldg(best_loss + win);
+  const bool clipped = clip > 0.0f;
+  const long long base = win * q;
+  const float4* g4 = reinterpret_cast<const float4*>(grads) + base;
+  float4* p4 = reinterpret_cast<float4*>(params) + base;
+  float4* m4 = reinterpret_cast<float4*>(mu) + base;
+  float4* v4 = reinterpret_cast<float4*>(nu) + base;
+  float4 g[kAdamVec], p[kAdamVec], m[kAdamVec], v[kAdamVec];
+#pragma unroll
+  for (int j = 0; j < kAdamVec; ++j) {
+    const int f = f0 + j * kThreads;
+    if (f < q) {
+      g[j] = __ldg(g4 + f);
+      p[j] = p4[f];
+      m[j] = m4[f];
+      v[j] = v4[f];
+    }
   }
-  const float total = block_sum(sq, scratch);
-  if (threadIdx.x == 0) sq_part[blockIdx.x] = total;
+#pragma unroll
+  for (int j = 0; j < kAdamVec; ++j) {
+    const int f = f0 + j * kThreads;
+    if (f < q) {
+      if (improved) reinterpret_cast<float4*>(best)[base + f] = p[j];
+      adam_float4(g[j], p[j], m[j], v[j], sc, clipped, lr_w, c1_w, c2_w);
+      p4[f] = p[j];
+      m4[f] = m[j];
+      v4[f] = v[j];
+    }
+  }
+}
+
+// F on one model: g = buf (P + 4) = [grads | loss | pad], all-reduced.  A
+// cooperative launch of gridDim.x <= the co-resident CTAs; CTA b takes the
+// chunks b, b + gridDim.x, ... in both halves.  First half: each chunk's
+// sum of squares as the reduce computes it (float4 lanes, then block_sum's
+// fixed tree) into sq_part; the CTA's first chunk of g, p, mu and nu is
+// loaded into registers there, so its loads overlap the sync.  After the
+// grid-wide sync every CTA sums sq_part in chunk order (ordered_sum), so
+// each CTA holds the same norm bit for bit; then the update, one float4 a
+// thread a chunk (at the runner's P every CTA has one chunk, all of it in
+// registers).
+__global__ void __launch_bounds__(kThreads)
+siren_adam_global_kernel(const float* __restrict__ g,
+                         float* __restrict__ sq_part,
+                         float* __restrict__ params, float* __restrict__ mu,
+                         float* __restrict__ nu, float* __restrict__ best,
+                         float* __restrict__ loss_out,
+                         const float* __restrict__ lr,
+                         const float* __restrict__ c1,
+                         const float* __restrict__ c2,
+                         const float* __restrict__ best_loss, int P,
+                         int chunks, float clip) {
+  __shared__ float scratch[kThreads / 32];
+  __shared__ float staged[kThreads];
+  __shared__ float s_scale;
+  __shared__ bool s_improved;
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  float4* p4 = reinterpret_cast<float4*>(params);
+  float4* m4 = reinterpret_cast<float4*>(mu);
+  float4* v4 = reinterpret_cast<float4*>(nu);
+  const int q = P / 4;
+  // the first chunk's float4 of this thread (gridDim.x <= chunks)
+  const int f1 = blockIdx.x * (kChunk / 4) + threadIdx.x;
+  float4 g1 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), p1 = g1, m1 = g1, v1 = g1;
+  if (f1 < q) {
+    g1 = __ldg(g4 + f1);
+    p1 = p4[f1];
+    m1 = m4[f1];
+    v1 = v4[f1];
+  }
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const int f = c * (kChunk / 4) + threadIdx.x;
+    float sq = 0.0f;
+    if (f < q) {
+      const float4 v = c == blockIdx.x ? g1 : __ldg(g4 + f);
+      sq = ((v.x * v.x + v.y * v.y) + v.z * v.z) + v.w * v.w;
+    }
+    const float total = block_sum(sq, scratch);
+    if (threadIdx.x == 0) sq_part[c] = total;
+    __syncthreads();  // scratch is read by thread 0 before it is rewritten
+  }
+  cooperative_groups::this_grid().sync();
+  const float sq = ordered_sum(sq_part, chunks, staged);
+  // the buffer's loss: one slice, summed as D sums its slices
+  const float loss = ordered_sum(g + P, 1, staged);
+  if (threadIdx.x == 0) {
+    s_scale = clip_scale(sq, clip);
+    s_improved = best != nullptr && loss < __ldg(best_loss);
+    if (blockIdx.x == 0) loss_out[0] = loss;
+  }
+  __syncthreads();
+  const float sc = s_scale, lr_w = __ldg(lr), c1_w = __ldg(c1),
+              c2_w = __ldg(c2);
+  const bool improved = s_improved, clipped = clip > 0.0f;
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x) {
+    const int f = c * (kChunk / 4) + threadIdx.x;
+    if (f >= q) continue;
+    float4 gv = g1, p = p1, m = m1, v = v1;
+    if (c != blockIdx.x) {
+      gv = __ldg(g4 + f);
+      p = p4[f];
+      m = m4[f];
+      v = v4[f];
+    }
+    if (improved) reinterpret_cast<float4*>(best)[f] = p;
+    adam_float4(gv, p, m, v, sc, clipped, lr_w, c1_w, c2_w);
+    p4[f] = p;
+    m4[f] = m;
+    v4[f] = v;
+  }
 }
 
 template <int H>
@@ -2082,55 +2247,89 @@ int siren_reduce(const void* partial, void* grads, void* sq_part,
   return static_cast<int>(cudaGetLastError());
 }
 
-// In place on params / mu / nu / best (k, P; best may be null); loss_out
-// (k) receives each window's loss, the sum of its slices' loss_part;
-// lr, c1, c2, best_loss (k) are read.
+// D's epilogue, two launches: siren_scale_kernel over k CTAs, then
+// siren_adam_kernel over k * spans CTAs (spans = ceil(P / 4096), from the wrapper's plan).
+// In place on params / mu / nu / best (k, P; best may be null); scale (k)
+// scratch; loss_out (k) receives each window's loss, the sum of its slices'
+// loss_part; sq_part (k, chunks) from the reduce; lr, c1, c2, best_loss (k)
+// are read.
 int siren_adam(const void* grads, const void* sq_part, const void* loss_part,
                void* params, void* mu, void* nu, void* best, void* loss_out,
-               const void* lr, const void* c1, const void* c2,
-               const void* best_loss, int k, int slices, int P, float clip,
-               void* stream) {
-  if (k < 1 || slices < 1 || P < 1 || (P & 3))
+               void* scale, const void* lr, const void* c1, const void* c2,
+               const void* best_loss, int k, int slices, int P, int spans,
+               float clip, void* stream) {
+  if (k < 1 || slices < 1 || P < 1 || (P & 3) ||
+      spans != (P + kAdamSpan - 1) / kAdamSpan)
     return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (P + kChunk - 1) / kChunk;
-  const long long blocks = static_cast<long long>(k) * chunks;
+  const long long blocks = static_cast<long long>(k) * spans;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  siren_adam_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(grads), static_cast<const float*>(sq_part),
-      static_cast<const float*>(loss_part), static_cast<float*>(params),
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sc = static_cast<float*>(scale);
+  float* lo = static_cast<float*>(loss_out);
+  siren_scale_kernel<<<k, kThreads, 0, s>>>(
+      static_cast<const float*>(sq_part), static_cast<const float*>(loss_part),
+      sc, lo, slices, chunks, clip);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  siren_adam_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const float*>(grads), sc, lo, static_cast<float*>(params),
       static_cast<float*>(mu), static_cast<float*>(nu),
-      static_cast<float*>(best), static_cast<float*>(loss_out),
-      static_cast<const float*>(lr), static_cast<const float*>(c1),
-      static_cast<const float*>(c2), static_cast<const float*>(best_loss),
-      slices, P, chunks, clip);
+      static_cast<float*>(best), static_cast<const float*>(lr),
+      static_cast<const float*>(c1), static_cast<const float*>(c2),
+      static_cast<const float*>(best_loss), P, spans, clip);
   return static_cast<int>(cudaGetLastError());
 }
 
-// F: buf (P + 4) = [grads (P) | loss | pad], all-reduced; sq_part (chunks)
-// scratch.  In place on params / mu / nu / best (P; best may be null) of
-// one model; loss_out (1) receives buf[P]; lr, c1, c2, best_loss (1) are
-// read.  The norm is that of buf's grads, the best snapshot taken when
-// buf[P] < best_loss.
+// The most CTAs of siren_adam_global_kernel that the current device holds
+// at once (the cooperative launch's limit), or minus a cudaError_t value.
+int siren_adam_global_cap() {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, siren_adam_global_kernel, kThreads, 0);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  if (!coop || per_sm < 1)
+    return -static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  return per_sm * sms;
+}
+
+// F, one cooperative launch of `grid` CTAs (1 <= grid <= the chunks and
+// siren_adam_global_cap()): buf (P + 4) = [grads (P) | loss | pad],
+// all-reduced; sq_part (chunks) scratch.  In place on params / mu / nu /
+// best (P; best may be null) of one model; loss_out (1) receives buf[P];
+// lr, c1, c2, best_loss (1) are read.  The norm is that of buf's grads, the
+// best snapshot taken when buf[P] < best_loss.
 int siren_adam_global(const void* buf, void* sq_part, void* params, void* mu,
                       void* nu, void* best, void* loss_out, const void* lr,
                       const void* c1, const void* c2, const void* best_loss,
-                      int P, float clip, void* stream) {
+                      int P, int grid, float clip, void* stream) {
   if (P < 1 || (P & 3)) return static_cast<int>(cudaErrorInvalidValue);
-  const int chunks = (P + kChunk - 1) / kChunk;
+  int chunks = (P + kChunk - 1) / kChunk;
+  if (grid < 1 || grid > chunks)
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* g = static_cast<const float*>(buf);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  siren_sqsum_kernel<<<chunks, kThreads, 0, s>>>(
-      g, static_cast<float*>(sq_part), P);
-  const cudaError_t e = cudaGetLastError();
+  float* sq = static_cast<float*>(sq_part);
+  float* p = static_cast<float*>(params);
+  float* m = static_cast<float*>(mu);
+  float* v = static_cast<float*>(nu);
+  float* b = static_cast<float*>(best);
+  float* lo = static_cast<float*>(loss_out);
+  const float* lr_ = static_cast<const float*>(lr);
+  const float* c1_ = static_cast<const float*>(c1);
+  const float* c2_ = static_cast<const float*>(c2);
+  const float* bl = static_cast<const float*>(best_loss);
+  void* args[] = {&g, &sq, &p, &m, &v, &b, &lo, &lr_, &c1_, &c2_, &bl, &P,
+                  &chunks, &clip};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (void*)siren_adam_global_kernel, dim3(grid),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
-  siren_adam_kernel<<<chunks, kThreads, 0, s>>>(
-      g, static_cast<const float*>(sq_part), g + P,
-      static_cast<float*>(params), static_cast<float*>(mu),
-      static_cast<float*>(nu), static_cast<float*>(best),
-      static_cast<float*>(loss_out), static_cast<const float*>(lr),
-      static_cast<const float*>(c1), static_cast<const float*>(c2),
-      static_cast<const float*>(best_loss), 1, P, chunks, clip);
   return static_cast<int>(cudaGetLastError());
 }
 

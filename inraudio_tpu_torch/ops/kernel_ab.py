@@ -12,7 +12,7 @@ the same card:
     python3 inraudio_tpu_torch/ops/kernel_ab.py save . change.pt
     python3 inraudio_tpu_torch/ops/kernel_ab.py compare parent.pt change.pt
 
-The results (55), each at the kernel widths h = 32, 64, 128, 256 where it
+The results (61), each at the kernel widths h = 32, 64, 128, 256 where it
 has an h: the stack kernel's output (3 windows x 700 rows, approx_sin) in
 the default bf16x3 tier, in the highest tier and in the decode's bf16 and
 mixed (bf16 / bf16x2) degree-7 tiers; C's gradients (bf16x2 and highest
@@ -20,7 +20,10 @@ grad tiers, a random cotangent), D's state (params, mu, nu, best) and loss
 after 3 steps; E's buffer (grads and loss) for the first window's initial
 state on a shard of its 700 rows with a row limit of 500 and a clip of 900
 valid rows (bf16x2 and highest); D's params after 2 steps of an RFF model
-(h = 256, 256 frequencies, 5000 rows); for KAN([1, 64, 64, 1]) and
+(h = 256, 256 frequencies, 5000 rows); the optimizer epilogue alone
+(``adam_results``: F's state after one call at clip 0 and 1.0 with the loss
+below and above best_loss, D's epilogue on fixed grads at k = 3 at clip 0
+and 1.0); for KAN([1, 64, 64, 1]) and
 KAN([2, 32, 3]) over 3000 rows: G's output in the bf16x3 and highest
 tiers, G's bf16x3 output of each layer alone on a fixed input of its
 width, and H's dW per layer (highest tier).  The bf16-tier C, D and E
@@ -115,6 +118,7 @@ def save(root: str, dest: str) -> int:
     for _ in range(2):
         fs, _ = step(fs, c, 0.3 * torch.sin(40 * c[:, 0])[None])
     out["rff_step256"] = fs.params
+    out.update(adam_results(torch, ss, st, dev))
     for lh in ((1, 64, 64, 1), (2, 32, 3)):
         p = build_model("kan", KANConfig(layers_hidden=lh)).init(
             torch.Generator().manual_seed(0), dev)
@@ -138,6 +142,69 @@ def save(root: str, dest: str) -> int:
     torch.save({k: v.cpu() for k, v in out.items()}, dest)
     print(f"saved {len(out)} results of {root} to {dest}")
     return 0
+
+
+def adam_results(torch, ss, st, dev) -> dict:
+    """The optimizer epilogue alone, on fixed random states: F
+    (``SIREN_ADAM``) on one runner-sized model (P = 264,452) at clip 0 and
+    1.0 with the loss below and above best_loss; D's epilogue on the
+    reduce's output for k = 3 headline-sized windows (P = 66,692, two loss
+    slices each) with their own lr, c1, loss and best_loss, one window's
+    norm below the clip of 1.0 and two above, at clip 0 and 1.0.  D's
+    epilogue is called through ``launch_adam`` where the tree has it, else
+    through the older ``siren_adam`` entry, which had no scale scratch and
+    no span count."""
+    gen = torch.Generator(dev).manual_seed(11)
+    rnd = lambda *shape: torch.randn(*shape, device=dev,  # noqa: E731
+                                     generator=gen)
+    vec = lambda *v: torch.tensor(v, device=dev)  # noqa: E731
+    out = {}
+    P = 264_452
+    p0, mu0, nu0, best0 = (0.1 * rnd(1, P), 1e-3 * rnd(1, P),
+                           1e-6 * rnd(1, P) ** 2, 0.1 * rnd(1, P))
+    buf = torch.zeros(P + 4, device=dev)
+    buf[:P] = 3.0 * rnd(P) / P ** 0.5
+    for clip in (0.0, 1.0):
+        for label, loss in (("below", 0.25), ("above", 0.75)):
+            buf[P] = loss
+            p, mu, nu, best = (t.clone() for t in (p0, mu0, nu0, best0))
+            lo = ss.SIREN_ADAM(p, mu, nu, best, buf, vec(1e-3), vec(0.271),
+                               vec(2.997e-3), vec(0.5), clip)
+            out[f"F-clip{clip}-{label}"] = torch.cat([p, mu, nu, best,
+                                                      lo[None]], 1)
+    k, P, slices = 3, 66_692, 2
+    lib = st.TRAIN_LIBRARY()
+    stream = torch.cuda.current_stream().cuda_stream
+    norms = vec(3.0, 0.4, 1.7)
+    partial = (rnd(k, slices, P) * (norms / P ** 0.5 / 2)[:, None, None]
+               ).reshape(k * slices, P)
+    loss_part = vec(0.1, 0.2, 0.4, 0.5, 0.05, 0.05)
+    grads = torch.empty(k, P, device=dev)
+    sq_part = torch.empty(k, -(-P // st.CHUNK_FLOATS), device=dev)
+    rc = lib.siren_reduce(partial.data_ptr(), grads.data_ptr(),
+                          sq_part.data_ptr(), 0, 0, k, slices, P, stream)
+    assert rc == 0, rc
+    p0, mu0, nu0, best0 = (0.1 * rnd(k, P), 1e-3 * rnd(k, P),
+                           1e-6 * rnd(k, P) ** 2, 0.1 * rnd(k, P))
+    lr, c1 = vec(1e-3, 2e-3, 5e-4), vec(0.1, 0.19, 0.271)
+    c2, best_loss = vec(1e-3, 1.999e-3, 2.997e-3), vec(0.5, 0.6, 0.2)
+    for clip in (0.0, 1.0):
+        p, mu, nu, best = (t.clone() for t in (p0, mu0, nu0, best0))
+        loss = torch.empty(k, device=dev)
+        if hasattr(ss, "launch_adam"):
+            ss.launch_adam(lib, grads, sq_part, loss_part, p, mu, nu, best,
+                           loss, torch.empty(k, device=dev), lr, c1, c2,
+                           best_loss, clip, stream)
+        else:
+            rc = lib.siren_adam(
+                grads.data_ptr(), sq_part.data_ptr(), loss_part.data_ptr(),
+                p.data_ptr(), mu.data_ptr(), nu.data_ptr(), best.data_ptr(),
+                loss.data_ptr(), lr.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+                best_loss.data_ptr(), k, slices, P, clip, stream)
+            assert rc == 0, rc
+        out[f"D-epilogue-clip{clip}"] = torch.cat([p, mu, nu, best,
+                                                   loss[:, None]], 1)
+    return out
 
 
 def compare(a_path: str, b_path: str) -> int:

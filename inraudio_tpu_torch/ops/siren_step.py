@@ -27,10 +27,18 @@ grads, Adam and the best snapshot, in place), with ``grad_plain`` and
 ``adam_epilogue_plain`` as their plain versions.  E writes one buffer
 [grads (P) | loss | pad (3)]; the mesh all-reduces it, and F reads both the
 grads and the loss from it, so one collective serves a step.
+
+The optimizer epilogue (D's last two launches and F) is bound by bytes.
+D's runs ``siren_scale_kernel`` (each window's norm and loss, once) and
+``siren_adam_kernel`` over (window, span) CTAs (``adam_spans``); F is one
+cooperative launch of ``adam_global_grid`` CTAs (chunk sums of squares, a
+grid-wide sync, the norm, the update).  Both keep the numbers of the
+reference's order bit for bit.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -45,10 +53,12 @@ from .siren_train import (CHUNK_FLOATS, TRAIN_LIBRARY, _check_rc,
                           grad_dot_mode, grad_reduce, tile_rows,
                           unflatten_params, validate_grad_launch)
 
-__all__ = ["FlatTrainState", "SIREN_ADAM", "SIREN_GRAD", "SIREN_STEP",
-           "adam_epilogue_plain", "flat_state_from_train_state",
-           "fused_adam_call", "fused_mse_grad_call", "fused_mse_step_call",
-           "grad_plain", "make_fused_mse_train_step",
+__all__ = ["ADAM_SPAN_FLOATS", "FlatTrainState", "SIREN_ADAM", "SIREN_GRAD",
+           "SIREN_STEP", "adam_epilogue_plain", "adam_global_args",
+           "adam_global_grid", "adam_spans",
+           "flat_state_from_train_state", "fused_adam_call",
+           "fused_mse_grad_call", "fused_mse_step_call", "grad_plain",
+           "launch_adam", "make_fused_mse_train_step",
            "make_sharded_fused_mse_train_step", "sharded_step_call",
            "step_block_rows", "step_plain", "step_supported",
            "train_state_from_flat"]
@@ -58,6 +68,11 @@ _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 # floats after the grads in kernel E's buffer: the loss, then zeros, so the
 # buffer stays a multiple of 16 bytes
 _BUF_TAIL = 4
+# D's Adam pass (csrc/siren_train.cu, siren_adam_kernel): 256 threads a CTA,
+# each with ADAM_VEC float4 in flight, so a CTA updates a span of 4096
+# floats of one window
+ADAM_VEC = 4
+ADAM_SPAN_FLOATS = 256 * ADAM_VEC * 4
 
 
 def step_supported(cfg: SirenSnakeTanhConfig, n_rows: int = 1,
@@ -182,11 +197,74 @@ def _check_same_device(ref_name: str, ref: torch.Tensor, **tensors) -> None:
                              f"{ref.device}")
 
 
+def adam_spans(P: int) -> int:
+    """CTAs a window of D's Adam pass (ADAM_SPAN_FLOATS of its P floats
+    each, the last one ragged): it launches k * adam_spans(P) CTAs."""
+    return -(-P // ADAM_SPAN_FLOATS)
+
+
+def adam_global_grid(P: int, cap: int) -> int:
+    """F's cooperative grid: one CTA a CHUNK_FLOATS chunk of the P grads,
+    at most ``cap`` (the CTAs the card holds at once); each CTA takes the
+    chunks b, b + grid, ... in both halves of the kernel."""
+    if cap < 1:
+        raise ValueError(f"F's grid cap must be positive, got {cap}")
+    return min(cap, -(-P // CHUNK_FLOATS))
+
+
+_GRID_CAP: dict[int, int] = {}
+
+
+def _adam_global_cap(lib, dev: torch.device) -> int:
+    """siren_adam_global_cap of ``dev`` (the current device), read once a
+    device."""
+    if dev.index not in _GRID_CAP:
+        cap = lib.siren_adam_global_cap()
+        if cap < 1:
+            raise RuntimeError("kernel F cannot be launched cooperatively on "
+                               f"{dev}: cudaError {-cap}")
+        _GRID_CAP[dev.index] = cap
+    return _GRID_CAP[dev.index]
+
+
+def launch_adam(lib, grads, sq_part, loss_part, params, mu, nu, best, loss,
+                scale, lr, c1, c2, best_loss, clip_norm: float,
+                stream) -> None:
+    """D's epilogue on the reduce's outputs (``grads`` (k, P), ``sq_part``
+    (k, chunks), ``loss_part`` (k * slices)): the scale kernel writes each
+    window's clip scale into ``scale`` (k,) and its loss into ``loss`` (k,),
+    then the Adam pass updates params / mu / nu / best (k, P; best None
+    leaves it alone) in place.  Two launches on ``stream``, no host sync."""
+    k, P = params.shape
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.siren_adam(
+        grads.data_ptr(), sq_part.data_ptr(), loss_part.data_ptr(),
+        params.data_ptr(), mu.data_ptr(), nu.data_ptr(), ptr(best),
+        loss.data_ptr(), scale.data_ptr(), lr.data_ptr(), c1.data_ptr(),
+        c2.data_ptr(), best_loss.data_ptr(), k, loss_part.shape[0] // k, P,
+        adam_spans(P), float(clip_norm), stream)
+    _check_rc("siren_adam", rc)
+
+
+def adam_global_args(lib, params, mu, nu, best, buf, lr, c1, c2, best_loss,
+                     loss, sq, clip_norm: float, stream) -> tuple:
+    """``siren_adam_global``'s arguments (F on one model, ``sq`` its
+    (chunks,) scratch), with the grid from the card's cap, for
+    ``lib.siren_adam_global(*args)``."""
+    P = params.shape[-1]
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    grid = adam_global_grid(P, _adam_global_cap(lib, buf.device))
+    return (buf.data_ptr(), sq.data_ptr(), params.data_ptr(), mu.data_ptr(),
+            nu.data_ptr(), ptr(best), loss.data_ptr(), lr.data_ptr(),
+            c1.data_ptr(), c2.data_ptr(), best_loss.data_ptr(), P, grid,
+            float(clip_norm), stream)
+
+
 class _SirenStepKernel(LaunchCounter):
     """Kernel D: one whole train step for the population (grad
-    accumulation, reduce, clip + Adam + best epilogue: three launches on
-    the current stream, no host sync).  ``launches`` rises by one per step
-    launched, nowhere else."""
+    accumulation, reduce, then the clip + Adam + best epilogue: the scale
+    and Adam kernels, on the current stream, no host sync).  ``launches``
+    rises by one per step launched, nowhere else."""
 
     def __call__(self, params, mu, nu, best, coords, targets, lr, c1, c2,
                  best_loss, cfg: SirenSnakeTanhConfig, plan: StackPlan,
@@ -205,19 +283,14 @@ class _SirenStepKernel(LaunchCounter):
             _check_tensor(name, t, dev, (g.k,))
         lib = TRAIN_LIBRARY()
         loss = torch.empty((g.k,), dtype=torch.float32, device=dev)
+        scale = torch.empty((g.k,), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             grads, sq_part, loss_part = grad_reduce(
                 lib, g, coords, params, stream, targets=targets, gmode=gmode)
-            ptr = lambda t: 0 if t is None else t.data_ptr()
-            rc = lib.siren_adam(
-                grads.data_ptr(), sq_part.data_ptr(), loss_part.data_ptr(),
-                params.data_ptr(), mu.data_ptr(), nu.data_ptr(), ptr(best),
-                loss.data_ptr(), lr.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-                best_loss.data_ptr(), g.k, loss_part.shape[0] // g.k,
-                g.layout.size,
-                float(clip_norm), stream)
-            _check_rc("siren_adam", rc)
+            launch_adam(lib, grads, sq_part, loss_part, params, mu, nu, best,
+                        loss, scale, lr, c1, c2, best_loss, clip_norm,
+                        stream)
         self.count()
         return loss
 
@@ -307,9 +380,25 @@ def fused_mse_grad_call(params, coords, targets, limit, n_valid: int,
 
 class _SirenAdamKernel(LaunchCounter):
     """Kernel F: the sum of squares of the all-reduced grads (fixed order),
-    then clip + Adam + best on one model's state, in place (two launches,
-    no host sync).  ``launches`` rises by one per update launched, nowhere
-    else."""
+    then clip + Adam + best on one model's state, in place (one cooperative
+    launch, no host sync).  Its (chunks,) scratch is kept per (device,
+    stream, P), so a call allocates only the loss it returns.  ``launches``
+    rises by one per update launched, nowhere else."""
+
+    def __init__(self):
+        super().__init__()
+        self._scratch: dict = {}
+        self._scratch_lock = threading.Lock()
+
+    def scratch(self, dev: torch.device, stream: int, P: int) -> torch.Tensor:
+        """F's chunk sums of squares, one buffer per (device, stream, P):
+        launches on one stream run in order, so they may share it."""
+        key = (dev, stream, P)
+        with self._scratch_lock:
+            if key not in self._scratch:
+                self._scratch[key] = torch.empty(
+                    (-(-P // CHUNK_FLOATS),), dtype=torch.float32, device=dev)
+            return self._scratch[key]
 
     def __call__(self, params, mu, nu, best, buf, lr, c1, c2, best_loss,
                  clip_norm: float) -> torch.Tensor:
@@ -327,16 +416,11 @@ class _SirenAdamKernel(LaunchCounter):
             raise ValueError(f"kernel F takes P a multiple of 4, got {P}")
         lib = TRAIN_LIBRARY()
         loss = torch.empty((1,), dtype=torch.float32, device=dev)
-        sq = torch.empty((-(-P // CHUNK_FLOATS),), dtype=torch.float32,
-                         device=dev)
-        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.siren_adam_global(
-                buf.data_ptr(), sq.data_ptr(), params.data_ptr(),
-                mu.data_ptr(), nu.data_ptr(), ptr(best), loss.data_ptr(),
-                lr.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-                best_loss.data_ptr(), P, float(clip_norm), stream)
+            rc = lib.siren_adam_global(*adam_global_args(
+                lib, params, mu, nu, best, buf, lr, c1, c2, best_loss, loss,
+                self.scratch(dev, stream, P), clip_norm, stream))
             _check_rc("siren_adam_global", rc)
         self.count()
         return loss

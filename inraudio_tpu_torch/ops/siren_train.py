@@ -65,7 +65,8 @@ Params = dict[str, Any]
 # rows per CTA of the training kernels: a (TM, h) tile is 8192 floats at
 # every supported width (csrc/siren_train.cu, TILE_FLOATS)
 TILE_FLOATS = 8192
-# floats per CTA of the reduce / Adam kernels
+# floats per CTA of the reduce kernel, whose sums of squares the clip
+# norm adds up chunk by chunk (csrc/siren_train.cu, kChunk)
 CHUNK_FLOATS = 1024
 # device memory for one grad launch's partial grads and saved
 # pre-activations; larger populations go through in groups of windows
@@ -410,16 +411,17 @@ class _TrainLibrary:
             lib.siren_grad.argtypes = ([_P] * 10 + [_I] * 8 + [_F, _F, _P]
                                        + [_I] * 3 + [_P, _P])
             lib.siren_reduce.argtypes = [_P] * 5 + [_I, _I, _I, _P]
-            lib.siren_adam.argtypes = [_P] * 12 + [_I, _I, _I, _F, _P]
-            lib.siren_adam_global.argtypes = [_P] * 11 + [_I, _F, _P]
+            lib.siren_adam.argtypes = [_P] * 13 + [_I] * 4 + [_F, _P]
+            lib.siren_adam_global_cap.argtypes = []
+            lib.siren_adam_global.argtypes = [_P] * 11 + [_I, _I, _F, _P]
             lib.siren_wsplit.argtypes = [_P] * 6 + [_I] * 5 + [_P]
             lib.siren_sweep.argtypes = ([_P] * 13 + [_I] * 7 + [_F, _F, _P]
                                         + [_I] * 8 + [_L, _P, _P])
             lib.siren_dw.argtypes = ([_P] * 6 + [_I] * 6 + [_P] + [_I] * 8
                                      + [_L, _P])
             for fn in (lib.siren_grad, lib.siren_reduce, lib.siren_adam,
-                       lib.siren_adam_global, lib.siren_wsplit,
-                       lib.siren_sweep, lib.siren_dw):
+                       lib.siren_adam_global_cap, lib.siren_adam_global,
+                       lib.siren_wsplit, lib.siren_sweep, lib.siren_dw):
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib

@@ -998,6 +998,127 @@ def test_adam_kernel_matches_plain(dev, clip, track_best):
             track_best and loss < float(fs.best_loss))
 
 
+def _epilogue_inputs(dev, k=3, P=13_700, slices=2):
+    """D's epilogue inputs for k windows of P floats (three 4096-float
+    spans and a ragged one): the reduce's grads and chunk sums of squares
+    from random slice partials, window norms 3.0, 0.4 and 1.7 (the first
+    and last above a clip of 1.0), loss slices that make windows 0 and 2
+    improve on best_loss and window 1 not, and each window's own lr, c1,
+    c2."""
+    gen = torch.Generator(dev).manual_seed(9)
+    rnd = lambda *shape: torch.randn(*shape, device=dev,  # noqa: E731
+                                     generator=gen)
+    vec = lambda *v: torch.tensor(v, device=dev)  # noqa: E731
+    norms = vec(3.0, 0.4, 1.7)
+    partial = (rnd(k, slices, P) * (norms / P ** 0.5 / 2)[:, None, None]
+               ).reshape(k * slices, P)
+    grads = torch.empty(k, P, device=dev)
+    sq_part = torch.empty(k, -(-P // st.CHUNK_FLOATS), device=dev)
+    rc = st.TRAIN_LIBRARY().siren_reduce(
+        partial.data_ptr(), grads.data_ptr(), sq_part.data_ptr(), 0, 0, k,
+        slices, P, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    state = (0.1 * rnd(k, P), 1e-3 * rnd(k, P), 1e-6 * rnd(k, P) ** 2,
+             0.1 * rnd(k, P))
+    scal = dict(lr=vec(1e-3, 2e-3, 5e-4), c1=vec(0.1, 0.19, 0.271),
+                c2=vec(1e-3, 1.999e-3, 2.997e-3),
+                best_loss=vec(0.5, 0.6, 0.2))
+    loss_part = vec(0.1, 0.2, 0.4, 0.5, 0.05, 0.05)
+    return grads, sq_part, loss_part, state, scal
+
+
+def _run_epilogue(grads, sq_part, loss_part, state, scal, clip):
+    """D's epilogue kernels on a copy of ``state`` -> (p, mu, nu, best,
+    loss)."""
+    p, mu, nu, best = (t.clone() for t in state)
+    k = p.shape[0]
+    loss = torch.empty(k, device=p.device)
+    ss.launch_adam(st.TRAIN_LIBRARY(), grads, sq_part, loss_part, p, mu, nu,
+                   best, loss, torch.empty(k, device=p.device), scal["lr"],
+                   scal["c1"], scal["c2"], scal["best_loss"], clip,
+                   torch.cuda.current_stream().cuda_stream)
+    return p, mu, nu, best, loss
+
+
+@pytest.mark.parametrize("clip", [0.0, 1.0])
+def test_d_epilogue_matches_plain_at_three_windows(dev, clip):
+    """D's epilogue (the scale and Adam kernels) on three windows with
+    their own lr, c1, c2, loss and best_loss, norms above and below the
+    clip, against adam_epilogue_plain on the reduce's grads: each group to
+    ADAM_RTOL of its largest element (as phase 14 of chip_smoke.py holds F:
+    the norm's summation order moves the scale by an ulp, which an element
+    where 0.9 mu and 0.1 g nearly cancel carries), the loss exact, best
+    written for the improving windows only."""
+    grads, sq_part, loss_part, state, scal = _epilogue_inputs(dev)
+    got = _run_epilogue(grads, sq_part, loss_part, state, scal, clip)
+    p, mu, nu, best = (t.clone() for t in state)
+    loss = loss_part.view(3, 2).sum(1)
+    ss.adam_epilogue_plain(p, mu, nu, best, grads, scal["lr"], scal["c1"],
+                           scal["c2"], loss, scal["best_loss"], clip)
+    torch.cuda.synchronize()
+    norms = grads.square().sum(1).sqrt()
+    assert norms[0] > 1.0 > norms[1] and norms[2] > 1.0
+    assert torch.equal(got[4], loss)
+    for a, b in zip(got[:4], (p, mu, nu, best)):
+        assert _gap(a, b) <= ADAM_RTOL * float(b.abs().max())
+    assert torch.equal(got[3][1], state[3][1])
+    assert not torch.equal(got[3][0], state[3][0])
+    assert not torch.equal(got[3][2], state[3][2])
+
+
+def test_adam_kernels_are_deterministic(dev):
+    """D's epilogue and F, each twice from cloned states: bit-equal."""
+    grads, sq_part, loss_part, state, scal = _epilogue_inputs(dev)
+    one = _run_epilogue(grads, sq_part, loss_part, state, scal, 1.0)
+    two = _run_epilogue(grads, sq_part, loss_part, state, scal, 1.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    cfg, plan, bt, fs, coords, targets = shard_setup(256, 0, 500, dev)
+    P = fs.params.shape[1]
+    buf = torch.zeros(P + 4, device=dev)
+    buf[:P] = torch.randn(P, device=dev,
+                          generator=torch.Generator(dev).manual_seed(6))
+    buf[P] = 0.5 * float(fs.best_loss)
+    c1 = torch.full((1,), 0.19, device=dev)
+    c2 = torch.full((1,), 1.0 - 0.999 ** 2, device=dev)
+    outs = []
+    for _ in range(2):
+        a = clone_state(fs)
+        loss = ss.SIREN_ADAM(a.params, a.mu, a.nu, a.best_params, buf, a.lr,
+                             c1, c2, a.best_loss, 1.0)
+        outs.append((a.params, a.mu, a.nu, a.best_params, loss))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+def test_f_entry_launches_once_per_call(dev, monkeypatch):
+    """Each SIREN_ADAM call calls the library once, through its one
+    cooperative entry, and adds one to ``launches``."""
+    lib = st.TRAIN_LIBRARY()
+    calls = []
+
+    class Counting:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if not name.startswith("siren_"):
+                return fn
+            return lambda *args: calls.append(name) or fn(*args)
+
+    monkeypatch.setattr(ss, "TRAIN_LIBRARY", Counting)
+    cfg, plan, bt, fs, coords, targets = shard_setup(128, 0, 300, dev)
+    P = fs.params.shape[1]
+    buf = torch.zeros(P + 4, device=dev)
+    c = torch.full((1,), 0.5, device=dev)
+    for clip in (0.0, 1.0, 1.0):
+        before, n = ss.SIREN_ADAM.launches, len(calls)
+        ss.SIREN_ADAM(fs.params, fs.mu, fs.nu, fs.best_params, buf, fs.lr, c,
+                      c, fs.best_loss, clip)
+        assert ss.SIREN_ADAM.launches == before + 1
+        assert [x for x in calls[n:] if x != "siren_adam_global_cap"] == [
+            "siren_adam_global"]
+    torch.cuda.synchronize()
+
+
 def test_sharded_step_on_two_ranks_matches_d(dev):
     """One step of the row-sharded fit on two thread ranks of one card
     (gloo, staged through host memory) against the one-rank D step from
