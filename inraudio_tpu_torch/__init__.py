@@ -6,10 +6,12 @@ parameter layout (``{"layers": [{"w": (in, out), "b": (out,), "snake_a":
 so parameters and files cross between the two unchanged.  It never imports
 JAX.
 
-Ported so far: the codec's decode path (``codec.load_inr`` -> ``decode`` /
-``decode_range`` -> stitched waveform), its encode path (``codec.encode``,
-the multi-INR fit), and the single-model fit (``experiments.runner``,
-``train.loop.fit``, the ``fit`` CLI, the KAN).  Hand-written CUDA kernels
+Ported so far: the codec whole (``codec.load_inr`` -> ``decode`` /
+``decode_range`` / ``decode_stream`` / ``decode_many`` -> stitched
+waveform; ``codec.encode`` with the multi-INR fit; the shared-backbone
+``codec.encode_modulated``; rate planning with ``plan_for_bitrate``), the
+single-model fit (``experiments.runner``, ``train.loop.fit``, the KAN), the
+sharded fits, and every CLI subcommand (``fit`` for the wave method).  Hand-written CUDA kernels
 carry them: the SIREN stack forward (``csrc/siren_stack.cu``), the SIREN
 training step and backward (``csrc/siren_train.cu``) and the KAN forward
 and backward (``csrc/kan.cu``), each beside its plain PyTorch version.

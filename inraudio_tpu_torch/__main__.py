@@ -1,17 +1,19 @@
-"""CLI: ``python -m inraudio_tpu_torch fit|encode|decode|info ...``.
+"""CLI: ``python -m inraudio_tpu_torch fit|encode|decode|info|fit-multi ...``.
 
-Port of the ``fit`` (the runner's ``train``, wave method, mse; the flags
-it honours, with the JAX package's names), ``encode`` (per-window codec;
-the modulated family and ``--target-bps`` are not ported yet), ``decode``
-and ``info`` subcommands of ``inraudio_tpu``'s CLI, plus ``--device``
-(default ``cuda``; it raises when there is no card rather than running on
-the CPU).  ``fit-multi`` and multi-input decode are not ported yet.
+Port of every subcommand of ``inraudio_tpu``'s CLI: ``fit`` (the runner's
+``train``, wave method, mse; the flags it honours, with the JAX package's
+names), ``encode`` (both codec families: per-window, ``--modulated``, and
+``--target-bps`` planning across them), ``decode`` (one payload, or several
+through ``decode_many``), ``info`` and ``fit-multi`` (the multi-INR fit of
+the headline recipe), plus ``--device`` (default ``cuda``; it raises when
+there is no card rather than running on the CPU).
 
-``fit`` and ``encode`` run on several ranks under ``torchrun
---nproc-per-node N -m inraudio_tpu_torch ...``: ``fit`` shards the clip's
-rows, ``encode`` its windows (``parallel.make_mesh``: NCCL when every rank
-has a card of its own, gloo when ranks share one).  Only rank 0 writes the
-outputs and prints the result line.
+``fit``, the per-window ``encode`` and ``fit-multi`` run on several ranks
+under ``torchrun --nproc-per-node N -m inraudio_tpu_torch ...``: ``fit``
+shards the clip's rows, ``encode`` and ``fit-multi`` the windows
+(``parallel.make_mesh``: NCCL when every rank has a card of its own, gloo
+when ranks share one).  Only rank 0 writes the outputs and prints the
+result line.  The modulated encode runs on one rank.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ def main(argv=None) -> int:
     enc.add_argument("--total-steps", type=int, default=3000)
     enc.add_argument("--quantize", default="float16",
                      choices=["none", "float16", "bfloat16", "int8", "int16",
-                              "int4"])
+                              "int4", "auto"])
     enc.add_argument("--per-row-scales", action="store_true",
                      help="int modes: one quantization scale per (window, "
                           "output unit)")
@@ -120,11 +122,39 @@ def main(argv=None) -> int:
     enc.add_argument("--plateau-patience", type=int, default=None,
                      help="ReduceLROnPlateau patience in steps (default "
                           "200)")
+    enc.add_argument("--seed", type=int, default=0,
+                     help="seed of the initial parameters")
+    enc.add_argument("--target-bps", type=float, default=None,
+                     help="pick the calibrated operating point, per-window "
+                          "or modulated, that fits this bits/sample budget "
+                          "(the JAX package's tables, calibrated on a TPU). "
+                          "It pins every calibrated knob; --total-steps, "
+                          "--fused, --max-chunks, --seed and --device pass "
+                          "through")
+    enc.add_argument("--modulated", action="store_true",
+                     help="shared-backbone codec: one network for the clip "
+                          "and a modulation vector per window (--quantize "
+                          "applies to the modulations: none, float16, int8, "
+                          "int16 or auto; --refit-steps refits the backbone "
+                          "around them)")
+    enc.add_argument("--film-scale", action="store_true",
+                     help="with --modulated: per-unit gains as well as "
+                          "shifts")
+    enc.add_argument("--mods-lr-mult", type=float, default=1.0,
+                     help="with --modulated: the modulations' learning "
+                          "rate as a multiple of the backbone's")
+    enc.add_argument("--segment-s", type=float, default=None,
+                     help="with --modulated: one backbone per this many "
+                          "seconds instead of one for the clip")
 
     dec = sub.add_parser("decode",
                          help="decode an INRA/npz payload back to wav")
-    dec.add_argument("--input", required=True, help="payload path")
-    dec.add_argument("--output", required=True, help="wav path")
+    dec.add_argument("--input", required=True, nargs="+",
+                     help="payload path(s); several decode through "
+                          "decode_many (compatible payloads' windows in one "
+                          "stacked evaluation)")
+    dec.add_argument("--output", required=True, nargs="+",
+                     help="one wav path per input")
     dec.add_argument("--device", default="cuda",
                      help="torch device to decode on (default cuda; "
                           "'cpu' runs the plain PyTorch versions)")
@@ -147,6 +177,32 @@ def main(argv=None) -> int:
     info.add_argument("--json", action="store_true",
                       help="emit the full machine-readable record")
 
+    fm = sub.add_parser(
+        "fit-multi",
+        help="multi-INR fit of a wav (the headline recipe): fit every "
+             "window at once, stitch, report the SNR, write the "
+             "reconstruction")
+    fm.add_argument("--input", required=True)
+    fm.add_argument("--output", required=True)
+    fm.add_argument("--device", default="cuda",
+                    help="torch device to train on (default cuda; 'cpu' "
+                         "runs the plain PyTorch versions)")
+    fm.add_argument("--chunk-s", type=float, default=0.01161)
+    fm.add_argument("--overlap", type=float, default=0.1)
+    fm.add_argument("--hidden", type=int, default=128)
+    fm.add_argument("--omega", type=float, default=115.0)
+    fm.add_argument("--learning-rate", type=float, default=1e-3)
+    fm.add_argument("--grad-clip", type=float, default=1.0)
+    fm.add_argument("--total-steps", type=int, default=3000)
+    fm.add_argument("--fused", action="store_true",
+                    help="train through the whole-step kernel and decode "
+                         "through the stack kernel, with the polynomial sin")
+    fm.add_argument("--metrics", default=None,
+                    help="stream one JSONL record a round to this path")
+    fm.add_argument("--max-chunks", type=int, default=0,
+                    help="train in batches of this many windows (bounds "
+                         "device memory; 0 = all at once)")
+
     args = ap.parse_args(argv)
     if args.cmd == "fit":
         from .experiments import train
@@ -158,34 +214,85 @@ def main(argv=None) -> int:
         if ckpt is not None:  # rank 0
             print(json.dumps({"ckpt": ckpt}))
     elif args.cmd == "encode":
+        # flag conflicts fail before any file I/O or training
+        if args.modulated:
+            for flag, on in (("--target-bps", args.target_bps is not None),
+                             ("--per-row-scales", args.per_row_scales),
+                             ("--fused", args.fused),
+                             ("--max-chunks", bool(args.max_chunks))):
+                if on:
+                    ap.error(f"{flag} does not apply to --modulated")
+            if args.quantize in ("bfloat16", "int4"):
+                ap.error("--modulated quantizes the modulations: use "
+                         "none, float16, int8, int16 or auto")
+            if args.refit_steps > 0 and args.quantize == "none":
+                ap.error("--refit-steps with --modulated needs quantized "
+                         "modulations (--quantize float16/int8/int16)")
+        elif args.film_scale:
+            ap.error("--film-scale requires --modulated")
+        elif args.segment_s is not None:
+            ap.error("--segment-s requires --modulated")
+        elif args.mods_lr_mult != 1.0:
+            ap.error("--mods-lr-mult requires --modulated")
+        elif args.quantize == "auto":
+            ap.error("--quantize auto requires --modulated (the fp16/int16 "
+                     "switch is a modulation-tier rule)")
         import resource
         import time
 
         import numpy as np
 
-        from .codec import (CodecConfig, compression_stats, decode, encode,
-                            save_inr)
+        from .codec import (CodecConfig, ModulatedCodecConfig,
+                            compression_stats, decode, encode,
+                            encode_modulated, plan_for_bitrate, save_inr)
         from .data.audio_io import read_wav
         from .dsp import calculate_snr
         from .parallel import make_mesh
         fs, sig = read_wav(args.input,
                            channel=None if args.all_channels else 0)
         sig = sig.astype(np.float32)
-        cfg = CodecConfig(
-            chunk_seconds=args.chunk_s, overlap_fraction=args.overlap,
-            hidden_features=args.hidden, first_omega_0=args.omega,
-            learning_rate=args.learning_rate, total_steps=args.total_steps,
-            quantize=None if args.quantize == "none" else args.quantize,
-            per_row_scales=args.per_row_scales, fused=args.fused,
-            refit_steps=args.refit_steps,
-            max_chunks_per_batch=args.max_chunks or None,
-            side_quantize={"auto": "auto", "on": True,
-                           "off": False}[args.side_quantize],
-            **({"plateau_patience": args.plateau_patience}
-               if args.plateau_patience is not None else {}))
+        quantize = None if args.quantize == "none" else args.quantize
+        patience = ({"plateau_patience": args.plateau_patience}
+                    if args.plateau_patience is not None else {})
+        kind = "modulated" if args.modulated else "per_chunk"
+        if args.modulated:
+            cfg = ModulatedCodecConfig(
+                chunk_seconds=args.chunk_s, overlap_fraction=args.overlap,
+                hidden_features=args.hidden, first_omega_0=args.omega,
+                learning_rate=args.learning_rate,
+                total_steps=args.total_steps, quantize_mods=quantize,
+                film_scale=args.film_scale, mods_lr_mult=args.mods_lr_mult,
+                segment_s=args.segment_s,
+                # --refit-steps is the quantization-aware refit in both
+                # families: the float leaves there, the backbone here
+                refit_backbone_steps=args.refit_steps, seed=args.seed,
+                **patience)
+        else:
+            cfg = CodecConfig(
+                chunk_seconds=args.chunk_s, overlap_fraction=args.overlap,
+                hidden_features=args.hidden, first_omega_0=args.omega,
+                learning_rate=args.learning_rate,
+                total_steps=args.total_steps, quantize=quantize,
+                per_row_scales=args.per_row_scales, fused=args.fused,
+                refit_steps=args.refit_steps,
+                max_chunks_per_batch=args.max_chunks or None,
+                side_quantize={"auto": "auto", "on": True,
+                               "off": False}[args.side_quantize],
+                seed=args.seed, **patience)
+            if args.target_bps is not None:
+                kind, cfg = plan_for_bitrate(
+                    args.target_bps, sig.shape[0], fs,
+                    channels=1 if sig.ndim == 1 else sig.shape[1], base=cfg,
+                    mod_base=ModulatedCodecConfig(
+                        total_steps=args.total_steps, seed=args.seed))
         mesh = make_mesh(args.device)
         t0 = time.time()
-        payload = encode(sig, fs, cfg, mesh=mesh)
+        if kind == "modulated":
+            if mesh.size > 1:
+                ap.error("the modulated encode runs on one rank")
+            payload = encode_modulated(sig, fs, cfg, device=mesh.device)
+        else:
+            payload = encode(sig, fs, cfg, mesh=mesh)
         enc_s = time.time() - t0
         if mesh.rank != 0:
             return _shutdown()
@@ -201,25 +308,36 @@ def main(argv=None) -> int:
             resource.RUSAGE_SELF).ru_maxrss / 1024, 1)
         print(json.dumps(stats))
     elif args.cmd == "decode":
-        from .codec import decode, decode_range, load_inr
+        from .codec import decode, decode_many, decode_range, load_inr
         from .data.audio_io import write_wav
+        if len(args.input) != len(args.output):
+            ap.error("--input and --output must list the same number of "
+                     "paths")
         if (args.start is None) != (args.stop is None):
             ap.error("--start and --stop must be given together")
         fused = {"auto": None, "on": True, "off": False}[args.fused]
         kb = args.max_chunks or None
-        payload = load_inr(args.input)
         if args.start is not None:
             if args.upsample != 1:
                 ap.error("--start/--stop do not compose with --upsample")
-            fs, rec = decode_range(payload, args.start, args.stop,
-                                   args.device, fused=fused,
-                                   max_chunks_per_batch=kb)
+            if len(args.input) != 1:
+                ap.error("--start/--stop decode one payload at a time")
+            outs = [decode_range(load_inr(args.input[0]), args.start,
+                                 args.stop, args.device, fused=fused,
+                                 max_chunks_per_batch=kb)]
+        elif len(args.input) == 1:
+            outs = [decode(load_inr(args.input[0]), args.device, fused=fused,
+                           upsample=args.upsample, max_chunks_per_batch=kb)]
         else:
-            fs, rec = decode(payload, args.device, fused=fused,
-                             upsample=args.upsample, max_chunks_per_batch=kb)
-        write_wav(args.output, fs, rec)
-        print(json.dumps({"path": args.output, "sample_rate": fs,
-                          "samples": int(len(rec)), "device": args.device}))
+            outs = decode_many([load_inr(p) for p in args.input],
+                               args.device, fused=fused,
+                               upsample=args.upsample,
+                               max_chunks_per_batch=kb)
+        for path, (fs, rec) in zip(args.output, outs):
+            write_wav(path, fs, rec)
+            print(json.dumps({"path": path, "sample_rate": fs,
+                              "samples": int(len(rec)),
+                              "device": args.device}))
     elif args.cmd == "info":
         from .codec import payload_info
         rec = payload_info(args.input)
@@ -231,10 +349,14 @@ def main(argv=None) -> int:
             dur = m["signal_length"] / m["sample_rate"]
             print(f"{args.input}: {rec['container'].upper()} container, "
                   f"{rec['file_bytes']} bytes")
-            print(f"  codec: {m.get('codec', 'per-chunk')}  "
-                  f"quantize: {m.get('quantize') or 'float32'}  "
-                  f"model: h={mdl['hidden_features']} "
-                  f"omega0={mdl['first_omega_0']}")
+            line = (f"  codec: {m.get('codec', 'per-chunk')}  "
+                    f"quantize: {m.get('quantize') or 'float32'}  "
+                    f"model: h={mdl['hidden_features']} "
+                    f"omega0={mdl['first_omega_0']}")
+            if m.get("codec") == "modulated":
+                line += (f"  segments: {m.get('num_segments', 1)}  "
+                         f"mod_dim: {m['mod_dim']}")
+            print(line)
             print(f"  signal: {dur:.2f}s @ {m['sample_rate']} Hz x "
                   f"{m.get('num_channels', 1)} ch, "
                   f"{m['num_chunks']} chunks of {m['chunk_length']} samples")
@@ -245,6 +367,53 @@ def main(argv=None) -> int:
                 print(f"  {e['name']:>10} {e['dtype']:>8} {shape:>14} "
                       f"{e['enc']:>10} {e['stored_bytes']:>9} B "
                       f"({e['stored_bytes'] / max(e['raw_bytes'], 1):.2f} raw)")
+    elif args.cmd == "fit-multi":
+        import os
+
+        import numpy as np
+
+        from .data.audio_io import read_wav, write_wav
+        from .dsp import calculate_snr
+        from .models import SirenSnakeTanhConfig, build_model
+        from .parallel import make_mesh
+        from .train.loop import TrainConfig
+        from .train.multi_inr import (MultiINRConfig, multi_inr_decode,
+                                      multi_inr_fit)
+        from .utils.observability import MetricsLogger
+        fs, sig = read_wav(args.input, channel=0)
+        sig = sig.astype(np.float32)
+        model = build_model("mlp", SirenSnakeTanhConfig(
+            first_omega_0=args.omega, hidden_features=args.hidden),
+            fused=args.fused, approx_sin=args.fused)
+        mesh = make_mesh(args.device)
+        # every rank takes part in the round's gather; rank 0 writes
+        metrics = (MetricsLogger(args.metrics if mesh.rank == 0
+                                 else os.devnull)
+                   if args.metrics else None)
+        try:
+            res = multi_inr_fit(
+                model, sig, fs,
+                MultiINRConfig(chunk_seconds=args.chunk_s,
+                               overlap_fraction=args.overlap),
+                TrainConfig(total_steps=args.total_steps,
+                            learning_rate=args.learning_rate,
+                            grad_clip_norm=args.grad_clip),
+                max_chunks_per_batch=args.max_chunks or None, mesh=mesh,
+                metrics=metrics)
+        finally:
+            if metrics is not None:
+                metrics.close()
+        if mesh.rank != 0:
+            return _shutdown()
+        rec = multi_inr_decode(model, res,
+                               max_chunks_per_batch=args.max_chunks or None)
+        write_wav(args.output, fs, rec)
+        print(json.dumps({
+            "path": args.output,
+            "snr_db": round(float(calculate_snr(sig, rec)), 3),
+            "num_chunks": res.num_chunks,
+            "train_time_s": round(res.train_time_s, 2),
+        }))
     return _shutdown()
 
 

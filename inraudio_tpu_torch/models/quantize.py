@@ -23,9 +23,12 @@ Params = Any
 
 
 def _peak_scale(l: torch.Tensor, per_leading_axis: bool, levels: float,
-                per_row: bool = False) -> torch.Tensor:
+                per_row: bool = False,
+                per_last_axis: bool = False) -> torch.Tensor:
     a = l.abs()
-    if per_row and l.ndim >= 3:
+    if per_last_axis and l.ndim >= 2:
+        peak = torch.amax(a, dim=tuple(range(l.ndim - 1)), keepdim=True)
+    elif per_row and l.ndim >= 3:
         peak = torch.amax(a, dim=tuple(range(1, l.ndim - 1)), keepdim=True)
     elif per_leading_axis and l.ndim >= 2:
         peak = torch.amax(a, dim=tuple(range(1, l.ndim)), keepdim=True)
@@ -36,10 +39,13 @@ def _peak_scale(l: torch.Tensor, per_leading_axis: bool, levels: float,
 
 def quantize_params(params: Params, mode: str = "float16",
                     per_leading_axis: bool = False,
-                    per_row: bool = False) -> Params:
+                    per_row: bool = False,
+                    per_last_axis: bool = False) -> Params:
     """Quantize every leaf; mode in {'float16', 'bfloat16', 'int8', 'int16',
     'int4'}.  Granularity flags as in the JAX package: ``per_leading_axis``
-    one scale per window, ``per_row`` one per (window, output unit)."""
+    one scale per window, ``per_row`` one per (window, output unit),
+    ``per_last_axis`` (int8 / int16) one per trailing-axis column, the
+    grain of a modulation matrix (windows, mod_dim)."""
     if mode in ("float16", "bfloat16"):
         dt = torch.float16 if mode == "float16" else torch.bfloat16
         return tree_map(lambda l: l.to(dt), params)
@@ -49,7 +55,8 @@ def quantize_params(params: Params, mode: str = "float16",
 
         def q(l):
             l = l.to(torch.float32)
-            scale = _peak_scale(l, per_leading_axis, levels, per_row)
+            scale = _peak_scale(l, per_leading_axis, levels, per_row,
+                                per_last_axis)
             return {"q": torch.clamp(torch.round(l / scale), -levels,
                                      levels).to(dt),
                     "scale": scale}

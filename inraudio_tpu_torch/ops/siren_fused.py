@@ -593,29 +593,33 @@ def fused_siren_apply(params: Params, cfg: SirenSnakeTanhConfig,
 # Quality-gated decode tiers
 # ---------------------------------------------------------------------------
 
-# Per-tier (moderate_floor_db, high_phase_floor_db, kwargs).  The floors are
-# copied from the JAX package, where they were measured on a TPU; they are
-# NOT yet measured on the CUDA kernel.  The tier semantics are identical, so
-# they are expected to carry over, but no card measurement backs them yet.
+# Per-tier (moderate_floor_db, high_phase_floor_db, kwargs), copied from the
+# JAX package (measured there on a TPU) except deg 11's moderate floor.  On an
+# H100 (chip_smoke.py phase 19: each tier's decode against the exact apply on
+# the trained headline, omega0 115, and codec-default, omega0 1800,
+# payloads) the moderate readings were bf16-deg7 58.2 / 55.5 dB, mixed 60.6 /
+# 58.5, deg9 106.5 / 103.5, all above the copied floors, and deg11 113.1 /
+# 110.5 dB, below the copied 134: its floor is the lower reading.  The
+# high-phase column (omega0 >= 2000) is not measured on the card.
 _DECODE_TIERS = (
     (43.0, 43.0, dict(approx_sin=True, sin_poly_degree=7,
                       compute_dtype="bfloat16")),
     (50.0, 46.0, dict(approx_sin=True, sin_poly_degree=7, mixed_matmul=True,
                       f32_mode="bf16x2")),
     (90.0, 85.0, dict(approx_sin=True, sin_poly_degree=9)),
-    (134.0, 87.0, dict(approx_sin=True, sin_poly_degree=11)),
+    (110.51, 87.0, dict(approx_sin=True, sin_poly_degree=11)),
 )
 
 # Above this first-layer omega0 the high-phase floor column applies (copied
-# from the JAX package, not yet measured on the card).
+# from the JAX package).
 _HIGH_PHASE_OMEGA = 2000.0
 
 
 def auto_decode_kwargs(fit_snr_db: float, margin_db: float = 9.0,
                        first_omega_0: float | None = None) -> dict[str, Any]:
     """The fastest tier whose noise floor sits ``margin_db`` above the
-    model's fit SNR; exact sin when none does.  The same gate as the JAX
-    package's ``auto_decode_kwargs``."""
+    model's fit SNR; exact sin when none does.  The JAX package's
+    ``auto_decode_kwargs`` over this module's table (``_DECODE_TIERS``)."""
     need = fit_snr_db + margin_db
     high_phase = (first_omega_0 is not None
                   and first_omega_0 >= _HIGH_PHASE_OMEGA)

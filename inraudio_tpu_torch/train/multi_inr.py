@@ -92,9 +92,12 @@ def multi_inr_fit(model: INRModel, signal: np.ndarray, sample_rate: int,
                   train_cfg: TrainConfig | None = None, seed: int = 0,
                   device: torch.device | str | None = None,
                   max_chunks_per_batch: int | None = None,
-                  mesh: Mesh | None = None) -> MultiINRResult:
+                  mesh: Mesh | None = None, metrics=None) -> MultiINRResult:
     """Fit one INR per window, all windows at once on ``device`` (default
-    the card; without one it raises, pass "cpu" for the CPU).  The
+    the card; without one it raises, pass "cpu" for the CPU).  ``metrics``
+    (a ``utils.observability.MetricsLogger``) takes one record a round, read
+    from the round's last step: on a mesh the ranks gather it, so every rank
+    passes a logger or none does.  The
     initial parameters are drawn from ``torch.Generator().manual_seed(
     seed)`` (the JAX package's PRNG key; the numbers differ, the
     distributions match).  ``max_chunks_per_batch`` trains the population
@@ -110,11 +113,11 @@ def multi_inr_fit(model: INRModel, signal: np.ndarray, sample_rate: int,
                                   sample_rate, cfg)
     return _fit_chunks(model, chunks, n, hop, len(signal), train_cfg,
                        torch.Generator().manual_seed(seed), mesh,
-                       max_chunks_per_batch)
+                       max_chunks_per_batch, metrics)
 
 
 def _fit_chunks(model, chunks, n, hop, signal_length, train_cfg, generator,
-                mesh, max_chunks_per_batch) -> MultiINRResult:
+                mesh, max_chunks_per_batch, metrics=None) -> MultiINRResult:
     """Train a (k, n) window population, optionally in batches (the
     ``max_chunks_per_batch`` memory bound).  Eager PyTorch compiles
     nothing, so the last batch is not padded."""
@@ -122,11 +125,12 @@ def _fit_chunks(model, chunks, n, hop, signal_length, train_cfg, generator,
     kb = max_chunks_per_batch
     if not kb or k <= kb:
         return _fit_chunk_population(model, chunks, n, hop, signal_length,
-                                     train_cfg, generator, mesh)
+                                     train_cfg, generator, mesh, metrics)
     parts = []
     for start in range(0, k, kb):
         r = _fit_chunk_population(model, chunks[start:start + kb], n, hop,
-                                  signal_length, train_cfg, generator, mesh)
+                                  signal_length, train_cfg, generator, mesh,
+                                  metrics)
         # finished states to the host before the next batch trains
         parts.append(r._replace(states=tree_map(lambda x: x.cpu(),
                                                 r.states)))
@@ -177,7 +181,8 @@ def multi_inr_fit_many(model: INRModel, signals: list[np.ndarray],
 
 
 def _fit_chunk_population(model, chunks, n, hop, signal_length, train_cfg,
-                          generator, mesh: Mesh) -> MultiINRResult:
+                          generator, mesh: Mesh,
+                          metrics=None) -> MultiINRResult:
     """Core of the fit: train a (k, n) window population on the mesh.
 
     A round of ``scan_chunk`` steps launches work and reads nothing back:
@@ -224,6 +229,19 @@ def _fit_chunk_population(model, chunks, n, hop, signal_length, train_cfg,
             round_losses.append(loss)
         hists.append(torch.stack(round_losses))
         done += m
+        if metrics is not None:
+            # the round's one host read: its last step's window losses
+            last = round_losses[-1]
+            if mesh.size > 1:
+                last = mesh.all_gather(last)
+            last = last[:k].cpu().numpy()
+            elapsed = time.time() - t0
+            metrics.log({"event": "round", "step": done,
+                         "loss": float(np.mean(last)),
+                         "worst_chunk_loss": float(np.max(last)),
+                         "elapsed_s": round(elapsed, 3),
+                         "steps_per_sec": round(done / max(elapsed, 1e-9),
+                                                2)})
     sync()
     train_time = mesh.span(t0, time.time())
     hist = torch.cat(hists) if hists else torch.zeros(
@@ -312,8 +330,7 @@ def multi_inr_decode_range(model: INRModel, result: MultiINRResult,
                            ) -> np.ndarray:
     """Decode only samples ``[start, stop)`` of the fitted clip, on the
     device its states lie on (see ``decode_chunk_range``)."""
-    params = (result.states.best_params if track_best
-              else result.states.params)
+    params = _decode_params(result, track_best)
     fn = chunk_eval_fn(model, _grid_like(result, params))
     return decode_chunk_range(fn, params, result.chunk_scales,
                               result.chunk_length, result.hop,
@@ -326,13 +343,21 @@ def multi_inr_decode(model: INRModel, result: MultiINRResult,
                      max_chunks_per_batch: int | None = None) -> np.ndarray:
     """Evaluate every window (one stacked call) on the device its states
     lie on and overlap-add -> the stitched waveform."""
-    params = (result.states.best_params if track_best
-              else result.states.params)
+    params = _decode_params(result, track_best)
     fn = chunk_eval_fn(model, _grid_like(result, params))
     outs = batched_chunk_eval(fn, params, result.num_chunks,
                               max_chunks_per_batch)
     outs = outs[:result.num_chunks, :, 0] * result.chunk_scales[:, None]
     return stitch_chunks(outs, result.hop, result.signal_length)
+
+
+def _decode_params(result: MultiINRResult, track_best: bool):
+    """The result's (best) params as contiguous tensors: a fused fit's
+    states are views into its flat buffers, and the stack kernel takes
+    contiguous leaves."""
+    params = (result.states.best_params if track_best
+              else result.states.params)
+    return tree_map(torch.Tensor.contiguous, params)
 
 
 def _grid_like(result: MultiINRResult, params) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Card-only checks of the CUDA kernels (csrc/siren_stack.cu, the backward,
 whole-step and row-shard kernels of csrc/siren_train.cu, each at widths 32
 to 256 and with an RFF layer 0, and the KAN forward and backward kernels of
-csrc/kan.cu) against their plain PyTorch versions on the same card, and a
-step of the row-sharded fit on two ranks sharing the card.  It also holds
+csrc/kan.cu) against their plain PyTorch versions on the same card, a step
+of the row-sharded fit on two ranks sharing the card, the decode serving
+paths (``decode_many``, ``decode_stream``) against ``decode``, and the
+modulated codec's decode and fit against the CPU's.  It also holds
 ``run_thread_ranks``, the thread ranks that tests/test_torch_shard.py and
 chip_smoke.py run the sharded fits on.
 
@@ -339,6 +341,109 @@ def test_decode_range_equals_full_decode_slice(dev):
     # tier's f32 tolerance
     _, cpu = codec.decode_range(payload, 0.123, 0.2, "cpu", fused=True)
     np.testing.assert_allclose(cpu, full[984:1600], atol=F32_ATOL, rtol=0)
+
+
+def _fused_payload(k, n=400, hop=360, h=64, omega=1800.0, seed=0,
+                   fit=60.0):
+    """A fused-trained per-window payload of k random windows."""
+    cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=omega)
+    meta = {"format": codec._FORMAT, "sample_rate": 8000,
+            "signal_length": (k - 1) * hop + n - 17, "chunk_length": n,
+            "hop": hop, "num_chunks": k, "num_channels": 1,
+            "quantize": "float16", "per_row_scales": False,
+            "side_quantized": True, "trained_forward": "fused_approx",
+            "fit_snr_db": fit,
+            "model": {"hidden_features": h, "num_sine": 2, "num_snake": 2,
+                      "first_omega_0": omega, "hidden_omega_0": 30.0}}
+    return {"meta": meta,
+            "scales": np.linspace(0.3, 0.9, k).astype(np.float32),
+            "params": codec.quantize_inr_params(
+                _population(cfg, k, "cpu", seed=seed), "float16")}
+
+
+def test_decode_many_and_stream_equal_decode(dev):
+    """A window's kernel output does not depend on the window count of its
+    call: decode_many (one stack-kernel call per group) and decode_stream
+    give decode's samples bit for bit."""
+    payloads = [_fused_payload(9), _fused_payload(4, seed=1),
+                _fused_payload(6, n=300, hop=270, seed=2),
+                _fused_payload(9, seed=3)]
+    singles = [codec.decode(p, dev) for p in payloads]
+    before = sf.SIREN_STACK.launches
+    many = codec.decode_many(payloads, dev)
+    assert sf.SIREN_STACK.launches - before == 2  # two groups
+    for (fs, a), (fs1, b) in zip(many, singles):
+        assert fs == fs1 and np.array_equal(a, b)
+    for p, (_, full) in zip(payloads[:3], singles):
+        blocks = [b for _, b in codec.decode_stream(p, dev, block_s=0.03)]
+        assert np.array_equal(np.concatenate(blocks), full)
+
+
+def test_fused_multi_inr_fit_decodes_through_the_stack_kernel(dev):
+    """A fused fit's states are views into its flat buffers; the decode
+    hands the stack kernel contiguous leaves."""
+    from inraudio_tpu_torch.train import multi_inr as tmulti
+    cfg = SirenSnakeTanhConfig(hidden_features=32, first_omega_0=115.0)
+    model = build_model("mlp", cfg, fused=True, approx_sin=True)
+    t = np.arange(3000) / 8000
+    sig = (0.6 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    res = tmulti.multi_inr_fit(
+        model, sig, 8000, tmulti.MultiINRConfig(chunk_seconds=0.05,
+                                                overlap_fraction=0.1),
+        tloop.TrainConfig(total_steps=3), device=dev)
+    before = sf.SIREN_STACK.launches
+    rec = tmulti.multi_inr_decode(model, res)
+    part = tmulti.multi_inr_decode_range(model, res, 500, 900)
+    assert sf.SIREN_STACK.launches - before == 2
+    assert rec.shape == sig.shape and np.isfinite(rec).all()
+    assert np.array_equal(part, rec[500:900])
+
+
+def _modulated_payload(**kw):
+    t = np.arange(2400) / 8000
+    sig = (0.6 * np.sin(2 * np.pi * 220 * t)
+           + 0.2 * np.sin(2 * np.pi * 700 * t)).astype(np.float32)
+    return codec.encode_modulated(sig, 8000, codec.ModulatedCodecConfig(
+        chunk_seconds=0.05, hidden_features=32, first_omega_0=100.0,
+        total_steps=20, **kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(quantize_mods="int8"),
+                                dict(quantize_mods="int16", segment_s=0.1,
+                                     film_scale=True, shared_fp16=False)],
+                         ids=["int8", "segmented-film"])
+def test_modulated_decode_on_the_card(dev, kw):
+    """The modulated forward is PyTorch ops (no kernel, as in the JAX
+    package): the card's decode agrees with the CPU's to the trained
+    payloads' cross-implementation bound (tests/test_torch_decode.py), and
+    a range equals the full decode's slice to cuBLAS's summation order."""
+    p = _modulated_payload(**kw)
+    _, cpu = codec.decode(p, "cpu")
+    _, full = codec.decode(p, dev)
+    np.testing.assert_allclose(full, cpu, atol=3e-5, rtol=0)
+    for a, b in ((0.0, 0.04), (0.11, 0.2), (0.29, 0.3)):
+        _, part = codec.decode_range(p, a, b, dev)
+        np.testing.assert_allclose(part, full[round(a * 8000):round(b * 8000)],
+                                   atol=1e-6, rtol=0)
+    blocks = [b for _, b in codec.decode_stream(p, dev, block_s=0.07)]
+    np.testing.assert_allclose(np.concatenate(blocks), full, atol=1e-6,
+                               rtol=0)
+
+
+def test_modulated_fit_on_the_card_matches_cpu(dev):
+    from inraudio_tpu_torch.train.modulated import modulated_fit
+    cfg = SirenSnakeTanhConfig(hidden_features=32, first_omega_0=100.0)
+    coords = np.linspace(-1, 1, 300, dtype=np.float32)[:, None]
+    t = (0.7 * np.sin(2 * np.pi * np.arange(1, 7)[:, None] * coords[:, 0])
+         ).astype(np.float32)[..., None]
+    tc = tloop.TrainConfig(total_steps=8, grad_clip_norm=1.0, scan_chunk=3)
+    runs = [modulated_fit(cfg, t, coords, tc, mods_lr_mult=5.0, device=d,
+                          generator=torch.Generator().manual_seed(1))
+            for d in ("cpu", dev)]
+    np.testing.assert_allclose(runs[1].loss_history, runs[0].loss_history,
+                               rtol=1e-5)
+    np.testing.assert_allclose(runs[1].mods.cpu().numpy(),
+                               runs[0].mods.numpy(), rtol=3e-5, atol=3e-6)
 
 
 # ---------------------------------------------------------------------------

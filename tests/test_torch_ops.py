@@ -114,13 +114,31 @@ def test_single_model_matches_jax_kernel(population, kw):
 
 @pytest.mark.parametrize("fit", [0.0, 25.0, 30.0, 45.0, 80.0, 120.0, 140.0])
 @pytest.mark.parametrize("omega", [115.0, 1800.0, 22000.0])
-def test_auto_decode_kwargs_matches_jax(fit, omega):
+def test_auto_decode_kwargs_matches_jax(fit, omega, monkeypatch):
+    # the JAX package's gate over the port's table: the tiers' kwargs are
+    # the JAX package's, and so is every floor but the one measured lower
+    # on the card (test_decode_tier_floors_differ_only_where_measured)
+    monkeypatch.setattr(jps, "_DECODE_TIERS", tuple(
+        (floor, high, jkw) for (floor, high, _), (_, _, jkw)
+        in zip(sf._DECODE_TIERS, jps._DECODE_TIERS)))
     j = jps.auto_decode_kwargs(fit, first_omega_0=omega)
     t = sf.auto_decode_kwargs(fit, first_omega_0=omega)
     norm = {k: ("bfloat16" if v in (jnp.bfloat16, torch.bfloat16) else v)
             for k, v in j.items()}
     assert {k: ("bfloat16" if v == torch.bfloat16 else v)
             for k, v in t.items()} == norm
+
+
+def test_decode_tier_floors_differ_only_where_measured():
+    """The port's routing table is the JAX package's (measured on a TPU)
+    except deg 11's moderate floor, lowered to the reading on an H100
+    (chip_smoke.py phase 19: 110.51 dB against the exact apply)."""
+    assert len(sf._DECODE_TIERS) == len(jps._DECODE_TIERS)
+    for i, ((f, hf, kw), (jf, jhf, jkw)) in enumerate(zip(
+            sf._DECODE_TIERS, jps._DECODE_TIERS)):
+        assert kw == jkw and hf == jhf
+        assert f == (110.51 if i == 3 else jf) and f <= jf
+    assert sf._HIGH_PHASE_OMEGA == jps._HIGH_PHASE_OMEGA
 
 
 def test_stack_plan_modes_follow_run_layers():
