@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA card: the codec's decode
 path and its encode (training) path, the runner's single-model fit of the
-KAN and of the production mlp, and the sharded fits on two ranks that share
-the card.
+KAN and of the production mlp, the sharded fits on two ranks that share
+the card, the rest of the codec, and the spectral fits.
 
     python3 chip_smoke.py
 
@@ -177,6 +177,44 @@ serving paths, fit-multi):
    FIT_MULTI_STEPS steps, with kernel D's and A's launches counted and the
    metrics file's round records checked.
 
+The spectral fits (the runner's ``fit --method mdct|fft|multi`` and the
+loss zoo) at the CLI's defaults (the production mlp, h=256, omega0=22000)
+on the same clip, the mdct target at n=2048: 1,024 bins x 300 frames =
+307,200 rows of two coordinates, its hearing-threshold mask the per-row
+loss weight:
+21. kernel D with the weight, 3 steps from one state against ``step_plain``
+   with the weight beside the 1-ulp control (phase 11's rule), in the
+   default grad tier (the tensor-core route) and for one step in the
+   highest tier (the FMA kernel), both at d = 2; an all-ones weight
+   against no weight (loss, params, mu, nu, best bit-equal); two weighted
+   steps from one state (bit-equal); kernel E with the weight on the two
+   shards of a 2-rank fit against ``grad_plain`` beside the control, the
+   shards' sum against D's weighted grad accumulation, a shard with limit
+   0 (exact zeros); a negative control for each (the plain step or grad
+   without the weight against the plain one with it, which must break the
+   gates the kernel is held to, so a kernel that dropped the weight could
+   not pass);
+22. served through the entry points, in process, every launch count set to
+   0 before and read after each: the CLI ``fit`` with ``--method mdct
+   --perceptual-mask`` (D with the weight), ``--method mdct --adaptive
+   --takelog``, ``--method fft --loss-mode mae`` (autograd: the stack
+   kernel and C), ``--method wave --alpha 0.5 --multi-resolution-stft``
+   (autograd with the STFT term), ``--method multi`` and ``--arch kan
+   --method mdct`` (G and H at d = 2), SPECTRAL_STEPS steps each, each
+   checkpoint loaded and decoded by ``decode_problem`` on the card (SNR
+   printed, not gated: the fft figure is phase-limited) and on the CPU's
+   plain versions (SPECTRAL_DECODE_RTOL of the largest sample; the fft
+   decode by Griffin-Lim's spectral convergence); then the weighted mdct
+   fit on two thread ranks (E + F, never D), its first and final loss held
+   to the one-rank weighted fit beside a 1-ulp control (phase 15's rule);
+23. timings with CUDA events: the weighted D step against the unweighted
+   one at the mdct shape with their sweeps apart, weighted E on a shard,
+   the autograd ``mae`` (fft target) and STFT-loss (wave) steps split into
+   the stack forward, the loss with its gradient, and C; ``stmdct``,
+   ``istmdct``, ``stft_magnitude`` and 60 Griffin-Lim iterations on the
+   card, basis matmul against ``torch.fft``; each served fit's peak device
+   memory against the grad scratch bound.
+
 Every kernel's bound (the least time the card could take for the same
 work) is computed from the run's shapes: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak of the unit they
@@ -299,6 +337,39 @@ MOD_RANGE_ATOL = 1e-6
 TRAINED_ATOL = 3e-5   # tests/test_torch_decode.py
 PLAN_TARGETS = ((1.5, "modulated", []), (4.0, "per_chunk", ["--fused"]))
 FIT_MULTI_STEPS = 200
+# phases 21-23: the spectral fits at the CLI's defaults on the clip: the
+# mdct target at n = 2048 (1,024 bins x 300 frames, two coordinates); each
+# served CLI fit's steps (a depth cut) and the sharded weighted fit's; each
+# fit's kind: (method, arch, extra CLI flags, the builder's knobs they set,
+# autograd step); the card's
+# decode against the CPU's: SPECTRAL_DECODE_RTOL of the largest sample (the
+# stack kernel agrees with its plain version to ~1e-4 of its output at
+# omega0 = 22000, phase 11's control), the fft decode's Griffin-Lim by
+# spectral convergence within SPECTRAL_GL_MARGIN; the autograd fits' peak
+# memory within the grad scratch plus SPECTRAL_ROW_FLOATS floats a row (the
+# STFT loss's frames)
+SPECTRAL_N = 2048
+SPECTRAL_ROWS = (307_200, 2)
+SPECTRAL_STEPS = 30
+SPECTRAL_SHARD_STEPS = 20
+SPECTRAL_FITS = {
+    "mdct_mask": ("mdct", "mlp", ["--perceptual-mask"],
+                  dict(perceptual_mask=True), False),
+    "mdct_adaptive_takelog": ("mdct", "mlp", ["--adaptive", "--takelog"],
+                              dict(adaptive=True, takelog=True), False),
+    "fft_mae": ("fft", "mlp", ["--loss-mode", "mae"], {}, True),
+    "wave_stft": ("wave", "mlp", ["--alpha", "0.5",
+                                  "--multi-resolution-stft"], {}, True),
+    "multi": ("multi", "mlp", [], {}, False),
+    "kan_mdct": ("mdct", "kan", [], {}, False),
+}
+AUTOGRAD_STEPS = {
+    "fft_mae": ("fft", {}, dict(loss_mode="mae")),
+    "wave_mrstft": ("wave", {}, dict(alpha=0.5, multi_resolution_stft=True)),
+}
+SPECTRAL_DECODE_RTOL = 1e-3
+SPECTRAL_GL_MARGIN = 0.02
+SPECTRAL_ROW_FLOATS = 64
 # the CUDA kernels that serve C, D and E in the bf16 grad tiers (the
 # highest tier runs siren_grad_kernel in their place), for the kernels line
 TC_KERNELS = ["siren_wsplit_kernel", "siren_sweep_kernel", "siren_dw_kernel",
@@ -526,25 +597,29 @@ def bound(bytes_moved, tensor_flop, f32_flop):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def siren_bounds(k, n, h, n_params, n_freq=0):
+def siren_bounds(k, n, h, n_params, n_freq=0, d=1, weighted=False):
     """Bounds of the three SIREN kernels at (k windows, n rows, width h,
     n_params floats a window, n_freq RFF frequencies or 0 for a raw layer
-    0), 2 sine + 2 snake layers + a linear head: bf16x3 forward products,
-    bf16x2 backward products (the grad tier: dW of every layer, dgrad of
-    layers 1+), and ~20 fp32 operations for each sine / snake activation
-    and RFF feature."""
+    0 of d columns), 2 sine + 2 snake layers + a linear head: bf16x3
+    forward products, bf16x2 backward products (the grad tier: dW of every
+    layer, dgrad of layers 1+), and ~20 fp32 operations for each sine /
+    snake activation and RFF feature.  ``weighted``: D and E also read a
+    per-row loss weight (C's slot is then E's bound)."""
     rows = k * n
-    l0 = (2 * n_freq if n_freq else 1) * h
+    l0 = (2 * n_freq if n_freq else d) * h
     macs = l0 + 4 * h * h + h                     # per row, forward
     dgrad = 4 * h * h + h                         # per row, below layer 1
     act = 20 * (5 * h + 2 * n_freq)               # per row, activations
     p_bytes = 4 * k * n_params
     stack = bound(p_bytes + 4 * rows * 2, 6 * macs * rows, act * rows)
     train_flop = (6 * macs + 2 * 2 * (macs + dgrad)) * rows
-    # D: params, mu, nu and best read and written, targets read
-    step = bound(8 * p_bytes + 4 * rows, train_flop, 2 * act * rows)
-    # C: params and the cotangent read, the gradient written
-    bwd = bound(2 * p_bytes + 4 * rows, train_flop, 2 * act * rows)
+    # D: params, mu, nu and best read and written, targets (and the
+    # weight) read
+    per_row = 4 * (2 if weighted else 1)
+    step = bound(8 * p_bytes + per_row * rows, train_flop, 2 * act * rows)
+    # C: params and the cotangent read, the gradient written (E: the
+    # targets and the weight in the cotangent's place)
+    bwd = bound(2 * p_bytes + per_row * rows, train_flop, 2 * act * rows)
     return stack, step, bwd
 
 
@@ -1165,14 +1240,19 @@ def runner_phases(np, torch, dev, clip):
     return out
 
 
-def _shard_inputs(torch, np, dev, coords, targets, rank, size, block):
+def _shard_inputs(torch, np, dev, coords, targets, rank, size, block,
+                  weight=None):
     """(coords, targets (1, rows), int32 limit, RowShard) of one rank's
-    rows, as the row-sharded fit lays them out."""
+    rows, as the row-sharded fit lays them out; with a per-row ``weight``
+    also the rank's weight (1, rows), normalised over the clip."""
     from inraudio_tpu_torch.parallel import Mesh, shard_problem_arrays
-    cs, ts, sh = shard_problem_arrays(Mesh(None, rank, size, dev), coords,
-                                      targets, block)
+    cs, ts, ws, sh = shard_problem_arrays(Mesh(None, rank, size, dev),
+                                          coords, targets, block,
+                                          weight=weight)
     limit = torch.tensor([sh.valid], dtype=torch.int32, device=dev)
-    return cs, ts.reshape(1, -1), limit, sh
+    if weight is None:
+        return cs, ts.reshape(1, -1), limit, sh
+    return cs, ts.reshape(1, -1), limit, sh, ws.reshape(1, -1)
 
 
 def shard_phases(np, torch, dev, clip):
@@ -2337,6 +2417,437 @@ def serving_phases(np, torch, dev, clip, codec, sf, trained):
     return out
 
 
+def spectral_model(arch, in_features):
+    """The runner's CLI-default model for a spectral fit: the production
+    mlp (fused) or KAN([d, 256, 256, 1]) (fused)."""
+    from inraudio_tpu_torch.experiments import runner as trunner
+    return trunner.build_arch(arch, in_features, RUNNER_H, 2, 2, 0,
+                              RUNNER_OMEGA, 30.0, 0.5, fused=True)
+
+
+def spectral_phases(np, torch, dev, clip):
+    """Phases 21-23: the spectral fits at the CLI's defaults on the clip.
+    21: kernels D and E with the mdct target's per-row weight (the
+    hearing-threshold mask) against their plain versions beside the 1-ulp
+    control, an all-ones weight bit-equal to no weight, repeat calls
+    bit-equal, two shards' E summing to D's, d = 2 on both routes; 22: the
+    fit CLI of every method, served in process with the launch counts read
+    around each run, each checkpoint loaded and decoded on the card and on
+    the CPU, and the weighted mdct fit sharded over two thread ranks; 23:
+    timings (CUDA events) of the weighted and unweighted steps, the
+    autograd steps' parts, the DSP's basis matmuls against torch.fft, and
+    each fit's peak memory."""
+    from inraudio_tpu_torch.__main__ import main as cli_main
+    from inraudio_tpu_torch.data import write_wav
+    from inraudio_tpu_torch.dsp import (griffin_lim, hann_window_periodic,
+                                        istmdct, stft_magnitude, stmdct)
+    from inraudio_tpu_torch.eval.decode import decode_problem
+    from inraudio_tpu_torch.eval.metrics import reconstruction_snr
+    from inraudio_tpu_torch.experiments import runner as trunner
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_step as ss
+    from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.parallel import normalise_weight
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.train.checkpoint import load_checkpoint
+    from inraudio_tpu_torch.train.losses import mix_loss
+    from inraudio_tpu_torch.tree import tree_leaves, tree_map
+    from test_torch_cuda import (GRAD_BF16_MAX_RTOL, GRAD_F32_RTOL,
+                                 LOSS_RTOL, RFF_CTRL_X, check_rff_steps,
+                                 clone_state, is_bf16_grad, perturb_layer0,
+                                 run_thread_ranks)
+
+    wav = os.path.join(WORK, "spectral_clip.wav")
+    write_wav(wav, FS, clip)
+    problem = trunner.build_problem("mdct", wav, 7.0, n=SPECTRAL_N,
+                                    perceptual_mask=True, device=dev)
+    x, y = problem.coords, problem.targets
+    n = x.shape[0]
+    if (n, problem.in_features) != SPECTRAL_ROWS:
+        raise AssertionError(f"mdct target: {n} rows of {problem.in_features}"
+                             f" columns, expected {SPECTRAL_ROWS}")
+    coords = torch.from_numpy(x).to(dev)
+    targets = torch.from_numpy(y[:, 0]).to(dev)[None]
+    w = torch.from_numpy(normalise_weight(problem.loss_weight)[:, 0]).to(
+        dev)[None]
+    model = spectral_model("mlp", 2)
+    cfg = model.config
+    plan = sf.stack_plan(cfg, approx_sin=True)
+    gmode = st.grad_dot_mode()
+    tc = tloop.TrainConfig()  # the runner's defaults: lr 1e-3, no clip
+    out, fails = {}, []
+    log(f"phase21 mdct target: n={SPECTRAL_N}, {problem.height} bins x "
+        f"{problem.width} frames = {n} rows of 2 coordinates; weight "
+        f"(hearing-threshold mask) in [{float(w.min()):.4f}, "
+        f"{float(w.max()):.4f}], mean {float(w.mean()):.6f}")
+
+    # ---- phase 21: weighted D and E against their plain versions ----
+    state = tloop.init_train_state(model, torch.Generator().manual_seed(SEED),
+                                   tc, dev, windows=1)
+    gaps = {}
+    for tier in (gmode, "highest") if gmode != "highest" else (gmode,):
+        os.environ["INRAUDIO_GRAD_PRECISION"] = tier
+        try:
+            a, g = check_rff_steps(cfg, tc, coords, targets, state, None,
+                                   steps=3 if tier == gmode else 1,
+                                   weight=w)
+            verdict = "ok"
+        except AssertionError as e:
+            g, verdict = e.args[0] if e.args else {}, "FAILED"
+            fails.append(f"weighted D {tier}")
+        finally:
+            os.environ["INRAUDIO_GRAD_PRECISION"] = gmode
+        route = "tensor-core" if st.tc_route(plan, tier) else "FMA"
+        log(f"phase21 weighted D vs step_plain with the weight ({tier} grad "
+            f"tier, {route} route, d=2), from one state: {g}; {verdict}")
+        gaps[tier] = g
+    out["step_err"] = gaps.get(gmode, {}).get("grad", float("nan"))
+    fs = ss.flat_state_from_train_state(state, cfg)
+    # negative control: the plain step without the weight against the plain
+    # step with it, from the same state, under the default tier's gates; a
+    # D that dropped the weight would be this far from its plain version
+    pstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                         step_call=ss.step_plain)
+    pw, (lpw, _) = pstep(clone_state(fs), coords, targets, w)
+    pu, (lpu, _) = pstep(clone_state(fs), coords, targets)
+    torch.cuda.synchronize()
+    gd = gaps.get(gmode, {})
+    nl = float((lpu - lpw).abs().max()) / float(lpw.abs().max())
+    nl_lim = max(RFF_CTRL_X * gd.get("loss_ctrl", [0.0])[0], LOSS_RTOL)
+    ng = float((pu.mu - pw.mu).abs().max())
+    ng_lim = max(RFF_CTRL_X * gd.get("grad_ctrl", 0.0), gd.get("grad_tol",
+                                                               0.0))
+    seen = nl > nl_lim or ng > ng_lim
+    log(f"phase21 negative control, plain D without the weight against "
+        f"plain D with it ({gmode}): step-0 loss rel {nl:.3e} (limit "
+        f"{nl_lim:.3e}), first-step grads (mu) max abs {ng:.3e} (limit "
+        f"{ng_lim:.3e}); a weight-dropping D would fail "
+        f"{'yes' if seen else 'NO'}")
+    if not seen:
+        fails.append("weighted D negative control")
+    del pw, pu
+    kstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True)
+    s1, (l1, _) = kstep(clone_state(fs), coords, targets, w)
+    s2, (l2, _) = kstep(clone_state(fs), coords, targets, w)
+    u0, (lu, _) = kstep(clone_state(fs), coords, targets)
+    u1, (lo, _) = kstep(clone_state(fs), coords, targets,
+                        torch.ones_like(w))
+    torch.cuda.synchronize()
+    same = torch.equal(l1, l2) and all(torch.equal(p, q)
+                                       for p, q in zip(s1, s2))
+    ones = torch.equal(lu, lo) and all(torch.equal(p, q)
+                                       for p, q in zip(u0, u1))
+    log(f"phase21 two weighted D steps from one state bit-equal {same}; an "
+        f"all-ones weight against no weight (loss, params, mu, nu, best) "
+        f"bit-equal {ones} (loss {float(lu):.9g}; weighted "
+        f"{float(l1):.9g})")
+    if not (same and ones):
+        fails.append("weighted D determinism / ones")
+    # E on the two shards of a 2-rank fit, the weight normalised over the
+    # clip and split with the rows
+    fs1 = s1
+    P = fs1.params.shape[1]
+    pert = st.flatten_params(perturb_layer0(st.unflatten_params(
+        fs1.params, cfg)), cfg)
+    tol = GRAD_BF16_MAX_RTOL if is_bf16_grad(gmode) else GRAD_F32_RTOL
+    block = st.tile_rows(RUNNER_H)
+    total, errs, ctls = 0, [], []
+    for r in range(2):
+        cs, ts, limit, sh, ws = _shard_inputs(torch, np, dev, x, y, r, 2,
+                                              block,
+                                              weight=problem.loss_weight)
+        args = (cs, ts, limit, n, cfg, plan, gmode)
+        kb = ss.SIREN_GRAD(fs1.params, *args, weight=ws)
+        again = ss.SIREN_GRAD(fs1.params, *args, weight=ws)
+        pb = ss.grad_plain(fs1.params, *args, weight=ws)
+        cb = ss.grad_plain(pert, *args, weight=ws)
+        nb = ss.grad_plain(fs1.params, *args)  # negative control: no weight
+        empty = ss.SIREN_GRAD(fs1.params, cs, ts, torch.zeros_like(limit),
+                              *args[3:], weight=ws)
+        torch.cuda.synchronize()
+        scale = float(pb[:P].abs().max())
+        err, ctl = (float((v - pb)[:P].abs().max()) for v in (kb, cb))
+        lerr = abs(float(kb[P] - pb[P])) / float(pb[P])
+        lctl = abs(float(cb[P] - pb[P])) / float(pb[P])
+        limit_g = max(RUNNER_CTRL_X * ctl, tol * scale)
+        limit_l = max(RUNNER_CTRL_X * lctl, LOSS_RTOL)
+        nerr = float((nb - pb)[:P].abs().max())
+        nlerr = abs(float(nb[P] - pb[P])) / float(pb[P])
+        seen = nerr > limit_g or nlerr > limit_l
+        ok = (bool(torch.isfinite(kb).all()) and err <= limit_g
+              and lerr <= limit_l and torch.equal(kb, again)
+              and not empty.any() and seen)
+        log(f"phase21 weighted E shard {r} (rows [{sh.start}, "
+            f"{sh.start + sh.rows}), {sh.valid} valid): grads max abs "
+            f"{err:.3e} of max |grad| {scale:.3e} (limit {limit_g:.3e} = "
+            f"max({RUNNER_CTRL_X} x control {ctl:.3e}, {tol} x max)); loss "
+            f"rel {lerr:.2e} (control {lctl:.2e}, limit {limit_l:.2e}); "
+            f"repeat bit-equal {torch.equal(kb, again)}; limit 0 gives "
+            f"zeros {not empty.any()}; negative control (plain E without "
+            f"the weight): grads {nerr:.3e}, loss rel {nlerr:.2e}, a "
+            f"weight-dropping E would fail {'yes' if seen else 'NO'}; "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(f"weighted E shard {r}")
+        errs.append(err)
+        ctls.append(ctl)
+        total = total + kb
+        del pb, cb, nb, again, empty
+    out["grad_err"] = max(errs)
+    g = st.validate_grad_launch(fs1.params, cfg, plan, coords)
+    grads, _, loss_part = st.grad_reduce(
+        st.TRAIN_LIBRARY(), g, coords, fs1.params,
+        torch.cuda.current_stream().cuda_stream, targets=targets,
+        gmode=gmode, weight=w)
+    torch.cuda.synchronize()
+    scale = float(grads.abs().max())
+    gap = float((total[None, :P] - grads).abs().max())
+    lgap = abs(float(total[P] - loss_part.sum())) / float(total[P])
+    limit_s = max(RUNNER_CTRL_X * max(ctls), GRAD_F32_RTOL * scale)
+    ok = gap <= limit_s and lgap <= LOSS_RTOL
+    log(f"phase21 weighted shard 0 + shard 1 against D's weighted grad "
+        f"accumulation over all {n} rows: grads max abs {gap:.3e} = "
+        f"{gap / scale:.2e} of max |grad| (limit {limit_s:.3e}), loss rel "
+        f"{lgap:.2e} (limit {LOSS_RTOL}); {'ok' if ok else 'FAILED'}")
+    if not ok:
+        fails.append("weighted E sum")
+    del grads, loss_part, total, s1, s2, u0, u1
+    if fails:
+        raise AssertionError(f"phase 21 failed: {fails}")
+
+    # ---- phase 22: served through the entry points ----
+    counters = launch_counters()
+    served, peaks = {}, {}
+    for tag, (method, arch, extra, kw, autograd) in SPECTRAL_FITS.items():
+        steps = SPECTRAL_STEPS
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rec, ckpt = run_cli_fit(cli_main, "phase22", wav, tag, arch, steps,
+                                ["--method", method, *extra])
+        peaks[tag] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        cnt = {k: c.launches for k, c in counters.items()}
+        served[tag] = cnt
+        # an mse fit of the mlp: D every step, the stack kernel in the
+        # decode; an autograd fit: the stack kernel and C every step; the
+        # KAN: G and H every step
+        if arch == "kan":
+            want = {"kan_bwd": steps, "siren_step": 0, "siren_bwd": 0}
+            least = {"kan_fwd": steps + 1}
+        elif autograd:
+            want = {"siren_bwd": steps, "siren_step": 0}
+            least = {"siren_stack": steps + 1}
+        else:
+            want = {"siren_step": steps, "siren_bwd": 0}
+            least = {"siren_stack": 1}
+        ok = (all(cnt[k] == v for k, v in want.items())
+              and all(cnt[k] >= v for k, v in least.items()))
+        want.update({k: f">={v}" for k, v in least.items()})
+        # the checkpoint, loaded and decoded on the card and on the CPU
+        prob = trunner.build_problem(method, wav, 7.0, device=dev, **kw)
+        m = spectral_model(arch, prob.in_features)
+        template = tloop.init_train_state(m, torch.Generator(),
+                                          tloop.TrainConfig(), dev)
+        params = load_checkpoint(ckpt, template).best_params
+        card, rate = decode_problem(m, params, prob, device=dev)
+        cpu, _ = decode_problem(m, tree_map(lambda t: t.cpu(), params), prob,
+                                device="cpu")
+        ref = clip / float(np.max(np.abs(clip)))
+        spectral = method in ("mdct", "fft")
+        snr = reconstruction_snr(ref if spectral else clip, card,
+                                 trim=1024 if spectral else 0)
+        if method == "fft":
+            dgap = abs(gl_convergence(np, torch, prob, card)
+                       - gl_convergence(np, torch, prob, cpu))
+            limit_d = SPECTRAL_GL_MARGIN
+            what = "spectral convergence of the two Griffin-Lim decodes"
+        else:
+            # the shifted log's exp multiplies an output's error by the
+            # contract's scale
+            amp = prob.decode["scale"] if prob.decode.get("takelog") else 1.0
+            dgap = float(np.max(np.abs(card - cpu)))
+            limit_d = (SPECTRAL_DECODE_RTOL * max(1.0, amp)
+                       * float(np.max(np.abs(cpu))))
+            what = "max abs sample"
+        ok = ok and bool(np.isfinite(card).all()) and dgap <= limit_d
+        log(f"phase22 {tag}: launches {cnt} (expected {want}); peak device "
+            f"memory {peaks[tag]:.1f} MiB; checkpoint -> load -> "
+            f"decode_problem on the card: {card.shape[0]} samples at {rate} "
+            f"Hz, SNR {snr:.3f} dB (not gated; the run's record "
+            f"{rec['SNR']:.3f} dB); card vs CPU decode {what} {dgap:.3e} "
+            f"(limit {limit_d:.3e}); {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(f"served {tag}")
+        del params, card, cpu
+    out["served"], out["peaks"] = served, peaks
+    # the weighted mdct fit on two thread ranks (E + F) against one rank
+    stc = tloop.TrainConfig(total_steps=SPECTRAL_SHARD_STEPS,
+                            scan_chunk=SPECTRAL_SHARD_STEPS)
+    s0 = tloop.init_train_state(model, torch.Generator().manual_seed(SEED),
+                                stc, dev)
+    one = tloop.fit(model, x, y, stc, state=s0, device=dev,
+                    weight=problem.loss_weight)
+    ulp = tloop.fit(model, x, y, stc, device=dev, weight=problem.loss_weight,
+                    state=s0._replace(params=tree_map(
+                        lambda t: t * (1.0 + 2.0 ** -22), s0.params)))
+    for c in counters.values():
+        c.launches = 0
+    res = run_thread_ranks(2, lambda m: tloop.fit(
+        model, x, y, stc, state=s0, mesh=m, weight=problem.loss_weight),
+        device=dev)
+    cnt = {k: c.launches for k, c in counters.items()}
+    out["sharded_launches"] = cnt
+    l1, lk, lu = (float(one.loss_history[0]), float(one.loss_history[-1]),
+                  float(ulp.loss_history[-1]))
+    l1s, ls = float(res[0].loss_history[0]), float(res[0].loss_history[-1])
+    limit = max(KAN_CMP_CONTROL_X * abs(lk - lu), KAN_CMP_FLOOR_REL * lk)
+    same = all(torch.equal(p, q) for p, q in zip(tree_leaves(res[0].state),
+                                                  tree_leaves(res[1].state)))
+    ok = (abs(l1s - l1) <= LOSS_RTOL * l1 and abs(ls - lk) <= limit and same
+          and np.array_equal(res[0].loss_history, res[1].loss_history)
+          and cnt["siren_step"] == 0
+          and cnt["siren_grad"] == 2 * SPECTRAL_SHARD_STEPS
+          and cnt["siren_adam"] == 2 * SPECTRAL_SHARD_STEPS)
+    log(f"phase22 weighted mdct fit(mesh=2 ranks on one card, gloo), "
+        f"{SPECTRAL_SHARD_STEPS} steps: first loss {l1s:.9g} vs one rank "
+        f"{l1:.9g} (rel {abs(l1s - l1) / l1:.2e}, limit {LOSS_RTOL}); final "
+        f"loss sharded {ls:.9g} / one rank {lk:.9g} / perturbed one rank "
+        f"{lu:.9g}, gated |sharded - one| {abs(ls - lk):.3e} (limit "
+        f"{limit:.3e}); ranks equal {same}; launches {cnt}; steps/s sharded "
+        f"{res[0].steps_per_sec:.2f}, one rank {one.steps_per_sec:.2f}; "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fails.append("weighted sharded fit")
+    del one, ulp, res
+    if fails:
+        raise AssertionError(f"phase 22 failed: {fails}")
+
+    # ---- phase 23: timings ----
+    t = {}
+    fs = ss.flat_state_from_train_state(state, cfg)
+    t["step_w"] = cuda_ms(torch, lambda: kstep(fs, coords, targets, w), 10)
+    t["step"] = cuda_ms(torch, lambda: kstep(fs, coords, targets), 10)
+    t["step_w2"] = cuda_ms(torch, lambda: kstep(fs, coords, targets, w), 10)
+    pstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                         step_call=ss.step_plain)
+    t["step_w_plain"] = cuda_ms(torch, lambda: pstep(fs, coords, targets, w),
+                                2)
+    g = st.validate_grad_launch(fs.params, cfg, plan, coords)
+    t["split_w"] = tc_split_ms(torch, st, g, coords, fs.params, 10,
+                               targets=targets, gmode=gmode, weight=w)
+    t["split"] = tc_split_ms(torch, st, g, coords, fs.params, 10,
+                             targets=targets, gmode=gmode)
+    cs, ts, limit, sh, ws = _shard_inputs(torch, np, dev, x, y, 0, 2, block,
+                                          weight=problem.loss_weight)
+    eargs = (cs, ts, limit, n, cfg, plan, gmode)
+    t["grad_w"] = cuda_ms(torch, lambda: ss.SIREN_GRAD(
+        fs.params, *eargs, weight=ws), 10)
+    t["grad"] = cuda_ms(torch, lambda: ss.SIREN_GRAD(fs.params, *eargs), 10)
+    t["grad_w_plain"] = cuda_ms(torch, lambda: ss.grad_plain(
+        fs.params, *eargs, weight=ws), 2)
+    n_params = sum(v[0].numel() for layer in st.unflatten_params(
+        fs.params, cfg)["layers"] for v in layer.values())
+    t["bounds"] = siren_bounds(1, n, RUNNER_H, n_params, d=2, weighted=True)
+    t["grad_bound"] = siren_bounds(1, sh.rows, RUNNER_H, n_params, d=2,
+                                   weighted=True)[2]
+    log(f"phase23 mdct shape ({n} rows, d=2, h={RUNNER_H}): weighted D step "
+        f"{t['step_w']:.3f} / {t['step_w2']:.3f} ms against unweighted "
+        f"{t['step']:.3f} ms ({100 * (min(t['step_w'], t['step_w2']) / t['step'] - 1):+.2f}%); "
+        f"plain weighted step {t['step_w_plain']:.3f} ms; bound "
+        f"{t['bounds'][1][0]:.3f} ms ({t['bounds'][1][1]}); sweep weighted "
+        f"{t['split_w']['siren_sweep']:.3f} ms against "
+        f"{t['split']['siren_sweep']:.3f} (weight split "
+        f"{t['split_w']['siren_wsplit']:.3f}, dW "
+        f"{t['split_w']['siren_dw']:.3f}, reduce "
+        f"{t['split_w']['siren_reduce']:.3f}); weighted E on shard 0 "
+        f"({sh.rows} rows) {t['grad_w']:.3f} ms against unweighted "
+        f"{t['grad']:.3f}, plain {t['grad_w_plain']:.3f}, bound "
+        f"{t['grad_bound'][0]:.3f} ms")
+    # the autograd steps, split into the stack forward, the loss and C
+    for tag, (method, kwp, ltc) in AUTOGRAD_STEPS.items():
+        prob = trunner.build_problem(method, wav, 7.0, device=dev, **kwp)
+        m = spectral_model("mlp", prob.in_features)
+        c = torch.from_numpy(prob.coords).to(dev)
+        yt = torch.from_numpy(prob.targets).to(dev)
+        atc = tloop.TrainConfig(**ltc)
+        s0 = tloop.init_train_state(m, torch.Generator().manual_seed(SEED),
+                                    atc, dev)
+        step = tloop.make_train_step(m, atc)
+        params = s0.params
+        mplan = sf.stack_plan(m.config, approx_sin=True)
+        sp = {"layers": [{k: v[None] for k, v in layer.items()}
+                         for layer in params["layers"]]}
+        fwd = cuda_ms(torch, lambda: sf.SIREN_STACK(sp, mplan, c), 10)
+        pred = sf.SIREN_STACK(sp, mplan, c)[0].detach().requires_grad_(True)
+
+        def loss_and_cot():
+            val = mix_loss(pred, yt, loss_mode=atc.loss_mode, alpha=atc.alpha,
+                           multi_resolution=atc.multi_resolution_stft)
+            return torch.autograd.grad(val, [pred])[0]
+
+        lms = cuda_ms(torch, loss_and_cot, 10)
+        cot = loss_and_cot()[None].contiguous()
+        bwd = cuda_ms(torch, lambda: st.SIREN_BWD(sp, m.config, mplan, gmode,
+                                                  c, cot), 5)
+        whole = cuda_ms(torch, lambda: step(s0, c, yt), 5)
+        t[tag] = dict(forward=fwd, loss=lms, bwd=bwd, step=whole)
+        log(f"phase23 autograd step {tag} ({c.shape[0]} rows, d="
+            f"{c.shape[1]}): whole step {whole:.3f} ms = stack forward "
+            f"{fwd:.3f} + loss and its gradient {lms:.3f} + C {bwd:.3f} + "
+            f"Adam / plateau / best and autograd "
+            f"{whole - fwd - lms - bwd:.3f} ms")
+        del s0, pred, cot
+    # the DSP on the card: the basis matmuls against torch.fft
+    sig = torch.from_numpy(clip).to(dev)
+    spec = stmdct(sig, n=SPECTRAL_N)
+    win = torch.from_numpy(hann_window_periodic(1024)).to(dev)
+    mag = stft_magnitude(sig, 1024, 256, win)
+    dsp = {}
+    for label, fn in (
+            ("stmdct", lambda u: stmdct(sig, n=SPECTRAL_N, use_fft=u)),
+            ("istmdct", lambda u: istmdct(spec, n=SPECTRAL_N, use_fft=u)),
+            ("stft_magnitude", lambda u: stft_magnitude(sig, 1024, 256, win,
+                                                        use_fft=u)),
+            ("griffin_lim_60", lambda u: griffin_lim(
+                mag, 1024, 256, win, length=CLIP_SAMPLES, use_fft=u))):
+        iters = 3 if label.startswith("griffin") else 20
+        dsp[label] = {u: cuda_ms(torch, lambda u=u: fn(u), iters)
+                      for u in (False, True)}
+        log(f"phase23 {label} on the card: basis matmul "
+            f"{dsp[label][False]:.3f} ms, torch.fft {dsp[label][True]:.3f} "
+            f"ms")
+    t["dsp"] = dsp
+    log(f"phase23 peak device memory of each served fit (MiB): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in peaks.items())
+        + f"; the grad scratch bound {(st.SCRATCH_BYTES + st.PLANE_BYTES) / 2**20:.0f} MiB "
+        f"+ state and rows")
+    limit_mib = (st.SCRATCH_BYTES + st.PLANE_BYTES) / 2**20 + 4 * 8 * P / 2**20
+    for tag, v in peaks.items():
+        if SPECTRAL_FITS[tag][1] == "kan":  # KAN scratch: not this bound
+            continue
+        rows = 2 * n if SPECTRAL_FITS[tag][0] == "fft" else n
+        allowed = limit_mib + 4 * SPECTRAL_ROW_FLOATS * rows / 2**20
+        if v > allowed:
+            raise AssertionError(f"{tag}: peak {v:.1f} MiB over {allowed:.1f}")
+    out["timing"] = t
+    return out
+
+
+def gl_convergence(np, torch, prob, wav):
+    """Spectral convergence of a decoded waveform against the fft target's
+    magnitude (both peak-normalised)."""
+    from inraudio_tpu_torch.dsp import hann_window_periodic, stft_magnitude
+    n_fft = prob.decode["n_fft"]
+    win = torch.from_numpy(hann_window_periodic(n_fft))
+    est = stft_magnitude(torch.from_numpy(wav), n_fft, n_fft // 4, win)
+    est = est[:, :prob.width].numpy()
+    mag = prob.targets[:, 0].reshape(prob.height, prob.width)
+    est = est / max(float(est.max()), 1e-30)
+    return float(np.linalg.norm(mag - est) / np.linalg.norm(mag))
+
+
 def build_kernels():
     """Phase 0: every CUDA source built at once (one nvcc each, in threads),
     with ptxas's register and spill lines printed."""
@@ -2620,6 +3131,7 @@ def main() -> int:
     width_phases(np, torch, dev, clip)
     serving = serving_phases(np, torch, dev, clip, codec, sf,
                              train["payloads"])
+    spectral = spectral_phases(np, torch, dev, clip)
 
     shutil.rmtree(WORK, ignore_errors=True)
     ms, plain_ms = timing[("headline", "deg11")]
@@ -2790,6 +3302,41 @@ def main() -> int:
             "host_ms": t["adam_host"],
             "library_flushed_ms": t["adam_library_flushed"],
         }]
+    t = spectral["timing"]
+    shape = (f"mdct target n={SPECTRAL_N}: {SPECTRAL_ROWS[0]} rows, d=2, "
+             f"runner mlp h={RUNNER_H} omega0={RUNNER_OMEGA:g}, the "
+             "hearing-threshold mask as the per-row weight")
+    kernels["kernels"] += [{
+        "name": "siren_step_weighted",
+        "route": "cuda",
+        "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+        "replaces": "inraudio_tpu/ops/pallas_siren_step.py:120",
+        "branch": "has_weight",
+        "launches": spectral["served"]["mdct_mask"]["siren_step"],
+        "max_abs_err": spectral["step_err"],
+        "ms": min(t["step_w"], t["step_w2"]), "plain_ms": t["step_w_plain"],
+        "bound_ms": t["bounds"][1][0], "bound_by": t["bounds"][1][1],
+        "library_ms": None,
+        "shape": shape + ", one whole train step; launches from the "
+                         "served fit --method mdct --perceptual-mask "
+                         "(phase 22)",
+        "cuda_kernels": TC_KERNELS + ADAM_KERNELS,
+        "unweighted_ms": t["step"], "split_ms": t["split_w"],
+    }, {
+        "name": "siren_grad_weighted",
+        "route": "cuda",
+        "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+        "replaces": "inraudio_tpu/ops/pallas_siren_step.py:348",
+        "branch": "has_weight",
+        "launches": spectral["sharded_launches"]["siren_grad"],
+        "max_abs_err": spectral["grad_err"],
+        "ms": t["grad_w"], "plain_ms": t["grad_w_plain"],
+        "bound_ms": t["grad_bound"][0], "bound_by": t["grad_bound"][1],
+        "library_ms": None,
+        "shape": shape + ", one shard of two; launches from the weighted "
+                         "fit on 2 ranks sharing the card (phase 22)",
+        "cuda_kernels": TC_KERNELS, "unweighted_ms": t["grad"],
+    }]
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """CLI: ``python -m inraudio_tpu_torch fit|encode|decode|info|fit-multi ...``.
 
 Port of every subcommand of ``inraudio_tpu``'s CLI: ``fit`` (the runner's
-``train``, wave method, mse; the flags it honours, with the JAX package's
-names), ``encode`` (both codec families: per-window, ``--modulated``, and
+``train``: the wave, mdct, fft and multi methods, every loss mode; the
+flags it honours, with the JAX package's names), ``encode`` (both codec families: per-window, ``--modulated``, and
 ``--target-bps`` planning across them), ``decode`` (one payload, or several
 through ``decode_many``), ``info`` and ``fit-multi`` (the multi-INR fit of
 the headline recipe), plus ``--device`` (default ``cuda``; it raises when
@@ -27,8 +27,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="inraudio_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    fit = sub.add_parser("fit", help="fit an INR to an audio file (wave "
-                                     "method, mse)")
+    fit = sub.add_parser("fit", help="fit an INR to an audio file")
     fit.add_argument("--experiment-path", default="results")
     fit.add_argument("--tag", default="exp")
     fit.add_argument("--filename", required=True)
@@ -36,7 +35,35 @@ def main(argv=None) -> int:
     fit.add_argument("--device", default="cuda",
                      help="torch device to train on (default cuda; 'cpu' "
                           "runs the plain PyTorch versions)")
+    fit.add_argument("--method", default="wave",
+                     choices=["wave", "mdct", "fft", "multi"])
     fit.add_argument("--arch", default="mlp", choices=["mlp", "kan"])
+    fit.add_argument("--loss-mode", default="mse",
+                     choices=["mse", "mae", "snr"])
+    fit.add_argument("--alpha", type=float, default=0.0,
+                     help="weight of the STFT loss term mixed into the "
+                          "base loss")
+    fit.add_argument("--multi-resolution-stft", action="store_true",
+                     help="the STFT term at three resolutions (auraloss's "
+                          "MultiResolutionSTFTLoss)")
+    fit.add_argument("--n", type=int, default=2048,
+                     help="MDCT frame length for method=mdct")
+    fit.add_argument("--takelog", action="store_true",
+                     help="method=mdct: fit the shifted log of the "
+                          "coefficients")
+    fit.add_argument("--n-fft", type=int, default=1024,
+                     help="STFT size for method=fft")
+    fit.add_argument("--highpass", action="store_true",
+                     help="pre-filter for fft (100 Hz) / mdct (150 Hz) "
+                          "targets")
+    fit.add_argument("--perceptual-mask", action="store_true",
+                     help="hearing-threshold loss weighting for "
+                          "method=mdct (a per-row weight; the fused mlp "
+                          "takes it in its whole-step kernel)")
+    fit.add_argument("--adaptive", action="store_true",
+                     help="block-switching STMDCT target for method=mdct")
+    fit.add_argument("--num-channels", type=int, default=1,
+                     help="channels for method=multi")
     fit.add_argument("--total-steps", type=int, default=20000)
     fit.add_argument("--learning-rate", type=float, default=1e-3)
     fit.add_argument("--min-learning-rate", type=float, default=1e-6)

@@ -33,6 +33,10 @@
 //                       chunk's sum of squares as the reduce computes it, a
 //                       grid-wide sync, the norm summed in chunk order by
 //                       every CTA, then the same update over the chunks.
+// D and E take an optional per-row loss weight (TrainArgs::wgt, (k, n) like
+// the targets; the mdct target's hearing-threshold mask): the prologue
+// computes l = (err err) w and g = err (w 2/n), the plain version's order,
+// so a weight of ones gives the unweighted bits.  C's cotangent takes none.
 // C is grad + reduce; D is grad + reduce + scale + Adam.  E is grad + reduce
 // with a device row limit (rows at or past it carry no loss), the
 // normaliser the whole clip's 1 / n_valid from the host, and the shard's
@@ -149,6 +153,7 @@ struct TrainArgs {
   int fdeg;               // the RFF features' trig degree
   int h_real;             // the model's own width: units at or past it
                           // (zero padding up to H) output exactly 0
+  const float* wgt;       // D / E: per-row loss weight (k, n), or null
 };
 
 template <int H>
@@ -553,9 +558,13 @@ siren_grad_kernel(const float* __restrict__ coords,
           if (cot != nullptr) {
             g = cot[win * n + row];
           } else {
+            // the plain version's order: (err err) w and err (w 2/n); no
+            // weight is w = 1, which gives the unweighted bits
             const float err = out - tgt[win * n + row];
-            l = err * err;
-            g = err * args.two_inv_n;
+            const float w = args.wgt != nullptr ? args.wgt[win * n + row]
+                                                : 1.0f;
+            l = err * err * w;
+            g = err * (w * args.two_inv_n);
           }
         }
         shp[r] = pre;
@@ -1420,9 +1429,13 @@ siren_sweep_kernel(const float* __restrict__ coords,
           if (cot != nullptr) {
             g = cot[win * n + row];
           } else {
+            // the plain version's order: (err err) w and err (w 2/n); no
+            // weight is w = 1, which gives the unweighted bits
             const float err = out - tgt[win * n + row];
-            l = err * err;
-            g = err * args.two_inv_n;
+            const float w = args.wgt != nullptr ? args.wgt[win * n + row]
+                                                : 1.0f;
+            l = err * err * w;
+            g = err * (w * args.two_inv_n);
           }
         }
         shp[r] = pre;
@@ -2166,6 +2179,7 @@ TrainArgs make_args(const void* offs, const void* ints, const void* omegas,
   args.n_freq = n_freq;
   args.fdeg = fdeg;
   args.h_real = h_real;
+  args.wgt = nullptr;
   return args;
 }
 
@@ -2195,6 +2209,8 @@ extern "C" {
 // slices: row slices per window, 1 <= slices <= the window's row tiles.
 // limit: device int32 (E's row limit: rows at or past it carry no loss), or
 // null for every row; inv_n / two_inv_n normalise the loss and cotangent.
+// wgt: device (k, n) f32 per-row loss weight of the MSE step (D, E; with
+// tgt only), offset like tgt, or null for none.
 // Returns a cudaError_t value: 0 when accepted.
 int siren_grad(const void* coords, const void* params, void* partial,
                void* loss_part, void* pre, const void* tgt, const void* cot,
@@ -2202,15 +2218,17 @@ int siren_grad(const void* coords, const void* params, void* partial,
                int n_layers, int k, int n, int d, int h, int h_real, int P,
                int gmode,
                float inv_n, float two_inv_n, const void* bt, int n_freq,
-               int fdeg, int slices, const void* limit, void* stream) {
+               int fdeg, int slices, const void* limit, const void* wgt,
+               void* stream) {
   if (n_layers < 2 || n_layers > kMaxLayers || d < 1 || d > kMaxIn || k < 1 ||
       n < 1 || P < 1 || (P & 3) || (tgt == nullptr) == (cot == nullptr) ||
+      (wgt != nullptr && tgt == nullptr) ||
       slices < 1 || n_freq < 0 || (n_freq > 0) != (bt != nullptr) ||
       h_real < 1 || h_real > h)
     return static_cast<int>(cudaErrorInvalidValue);
-  const TrainArgs args = make_args(offs, ints, omegas, n_layers, d, P, gmode,
-                                   inv_n, two_inv_n, bt, n_freq, fdeg,
-                                   h_real);
+  TrainArgs args = make_args(offs, ints, omegas, n_layers, d, P, gmode,
+                             inv_n, two_inv_n, bt, n_freq, fdeg, h_real);
+  args.wgt = static_cast<const float*>(wgt);
   const float* c = static_cast<const float*>(coords);
   const float* p = static_cast<const float*>(params);
   float* part = static_cast<float*>(partial);
@@ -2343,8 +2361,8 @@ int siren_adam_global(const void* buf, void* sq_part, void* params, void* mu,
 // units) over the tiles of chunk `chunk` of their slices (chunk_tiles
 // tiles a chunk); its pre (units, n_layers, 8192) f32 and planes (units,
 // unit_elems) bf16 scratch are indexed by u - u0, each unit's planes
-// rows_cap rows of h.  Every call returns a cudaError_t value: 0 when
-// accepted.
+// rows_cap rows of h.  wgt: as siren_grad's.  Every call returns a
+// cudaError_t value: 0 when accepted.
 int siren_wsplit(const void* params, void* whi, void* wlo, const void* offs,
                  const void* ints, const void* omegas, int n_layers, int k,
                  int h, int P, int n_freq, void* stream) {
@@ -2374,15 +2392,17 @@ int siren_sweep(const void* coords, const void* params, const void* whi,
                 int gmode, float inv_n, float two_inv_n, const void* bt,
                 int n_freq, int fdeg, int slices, int u0, int units,
                 int chunk, int chunk_tiles, int rows_cap,
-                long long unit_elems, const void* limit, void* stream) {
+                long long unit_elems, const void* limit, const void* wgt,
+                void* stream) {
   if (n_layers < 2 || n_layers > kMaxLayers || d < 1 || d > kMaxIn ||
       n < 1 || P < 1 || (P & 3) || (tgt == nullptr) == (cot == nullptr) ||
+      (wgt != nullptr && tgt == nullptr) ||
       slices < 1 || u0 < 0 || units < 1 || chunk < 0 || n_freq < 0 ||
       (n_freq > 0) != (bt != nullptr) || h_real < 1 || h_real > h)
     return static_cast<int>(cudaErrorInvalidValue);
-  const TrainArgs args = make_args(offs, ints, omegas, n_layers, d, P, gmode,
-                                   inv_n, two_inv_n, bt, n_freq, fdeg,
-                                   h_real);
+  TrainArgs args = make_args(offs, ints, omegas, n_layers, d, P, gmode,
+                             inv_n, two_inv_n, bt, n_freq, fdeg, h_real);
+  args.wgt = static_cast<const float*>(wgt);
   if (!tc_tiers(args)) return static_cast<int>(cudaErrorInvalidValue);
   const long long wq = static_cast<long long>(n_layers - 2) * h * h +
                        2LL * n_freq * h;

@@ -1,5 +1,7 @@
 """Experiment runner with the reference ``train(...)`` surface (port of
-``inraudio_tpu/experiments/runner.py``, the wave method).
+``inraudio_tpu/experiments/runner.py``): the wave, multi, mdct and fft
+methods, every loss mode of ``train.losses.mix_loss``, and the mdct
+target's per-row loss weight.
 
 Build the fitting problem, build the model (with an optional input
 encoding), optionally warm-start from a checkpoint, fit, decode (with
@@ -20,8 +22,10 @@ encoding into its kernels' layer 0.  Every other encoding (the NeRF
 posenc, and RFF for the KAN) is computed once on the device and handed to
 the model as its input features.  A fused mlp with the NeRF posenc raises:
 the kernels have no posenc layer 0 (the JAX runner silently unfuses it).
-Not ported: the mdct, fft and multi methods, the loss modes other than
-mse, plots and the loss landscape.  The knobs the port does not have are
+A spectral target's SNR is taken against the peak-normalised clip with
+1024 samples trimmed at each end (the fft decode's phase is Griffin-Lim's,
+so its SNR is phase-limited).  Not ported: plots, the loss landscape, the
+profiler and ``scaled_first``.  The knobs the port does not have are
 written into ``parameters.json`` at the values it runs with, so the schema
 matches the JAX package's.
 """
@@ -37,7 +41,8 @@ import torch
 
 from ..data.audio_io import decimate as decimate_signal
 from ..data.audio_io import read_wav, write_wav
-from ..data.fittings import (FittingProblem, waveform_fitting,
+from ..data.fittings import (FittingProblem, fft_fitting, mdct_fitting,
+                             multi_waveform_fitting, waveform_fitting,
                              waveform_fitting_from_array)
 from ..eval.decode import decode_problem
 from ..eval.metrics import (experiment_record, reconstruction_snr,
@@ -63,14 +68,27 @@ def make_experiment_folder(experiment_path: str, tag: str) -> str:
 
 
 def build_problem(method: str, filename: str, duration: float,
-                  decimation: int = 1) -> FittingProblem:
-    """Method dispatch: 'wave' is ported; mdct, fft and multi come with the
-    DSP slice."""
+                  decimation: int = 1, n: int = 2048, takelog: bool = False,
+                  num_channels: int = 1, perceptual_mask: bool = False,
+                  n_fft: int = 1024, highpass: bool = False,
+                  adaptive: bool = False,
+                  device: torch.device | str = "cuda") -> FittingProblem:
+    """Method dispatch: wave | mdct | fft | multi.  ``n_fft`` and
+    ``highpass`` reach the fft builder; ``n``, ``takelog``, ``highpass``,
+    ``perceptual_mask`` and ``adaptive`` the mdct builder; the transforms
+    run on ``device`` (default the card; it raises without one)."""
     if method == "wave":
         return waveform_fitting(filename, duration, decimation)
-    if method in ("mdct", "fft", "multi"):
-        raise NotImplementedError(
-            f"method {method!r} comes with the DSP slice of the port")
+    if method == "mdct":
+        return mdct_fitting(filename, duration, n=n, takelog=takelog,
+                            highpass=highpass,
+                            perceptual_mask=perceptual_mask,
+                            adaptive=adaptive, device=device)
+    if method == "fft":
+        return fft_fitting(filename, duration, n_fft=n_fft,
+                           highpass=highpass, device=device)
+    if method == "multi":
+        return multi_waveform_fitting(filename, duration, num_channels)
     raise ValueError(f"unknown method {method!r}")
 
 
@@ -130,6 +148,8 @@ def _run_experiment(
     omega: float, hidden_omega: float, a_initial: float | None,
     num_freq: int | None, sigma: float, total_steps: int,
     learning_rate: float, min_learning_rate: float, bwe: bool,
+    loss_mode: str = "mse", alpha: float = 0.0,
+    multi_resolution_stft: bool = False,
     prev_ckpt_path: str | None, seed: int, track_best: bool,
     hparams: dict[str, Any], fused: bool = False, first_linear: bool = False,
     last_linear: bool = True, grad_clip_norm: float = 0.0,
@@ -156,6 +176,8 @@ def _run_experiment(
                        fused=fused, rff_b=rff_b)
     cfg = TrainConfig(total_steps=total_steps, learning_rate=learning_rate,
                       min_learning_rate=min_learning_rate,
+                      loss_mode=loss_mode, alpha=alpha,
+                      multi_resolution_stft=multi_resolution_stft,
                       track_best=track_best, grad_clip_norm=grad_clip_norm,
                       plateau_factor=plateau_factor,
                       plateau_patience=plateau_patience,
@@ -174,7 +196,8 @@ def _run_experiment(
         metrics.log({"event": "config", "hparams": _scalars(hparams)})
     t0 = time.time()
     result = fit(model, enc_coords, problem.targets, cfg, generator=generator,
-                 state=state, metrics=metrics, mesh=mesh)
+                 state=state, metrics=metrics, mesh=mesh,
+                 weight=problem.loss_weight)
     train_time = time.time() - t0
     if mesh.rank != 0:
         return {"ckpt": None, "result": result, "model": model,
@@ -182,7 +205,8 @@ def _run_experiment(
 
     # an mse fit's own quality estimate gates a fused mlp's decode tier
     fit_snr_est = None
-    if np.isfinite(result.best_loss) and result.best_loss > 0:
+    if loss_mode == "mse" and np.isfinite(result.best_loss) \
+            and result.best_loss > 0:
         sig_pow = float(np.mean(np.square(problem.targets)))
         if sig_pow > 0:
             fit_snr_est = 10.0 * float(np.log10(sig_pow / result.best_loss))
@@ -198,7 +222,10 @@ def _run_experiment(
     else:
         q = reference_rate // problem.sample_rate
         ref_cmp = decimate_signal(ref, q) if q > 1 else ref
-    snr = reconstruction_snr(ref_cmp, recovered)
+    spectral = problem.method in ("mdct", "fft")
+    if spectral:  # the spectral targets fit the peak-normalised clip
+        ref_cmp = ref_cmp / float(np.max(np.abs(ref_cmp)))
+    snr = reconstruction_snr(ref_cmp, recovered, trim=1024 if spectral else 0)
 
     ckpt_path = save_checkpoint(
         os.path.join(experiment_folder, "saved_ckpt"), result.state,
@@ -221,7 +248,8 @@ def _run_experiment(
 
 
 def train(experiment_path: str, tag: str, filename: str,
-          duration: float = 10.0, *, arch: str = "mlp",
+          duration: float = 10.0, *, method: str = "wave",
+          arch: str = "mlp", loss_mode: str = "mse", alpha: float = 0.0,
           total_steps: int = 20000, learning_rate: float = 1e-3,
           min_learning_rate: float = 1e-6, num_sine: int = 2,
           num_snake: int = 2, num_tanh: int = 0, hidden: int = 256,
@@ -233,40 +261,54 @@ def train(experiment_path: str, tag: str, filename: str,
           first_linear: bool = False, last_linear: bool = True,
           grad_clip_norm: float = 0.0, plateau_factor: float = 0.8,
           plateau_patience: int = 200, update_grid_every: int = 0,
-          encoding: str = "rff",
+          encoding: str = "rff", takelog: bool = False, n: int = 2048,
+          num_channels: int = 1, multi_resolution_stft: bool = False,
+          n_fft: int = 1024, highpass: bool = False,
+          perceptual_mask: bool = False, adaptive: bool = False,
           device: torch.device | str | None = None,
           mesh: Mesh | None = None) -> str | None:
-    """File-based experiment (the wave method) -> the checkpoint path
-    (None on ranks other than 0).  Defaults are the reference runner's."""
+    """File-based experiment -> the checkpoint path (None on ranks other
+    than 0).  Defaults are the reference runner's.  ``method`` picks the
+    target (``build_problem``); the spectral methods read channel 1 of a
+    stereo file, wave and multi channel 0."""
     mesh = resolve_mesh(mesh, device)
     folder = (make_experiment_folder(experiment_path, tag) if mesh.rank == 0
               else None)
-    problem = build_problem("wave", filename, duration,
-                            decimation=decimation)
-    ref_rate, ref = read_wav(filename, channel=0)
+    problem = build_problem(method, filename, duration,
+                            decimation=decimation, n=n, takelog=takelog,
+                            num_channels=num_channels,
+                            perceptual_mask=perceptual_mask, n_fft=n_fft,
+                            highpass=highpass, adaptive=adaptive,
+                            device=mesh.device)
+    ref_rate, ref = read_wav(filename, channel=0 if method in ("wave",
+                                                               "multi")
+                             else 1)
     ref = ref[: int(duration * ref_rate)]
     hparams = dict(
         tag=tag, inst=None, filename=filename, duration=duration,
-        method="wave", arch=arch, loss_mode="mse", total_steps=total_steps,
-        learning_rate=learning_rate, min_learning_rate=min_learning_rate,
-        num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
-        hidden=hidden, omega=omega, hidden_omega=hidden_omega,
-        a_initial=a_initial, num_freq=num_freq, alpha=0.0,
-        decimation=decimation, bwe=bwe, takelog=False, N=2048,
-        prev_ckpt_path=prev_ckpt_path, seed=seed, num_channels=1,
+        method=method, arch=arch, loss_mode=loss_mode,
+        total_steps=total_steps, learning_rate=learning_rate,
+        min_learning_rate=min_learning_rate, num_sine=num_sine,
+        num_snake=num_snake, num_tanh=num_tanh, hidden=hidden, omega=omega,
+        hidden_omega=hidden_omega, a_initial=a_initial, num_freq=num_freq,
+        alpha=alpha, decimation=decimation, bwe=bwe, takelog=takelog, N=n,
+        prev_ckpt_path=prev_ckpt_path, seed=seed, num_channels=num_channels,
         first_linear=first_linear, last_linear=last_linear,
         grad_clip_norm=grad_clip_norm, plateau_factor=plateau_factor,
-        plateau_patience=plateau_patience, multi_resolution_stft=False,
-        n_fft=1024, highpass=False, perceptual_mask=False, adaptive=False,
-        update_grid_every=update_grid_every, scaled_first=False,
-        encoding=encoding)
+        plateau_patience=plateau_patience,
+        multi_resolution_stft=multi_resolution_stft, n_fft=n_fft,
+        highpass=highpass, perceptual_mask=perceptual_mask,
+        adaptive=adaptive, update_grid_every=update_grid_every,
+        scaled_first=False, encoding=encoding)
     out = _run_experiment(
         problem, folder, ref, ref_rate, arch=arch, hidden=hidden,
         num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
         omega=omega, hidden_omega=hidden_omega, a_initial=a_initial,
         num_freq=num_freq, sigma=sigma, total_steps=total_steps,
         learning_rate=learning_rate, min_learning_rate=min_learning_rate,
-        bwe=bwe, prev_ckpt_path=prev_ckpt_path, seed=seed,
+        bwe=bwe, loss_mode=loss_mode, alpha=alpha,
+        multi_resolution_stft=multi_resolution_stft,
+        prev_ckpt_path=prev_ckpt_path, seed=seed,
         track_best=track_best, hparams=hparams, fused=fused,
         first_linear=first_linear, last_linear=last_linear,
         grad_clip_norm=grad_clip_norm, plateau_factor=plateau_factor,
@@ -278,6 +320,8 @@ def train(experiment_path: str, tag: str, filename: str,
 def train_from_signal(experiment_path: str, tag: str,
                       input_signal: np.ndarray, input_fs: int, *,
                       coord_scale: float = 100.0, arch: str = "mlp",
+                      loss_mode: str = "mse", alpha: float = 0.0,
+                      multi_resolution_stft: bool = False,
                       total_steps: int = 20000, learning_rate: float = 1e-3,
                       min_learning_rate: float = 1e-6, num_sine: int = 2,
                       num_snake: int = 2, num_tanh: int = 0,
@@ -307,16 +351,17 @@ def train_from_signal(experiment_path: str, tag: str,
                                           coord_scale=coord_scale)
     hparams = dict(
         tag=tag, duration=len(input_signal) / input_fs, method="wave",
-        arch=arch, loss_mode="mse", total_steps=total_steps,
+        arch=arch, loss_mode=loss_mode, total_steps=total_steps,
         learning_rate=learning_rate, min_learning_rate=min_learning_rate,
         num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
         hidden=hidden, omega=omega, hidden_omega=hidden_omega,
-        a_initial=a_initial, num_freq=num_freq, alpha=0.0,
+        a_initial=a_initial, num_freq=num_freq, alpha=alpha,
         decimation=decimation, bwe=bwe, coord_scale=coord_scale,
         prev_ckpt_path=prev_ckpt_path, seed=seed,
         first_linear=first_linear, last_linear=last_linear,
         grad_clip_norm=grad_clip_norm, plateau_factor=plateau_factor,
-        plateau_patience=plateau_patience, multi_resolution_stft=False,
+        plateau_patience=plateau_patience,
+        multi_resolution_stft=multi_resolution_stft,
         update_grid_every=update_grid_every, scaled_first=False,
         encoding=encoding)
     return _run_experiment(
@@ -325,7 +370,8 @@ def train_from_signal(experiment_path: str, tag: str,
         num_snake=num_snake, num_tanh=num_tanh, omega=omega,
         hidden_omega=hidden_omega, a_initial=a_initial, num_freq=num_freq,
         sigma=sigma, total_steps=total_steps, learning_rate=learning_rate,
-        min_learning_rate=min_learning_rate, bwe=bwe,
+        min_learning_rate=min_learning_rate, bwe=bwe, loss_mode=loss_mode,
+        alpha=alpha, multi_resolution_stft=multi_resolution_stft,
         prev_ckpt_path=prev_ckpt_path, seed=seed, track_best=track_best,
         hparams=hparams, fused=fused, first_linear=first_linear,
         last_linear=last_linear, grad_clip_norm=grad_clip_norm,

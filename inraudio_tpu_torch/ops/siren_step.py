@@ -16,6 +16,9 @@ window count and row count and mask the ragged tile themselves, so the
 step also takes the RFF model at h = 256, which the JAX package's VMEM
 gate sends to the two-kernel autodiff step (the same step up to rounding).
 An RFF model (``rff_b``) folds its Gaussian Fourier encoding into layer 0.
+D and E take an optional per-row loss weight (the JAX kernels'
+``has_weight``: the mdct target's hearing-threshold mask), streamed beside
+the targets: loss = sum(err^2 w) / n and g = err (w 2 / n).
 
 The row-sharded fit (``train.loop.fit`` on a mesh of more than one rank)
 splits the step at the collective, as the JAX package's
@@ -143,18 +146,25 @@ def adam_epilogue_plain(params, mu, nu, best, grads, lr, c1, c2, loss,
                  / (torch.sqrt(v / col(c2)) + _EPS))
 
 
+def _mse_cotangent(err: torch.Tensor, weight, inv_n: float):
+    """(per-window loss, cotangent) of the (weighted) MSE of ``err`` (k,
+    n): sum(err err w) / n and err (w 2/n), in the kernels' order; no
+    weight is w = 1, which gives the unweighted bits."""
+    w = 1.0 if weight is None else weight
+    return torch.sum(err * err * w, dim=1) * inv_n, err * (w * (2.0 * inv_n))
+
+
 def step_plain(params, mu, nu, best, coords, targets, lr, c1, c2, best_loss,
                cfg: SirenSnakeTanhConfig, plan: StackPlan, gmode: str,
-               n_valid: int, clip_norm: float, bt=None) -> torch.Tensor:
+               n_valid: int, clip_norm: float, bt=None,
+               weight=None) -> torch.Tensor:
     """The whole step in plain PyTorch: (k, P) state groups updated in
     place, returns the per-window loss (k,).  Same arguments as
     ``fused_mse_step_call``."""
     inv_n = 1.0 / float(n_valid)
     leaves = unflatten_params(params, cfg)
     out, saved = fwd_pres_plain(leaves, plan, coords, bt)
-    err = out[..., 0] - targets                              # (k, n)
-    loss = torch.sum(err * err, dim=1) * inv_n
-    g = err * (2.0 * inv_n)
+    loss, g = _mse_cotangent(out[..., 0] - targets, weight, inv_n)  # (k, n)
     grads = bwd_sweep_plain(g.unsqueeze(-1), saved, leaves, plan, gmode)
     adam_epilogue_plain(params, mu, nu, best, flatten_params(grads, cfg), lr,
                         c1, c2, loss, best_loss, clip_norm)
@@ -163,7 +173,7 @@ def step_plain(params, mu, nu, best, coords, targets, lr, c1, c2, best_loss,
 
 def grad_plain(params, coords, targets, limit, n_valid: int,
                cfg: SirenSnakeTanhConfig, plan: StackPlan, gmode: str,
-               bt=None) -> torch.Tensor:
+               bt=None, weight=None) -> torch.Tensor:
     """Kernel E in plain PyTorch: one shard's loss and gradient -> the
     (P + 4,) buffer [grads | loss | 0 0 0].  ``params`` (1, P), ``coords``
     (rows, d), ``targets`` (1, rows); rows at or past ``limit`` (an int32
@@ -175,10 +185,9 @@ def grad_plain(params, coords, targets, limit, n_valid: int,
     out, saved = fwd_pres_plain(leaves, plan, coords, bt)
     rows = torch.arange(coords.shape[0], device=coords.device)
     mask = (rows < limit.to(rows.dtype)).to(torch.float32)
-    err = (out[..., 0] - targets) * mask                     # (1, rows)
-    loss = torch.sum(err * err, dim=1) * inv_n
-    grads = bwd_sweep_plain((err * (2.0 * inv_n)).unsqueeze(-1), saved,
-                            leaves, plan, gmode)
+    loss, g = _mse_cotangent((out[..., 0] - targets) * mask, weight,
+                             inv_n)                          # (1, rows)
+    grads = bwd_sweep_plain(g.unsqueeze(-1), saved, leaves, plan, gmode)
     buf = torch.zeros(params.shape[1] + _BUF_TAIL, dtype=torch.float32,
                       device=coords.device)
     buf[:params.shape[1]] = flatten_params(grads, cfg)[0]
@@ -268,7 +277,8 @@ class _SirenStepKernel(LaunchCounter):
 
     def __call__(self, params, mu, nu, best, coords, targets, lr, c1, c2,
                  best_loss, cfg: SirenSnakeTanhConfig, plan: StackPlan,
-                 gmode: str, clip_norm: float, bt=None) -> torch.Tensor:
+                 gmode: str, clip_norm: float, bt=None,
+                 weight=None) -> torch.Tensor:
         dev = coords.device
         g = validate_grad_launch(params, cfg, plan, coords, bt)
         shape = (g.k, g.layout.size)
@@ -278,6 +288,8 @@ class _SirenStepKernel(LaunchCounter):
         for name, t in groups:
             _check_tensor(name, t, dev, shape, aligned=True)
         _check_tensor("targets", targets, dev, (g.k, g.n))
+        if weight is not None:
+            _check_tensor("weight", weight, dev, (g.k, g.n))
         for name, t in (("lr", lr), ("c1", c1), ("c2", c2),
                         ("best_loss", best_loss)):
             _check_tensor(name, t, dev, (g.k,))
@@ -287,7 +299,8 @@ class _SirenStepKernel(LaunchCounter):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             grads, sq_part, loss_part = grad_reduce(
-                lib, g, coords, params, stream, targets=targets, gmode=gmode)
+                lib, g, coords, params, stream, targets=targets, gmode=gmode,
+                weight=weight)
             launch_adam(lib, grads, sq_part, loss_part, params, mu, nu, best,
                         loss, scale, lr, c1, c2, best_loss, clip_norm,
                         stream)
@@ -301,24 +314,26 @@ SIREN_STEP = _SirenStepKernel()
 def fused_mse_step_call(params, mu, nu, best, coords, targets, lr, c1, c2,
                         best_loss, cfg: SirenSnakeTanhConfig, plan: StackPlan,
                         gmode: str, n_valid: int, clip_norm: float,
-                        bt=None) -> torch.Tensor:
+                        bt=None, weight=None) -> torch.Tensor:
     """One whole step on (k, P) state groups, in place -> loss (k,).  CPU
     tensors take the plain version; CUDA tensors the kernel.  ``best``
     None leaves the best snapshot alone.  ``bt``: an RFF model's 2 pi B^T
-    (d, F), with an rff plan."""
+    (d, F), with an rff plan.  ``weight`` (k, n): the MSE's per-row
+    weight, or None."""
     _check_same_device("coords", coords, params=params, mu=mu, nu=nu,
                        best_params=best, targets=targets, lr=lr, c1=c1,
-                       c2=c2, best_loss=best_loss, rff_b=bt)
+                       c2=c2, best_loss=best_loss, rff_b=bt, weight=weight)
     if coords.device.type == "cpu":
         return step_plain(params, mu, nu, best, coords, targets, lr, c1, c2,
-                          best_loss, cfg, plan, gmode, n_valid, clip_norm, bt)
+                          best_loss, cfg, plan, gmode, n_valid, clip_norm, bt,
+                          weight)
     if coords.device.type != "cuda":
         raise ValueError(f"no fused step for device {coords.device}")
     if n_valid != coords.shape[0]:
         raise ValueError("the step kernel masks rows past coords.shape[0]; "
                          f"n_valid={n_valid} must equal it")
     return SIREN_STEP(params, mu, nu, best, coords, targets, lr, c1, c2,
-                      best_loss, cfg, plan, gmode, clip_norm, bt)
+                      best_loss, cfg, plan, gmode, clip_norm, bt, weight)
 
 
 class _SirenGradKernel(LaunchCounter):
@@ -329,12 +344,14 @@ class _SirenGradKernel(LaunchCounter):
 
     def __call__(self, params, coords, targets, limit, n_valid: int,
                  cfg: SirenSnakeTanhConfig, plan: StackPlan, gmode: str,
-                 bt=None) -> torch.Tensor:
+                 bt=None, weight=None) -> torch.Tensor:
         dev = coords.device
         g = validate_grad_launch(params, cfg, plan, coords, bt)
         if g.k != 1:
             raise ValueError(f"kernel E takes one model, got {g.k} windows")
         _check_tensor("targets", targets, dev, (1, g.n))
+        if weight is not None:
+            _check_tensor("weight", weight, dev, (1, g.n))
         if not (isinstance(limit, torch.Tensor) and limit.device == dev
                 and limit.dtype == torch.int32 and limit.shape == (1,)):
             raise ValueError("limit: expected an int32 (1,) tensor on "
@@ -349,7 +366,8 @@ class _SirenGradKernel(LaunchCounter):
             stream = torch.cuda.current_stream(dev).cuda_stream
             grad_reduce(lib, g, coords, params, stream, targets=targets,
                         gmode=gmode, limit=limit, n_valid=n_valid,
-                        grads=buf[:P].view(1, P), loss_out=buf[P:P + 1])
+                        grads=buf[:P].view(1, P), loss_out=buf[P:P + 1],
+                        weight=weight)
         self.count()
         return buf
 
@@ -359,23 +377,24 @@ SIREN_GRAD = _SirenGradKernel()
 
 def fused_mse_grad_call(params, coords, targets, limit, n_valid: int,
                         cfg: SirenSnakeTanhConfig, plan: StackPlan,
-                        gmode: str, bt=None) -> torch.Tensor:
+                        gmode: str, bt=None, weight=None) -> torch.Tensor:
     """One row shard's partial loss and gradient -> the (P + 4,) buffer
     [grads (P) | loss | 0 0 0], the layout the mesh all-reduces and
     ``fused_adam_call`` reads.  ``params`` (1, P) flat, ``coords`` (rows,
     d) and ``targets`` (1, rows) the shard's (padded) rows, ``limit`` an
     int32 (1,) tensor of its valid rows (0: an empty shard, whose buffer is
-    zero), ``n_valid`` the whole clip's valid rows.  CPU tensors take the
-    plain version; CUDA tensors kernel E."""
+    zero), ``n_valid`` the whole clip's valid rows, ``weight`` (1, rows)
+    the shard's per-row loss weight or None.  CPU tensors take the plain
+    version; CUDA tensors kernel E."""
     _check_same_device("coords", coords, params=params, targets=targets,
-                       limit=limit, rff_b=bt)
+                       limit=limit, rff_b=bt, weight=weight)
     if coords.device.type == "cpu":
         return grad_plain(params, coords, targets, limit, n_valid, cfg, plan,
-                          gmode, bt)
+                          gmode, bt, weight)
     if coords.device.type != "cuda":
         raise ValueError(f"no fused grad for device {coords.device}")
     return SIREN_GRAD(params, coords, targets, limit, n_valid, cfg, plan,
-                      gmode, bt)
+                      gmode, bt, weight)
 
 
 class _SirenAdamKernel(LaunchCounter):
@@ -455,11 +474,12 @@ def fused_adam_call(params, mu, nu, best, buf, lr, c1, c2, best_loss,
 def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
                               n_valid: int, approx_sin: bool = False,
                               step_call=fused_mse_step_call, rff_b=None):
-    """Build step(state: FlatTrainState, coords, targets) -> (state, (loss,
-    lr)): the semantics of ``train.loop.make_train_step`` for loss_mode
-    'mse', alpha 0, per window, with the compute in kernel D.
+    """Build step(state: FlatTrainState, coords, targets, weight=None) ->
+    (state, (loss, lr)): the semantics of ``train.loop.make_train_step``
+    for loss_mode 'mse', alpha 0, per window, with the compute in kernel D.
 
-    ``coords`` (n, d) is shared by the windows, ``targets`` is (k, n).  The
+    ``coords`` (n, d) is shared by the windows, ``targets`` is (k, n),
+    ``weight`` (k, n) the per-row loss weight or None.  The
     step updates the state's (k, P) groups in place and returns new (k,)
     scalars.  ``step_call`` does the arithmetic of one step
     (``fused_mse_step_call``; a caller that holds the kernel against its
@@ -478,7 +498,7 @@ def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
     clip = float(train_cfg.grad_clip_norm)
     track_best = train_cfg.track_best
 
-    def step(state: FlatTrainState, coords, targets):
+    def step(state: FlatTrainState, coords, targets, weight=None):
         t = state.step + 1
         tf = t.to(torch.float32)
         c1 = 1.0 - _B1 ** tf
@@ -487,7 +507,7 @@ def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
             state.params, state.mu, state.nu,
             state.best_params if track_best else None, coords, targets,
             state.lr, c1, c2, state.best_loss, cfg, plan, gmode, n_valid,
-            clip, bt)
+            clip, bt, weight=weight)
         pl_state, new_lr = plateau_update(
             PlateauState(best=state.plateau_best, num_bad=state.plateau_bad),
             loss, state.lr, plateau_cfg)
@@ -510,9 +530,9 @@ def sharded_step_call(mesh, limit):
     Every rank holds the same state (k = 1) and applies the same update, so
     the ranks stay bit-equal."""
     def call(params, mu, nu, best, coords, targets, lr, c1, c2, best_loss,
-             cfg, plan, gmode, n_valid, clip_norm, bt=None):
+             cfg, plan, gmode, n_valid, clip_norm, bt=None, weight=None):
         buf = fused_mse_grad_call(params, coords, targets, limit, n_valid,
-                                  cfg, plan, gmode, bt)
+                                  cfg, plan, gmode, bt, weight)
         mesh.all_reduce_(buf)
         return fused_adam_call(params, mu, nu, best, buf, lr, c1, c2,
                                best_loss, clip_norm)
@@ -523,10 +543,11 @@ def sharded_step_call(mesh, limit):
 def make_sharded_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
                                       n_valid: int, mesh, limit,
                                       approx_sin: bool = False, rff_b=None):
-    """Build step(state: FlatTrainState, coords, targets) -> (state, (loss,
-    lr)) for one rank of a row-sharded fit of one model (``coords`` (rows,
-    d) and ``targets`` (1, rows) this rank's rows, ``limit`` their valid
-    count): ``make_fused_mse_train_step`` with ``sharded_step_call``, so
+    """Build step(state: FlatTrainState, coords, targets, weight=None) ->
+    (state, (loss, lr)) for one rank of a row-sharded fit of one model
+    (``coords`` (rows, d), ``targets`` and ``weight`` (1, rows) this rank's
+    rows, ``limit`` their valid count): ``make_fused_mse_train_step`` with
+    ``sharded_step_call``, so
     the plateau and best bookkeeping run on the all-reduced loss.  Port of
     the JAX package's ``make_sharded_fused_mse_train_step``."""
     return make_fused_mse_train_step(cfg, train_cfg, n_valid, approx_sin,

@@ -409,14 +409,14 @@ class _TrainLibrary:
             lib = build_library("siren_train", ["siren_train.cu"],
                                 self.defines)
             lib.siren_grad.argtypes = ([_P] * 10 + [_I] * 8 + [_F, _F, _P]
-                                       + [_I] * 3 + [_P, _P])
+                                       + [_I] * 3 + [_P, _P, _P])
             lib.siren_reduce.argtypes = [_P] * 5 + [_I, _I, _I, _P]
             lib.siren_adam.argtypes = [_P] * 13 + [_I] * 4 + [_F, _P]
             lib.siren_adam_global_cap.argtypes = []
             lib.siren_adam_global.argtypes = [_P] * 11 + [_I, _I, _F, _P]
             lib.siren_wsplit.argtypes = [_P] * 6 + [_I] * 5 + [_P]
             lib.siren_sweep.argtypes = ([_P] * 13 + [_I] * 7 + [_F, _F, _P]
-                                        + [_I] * 8 + [_L, _P, _P])
+                                        + [_I] * 8 + [_L, _P, _P, _P])
             lib.siren_dw.argtypes = ([_P] * 6 + [_I] * 6 + [_P] + [_I] * 8
                                      + [_L, _P])
             for fn in (lib.siren_grad, lib.siren_reduce, lib.siren_adam,
@@ -503,12 +503,14 @@ def window_group(g: GradLaunch) -> int:
 
 def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
                 loss_part, w0: int, kn: int, *, targets=None, cot=None,
-                gmode: str, limit=None, n_valid: int | None = None) -> None:
+                gmode: str, limit=None, n_valid: int | None = None,
+                weight=None) -> None:
     """Grad-accumulation kernel over windows [w0, w0 + kn): each (window,
     row slice)'s partial grads into ``partial`` (kn * slices, P), its loss
     into ``loss_part`` (k * slices) at the window's place.  ``limit``: a
     device int32 (1,) row limit (rows at or past it carry no loss; None:
-    every row); ``n_valid``: the loss's normaliser rows (None: n)."""
+    every row); ``n_valid``: the loss's normaliser rows (None: n);
+    ``weight``: the MSE's per-row weight (k, n), or None."""
     offs, ints, om = _layer_arrays(g)
     row = lambda t, width: 0 if t is None else t.data_ptr() + 4 * w0 * width
     n_freq = 0 if g.bt is None else g.bt.shape[1]
@@ -520,7 +522,7 @@ def launch_grad(lib, g: GradLaunch, coords, flat, stream, partial, pre,
         ctypes.addressof(om), len(g.plan.kinds), kn, g.n, g.d, g.h,
         g.plan.width, g.layout.size, _MODE_CODE[gmode], inv_n, 2.0 * inv_n,
         row(g.bt, 0), n_freq, g.plan.feature_degree, g.slices, row(limit, 0),
-        stream)
+        row(weight, g.n), stream)
     _check_rc("siren_grad", rc)
 
 
@@ -560,7 +562,7 @@ def launch_reduce(lib, g: GradLaunch, partial, grads, sq_part, w0: int,
 
 def tc_launches(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
                 cot=None, gmode: str, limit=None, n_valid: int | None = None,
-                grads=None, loss_out=None):
+                grads=None, loss_out=None, weight=None):
     """The tensor-core route of ``grad_reduce`` (``tc_plan``) as its
     launches in order: per launch group the weights' bf16 planes
     (``siren_wsplit``), then per row chunk and pass of units the sweep and
@@ -609,7 +611,8 @@ def tc_launches(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
                      row(targets, g.n), row(cot, g.n), *ptrs, L, g.n, g.d,
                      g.h, g.plan.width, P, gm, inv_n, 2.0 * inv_n, bt, n_freq,
                      g.plan.feature_degree, S, u0, nu, chunk, tp.chunk_tiles,
-                     tp.rows_cap, tp.unit_elems, lim, stream)
+                     tp.rows_cap, tp.unit_elems, lim, row(weight, g.n),
+                     stream)
                 call("siren_dw", coords.data_ptr(), partial.data_ptr(),
                      planes.data_ptr(), *ptrs, L, g.n, g.d, g.h, P, gm, bt,
                      n_freq, g.plan.feature_degree, S, u0, nu, chunk,
@@ -623,19 +626,20 @@ def tc_launches(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
 
 def grad_reduce(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
                 cot=None, gmode: str, limit=None, n_valid: int | None = None,
-                grads=None, loss_out=None):
+                grads=None, loss_out=None, weight=None):
     """Each window's gradient -> (grads (k, P), sq_part (k, chunks),
     loss_part (k * slices)).  All on the current stream, no host sync.
     Kernel E passes its row ``limit``, the whole clip's ``n_valid``, and
     ``grads`` / ``loss_out`` views of its packed buffer, which receive each
-    window's gradient and loss.  The bf16 tiers take the tensor-core route
+    window's gradient and loss.  D and E may pass the MSE's per-row
+    ``weight`` (k, n).  The bf16 tiers take the tensor-core route
     (``tc_route``); the highest tier the FMA kernel, over groups of
     ``window_group`` windows that share one scratch."""
     if tc_route(g.plan, gmode):
         launches, out, scratch = tc_launches(
             lib, g, coords, flat, stream, targets=targets, cot=cot,
             gmode=gmode, limit=limit, n_valid=n_valid, grads=grads,
-            loss_out=loss_out)
+            loss_out=loss_out, weight=weight)
         for _, run in launches:
             run()
         del scratch  # the stream orders its reuse after these launches
@@ -653,7 +657,7 @@ def grad_reduce(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
         kn = min(kg, g.k - w0)
         launch_grad(lib, g, coords, flat, stream, partial, pre, loss_part,
                     w0, kn, targets=targets, cot=cot, gmode=gmode,
-                    limit=limit, n_valid=n_valid)
+                    limit=limit, n_valid=n_valid, weight=weight)
         launch_reduce(lib, g, partial, grads, sq_part, w0, kn, stream,
                       loss_part, loss_out)
     return grads, sq_part, loss_part

@@ -182,15 +182,32 @@ def shard_rows(mesh: Mesh, n: int, block: int = 1) -> RowShard:
     return RowShard(start, rows, int(np.clip(n - start, 0, rows)))
 
 
+def normalise_weight(weight) -> np.ndarray:
+    """A per-row loss weight (n,) or (n, 1) -> float32 (n, 1) of mean 1
+    over the rows, normalised on the host as the JAX package's fit does."""
+    w = np.asarray(weight, np.float32).reshape(-1)
+    return (w * (len(w) / max(float(np.sum(w)), 1e-12)))[:, None]
+
+
 def shard_problem_arrays(mesh: Mesh, coords: np.ndarray, targets: np.ndarray,
-                         block: int = 1):
-    """This rank's (coords (rows, d), targets (rows, out)) as float32 on
-    its device, zero past the clip's end, and its ``RowShard``."""
+                         block: int = 1, weight: np.ndarray | None = None):
+    """This rank's (coords (rows, d), targets (rows, out), weight (rows, 1)
+    or None) as float32 on its device, zero past the clip's end, and its
+    ``RowShard``.  A per-row loss ``weight`` (n,) or (n, 1) is normalised
+    to mean 1 over the clip's real rows before the split, so every shard's
+    loss is over the same normaliser, and padded rows get weight 0 (the
+    JAX package normalises over the padded batch and divides the loss by
+    it: the same loss)."""
     sh = shard_rows(mesh, coords.shape[0], block)
+    arrays = [coords, targets]
+    if weight is not None:
+        arrays.append(normalise_weight(weight))
     out = []
-    for a in (coords, targets):
+    for a in arrays:
         a = np.asarray(a, np.float32).reshape(coords.shape[0], -1)
         part = np.zeros((sh.rows, a.shape[1]), np.float32)
         part[:sh.valid] = a[sh.start:sh.start + sh.valid]
         out.append(torch.from_numpy(part).to(mesh.device))
-    return out[0], out[1], sh
+    if weight is None:
+        out.append(None)
+    return out[0], out[1], out[2], sh

@@ -7,22 +7,27 @@ tensor: each window has its own Adam step, learning rate, plateau state,
 best snapshot and best loss, as under the JAX package's ``vmap``.
 
 Two steps:
-- ``make_train_step``: autograd of the model's apply, per-window MSE, so the
-  gradient of the summed loss is each window's own; clip, Adam, plateau
-  and best per window.  With a fused mlp its backward is kernel C, with a
-  fused KAN kernel H.
+- ``make_train_step``: autograd of the model's apply through
+  ``losses.mix_loss`` (mse, mae or snr, the STFT term at alpha > 0, an
+  optional per-row weight); for a window population the per-window MSE, so
+  the gradient of the summed loss is each window's own; clip, Adam,
+  plateau and best per window.  With a fused mlp its backward is kernel C,
+  with a fused KAN kernel H.
 - the whole-step kernel D (``ops.siren_step``), wired for a population by
-  ``make_vmapped_fused_step`` when ``fused_step_plan`` admits the model.
+  ``make_vmapped_fused_step`` when ``fused_step_plan`` admits the model
+  (mse at alpha 0, weighted or not).
 
 ``fit`` trains one model on full-batch (coords, targets) in rounds of
-``scan_chunk`` steps; a fused mlp goes through kernel D as a one-window
-population, every other model through ``make_train_step``.  On a mesh of
-more than one rank (``parallel.make_mesh``) the rows are sharded: a fused
-mlp takes kernel E on each shard, one all-reduce and kernel F
-(``ops.siren_step.make_sharded_fused_mse_train_step``), every other model
-an autograd step whose local loss is normalised by the whole clip's rows
-and whose gradients are all-reduced in one buffer
-(``make_sharded_train_step``).
+``scan_chunk`` steps; a fused mlp's mse fit goes through kernel D as a
+one-window population (with the per-row weight, when given), every other
+fit through ``make_train_step``.  On a mesh of more than one rank
+(``parallel.make_mesh``) the rows are sharded: a fused mlp's mse fit takes
+kernel E on each shard, one all-reduce and kernel F
+(``ops.siren_step.make_sharded_fused_mse_train_step``), every other mse or
+mae fit an autograd step whose local loss is normalised by the whole
+clip's rows and whose gradients are all-reduced in one buffer
+(``make_sharded_train_step``).  The snr loss and the STFT term need the
+whole signal, which no row shard holds: on a mesh they raise.
 
 Best-params semantics as the JAX package: ``track_best=True`` snapshots the
 parameters that produced the best loss; False keeps the initial ones.
@@ -39,9 +44,10 @@ import torch
 
 from ..models import INRModel
 from ..models.siren import params_from_jax, params_to_numpy
-from ..parallel.mesh import Mesh, resolve_mesh, shard_problem_arrays
+from ..parallel.mesh import (Mesh, normalise_weight, resolve_mesh,
+                             shard_problem_arrays)
 from ..tree import tree_leaves, tree_map, tree_unflatten
-from .losses import mse
+from .losses import mix_loss
 from .optim import (AdamConfig, AdamState, PlateauConfig, PlateauState,
                     adam_init, adam_update, clip_by_global_norm,
                     plateau_init, plateau_update)
@@ -50,14 +56,16 @@ from .optim import (AdamConfig, AdamState, PlateauConfig, PlateauState,
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The JAX package's knobs that the ported steps and ``fit`` read, with
-    its names and defaults.  Ported so far: loss_mode 'mse' with alpha 0;
-    the other losses and the precision schedule are not ported yet."""
+    its names and defaults: loss_mode in {mse, mae, snr}, alpha mixes in
+    the STFT term (multi-resolution with ``multi_resolution_stft``).  The
+    precision schedule is not ported yet."""
 
     total_steps: int = 20000
     learning_rate: float = 1e-3
     min_learning_rate: float = 1e-6
     loss_mode: str = "mse"
     alpha: float = 0.0
+    multi_resolution_stft: bool = False
     track_best: bool = True
     plateau_factor: float = 0.8
     plateau_patience: int = 200
@@ -102,30 +110,36 @@ def init_train_state(model: INRModel, generator: torch.Generator,
         best_iter=torch.zeros(shape, dtype=torch.int32, device=dev))
 
 
-def _check_loss(cfg: TrainConfig) -> None:
-    if cfg.loss_mode != "mse" or cfg.alpha != 0.0:
-        raise NotImplementedError(
-            f"loss_mode={cfg.loss_mode!r} alpha={cfg.alpha} is not ported "
-            "yet (mse with alpha 0 is)")
+def _is_mse(cfg: TrainConfig) -> bool:
+    return cfg.loss_mode == "mse" and cfg.alpha == 0.0
 
 
 def make_train_step(model: INRModel, cfg: TrainConfig):
-    """One full-batch step: (state, coords, targets) -> (state, (loss,
-    lr)).  With stacked state (leading k) ``targets`` is (k, n, out) and
-    every window's loss, clip, Adam, plateau and best are its own."""
-    _check_loss(cfg)
+    """One full-batch step: (state, coords, targets, weight=None) ->
+    (state, (loss, lr)), the loss ``losses.mix_loss`` of the config with
+    the per-row ``weight`` (n, 1) (mean 1 over the real rows) or None.
+    With stacked state (leading k) ``targets`` is (k, n, out) and every
+    window's MSE, clip, Adam, plateau and best are its own; a window
+    population trains with the unweighted MSE only."""
 
-    def loss_fn(params, coords, targets):
+    def loss_fn(params, coords, targets, weight):
         pred = model.apply(params, coords)
         if pred.dim() == 3:  # per window
+            if not _is_mse(cfg) or weight is not None:
+                raise NotImplementedError(
+                    "a window population trains with the unweighted mse "
+                    f"(got loss_mode={cfg.loss_mode!r}, alpha={cfg.alpha}, "
+                    f"weight {'given' if weight is not None else 'None'})")
             return torch.mean(torch.square(pred - targets), dim=(1, 2))
-        return mse(pred, targets)
+        return mix_loss(pred, targets, loss_mode=cfg.loss_mode,
+                        alpha=cfg.alpha, weight=weight,
+                        multi_resolution=cfg.multi_resolution_stft)
 
     update = _make_update(cfg)
 
-    def train_step(state: TrainState, coords, targets):
-        loss, grads = _loss_and_grads(state, lambda p: loss_fn(p, coords,
-                                                               targets))
+    def train_step(state: TrainState, coords, targets, weight=None):
+        loss, grads = _loss_and_grads(
+            state, lambda p: loss_fn(p, coords, targets, weight))
         return update(state, loss, grads)
 
     return train_step
@@ -181,26 +195,43 @@ def _make_update(cfg: TrainConfig):
     return update
 
 
+def check_sharded_loss(cfg: TrainConfig, mesh: Mesh) -> None:
+    """On a mesh of more than one rank only losses that are sums over rows
+    shard (mse, mae, weighted or not): the snr loss's energy ratio and the
+    STFT term's frames need the whole signal."""
+    if mesh.size > 1 and (cfg.loss_mode not in ("mse", "mae")
+                          or cfg.alpha != 0.0):
+        raise NotImplementedError(
+            f"loss_mode={cfg.loss_mode!r} with alpha={cfg.alpha} needs the "
+            f"whole signal; a fit on {mesh.size} ranks takes mse or mae at "
+            "alpha 0")
+
+
 def make_sharded_train_step(model: INRModel, cfg: TrainConfig, mesh: Mesh,
                             n_valid: int, valid: int):
     """One rank's autograd step of a row-sharded fit of one model:
-    (state, coords, targets) -> (state, (loss, lr)), ``coords`` /
-    ``targets`` this rank's (padded) rows of which the first ``valid`` are
-    real.  The local loss is sum(err^2) / ``n_valid`` (the whole clip's
-    rows); its gradients and the loss go through one all-reduce as one
-    buffer, then clip, Adam, plateau and best run on the replicated values,
-    as XLA's partitioner runs the JAX package's sharded step."""
-    _check_loss(cfg)
+    (state, coords, targets, weight=None) -> (state, (loss, lr)),
+    ``coords`` / ``targets`` / ``weight`` this rank's (padded) rows of
+    which the first ``valid`` are real.  The local loss is sum(err^2 w)
+    (mse) or sum(|err| w) (mae) over ``n_valid`` (the whole clip's rows; w
+    the weight, mean 1 over the clip's real rows, or 1); its gradients and
+    the loss go through one all-reduce as one buffer, then clip, Adam,
+    plateau and best run on the replicated values, as XLA's partitioner
+    runs the JAX package's sharded step."""
+    check_sharded_loss(cfg, mesh)
     update = _make_update(cfg)
     inv_n = 1.0 / float(n_valid)
+    term = torch.square if cfg.loss_mode == "mse" else torch.abs
 
-    def loss_fn(params, coords, targets):
-        err = (model.apply(params, coords) - targets)[:valid]
-        return torch.sum(torch.square(err)) * inv_n
+    def loss_fn(params, coords, targets, weight):
+        per_row = term(model.apply(params, coords) - targets)
+        if weight is not None:
+            per_row = per_row * weight
+        return torch.sum(per_row[:valid]) * inv_n
 
-    def train_step(state: TrainState, coords, targets):
+    def train_step(state: TrainState, coords, targets, weight=None):
         loss, grads = _loss_and_grads(
-            state, lambda p: loss_fn(p, coords, targets))
+            state, lambda p: loss_fn(p, coords, targets, weight))
         leaves = tree_leaves(grads)
         buf = torch.cat([g.reshape(-1) for g in leaves] + [loss.reshape(1)])
         mesh.all_reduce_(buf)
@@ -220,15 +251,16 @@ def fused_step_plan(model: INRModel, cfg: TrainConfig,
                     n_rows: int) -> int | None:
     """Row tile of the whole-step kernel, or None when the fit cannot route
     through it (non-mse loss, a grid refresh, a model without the fused
-    step).  A fused model at a width the kernels do not take raises
-    ``ValueError`` (it is not sent elsewhere silently)."""
+    step).  A weighted mse fit keeps the kernel: D and E stream the per-row
+    weight beside the targets.  A fused model at a width the kernels do not
+    take raises ``ValueError`` (it is not sent elsewhere silently)."""
     ctx = model.fused_step_ctx
     if ctx is None:
         return None
     from ..ops.siren_step import step_block_rows
     from ..ops.siren_train import check_kernel_width
     check_kernel_width(ctx["cfg"])
-    if cfg.loss_mode != "mse" or cfg.alpha != 0.0 or cfg.update_grid_every:
+    if not _is_mse(cfg) or cfg.update_grid_every:
         return None
     return step_block_rows(ctx["cfg"], n_rows, ctx["rff_b"])
 
@@ -239,10 +271,11 @@ def make_vmapped_fused_step(model: INRModel, cfg: TrainConfig,
     that ``fused_step_plan`` admits).
 
     Returns ``(vstep, to_flat, from_flat, prep_targets)``:
-    ``vstep(states, targets)`` the population step (coords bound),
-    ``to_flat`` / ``from_flat`` stacked TrainState <-> FlatTrainState,
-    ``prep_targets(t)`` (k, n, 1) targets -> the kernel's (k, n) tensor on
-    the coords' device.  The kernel masks the ragged row tile itself, so
+    ``vstep(states, targets, weight=None)`` the population step (coords
+    bound; ``weight`` (k, n) the per-row loss weight), ``to_flat`` /
+    ``from_flat`` stacked TrainState <-> FlatTrainState, ``prep_targets(t)``
+    (k, n, 1) targets (or weights) -> the kernel's (k, n) tensor on the
+    coords' device.  The kernel masks the ragged row tile itself, so
     nothing is padded.  The step's arithmetic is the model's
     ``fused_step_ctx["step"]``; an RFF model's projection
     (``fused_step_ctx["rff_b"]``) goes to the step, and ``coords`` are its
@@ -257,8 +290,8 @@ def make_vmapped_fused_step(model: INRModel, cfg: TrainConfig,
                                       step_call=ctx["step"],
                                       rff_b=ctx["rff_b"])
 
-    def vstep(states, targets):
-        return fstep(states, coords, targets)
+    def vstep(states, targets, weight=None):
+        return fstep(states, coords, targets, weight)
 
     def prep_targets(targets) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(targets, np.float32))
@@ -287,41 +320,49 @@ class FitResult:
 
 
 def _one_window_step(model: INRModel, cfg: TrainConfig, state: TrainState,
-                     coords: torch.Tensor, targets: np.ndarray):
-    """Kernel D for one model: the state as a population of one window.
-    Returns (carry, step(carry) -> (carry, (loss, lr)), carry ->
-    TrainState)."""
+                     coords: torch.Tensor, targets: np.ndarray,
+                     weight: np.ndarray | None):
+    """Kernel D for one model: the state as a population of one window,
+    with the normalised per-row ``weight`` (n, 1) or None.  Returns (carry,
+    step(carry) -> (carry, (loss, lr)), carry -> TrainState)."""
     vstep, to_flat, from_flat, prep_targets = make_vmapped_fused_step(
         model, cfg, coords)
     targets_k = prep_targets(np.asarray(targets, np.float32)[None])
+    weight_k = None if weight is None else prep_targets(weight[None])
     carry = to_flat(tree_map(lambda t: t.unsqueeze(0), state))
 
     def step(carry):
-        carry, (loss, lr) = vstep(carry, targets_k)
+        carry, (loss, lr) = vstep(carry, targets_k, weight_k)
         return carry, (loss[0], lr[0])
 
     return carry, step, lambda c: tree_map(lambda t: t[0], from_flat(c))
 
 
 def _sharded_step(model: INRModel, cfg: TrainConfig, state: TrainState,
-                  coords: np.ndarray, targets: np.ndarray, mesh: Mesh):
+                  coords: np.ndarray, targets: np.ndarray, mesh: Mesh,
+                  weight: np.ndarray | None):
     """One rank of a row-sharded fit: kernels E + F for a model that
     ``fused_step_plan`` admits (rows padded to whole row tiles per rank, as
-    the JAX fit pads them), the sharded autograd step otherwise.  Returns
-    (carry, step(carry) -> (carry, (loss, lr)), carry -> TrainState)."""
+    the JAX fit pads them), the sharded autograd step otherwise; the
+    per-row ``weight`` (n,) or (n, 1) is normalised over the whole clip,
+    then split with the rows, 0 on padding.  Returns (carry, step(carry) -> (carry, (loss, lr)), carry ->
+    TrainState)."""
     n = coords.shape[0]
     block = fused_step_plan(model, cfg, -(-n // mesh.size))
     if block is None:
-        cs, ts, sh = shard_problem_arrays(mesh, coords, targets)
+        cs, ts, ws, sh = shard_problem_arrays(mesh, coords, targets,
+                                              weight=weight)
         train_step = make_sharded_train_step(model, cfg, mesh, n, sh.valid)
-        return state, (lambda c: train_step(c, cs, ts)), (lambda c: c)
+        return state, (lambda c: train_step(c, cs, ts, ws)), (lambda c: c)
     from ..ops.siren_step import (flat_state_from_train_state,
                                   make_sharded_fused_mse_train_step,
                                   train_state_from_flat)
     ctx = model.fused_step_ctx
     mcfg = ctx["cfg"]
-    cs, ts, sh = shard_problem_arrays(mesh, coords, targets, block)
+    cs, ts, ws, sh = shard_problem_arrays(mesh, coords, targets, block,
+                                          weight=weight)
     ts = ts.reshape(1, -1)
+    ws = None if ws is None else ws.reshape(1, -1)
     limit = torch.tensor([sh.valid], dtype=torch.int32, device=mesh.device)
     sstep = make_sharded_fused_mse_train_step(
         mcfg, cfg, n, mesh, limit, approx_sin=ctx["approx_sin"],
@@ -330,7 +371,7 @@ def _sharded_step(model: INRModel, cfg: TrainConfig, state: TrainState,
         tree_map(lambda t: t.unsqueeze(0), state), mcfg)
 
     def step(carry):
-        carry, (loss, lr) = sstep(carry, cs, ts)
+        carry, (loss, lr) = sstep(carry, cs, ts, ws)
         return carry, (loss[0], lr[0])
 
     return carry, step, lambda c: tree_map(lambda t: t[0],
@@ -342,19 +383,23 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
         state: TrainState | None = None, checkpoint_every: int = 0,
         checkpoint_path: str | None = None, metrics=None,
         device: torch.device | str | None = None,
-        mesh: Mesh | None = None) -> FitResult:
+        mesh: Mesh | None = None, weight=None) -> FitResult:
     """Fit one model to full-batch (coords (n, d), targets (n, out)) on
-    ``device`` (default the card; without one it raises).
+    ``device`` (default the card; without one it raises), with the loss of
+    ``cfg`` (``losses.mix_loss``) and an optional per-row loss ``weight``
+    (n,) or (n, 1), normalised to mean 1 over the rows before any padding
+    (``normalise_weight``).
 
     ``mesh`` (``parallel.make_mesh(device)`` when None: a world of one,
     or every rank under ``torchrun``) places the fit: it runs on
     ``mesh.device``, and a ``device`` given beside it must be that one
     (``parallel.resolve_mesh``).  A mesh of one takes the single-device routes
-    (kernel D for a fused mlp, autograd otherwise).  On more ranks each
-    rank holds an equal shard of the rows and a copy of the state: a fused
-    mlp steps through kernel E on its shard, one all-reduce and kernel F;
-    every other model (the KAN with kernels G and H included) through the
-    sharded autograd step.  Every rank gets the same ``FitResult`` (its
+    (kernel D for a fused mlp's mse fit, weighted or not; autograd
+    otherwise).  On more ranks each rank holds an equal shard of the rows
+    (and of the weight) and a copy of the state: a fused mlp's mse fit
+    steps through kernel E on its shard, one all-reduce and kernel F; every
+    other mse or mae fit (the KAN with kernels G and H included) through
+    the sharded autograd step; the snr loss and alpha > 0 raise.  Every rank gets the same ``FitResult`` (its
     ``train_time_s`` from the first rank's start to the last rank's end);
     only rank 0 writes checkpoints.
 
@@ -366,10 +411,10 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
     whole TrainState to ``checkpoint_path`` about every
     ``checkpoint_every`` steps.  ``state`` warm-starts; otherwise the state
     is drawn from ``generator`` (seed 0 when None).  Not ported: the
-    precision schedule, the profiler and the per-row loss weight."""
+    precision schedule and the profiler."""
     cfg = cfg or TrainConfig()
-    _check_loss(cfg)
     mesh = resolve_mesh(mesh, device)
+    check_sharded_loss(cfg, mesh)
     dev = mesh.device
     if state is None:
         state = init_train_state(
@@ -378,18 +423,25 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
         state = tree_map(lambda t: t.to(dev), state)
     coords_d = torch.as_tensor(coords, dtype=torch.float32).to(dev)
     targets_np = np.asarray(targets, np.float32)
+    weight_n = None if weight is None else normalise_weight(weight)
 
     if mesh.size > 1:
+        # shard_problem_arrays normalises the weight over the whole clip,
+        # then splits it
         carry, step, unstack = _sharded_step(
-            model, cfg, state, coords_d.cpu().numpy(), targets_np, mesh)
+            model, cfg, state, coords_d.cpu().numpy(), targets_np, mesh,
+            weight)
     elif fused_step_plan(model, cfg, coords_d.shape[0]) is not None:
         carry, step, unstack = _one_window_step(model, cfg, state, coords_d,
-                                                targets)
+                                                targets, weight_n)
     else:
         train_step = make_train_step(model, cfg)
         targets_d = torch.from_numpy(targets_np).to(dev)
+        weight_d = (None if weight_n is None
+                    else torch.from_numpy(weight_n).to(dev))
         carry, unstack = state, (lambda c: c)
-        step = lambda c: train_step(c, coords_d, targets_d)  # noqa: E731
+        step = lambda c: train_step(c, coords_d, targets_d,  # noqa: E731
+                                    weight_d)
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     chunk = max(1, min(cfg.scan_chunk, cfg.total_steps))

@@ -1,6 +1,7 @@
 """Card-only checks of the CUDA kernels (csrc/siren_stack.cu, the backward,
 whole-step and row-shard kernels of csrc/siren_train.cu, each at widths 32
-to 256 and with an RFF layer 0, and the KAN forward and backward kernels of
+to 256 and with an RFF layer 0, the whole-step and row-shard kernels with
+the per-row loss weight, and the KAN forward and backward kernels of
 csrc/kan.cu) against their plain PyTorch versions on the same card, a step
 of the row-sharded fit on two ranks sharing the card, the decode serving
 paths (``decode_many``, ``decode_stream``) against ``decode``, and the
@@ -576,13 +577,15 @@ def check_rff_backward(params, cfg, plan, gmode, coords, cot, bt):
     return err, c, limit, scale
 
 
-def check_rff_steps(cfg, tc, coords, targets, state, rff_b, steps=3):
+def check_rff_steps(cfg, tc, coords, targets, state, rff_b, steps=3,
+                    weight=None):
     """``steps`` kernel steps, plain steps, and plain steps from layer 0
     one ulp off (the control), from one stacked TrainState of an RFF (or
-    raw, rff_b None) model.  Each loss, the first step's gradients (mu =
-    0.1 g) and the final parameters (in lr) are held to RFF_CTRL_X times
-    the control's gap or to the raw-model tolerances above; returns (the
-    kernel's FlatTrainState, a dict of the gaps)."""
+    raw, rff_b None) model, with the per-row loss ``weight`` (k, n) or
+    None.  Each loss, the first step's gradients (mu = 0.1 g) and the final
+    parameters (in lr) are held to RFF_CTRL_X times the control's gap or to
+    the raw-model tolerances above; returns (the kernel's FlatTrainState, a
+    dict of the gaps)."""
     n, gmode, lr = coords.shape[0], st.grad_dot_mode(), tc.learning_rate
     kstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
                                          rff_b=rff_b)
@@ -594,9 +597,9 @@ def check_rff_steps(cfg, tc, coords, targets, state, rff_b, steps=3):
         state._replace(params=perturb_layer0(state.params)), cfg)
     gaps = {"loss": [], "loss_ctrl": []}
     for i in range(steps):
-        a, (la, _) = kstep(a, coords, targets)
-        p, (lp, _) = pstep(p, coords, targets)
-        u, (lu, _) = pstep(u, coords, targets)
+        a, (la, _) = kstep(a, coords, targets, weight)
+        p, (lp, _) = pstep(p, coords, targets, weight)
+        u, (lu, _) = pstep(u, coords, targets, weight)
         torch.cuda.synchronize()
         scale = float(lp.abs().max())
         gaps["loss"].append(_gap(la, lp) / scale)
@@ -1238,7 +1241,7 @@ def test_sharded_step_on_two_ranks_matches_d(dev):
     x, y = coords.cpu().numpy(), targets[0].cpu().numpy()
 
     def rank(mesh):
-        cs, ts, sh = shard_problem_arrays(mesh, x, y, st.tile_rows(h))
+        cs, ts, _, sh = shard_problem_arrays(mesh, x, y, st.tile_rows(h))
         step = ss.make_sharded_fused_mse_train_step(
             cfg, tc, n, mesh, _limit(sh.valid, dev), approx_sin=True)
         s, (loss, _) = step(clone_state(fs0), cs, ts.reshape(1, -1))
@@ -1255,6 +1258,149 @@ def test_sharded_step_on_two_ranks_matches_d(dev):
     assert all(torch.equal(p, q) for p, q in zip(s0, s1))
     torch.testing.assert_close(l0, la, rtol=LOSS_RTOL, atol=0)
     check_state(s0, a, tc.learning_rate, st.grad_dot_mode())
+
+
+# ---------------------------------------------------------------------------
+# D and E with the per-row loss weight
+# ---------------------------------------------------------------------------
+
+def weighted_setup(h, k, n, dev, d=1, seed=0):
+    """(cfg, tc, flat state, coords (n, d), targets (k, n), weight (k, n))
+    of a fused mlp on a d-column grid; the weight is hearing-threshold-like
+    (0.8..1.0, every 37th row 0), mean 1 over each window's rows."""
+    cfg = SirenSnakeTanhConfig(in_features=d, hidden_features=h,
+                               first_omega_0=300.0)
+    model = build_model("mlp", cfg, fused=True, approx_sin=True)
+    tc = tloop.TrainConfig(learning_rate=1e-3, grad_clip_norm=1.0,
+                           plateau_patience=35)
+    state = tloop.init_train_state(model, torch.Generator().manual_seed(seed),
+                                   tc, dev, windows=k)
+    g = torch.Generator().manual_seed(seed + 1)
+    coords = (2 * torch.rand(n, d, generator=g) - 1).to(dev)
+    freqs = torch.arange(1, k + 1, dtype=torch.float32)[:, None].to(dev)
+    targets = 0.8 * torch.sin(3.0 * freqs * torch.pi * coords[None, :, 0])
+    w = 0.8 + 0.2 * torch.rand(k, n, generator=g)
+    w[:, ::37] = 0.0
+    w = (w * (n / w.sum(dim=1, keepdim=True))).to(dev)
+    return (cfg, tc, ss.flat_state_from_train_state(state, cfg), coords,
+            targets.contiguous(), w.contiguous())
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
+@pytest.mark.parametrize("h", [32, 128, 256])
+def test_weighted_step_kernel_matches_plain(dev, h, gmode, d, monkeypatch):
+    """Three weighted D steps against ``step_plain`` with the weight, on
+    the tensor-core route (bf16x2) and the highest tier's FMA kernel, with
+    one and two coordinate columns."""
+    monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
+    cfg, tc, fs, coords, targets, w = weighted_setup(h, 3, 700, dev, d)
+    n = coords.shape[0]
+    kstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True)
+    pstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                         step_call=ss.step_plain)
+    a, b = clone_state(fs), clone_state(fs)
+    before = ss.SIREN_STEP.launches
+    for i in range(3):
+        a, (la, _) = kstep(a, coords, targets, w)
+        b, (lb, _) = pstep(b, coords, targets, w)
+        torch.testing.assert_close(la, lb, atol=0,
+                                   rtol=LOSS_DRIFT_RTOL if i else LOSS_RTOL)
+        if i == 0:
+            check_grads(a.mu, b.mu, gmode)
+    assert ss.SIREN_STEP.launches == before + 3
+    check_state(a, b, tc.learning_rate, gmode)
+
+
+@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3", "highest"])
+def test_ones_weight_gives_the_unweighted_bits(dev, gmode, monkeypatch):
+    """A weight of ones multiplies by 1.0f in the plain version's order,
+    so D's loss, params, mu, nu and best and E's buffer equal the
+    unweighted calls' bit for bit, on both routes."""
+    monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
+    cfg, tc, fs, coords, targets, _ = weighted_setup(128, 2, 900, dev, 2)
+    n = coords.shape[0]
+    step = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True)
+    a, (la, _) = step(clone_state(fs), coords, targets)
+    b, (lb, _) = step(clone_state(fs), coords, targets,
+                      torch.ones_like(targets))
+    torch.cuda.synchronize()
+    assert torch.equal(la, lb)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    plan = sf.stack_plan(cfg, approx_sin=True)
+    e = [ss.SIREN_GRAD(fs.params[:1].contiguous(), coords, targets[:1],
+                       _limit(800, dev), n, cfg, plan, gmode, weight=wt)
+         for wt in (None, torch.ones_like(targets[:1]))]
+    torch.cuda.synchronize()
+    assert torch.equal(e[0], e[1])
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
+@pytest.mark.parametrize("h", [64, 256])
+def test_weighted_grad_kernel_matches_plain(dev, h, gmode, d):
+    """Weighted E on a tail shard (1000 rows, 700 real, normalised by a
+    clip of 2500 rows) against ``grad_plain`` with the same weight."""
+    cfg, tc, fs, coords, targets, w = weighted_setup(h, 1, 1000, dev, d)
+    plan = sf.stack_plan(cfg, approx_sin=True)
+    P = fs.params.shape[1]
+    out = ss.SIREN_GRAD(fs.params, coords, targets, _limit(700, dev), 2500,
+                        cfg, plan, gmode, weight=w)
+    ref = ss.grad_plain(fs.params, coords, targets, _limit(700, dev), 2500,
+                        cfg, plan, gmode, weight=w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[P], ref[P], rtol=LOSS_RTOL, atol=0)
+    check_grads(out[None, :P], ref[None, :P], gmode)
+    assert not out[P + 1:].any()
+
+
+@pytest.mark.parametrize("gmode", ["bf16x2", "highest"])
+def test_weighted_grad_shards_sum_to_weighted_d(dev, gmode):
+    """Two shards' weighted E buffers (the weight normalised over the whole
+    clip, then split) summed against D's weighted grad accumulation over
+    the clip; a shard with limit 0 gives exact zeros."""
+    n, h = 5000, 128
+    cfg, tc, fs, coords, targets, w = weighted_setup(h, 1, n, dev, 2)
+    plan = sf.stack_plan(cfg, approx_sin=True)
+    tm = st.tile_rows(h)
+    rows = -(-n // (2 * tm)) * tm
+    total = 0
+    for r in range(2):
+        valid = min(rows, n - r * rows)
+        cs = torch.zeros(rows, 2, device=dev)
+        ts, ws = (torch.zeros(1, rows, device=dev) for _ in range(2))
+        cs[:valid] = coords[r * rows:r * rows + valid]
+        ts[0, :valid] = targets[0, r * rows:r * rows + valid]
+        ws[0, :valid] = w[0, r * rows:r * rows + valid]
+        total = total + ss.SIREN_GRAD(fs.params, cs, ts, _limit(valid, dev),
+                                      n, cfg, plan, gmode, weight=ws)
+        empty = ss.SIREN_GRAD(fs.params, cs, ts, _limit(0, dev), n, cfg,
+                              plan, gmode, weight=ws)
+        assert not empty.any()
+    g = st.validate_grad_launch(fs.params, cfg, plan, coords)
+    with torch.cuda.device(dev):
+        grads, _, loss_part = st.grad_reduce(
+            st.TRAIN_LIBRARY(), g, coords, fs.params,
+            torch.cuda.current_stream(dev).cuda_stream, targets=targets,
+            gmode=gmode, weight=w)
+    torch.cuda.synchronize()
+    P = g.layout.size
+    torch.testing.assert_close(total[P], loss_part.sum(), rtol=LOSS_RTOL,
+                               atol=0)
+    assert _gap(total[None, :P], grads) <= \
+        GRAD_F32_RTOL * float(grads.abs().max())
+
+
+def test_weight_is_validated(dev):
+    cfg, tc, fs, coords, targets, w = weighted_setup(32, 2, 300, dev)
+    plan = sf.stack_plan(cfg, approx_sin=True)
+    with pytest.raises(ValueError, match="weight"):
+        ss.SIREN_STEP(fs.params, fs.mu, fs.nu, fs.best_params, coords,
+                      targets, fs.lr, fs.lr, fs.lr, fs.best_loss, cfg, plan,
+                      "bf16x2", 1.0, weight=w[:1])
+    with pytest.raises(ValueError, match="weight"):
+        ss.SIREN_GRAD(fs.params[:1], coords, targets[:1], _limit(300, dev),
+                      300, cfg, plan, "bf16x2", weight=w[:1].double())
 
 
 # ---------------------------------------------------------------------------

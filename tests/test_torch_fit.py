@@ -135,9 +135,9 @@ def test_fused_mlp_fit_runs_kernel_d_as_one_window(inherit_grad_tier):
     calls = []
     step = tm.fused_step_ctx["step"]
 
-    def counting_step(params, *args):
+    def counting_step(params, *args, **kw):
         calls.append(params.shape[0])
-        return step(params, *args)
+        return step(params, *args, **kw)
 
     tm = dataclasses.replace(tm, fused_step_ctx={**tm.fused_step_ctx,
                                                  "step": counting_step})
@@ -348,8 +348,9 @@ def test_runner_refuses_what_it_does_not_port(tmp_path):
         trunner.train_from_signal(str(tmp_path), "y", sig, fs, arch="mlp",
                                   hidden=320, fused=True, total_steps=1,
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="DSP slice"):
-        trunner.build_problem("mdct", "x.wav", 1.0)
+    # every method of the JAX runner is ported; an unknown one raises
+    with pytest.raises(ValueError, match="unknown method"):
+        trunner.build_problem("wavelet", "x.wav", 1.0)
 
 
 def test_cli_fit_kan(tmp_path, capsys):

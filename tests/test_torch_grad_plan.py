@@ -159,7 +159,7 @@ class _RecordingLibrary:
                     planes, tgt, cot, offs, ints, omegas, n_layers, n, d, h,
                     h_real, P, gmode, inv_n, two_inv_n, bt, n_freq, fdeg,
                     slices, u0, units, chunk, chunk_tiles, rows_cap,
-                    unit_elems, limit, stream):
+                    unit_elems, limit, wgt, stream):
         self.calls.append(("sweep", chunk, u0, units, params, loss_part, tgt,
                            cot, limit, bt, n_freq, inv_n, slices, gmode,
                            h_real))

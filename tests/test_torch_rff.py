@@ -337,7 +337,7 @@ class _RecordingLibrary:
     def siren_grad(self, coords, params, partial, loss_part, pre, tgt, cot,
                    offs, ints, omegas, n_layers, k, n, d, h, h_real, P, gmode,
                    inv_n,
-                   two_inv_n, bt, n_freq, fdeg, slices, limit, stream):
+                   two_inv_n, bt, n_freq, fdeg, slices, limit, wgt, stream):
         self.calls.append(("grad", k, slices, n_freq, loss_part, bt))
         return 0
 

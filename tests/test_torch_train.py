@@ -394,8 +394,16 @@ def test_step_gates_and_width_error():
                               512) == 64
     assert tloop.fused_step_plan(build_model(
         "mlp", SirenSnakeTanhConfig(**CFG)), tc, 512) is None
-    with pytest.raises(NotImplementedError):
-        tloop.make_train_step(tm, tloop.TrainConfig(loss_mode="mae"))
+    # the other losses run autograd, which a window population (the codec)
+    # takes only for the unweighted mse
+    for other in (dict(loss_mode="mae"), dict(alpha=0.5)):
+        assert tloop.fused_step_plan(tm, tloop.TrainConfig(**other),
+                                     512) is None
+    mae = tloop.make_train_step(tm, tloop.TrainConfig(loss_mode="mae"))
+    state = tloop.init_train_state(tm, torch.Generator().manual_seed(0), tc,
+                                   windows=2)
+    with pytest.raises(NotImplementedError, match="window population"):
+        mae(state, torch.linspace(-1, 1, 16)[:, None], torch.zeros(2, 16, 1))
     assert not ss.step_supported(SirenSnakeTanhConfig(out_features=2,
                                                       hidden_features=32))
     # the int8 rate points use h=36..48: a fused fit there runs padded to

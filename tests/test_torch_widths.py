@@ -82,9 +82,9 @@ def _padded_steps(cfg, tc, state, coords, targets, mask=True):
     set to the kernel width, so the padded units are not held at 0."""
     step_call = ss.fused_mse_step_call
     if not mask:
-        def step_call(*a):
+        def step_call(*a, **kw):
             plan = dataclasses.replace(a[11], width=64)
-            return ss.step_plain(*a[:11], plan, *a[12:])
+            return ss.step_plain(*a[:11], plan, *a[12:], **kw)
     step = ss.make_fused_mse_train_step(cfg, tc, coords.shape[0],
                                         approx_sin=True, step_call=step_call)
     fs = ss.flat_state_from_train_state(tree_map(torch.clone, state), cfg)
