@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one NVIDIA card: the codec's decode
 path and its encode (training) path, the runner's single-model fit of the
 KAN and of the production mlp, the sharded fits on two ranks that share
-the card, the rest of the codec, and the spectral fits.
+the card, the rest of the codec, the spectral fits, the precision
+schedule, the profiler and the rest of the model zoo and the runner.
 
     python3 chip_smoke.py
 
@@ -215,6 +216,40 @@ loss weight:
    card, basis matmul against ``torch.fft``; each served fit's peak device
    memory against the grad scratch bound.
 
+The precision schedule (``TrainConfig.precision_schedule``: rounds on the
+cheap tier of ``train.loop.schedule_tiers`` -- bf16x2 forward products, one
+bf16 pass for the backward, the degree-7 sin -- until a round's loss
+crosses ``schedule_db``), the profiler and the rest of the runner, at the
+runner mlp shapes over the same clip:
+24. per shape (raw and RFF), kernel D on the cheap tier, one step from one
+   state against ``step_plain`` on the same tier beside the 1-ulp control
+   of phase 11 (a raw layer 0 also to the bf16 grad tiers' bulk rule of
+   tests/test_torch_cuda.py); E on one shard of two the
+   same way against ``grad_plain``; a negative control for each (the
+   cheap kernel against the full tier's plain version, which must break a
+   gate); repeat calls bit-equal; two cheap steps, then a full step on the
+   same carry, bit-equal to a fresh full step; timings with CUDA events of
+   both tiers' D step (with the sweep's parts), E and their plain versions
+   beside their bounds;
+25. ``fit(precision_schedule=True)`` of the raw runner mlp, SCHEDULE_STEPS
+   steps in rounds of SCHEDULE_CHUNK, with D's (or E's) launches counted by
+   tier around every call: unscheduled, at the default 45 dB (no
+   escalation on this clip), at a floor between the unscheduled fit's
+   first two round-end losses (the escalation on the card, at the round
+   the rule gives on the fit's own printed losses), and that fit on two
+   ranks sharing the card (E + F, gloo; both ranks escalate at one round,
+   their states bit-equal); steps/s and peak memory of each; then the CLI
+   ``fit --fused --profile --no-plots`` (PROFILE_STEPS steps), whose trace
+   must name ``siren_sweep_kernel``;
+26. the classic SIREN and the ReLU MLP at their configs' defaults (h=256,
+   3 hidden layers) fitted by ``fit`` over the whole clip (ZOO_STEPS
+   steps), the CLI ``fit --scaled-first`` (unfused: autograd), the
+   ``random_plane`` scan (LANDSCAPE_STEPS x LANDSCAPE_STEPS, distance 2) of
+   the trained runner mlp with B's launches counted, ``procedural_train``
+   (decimations 8, 4, 2, 1) and ``band_split_train`` (PIPELINE_STEPS steps
+   a fit), each with its time and peak device memory; the plots and
+   ``--visualization`` where matplotlib is installed.
+
 Every kernel's bound (the least time the card could take for the same
 work) is computed from the run's shapes: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak of the unit they
@@ -370,6 +405,17 @@ AUTOGRAD_STEPS = {
 SPECTRAL_DECODE_RTOL = 1e-3
 SPECTRAL_GL_MARGIN = 0.02
 SPECTRAL_ROW_FLOATS = 64
+# phases 24-26: the precision schedule's cheap tier (train.loop.
+# schedule_tiers), the scheduled fits (rounds of SCHEDULE_CHUNK steps), the
+# profiled CLI fit (one round), the zoo fits, the landscape's grid (the
+# JAX default) and the pipelines' steps a fit (depth cuts)
+CHEAP_TIER = dict(f32_mode="bf16x2", grad_mode="bf16", sin_degree=7)
+SCHEDULE_STEPS = 40
+SCHEDULE_CHUNK = 10
+PROFILE_STEPS = 20
+ZOO_STEPS = 20
+LANDSCAPE_STEPS = 30
+PIPELINE_STEPS = 10
 # the CUDA kernels that serve C, D and E in the bf16 grad tiers (the
 # highest tier runs siren_grad_kernel in their place), for the kernels line
 TC_KERNELS = ["siren_wsplit_kernel", "siren_sweep_kernel", "siren_dw_kernel",
@@ -597,22 +643,26 @@ def bound(bytes_moved, tensor_flop, f32_flop):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def siren_bounds(k, n, h, n_params, n_freq=0, d=1, weighted=False):
+def siren_bounds(k, n, h, n_params, n_freq=0, d=1, weighted=False,
+                 fwd_passes=3, grad_passes=2):
     """Bounds of the three SIREN kernels at (k windows, n rows, width h,
     n_params floats a window, n_freq RFF frequencies or 0 for a raw layer
     0 of d columns), 2 sine + 2 snake layers + a linear head: bf16x3
-    forward products, bf16x2 backward products (the grad tier: dW of every
-    layer, dgrad of layers 1+), and ~20 fp32 operations for each sine /
-    snake activation and RFF feature.  ``weighted``: D and E also read a
-    per-row loss weight (C's slot is then E's bound)."""
+    forward products (``fwd_passes`` bf16 products a MAC; bf16x2: 2),
+    bf16x2 backward products (the grad tier, ``grad_passes``; bf16: 1; dW
+    of every layer, dgrad of layers 1+), and ~20 fp32 operations for each
+    sine / snake activation and RFF feature.  ``weighted``: D and E also
+    read a per-row loss weight (C's slot is then E's bound)."""
     rows = k * n
     l0 = (2 * n_freq if n_freq else d) * h
     macs = l0 + 4 * h * h + h                     # per row, forward
     dgrad = 4 * h * h + h                         # per row, below layer 1
     act = 20 * (5 * h + 2 * n_freq)               # per row, activations
     p_bytes = 4 * k * n_params
-    stack = bound(p_bytes + 4 * rows * 2, 6 * macs * rows, act * rows)
-    train_flop = (6 * macs + 2 * 2 * (macs + dgrad)) * rows
+    stack = bound(p_bytes + 4 * rows * 2, 2 * fwd_passes * macs * rows,
+                  act * rows)
+    train_flop = (2 * fwd_passes * macs
+                  + 2 * grad_passes * (macs + dgrad)) * rows
     # D: params, mu, nu and best read and written, targets (and the
     # weight) read
     per_row = 4 * (2 if weighted else 1)
@@ -643,11 +693,15 @@ def kan_bounds(n, layers_hidden, n_coef=8):
     return g, h
 
 
-def run_cli_fit(cli_main, phase, wav, tag, arch, steps, extra):
-    """The CLI ``fit`` in process (so that its launches are counted) ->
-    (parameters.json record, checkpoint path); fails unless every artefact
-    was written."""
-    argv = ["fit", "--device", "cuda", "--arch", arch, "--fused",
+def run_cli_fit(cli_main, phase, wav, tag, arch, steps, extra, fused=True,
+                plots=False):
+    """The CLI ``fit`` in process (so that its launches are counted), with
+    ``--no-plots`` unless ``plots`` (the card's machine may have no
+    matplotlib) -> (parameters.json record, checkpoint path); fails unless
+    every artefact was written."""
+    argv = ["fit", "--device", "cuda", "--arch", arch,
+            *(["--fused"] if fused else []),
+            *([] if plots else ["--no-plots"]),
             "--filename", wav, "--duration", "7.0", "--total-steps",
             str(steps), "--experiment-path", WORK, "--tag", tag, *extra]
     buf = io.StringIO()
@@ -1528,8 +1582,9 @@ def shard_phases(np, torch, dev, clip):
     proc = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", "2", "-m", "inraudio_tpu_torch", "fit",
-         "--device", "cuda", "--arch", "mlp", "--fused", "--filename", wav,
-         "--duration", "7.0", "--total-steps", str(TORCHRUN_STEPS),
+         "--device", "cuda", "--arch", "mlp", "--fused", "--no-plots",
+         "--filename", wav, "--duration", "7.0", "--total-steps",
+         str(TORCHRUN_STEPS),
          "--experiment-path", WORK, "--tag", tag],
         cwd=HERE, capture_output=True, text=True, timeout=600,
         env=dict(os.environ, CUDA_VISIBLE_DEVICES="0"))
@@ -2848,6 +2903,538 @@ def gl_convergence(np, torch, prob, wav):
     return float(np.linalg.norm(mag - est) / np.linalg.norm(mag))
 
 
+class TierTally:
+    """D's and E's launches by numerical tier: wraps a fused model's step
+    call and ``siren_step.fused_mse_grad_call`` (the sharded step's E) and
+    adds each call's rise of the wrappers' own counters to the tier of the
+    call's plan ('cheap': the schedule's cheap tier, else 'full')."""
+
+    def __init__(self, ss, model):
+        self.ss, self.model = ss, model
+        self.counts = {"siren_step": {"cheap": 0, "full": 0},
+                       "siren_grad": {"cheap": 0, "full": 0}}
+        self.lock = threading.Lock()
+
+    @staticmethod
+    def tier(plan, gmode):
+        return ("cheap" if gmode == "bf16" and plan.modes[1] == "bf16x2"
+                and set(plan.degrees) == {CHEAP_TIER["sin_degree"]}
+                else "full")
+
+    def _wrap(self, fn, counter, name):
+        def call(*args, **kw):
+            with self.lock:
+                before = counter.launches
+                out = fn(*args, **kw)
+                self.counts[name][self.tier(args[11 if name == "siren_step"
+                                                 else 6],
+                                            args[12 if name == "siren_step"
+                                                 else 7])] += (
+                    counter.launches - before)
+            return out
+        return call
+
+    def __enter__(self):
+        ctx = self.model.fused_step_ctx
+        self._step, self._grad = ctx["step"], self.ss.fused_mse_grad_call
+        ctx["step"] = self._wrap(self._step, self.ss.SIREN_STEP,
+                                 "siren_step")
+        self.ss.fused_mse_grad_call = self._wrap(self._grad,
+                                                 self.ss.SIREN_GRAD,
+                                                 "siren_grad")
+        return self
+
+    def __exit__(self, *exc):
+        self.model.fused_step_ctx["step"] = self._step
+        self.ss.fused_mse_grad_call = self._grad
+
+
+def trace_kernel_name(name: str) -> str:
+    """A device kernel's name in a profiler trace ("void (anonymous
+    namespace)::siren_sweep_kernel<256>(...)") -> its bare name."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    for stop in ("<", "("):
+        name = name.split(stop)[0]
+    return name.split("::")[-1].strip()
+
+
+def first_full_round(np, round_losses, targets, db):
+    """The JAX fit's escalation rule: the index of the first round on the
+    full tier (len(round_losses) when the fit never escalates)."""
+    thr = float(np.mean(np.square(targets))) / 10.0 ** (db / 10.0)
+    for r, last in enumerate(round_losses):
+        if float(last) < thr:
+            return r + 1
+    return len(round_losses)
+
+
+def schedule_phases(np, torch, dev, clip):
+    """Phases 24-25: the precision schedule at the runner mlp over the
+    whole clip.  24: D and E on the cheap tier against their plain
+    versions on the same tier beside the 1-ulp control, with the full-tier
+    plain versions as the negative control, repeat calls bit-equal, a full
+    step after cheap ones bit-equal to a fresh full step, and the timings
+    of both tiers; 25: ``fit(precision_schedule=True)`` on one rank and on
+    two ranks sharing the card, escalating on the card, against the
+    unscheduled fit, and the ``fit --profile`` CLI's trace."""
+    from inraudio_tpu_torch.__main__ import main as cli_main
+    from inraudio_tpu_torch.data import waveform_fitting
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_step as ss
+    from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.tree import tree_leaves, tree_map
+    from test_torch_cuda import (GRAD_BF16_BULK_RTOL, GRAD_BF16_MAX_RTOL,
+                                 GRAD_BULK_SHARE, LOSS_RTOL, clone_state,
+                                 perturb_layer0, run_thread_ranks)
+
+    def bulk(a, b, scale):
+        """Share of elements within GRAD_BF16_BULK_RTOL x scale."""
+        return float(((a - b).abs() <= GRAD_BF16_BULK_RTOL * scale).float()
+                     .mean())
+
+    wav = os.path.join(WORK, "runner_clip.wav")
+    problem = waveform_fitting(wav, 7.0)
+    x, y = problem.coords, problem.targets
+    n = x.shape[0]
+    coords = torch.from_numpy(x).to(dev)
+    targets = torch.from_numpy(y[:, 0]).to(dev)[None]
+    tc = tloop.TrainConfig()  # the runner's defaults: lr 1e-3, no clip
+    block = st.tile_rows(RUNNER_H)
+    out, fails = {"timing": {}}, []
+    if tloop.schedule_tiers()[0] != CHEAP_TIER:
+        raise AssertionError(f"schedule_tiers {tloop.schedule_tiers()}")
+
+    # ---- phase 24: the cheap tier on the kernels ----
+    for name, rb in runner_shapes(torch, dev).items():
+        model = runner_model(rb)
+        cfg = model.config
+        bt = None if rb is None else sf._prep_rff_bt(rb)
+        rff = rb is not None
+        plan_c, g_c = ss.tier_plan(cfg, True, rff, CHEAP_TIER)
+        plan_f, g_f = ss.tier_plan(cfg, True, rff, None)
+        state = tloop.init_train_state(
+            model, torch.Generator().manual_seed(SEED), tc, dev, windows=1)
+        fs0 = ss.flat_state_from_train_state(state, cfg)
+        fsu = ss.flat_state_from_train_state(
+            state._replace(params=perturb_layer0(state.params)), cfg)
+        build = lambda tier, call=ss.fused_mse_step_call: (  # noqa: E731
+            ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                         step_call=call, rff_b=rb,
+                                         tier=tier))
+        kc, kf_ = build(CHEAP_TIER), build(None)
+        pc, pf = build(CHEAP_TIER, ss.step_plain), build(None, ss.step_plain)
+        a1, (la, _) = kc(clone_state(fs0), coords, targets)
+        a2, (la2, _) = kc(clone_state(fs0), coords, targets)
+        p1, (lp, _) = pc(clone_state(fs0), coords, targets)
+        u1, (lu, _) = pc(clone_state(fsu), coords, targets)
+        f1, (lf, _) = pf(clone_state(fs0), coords, targets)
+        torch.cuda.synchronize()
+        gap = lambda a, b: float((a - b).abs().max())  # noqa: E731
+        scale = float(p1.mu.abs().max())
+        g_err, g_ctl, g_neg = (gap(v.mu, p1.mu) for v in (a1, u1, f1))
+        l_err, l_ctl, l_neg = (abs(float(v - lp)) / float(lp)
+                               for v in (la, lu, lf))
+        g_lim = max(RUNNER_CTRL_X * g_ctl, GRAD_BF16_MAX_RTOL * scale)
+        l_lim = max(RUNNER_CTRL_X * l_ctl, LOSS_RTOL)
+        neg_g = gap(a1.mu, f1.mu)
+        neg_l = abs(float(la - lf)) / float(lf)
+        # the bulk rule holds a raw layer 0 (the card tests' rule); an RFF
+        # layer 0's 2F-deep sums reorder, so it has the control alone
+        share, neg_share = bulk(a1.mu, p1.mu, scale), bulk(a1.mu, f1.mu,
+                                                           scale)
+        share_min = 0.0 if rff else GRAD_BULK_SHARE
+        seen = neg_g > g_lim or neg_l > l_lim or neg_share < share_min
+        same = torch.equal(la, la2) and all(torch.equal(p, q)
+                                            for p, q in zip(a1, a2))
+        ok = (bool(torch.isfinite(a1.params).all()) and g_err <= g_lim
+              and l_err <= l_lim and share >= share_min and seen
+              and same)
+        log(f"phase24 {name} cheap D ({g_c} grads, bf16x2 forward, sin "
+            f"degree {CHEAP_TIER['sin_degree']}, "
+            f"{'tensor-core' if st.tc_route(plan_c, g_c) else 'FMA'} route) "
+            f"vs step_plain on the cheap tier, one step from one state: "
+            f"grads (mu) max abs {g_err:.3e} of max {scale:.3e} (limit "
+            f"{g_lim:.3e} = max({RUNNER_CTRL_X} x control {g_ctl:.3e}, "
+            f"{GRAD_BF16_MAX_RTOL} x max)), {share:.5f} of them within "
+            f"{GRAD_BF16_BULK_RTOL} x max (limit >= {share_min}); loss "
+            f"rel {l_err:.2e} (control {l_ctl:.2e}, limit {l_lim:.2e}); "
+            f"negative control (the cheap kernel against the full-tier plain "
+            f"step): grads {neg_g:.3e}, {neg_share:.5f} of them within "
+            f"{GRAD_BF16_BULK_RTOL} x max, loss rel {neg_l:.2e}, beyond a "
+            f"limit {'yes' if seen else 'NO'}, {neg_g / max(g_err, 1e-30):.0f}"
+            f" x the kernel's gap (full-tier plain vs cheap plain: "
+            f"grads {g_neg:.3e}, loss rel {l_neg:.2e}); repeat bit-equal "
+            f"{same}; {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(f"{name} cheap D")
+        out[(name, "step_err")] = g_err
+        # a full step after cheap ones is a fresh full step on that carry
+        c = clone_state(fs0)
+        for _ in range(2):
+            c, _ = kc(c, coords, targets)
+        fresh, (l_fresh, _) = build(None)(clone_state(c), coords, targets)
+        c, (l_full, _) = kf_(c, coords, targets)
+        torch.cuda.synchronize()
+        switch = torch.equal(l_full, l_fresh) and all(
+            torch.equal(p, q) for p, q in zip(c, fresh))
+        log(f"phase24 {name} two cheap steps then a full step on one carry "
+            f"vs a fresh full step on a copy: bit-equal {switch}")
+        if not switch:
+            fails.append(f"{name} tier switch")
+        del a2, p1, u1, f1, c, fresh
+        # E on one shard of two, the cheap tier against its plain version
+        cs, ts, limit, sh = _shard_inputs(torch, np, dev, x, y, 0, 2, block)
+        eargs = (cs, ts, limit, n, cfg)
+        P = a1.params.shape[1]
+        kb = ss.SIREN_GRAD(a1.params, *eargs, plan_c, g_c, bt)
+        kb2 = ss.SIREN_GRAD(a1.params, *eargs, plan_c, g_c, bt)
+        pb = ss.grad_plain(a1.params, *eargs, plan_c, g_c, bt)
+        pert = st.flatten_params(perturb_layer0(st.unflatten_params(
+            a1.params, cfg)), cfg)
+        cb = ss.grad_plain(pert, *eargs, plan_c, g_c, bt)
+        fb = ss.grad_plain(a1.params, *eargs, plan_f, g_f, bt)
+        torch.cuda.synchronize()
+        escale = float(pb[:P].abs().max())
+        e_err, e_ctl = gap(kb[:P], pb[:P]), gap(cb[:P], pb[:P])
+        el_err = abs(float(kb[P] - pb[P])) / float(pb[P])
+        el_ctl = abs(float(cb[P] - pb[P])) / float(pb[P])
+        e_lim = max(RUNNER_CTRL_X * e_ctl, GRAD_BF16_MAX_RTOL * escale)
+        el_lim = max(RUNNER_CTRL_X * el_ctl, LOSS_RTOL)
+        e_neg = gap(kb[:P], fb[:P])
+        el_neg = abs(float(kb[P] - fb[P])) / float(fb[P])
+        e_share = bulk(kb[:P], pb[:P], escale)
+        e_neg_share = bulk(kb[:P], fb[:P], escale)
+        e_seen = (e_neg > e_lim or el_neg > el_lim
+                  or e_neg_share < share_min)
+        e_same = torch.equal(kb, kb2)
+        ok = (bool(torch.isfinite(kb).all()) and e_err <= e_lim
+              and el_err <= el_lim and e_share >= share_min
+              and e_seen and e_same)
+        log(f"phase24 {name} cheap E on shard 0 ({sh.rows} rows) vs "
+            f"grad_plain on the cheap tier: grads max abs {e_err:.3e} of "
+            f"max {escale:.3e} (limit {e_lim:.3e} = max({RUNNER_CTRL_X} x "
+            f"control {e_ctl:.3e}, {GRAD_BF16_MAX_RTOL} x max)), "
+            f"{e_share:.5f} within {GRAD_BF16_BULK_RTOL} x max (limit >= "
+            f"{share_min}); loss rel {el_err:.2e} (control "
+            f"{el_ctl:.2e}, limit {el_lim:.2e}); negative control (full-tier "
+            f"grad_plain): grads {e_neg:.3e}, {e_neg_share:.5f} within "
+            f"{GRAD_BF16_BULK_RTOL} x max, loss rel {el_neg:.2e}, beyond a "
+            f"limit {'yes' if e_seen else 'NO'}, "
+            f"{e_neg / max(e_err, 1e-30):.0f} x the kernel's gap; repeat "
+            f"bit-equal {e_same}; "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(f"{name} cheap E")
+        out[(name, "grad_err")] = e_err
+        del kb2, pb, cb, fb
+        # timings, CUDA events: both tiers' step, sweep split and E
+        t = {}
+        fs = a1
+        for tier, (plan, gm, ks, ps) in {
+                "cheap": (plan_c, g_c, kc, pc),
+                "full": (plan_f, g_f, kf_, pf)}.items():
+            t[f"step_{tier}"] = cuda_ms(torch, lambda: ks(fs, coords,
+                                                         targets), 10)
+            t[f"step_{tier}_plain"] = cuda_ms(torch, lambda: ps(
+                fs, coords, targets), 2)
+            g = st.validate_grad_launch(fs.params, cfg, plan, coords, bt)
+            t[f"split_{tier}"] = tc_split_ms(torch, st, g, coords,
+                                             fs.params, 10, targets=targets,
+                                             gmode=gm)
+            t[f"grad_{tier}"] = cuda_ms(torch, lambda: ss.SIREN_GRAD(
+                fs.params, *eargs, plan, gm, bt), 10)
+            t[f"grad_{tier}_plain"] = cuda_ms(torch, lambda: ss.grad_plain(
+                fs.params, *eargs, plan, gm, bt), 2)
+        t["step_cheap2"] = cuda_ms(torch, lambda: kc(fs, coords, targets),
+                                   10)
+        n_params = sum(v.numel() for p in state.params["layers"]
+                       for v in p.values())
+        n_freq = 0 if bt is None else bt.shape[1]
+        for tier, (fp, gp) in {"cheap": (2, 1), "full": (3, 2)}.items():
+            _, step_b, _ = siren_bounds(1, n, RUNNER_H, n_params, n_freq,
+                                        fwd_passes=fp, grad_passes=gp)
+            grad_b = siren_bounds(1, sh.rows, RUNNER_H, n_params, n_freq,
+                                  fwd_passes=fp, grad_passes=gp)[2]
+            t[f"step_{tier}_bound"], t[f"grad_{tier}_bound"] = step_b, grad_b
+        cheap_ms = min(t["step_cheap"], t["step_cheap2"])
+        log(f"phase24 {name} timings: D step cheap {t['step_cheap']:.3f} / "
+            f"{t['step_cheap2']:.3f} ms against full {t['step_full']:.3f} ms "
+            f"({100 * (cheap_ms / t['step_full'] - 1):+.2f}%); plain step "
+            f"cheap {t['step_cheap_plain']:.3f}, full "
+            f"{t['step_full_plain']:.3f} ms; bound cheap "
+            f"{t['step_cheap_bound'][0]:.3f} ms ({t['step_cheap_bound'][1]}),"
+            f" full {t['step_full_bound'][0]:.3f} ms; sweep cheap "
+            f"{t['split_cheap']['siren_sweep']:.3f} / full "
+            f"{t['split_full']['siren_sweep']:.3f} ms, dW "
+            f"{t['split_cheap']['siren_dw']:.3f} / "
+            f"{t['split_full']['siren_dw']:.3f}, weight split "
+            f"{t['split_cheap']['siren_wsplit']:.3f} / "
+            f"{t['split_full']['siren_wsplit']:.3f}, reduce "
+            f"{t['split_cheap']['siren_reduce']:.3f} / "
+            f"{t['split_full']['siren_reduce']:.3f}; E on shard 0 cheap "
+            f"{t['grad_cheap']:.3f} / full {t['grad_full']:.3f} ms "
+            f"({100 * (t['grad_cheap'] / t['grad_full'] - 1):+.2f}%), plain "
+            f"{t['grad_cheap_plain']:.3f} / {t['grad_full_plain']:.3f}, "
+            f"bound {t['grad_cheap_bound'][0]:.3f} / "
+            f"{t['grad_full_bound'][0]:.3f} ms")
+        out["timing"][name] = t
+        del a1, fs, kb
+    if fails:
+        raise AssertionError(f"phase 24 failed: {fails}")
+
+    # ---- phase 25: the schedule through fit, and the profiler ----
+    model = runner_model(None)
+    s0 = tloop.init_train_state(model, torch.Generator().manual_seed(SEED),
+                                tc, dev)
+    steps, chunk = SCHEDULE_STEPS, SCHEDULE_CHUNK
+    rounds = steps // chunk
+    base = dataclasses.replace(tc, total_steps=steps, scan_chunk=chunk)
+    counters = launch_counters()
+    fits = {}
+
+    def run(label, cfg_, mesh_ranks=0):
+        for cnt in counters.values():
+            cnt.launches = 0
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with TierTally(ss, model) as tally:
+            if mesh_ranks:
+                res = run_thread_ranks(mesh_ranks, lambda m: tloop.fit(
+                    model, x, y, cfg_, state=s0, mesh=m), device=dev)
+            else:
+                res = [tloop.fit(model, x, y, cfg_, state=s0, device=dev)]
+        peak = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+        fits[label] = dict(res=res, tally=tally.counts, peak=peak,
+                           launches={k: c.launches
+                                     for k, c in counters.items()})
+        return res
+
+    ref = run("unscheduled", base)[0]
+    hist = ref.loss_history
+    # a floor between the losses at the ends of the first and the second
+    # round, so that the escalation falls mid-fit on the card
+    mid = float(np.sqrt(float(hist[chunk - 1]) * float(hist[2 * chunk - 1])))
+    db = float(10.0 * np.log10(float(np.mean(np.square(y))) / mid))
+    run("schedule_45dB", dataclasses.replace(base, precision_schedule=True))
+    run("schedule_low", dataclasses.replace(base, precision_schedule=True,
+                                            schedule_db=db))
+    run("schedule_low_2ranks", dataclasses.replace(
+        base, precision_schedule=True, schedule_db=db), mesh_ranks=2)
+    for label, f in fits.items():
+        res = f["res"]
+        r0 = res[0]
+        db_ = {"schedule_45dB": 45.0}.get(label, db)
+        ranks = len(res)
+        ends = r0.loss_history[chunk - 1::chunk]
+        want = (rounds if label == "unscheduled"
+                else first_full_round(np, ends, y, db_))
+        cheap_steps = 0 if label == "unscheduled" else chunk * want
+        kernel = "siren_grad" if ranks > 1 else "siren_step"
+        tally = f["tally"][kernel]
+        expect = {"cheap": ranks * cheap_steps,
+                  "full": ranks * (steps - cheap_steps)}
+        same = ranks == 1 or (
+            np.array_equal(res[0].loss_history, res[1].loss_history)
+            and all(torch.equal(p, q) for p, q in zip(
+                tree_leaves(res[0].state), tree_leaves(res[1].state))))
+        total_ok = f["launches"][kernel] == ranks * steps
+        ok = tally == expect and same and total_ok and bool(
+            np.isfinite(r0.loss_history).all())
+        escal = ("never" if want >= rounds else f"at round {want}")
+        log(f"phase25 fit {label} ({ranks} rank{'s' if ranks > 1 else ''}, "
+            f"{steps} steps in rounds of {chunk}, schedule_db {db_:.4f}): "
+            f"round-end losses {[float(v) for v in ends]}; the rule "
+            f"(floor {float(np.mean(np.square(y))) / 10 ** (db_ / 10):.9g}) "
+            f"gives the full tier {escal}; "
+            f"{'D' if ranks == 1 else 'E'} launches by tier {tally} "
+            f"(expected {expect}), all launches {f['launches']}; ranks "
+            f"equal {same}; {r0.steps_per_sec:.2f} steps/s; peak device "
+            f"memory {f['peak']:.1f} MiB; {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(f"schedule fit {label}")
+    if first_full_round(np, fits["schedule_low"]["res"][0].loss_history[
+            chunk - 1::chunk], y, db) >= rounds:
+        fails.append("the low-floor fit did not escalate on the card")
+    out["fits"] = {k: dict(steps_s=v["res"][0].steps_per_sec,
+                           tally=v["tally"], peak=v["peak"])
+                   for k, v in fits.items()}
+    out["launches_cheap"] = {
+        "siren_step": (fits["schedule_45dB"]["tally"]["siren_step"]["cheap"]
+                       + fits["schedule_low"]["tally"]["siren_step"]
+                       ["cheap"]),
+        "siren_grad": fits["schedule_low_2ranks"]["tally"]["siren_grad"]
+        ["cheap"]}
+    del fits
+    # the profiler through the CLI
+    tag = "mlp_profile"
+    rec, _ = run_cli_fit(cli_main, "phase25", wav, tag, "mlp",
+                         PROFILE_STEPS, ["--profile"])
+    trace_dir = os.path.join(WORK, tag, "trace")
+    names = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) else []
+    kernels_seen = {}
+    for fname in names:
+        with open(os.path.join(trace_dir, fname)) as fh:
+            events = json.load(fh).get("traceEvents", [])
+        for e in events:
+            if e.get("cat") == "kernel":
+                k = trace_kernel_name(e.get("name", ""))
+                kernels_seen[k] = kernels_seen.get(k, 0) + 1
+    ok = bool(names) and any("siren_sweep_kernel" in k for k in kernels_seen)
+    log(f"phase25 CLI fit --fused --profile --no-plots, {PROFILE_STEPS} "
+        f"steps (one round, the profiled one): trace files {names}; device "
+        f"kernels in the trace {dict(sorted(kernels_seen.items()))}; "
+        f"{'ok' if ok else 'FAILED'}")
+    if not ok:
+        fails.append("profile trace")
+    out["params"] = ref.params
+    if fails:
+        raise AssertionError(f"phase 25 failed: {fails}")
+    return out
+
+
+def zoo_phases(np, torch, dev, clip, trained_params):
+    """Phase 26: the zoo and the runner's tail on the card: the classic
+    SIREN and the ReLU MLP at their configs' defaults fitted over the whole
+    clip, the scaled-first mlp through the CLI, ``random_plane`` on the
+    trained runner mlp (B's launches counted), the decimation curriculum
+    and the band split, and the plots where matplotlib is present; each
+    with its rate and peak device memory."""
+    from inraudio_tpu_torch.__main__ import main as cli_main
+    from inraudio_tpu_torch.data import waveform_fitting
+    from inraudio_tpu_torch.experiments import (band_split_train,
+                                                procedural_train)
+    from inraudio_tpu_torch.models import build_model
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.train.losses import mix_loss
+    from inraudio_tpu_torch.utils.landscape import random_plane
+
+    wav = os.path.join(WORK, "runner_clip.wav")
+    problem = waveform_fitting(wav, 7.0)
+    x, y = problem.coords, problem.targets
+    fails, out = [], {}
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - mem0) / 2**20)
+
+    # ---- phase 26: the zoo and the runner's tail ----
+    for arch in ("siren", "relu"):
+        model = build_model(arch)
+        tc = tloop.TrainConfig(total_steps=ZOO_STEPS, scan_chunk=ZOO_STEPS)
+        r, wall, peak = measured(lambda: tloop.fit(
+            model, x, y, tc, generator=torch.Generator().manual_seed(SEED),
+            device=dev))
+        ok = (bool(np.isfinite(r.loss_history).all())
+              and r.best_loss < float(r.loss_history[0]))
+        log(f"phase26 {arch} {model.config} over {x.shape[0]} rows, "
+            f"{ZOO_STEPS} steps (autograd, fp32 cuBLAS products, TF32 off):"
+            f" loss {float(r.loss_history[0]):.6g} -> "
+            f"{float(r.loss_history[-1]):.6g}, {r.steps_per_sec:.2f} "
+            f"steps/s, {wall:.2f} s, peak device memory {peak:.1f} MiB; "
+            f"{'ok' if ok else 'FAILED'}")
+        out[arch] = dict(steps_s=r.steps_per_sec, peak=peak)
+        if not ok:
+            fails.append(f"zoo {arch}")
+    (rec, _), wall, peak = measured(lambda: run_cli_fit(
+        cli_main, "phase26", wav, "mlp_scaled_first", "mlp", ZOO_STEPS,
+        ["--scaled-first"], fused=False))
+    ok = rec["scaled_first"] is True and np.isfinite(rec["best_loss"])
+    log(f"phase26 scaled-first mlp (unfused, autograd): {wall:.2f} s, "
+        f"peak device memory {peak:.1f} MiB; {'ok' if ok else 'FAILED'}")
+    out["scaled_first"] = dict(steps_s=rec["steps_per_sec"], peak=peak)
+    if not ok:
+        fails.append("scaled-first CLI")
+    # the landscape on the trained runner mlp, B counted
+    model = runner_model(None)
+    coords = torch.from_numpy(x).to(dev)
+    targets = torch.from_numpy(y).to(dev)
+    sf.SIREN_STACK.launches = 0
+    surf, wall, peak = measured(lambda: random_plane(
+        lambda p: mix_loss(model.apply(p, coords), targets, loss_mode="mse"),
+        trained_params, torch.Generator().manual_seed(SEED + (1 << 32)),
+        distance=2.0, steps=LANDSCAPE_STEPS))
+    launches = sf.SIREN_STACK.launches
+    ok = (surf.shape == (LANDSCAPE_STEPS, LANDSCAPE_STEPS)
+          and bool(np.isfinite(surf).all())
+          and launches == LANDSCAPE_STEPS ** 2)
+    log(f"phase26 random_plane {LANDSCAPE_STEPS} x {LANDSCAPE_STEPS}, "
+        f"distance 2, on the trained runner mlp over {x.shape[0]} rows: "
+        f"{wall:.2f} s ({1e3 * wall / LANDSCAPE_STEPS ** 2:.3f} ms a point)"
+        f", peak device memory {peak:.1f} MiB; B launches {launches} "
+        f"(expected {LANDSCAPE_STEPS ** 2}); loss range "
+        f"[{float(surf.min()):.6g}, {float(surf.max()):.6g}]; "
+        f"{'ok' if ok else 'FAILED'}")
+    out["landscape"] = dict(s=wall, peak=peak, launches=launches)
+    if not ok:
+        fails.append("landscape")
+    # the pipelines through the runner (fused mlp, the CLI defaults)
+    pdir = os.path.join(WORK, "pipelines")
+    kw = dict(total_steps=PIPELINE_STEPS, fused=True, make_plots=False,
+              device=dev)
+    ck, wall, peak = measured(lambda: procedural_train(
+        pdir, "proc", filename=wav, duration=7.0, **kw))
+    recs = []
+    for d in (8, 4, 2, 1):
+        with open(os.path.join(pdir, f"proc_d{d}", "parameters.json")) as fh:
+            recs.append(json.load(fh))
+    ok = (ck == os.path.join(pdir, "proc_d1", "saved_ckpt.npz")
+          and [r["decimation"] for r in recs] == [8, 4, 2, 1])
+    log(f"phase26 procedural_train d8 -> d4 -> d2 -> d1, {PIPELINE_STEPS} "
+        f"steps each: {wall:.2f} s, steps/s "
+        f"{[round(r['steps_per_sec'], 2) for r in recs]}, SNR "
+        f"{[round(r['SNR'], 3) for r in recs]} dB, peak device memory "
+        f"{peak:.1f} MiB; {'ok' if ok else 'FAILED'}")
+    out["procedural"] = dict(s=wall, peak=peak,
+                             steps_s=[r["steps_per_sec"] for r in recs])
+    if not ok:
+        fails.append("procedural_train")
+    res, wall, peak = measured(lambda: band_split_train(
+        pdir, "band", clip, FS, **kw))
+    ok = bool(np.isfinite(res["rec"]).all()) and np.isfinite(res["snr"])
+    log(f"phase26 band_split_train at 10 kHz (order-5 Butterworth, float64 "
+        f"on the host), {PIPELINE_STEPS} steps a band: {wall:.2f} s, "
+        f"steps/s lp {res['lp']['record']['steps_per_sec']:.2f} / hp "
+        f"{res['hp']['record']['steps_per_sec']:.2f}, summed SNR "
+        f"{res['snr']:.3f} dB, peak device memory {peak:.1f} MiB; "
+        f"{'ok' if ok else 'FAILED'}")
+    out["band_split"] = dict(s=wall, peak=peak)
+    if not ok:
+        fails.append("band_split_train")
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    if have_mpl:
+        tag = "mlp_plots"
+        run_cli_fit(cli_main, "phase26", wav, tag, "mlp", PIPELINE_STEPS,
+                    ["--visualization"], plots=True)
+        pngs = sorted(f for f in os.listdir(os.path.join(WORK, tag))
+                      if f.endswith(".png"))
+        ok = set(pngs) >= {"loss.png", "spec_ref.png", "spec.png",
+                           "wave.png", "landscape.png"}
+        log(f"phase26 plots and --visualization: {pngs}; "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append("plots")
+    else:
+        log("phase26 matplotlib is not installed on this machine: the plots "
+            "and --visualization's PNG are tested on the CPU only "
+            "(tests/test_torch_experiment_tail.py)")
+    if fails:
+        raise AssertionError(f"phase 26 failed: {fails}")
+    return out
+
+
 def build_kernels():
     """Phase 0: every CUDA source built at once (one nvcc each, in threads),
     with ptxas's register and spill lines printed."""
@@ -3132,6 +3719,8 @@ def main() -> int:
     serving = serving_phases(np, torch, dev, clip, codec, sf,
                              train["payloads"])
     spectral = spectral_phases(np, torch, dev, clip)
+    schedule = schedule_phases(np, torch, dev, clip)
+    zoo_phases(np, torch, dev, clip, schedule.pop("params"))
 
     shutil.rmtree(WORK, ignore_errors=True)
     ms, plain_ms = timing[("headline", "deg11")]
@@ -3336,6 +3925,49 @@ def main() -> int:
         "shape": shape + ", one shard of two; launches from the weighted "
                          "fit on 2 ranks sharing the card (phase 22)",
         "cuda_kernels": TC_KERNELS, "unweighted_ms": t["grad"],
+    }]
+    t, tr = schedule["timing"]["runner_mlp"], schedule["timing"][
+        "runner_mlp_rff"]
+    shape = (f"runner mlp h={RUNNER_H} omega0={RUNNER_OMEGA:g}, raw "
+             f"coordinates, {CLIP_SAMPLES} rows, the precision schedule's "
+             f"cheap tier {CHEAP_TIER}")
+    kernels["kernels"] += [{
+        "name": "siren_step_cheap",
+        "route": "cuda",
+        "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+        "replaces": "inraudio_tpu/ops/pallas_siren_step.py:120",
+        "branch": "tier",
+        "launches": schedule["launches_cheap"]["siren_step"],
+        "max_abs_err": schedule[("runner_mlp", "step_err")],
+        "ms": min(t["step_cheap"], t["step_cheap2"]),
+        "plain_ms": t["step_cheap_plain"],
+        "bound_ms": t["step_cheap_bound"][0],
+        "bound_by": t["step_cheap_bound"][1], "library_ms": None,
+        "shape": shape + ", one whole train step; launches: the cheap-tier "
+                         "steps of the scheduled one-rank fits (phase 25)",
+        "cuda_kernels": TC_KERNELS + ADAM_KERNELS,
+        "full_ms": t["step_full"], "split_ms": t["split_cheap"],
+        "full_split_ms": t["split_full"],
+        "rff_ms": min(tr["step_cheap"], tr["step_cheap2"]),
+        "rff_full_ms": tr["step_full"],
+        "rff_max_abs_err": schedule[("runner_mlp_rff", "step_err")],
+    }, {
+        "name": "siren_grad_cheap",
+        "route": "cuda",
+        "source": "inraudio_tpu_torch/csrc/siren_train.cu",
+        "replaces": "inraudio_tpu/ops/pallas_siren_step.py:348",
+        "branch": "tier",
+        "launches": schedule["launches_cheap"]["siren_grad"],
+        "max_abs_err": schedule[("runner_mlp", "grad_err")],
+        "ms": t["grad_cheap"], "plain_ms": t["grad_cheap_plain"],
+        "bound_ms": t["grad_cheap_bound"][0],
+        "bound_by": t["grad_cheap_bound"][1], "library_ms": None,
+        "shape": shape + ", one shard of two (154,112 rows); launches: the "
+                         "cheap-tier steps of the scheduled fit on 2 ranks "
+                         "sharing the card (phase 25)",
+        "cuda_kernels": TC_KERNELS, "full_ms": t["grad_full"],
+        "rff_ms": tr["grad_cheap"], "rff_full_ms": tr["grad_full"],
+        "rff_max_abs_err": schedule[("runner_mlp_rff", "grad_err")],
     }]
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))

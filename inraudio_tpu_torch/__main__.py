@@ -31,6 +31,8 @@ def main(argv=None) -> int:
     fit.add_argument("--experiment-path", default="results")
     fit.add_argument("--tag", default="exp")
     fit.add_argument("--filename", required=True)
+    fit.add_argument("--inst", default=None,
+                     help="instrument name, recorded in parameters.json")
     fit.add_argument("--duration", type=float, default=10.0)
     fit.add_argument("--device", default="cuda",
                      help="torch device to train on (default cuda; 'cpu' "
@@ -106,6 +108,18 @@ def main(argv=None) -> int:
     fit.add_argument("--update-grid-every", type=int, default=0,
                      help="KAN data-adaptive grid refresh period in steps "
                           "(0 = never)")
+    fit.add_argument("--scaled-first", action="store_true",
+                     help="mlp: first layer a scaled sine layer (per-unit "
+                          "omega linspace); unfused only")
+    fit.add_argument("--no-plots", action="store_true",
+                     help="write no PNGs (loss, spectrograms, waveform); "
+                          "the plots need matplotlib")
+    fit.add_argument("--visualization", action="store_true",
+                     help="write landscape.png, the loss over a random "
+                          "plane through the fitted parameters")
+    fit.add_argument("--profile", action="store_true",
+                     help="record a torch.profiler trace of one round of "
+                          "the fit into <experiment>/trace/")
 
     enc = sub.add_parser(
         "encode", help="compress a wav into an INRA payload (multi-INR "
@@ -235,7 +249,8 @@ def main(argv=None) -> int:
         from .experiments import train
         kw = {k: v for k, v in vars(args).items()
               if k not in ("cmd", "experiment_path", "tag", "filename",
-                           "duration")}
+                           "duration", "no_plots")}
+        kw["make_plots"] = not args.no_plots
         ckpt = train(args.experiment_path, args.tag, args.filename,
                      args.duration, **kw)
         if ckpt is not None:  # rank 0

@@ -6,8 +6,13 @@ target's per-row loss weight.
 Build the fitting problem, build the model (with an optional input
 encoding), optionally warm-start from a checkpoint, fit, decode (with
 bandwidth extension), score the SNR, and write the artefacts: ``output.wav``,
-the checkpoint, ``metrics.jsonl`` and ``parameters.json`` with the JAX
-package's schema.  ``train`` takes a wav file and returns the checkpoint
+the checkpoint, ``metrics.jsonl``, ``parameters.json`` with the JAX
+package's schema, and with ``make_plots`` (the default, as in the JAX
+runner; matplotlib) ``loss.png``, ``spec_ref.png``, ``spec.png`` and
+``wave.png``.  ``visualization`` adds ``landscape.png``, the loss over a
+random plane through the fitted parameters (``utils.landscape``), and
+``profile`` a ``torch.profiler`` trace of one round of the fit in
+``<experiment>/trace``.  ``train`` takes a wav file and returns the checkpoint
 path; ``train_from_signal`` takes an in-memory signal (coords in
 [-coord_scale, coord_scale]) and returns the reconstruction and residual.
 
@@ -20,14 +25,12 @@ With ``num_freq``, the mlp owns its RFF encoding, as in the JAX runner: raw
 coordinates go to the fit and the decode, and a fused mlp folds the
 encoding into its kernels' layer 0.  Every other encoding (the NeRF
 posenc, and RFF for the KAN) is computed once on the device and handed to
-the model as its input features.  A fused mlp with the NeRF posenc raises:
-the kernels have no posenc layer 0 (the JAX runner silently unfuses it).
+the model as its input features.  A fused mlp with the NeRF posenc or the
+scaled-sine first layer (``scaled_first``) raises: the kernels have neither
+layer 0 (the JAX runner silently unfuses both).
 A spectral target's SNR is taken against the peak-normalised clip with
 1024 samples trimmed at each end (the fft decode's phase is Griffin-Lim's,
-so its SNR is phase-limited).  Not ported: plots, the loss landscape, the
-profiler and ``scaled_first``.  The knobs the port does not have are
-written into ``parameters.json`` at the values it runs with, so the schema
-matches the JAX package's.
+so its SNR is phase-limited).
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ from ..data.fittings import (FittingProblem, fft_fitting, mdct_fitting,
 from ..eval.decode import decode_problem
 from ..eval.metrics import (experiment_record, reconstruction_snr,
                             save_parameters)
+from ..eval.plots import (plot_loss_history, plot_waveform_comparison,
+                          plotspec)
 from ..models import (INRModel, KANConfig, SirenSnakeTanhConfig, build_model,
                       posenc_nerf, posenc_output_dim, rff_apply, rff_init)
 from ..parallel.mesh import Mesh, resolve_mesh
@@ -54,8 +59,10 @@ from ..train.checkpoint import load_checkpoint, save_checkpoint
 from ..train.loop import TrainConfig, fit, init_train_state
 from ..utils.observability import MetricsLogger
 
-# the RFF projection's generator seed, apart from the init's
+# generator seeds apart from the init's: the RFF projection's, and the
+# landscape's random directions (the JAX runner's fold_in(key, 1) and (2))
 _RFF_SEED_OFFSET = 1 << 31
+_LANDSCAPE_SEED_OFFSET = 1 << 32
 
 
 def make_experiment_folder(experiment_path: str, tag: str) -> str:
@@ -96,17 +103,19 @@ def build_arch(arch: str, in_features: int, hidden: int, num_sine: int,
                num_snake: int, num_tanh: int, omega: float,
                hidden_omega: float, a_initial: float | None,
                first_linear: bool = False, last_linear: bool = True,
-               fused: bool = False, rff_b: torch.Tensor | None = None
-               ) -> INRModel:
+               fused: bool = False, rff_b: torch.Tensor | None = None,
+               scaled_first: bool = False) -> INRModel:
     """'mlp' -> SirenWithSnakeTanh (fused: the stack kernels and kernel D,
     widths 32/64/128/256, raw coordinates or the model's own RFF encoding
-    ``rff_b``); 'kan' -> KAN([in, hidden, hidden, 1]) (fused: kernels G
-    and H)."""
+    ``rff_b``; ``scaled_first``: the scaled-sine first layer, unfused
+    only); 'kan' -> KAN([in, hidden, hidden, 1]) (fused: kernels G and
+    H)."""
     if arch == "mlp":
         return build_model("mlp", SirenSnakeTanhConfig(
             in_features=in_features, hidden_features=hidden,
             num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
             first_linear=first_linear, last_linear=last_linear,
+            scaled_first=scaled_first,
             first_omega_0=omega, hidden_omega_0=hidden_omega,
             a_initial=a_initial), fused=fused, approx_sin=fused,
             rff_b=rff_b)
@@ -155,6 +164,8 @@ def _run_experiment(
     last_linear: bool = True, grad_clip_norm: float = 0.0,
     plateau_factor: float = 0.8, plateau_patience: int = 200,
     update_grid_every: int = 0, encoding: str = "rff",
+    scaled_first: bool = False, make_plots: bool = True,
+    visualization: bool = False, profile: bool = False,
     device: torch.device | str | None = None,
     mesh: Mesh | None = None) -> dict[str, Any]:
     """The engine behind ``train`` and ``train_from_signal``.  On ranks
@@ -173,7 +184,7 @@ def _run_experiment(
     model = build_arch(arch, in_features, hidden, num_sine, num_snake,
                        num_tanh, omega, hidden_omega, a_initial,
                        first_linear=first_linear, last_linear=last_linear,
-                       fused=fused, rff_b=rff_b)
+                       fused=fused, rff_b=rff_b, scaled_first=scaled_first)
     cfg = TrainConfig(total_steps=total_steps, learning_rate=learning_rate,
                       min_learning_rate=min_learning_rate,
                       loss_mode=loss_mode, alpha=alpha,
@@ -195,9 +206,11 @@ def _run_experiment(
                                              "metrics.jsonl"))
         metrics.log({"event": "config", "hparams": _scalars(hparams)})
     t0 = time.time()
+    trace_dir = (os.path.join(experiment_folder, "trace")
+                 if profile and mesh.rank == 0 else None)
     result = fit(model, enc_coords, problem.targets, cfg, generator=generator,
                  state=state, metrics=metrics, mesh=mesh,
-                 weight=problem.loss_weight)
+                 weight=problem.loss_weight, profile_dir=trace_dir)
     train_time = time.time() - t0
     if mesh.rank != 0:
         return {"ckpt": None, "result": result, "model": model,
@@ -218,10 +231,11 @@ def _run_experiment(
 
     ref = reference_signal
     if bwe:
-        ref_cmp = ref
+        ref_cmp, rate_cmp = ref, reference_rate
     else:
         q = reference_rate // problem.sample_rate
         ref_cmp = decimate_signal(ref, q) if q > 1 else ref
+        rate_cmp = problem.sample_rate
     spectral = problem.method in ("mdct", "fft")
     if spectral:  # the spectral targets fit the peak-normalised clip
         ref_cmp = ref_cmp / float(np.max(np.abs(ref_cmp)))
@@ -230,6 +244,28 @@ def _run_experiment(
     ckpt_path = save_checkpoint(
         os.path.join(experiment_folder, "saved_ckpt"), result.state,
         extra={"arch": arch, "hparams": _scalars(hparams)})
+    if visualization:
+        from ..train.losses import mix_loss
+        from ..utils.landscape import plot_landscape, random_plane
+        targets_d = torch.from_numpy(
+            np.asarray(problem.targets, np.float32)).to(dev)
+        surface = random_plane(
+            lambda p: mix_loss(model.apply(p, enc_coords), targets_d,
+                               loss_mode=loss_mode),
+            result.params, torch.Generator().manual_seed(
+                _LANDSCAPE_SEED_OFFSET + seed))
+        plot_landscape(surface, os.path.join(experiment_folder,
+                                             "landscape.png"))
+    if make_plots:
+        plot_loss_history(result.loss_history, result.lr_history,
+                          os.path.join(experiment_folder, "loss.png"),
+                          title=f"time {train_time / 60:.2f} min")
+        plotspec(ref_cmp, rate_cmp,
+                 os.path.join(experiment_folder, "spec_ref.png"))
+        plotspec(recovered, out_rate,
+                 os.path.join(experiment_folder, "spec.png"))
+        plot_waveform_comparison(ref_cmp, recovered, out_rate,
+                                 os.path.join(experiment_folder, "wave.png"))
     record = experiment_record(hparams, result.params, train_time, snr)
     record["best_iter"] = result.best_iter
     record["best_loss"] = result.best_loss
@@ -247,8 +283,9 @@ def _run_experiment(
             "problem": problem, "record": record}
 
 
-def train(experiment_path: str, tag: str, filename: str,
-          duration: float = 10.0, *, method: str = "wave",
+def train(experiment_path: str, tag: str, filename: str | None = None,
+          duration: float = 10.0, *, inst: str | None = None,
+          method: str = "wave",
           arch: str = "mlp", loss_mode: str = "mse", alpha: float = 0.0,
           total_steps: int = 20000, learning_rate: float = 1e-3,
           min_learning_rate: float = 1e-6, num_sine: int = 2,
@@ -265,12 +302,20 @@ def train(experiment_path: str, tag: str, filename: str,
           num_channels: int = 1, multi_resolution_stft: bool = False,
           n_fft: int = 1024, highpass: bool = False,
           perceptual_mask: bool = False, adaptive: bool = False,
+          scaled_first: bool = False, make_plots: bool = True,
+          visualization: bool = False, profile: bool = False,
           device: torch.device | str | None = None,
           mesh: Mesh | None = None) -> str | None:
     """File-based experiment -> the checkpoint path (None on ranks other
-    than 0).  Defaults are the reference runner's.  ``method`` picks the
-    target (``build_problem``); the spectral methods read channel 1 of a
-    stereo file, wave and multi channel 0."""
+    than 0).  Defaults are the reference runner's.  ``inst`` names
+    ``data/<inst>.wav`` when ``filename`` is None (the JAX runner's rule);
+    either way it is recorded.  ``method`` picks the target
+    (``build_problem``); the spectral methods read channel 1 of a stereo
+    file, wave and multi channel 0."""
+    if filename is None:
+        if inst is None:
+            raise ValueError("need inst or filename")
+        filename = os.path.join("data", f"{inst}.wav")
     mesh = resolve_mesh(mesh, device)
     folder = (make_experiment_folder(experiment_path, tag) if mesh.rank == 0
               else None)
@@ -285,7 +330,7 @@ def train(experiment_path: str, tag: str, filename: str,
                              else 1)
     ref = ref[: int(duration * ref_rate)]
     hparams = dict(
-        tag=tag, inst=None, filename=filename, duration=duration,
+        tag=tag, inst=inst, filename=filename, duration=duration,
         method=method, arch=arch, loss_mode=loss_mode,
         total_steps=total_steps, learning_rate=learning_rate,
         min_learning_rate=min_learning_rate, num_sine=num_sine,
@@ -299,7 +344,7 @@ def train(experiment_path: str, tag: str, filename: str,
         multi_resolution_stft=multi_resolution_stft, n_fft=n_fft,
         highpass=highpass, perceptual_mask=perceptual_mask,
         adaptive=adaptive, update_grid_every=update_grid_every,
-        scaled_first=False, encoding=encoding)
+        scaled_first=scaled_first, encoding=encoding)
     out = _run_experiment(
         problem, folder, ref, ref_rate, arch=arch, hidden=hidden,
         num_sine=num_sine, num_snake=num_snake, num_tanh=num_tanh,
@@ -313,7 +358,9 @@ def train(experiment_path: str, tag: str, filename: str,
         first_linear=first_linear, last_linear=last_linear,
         grad_clip_norm=grad_clip_norm, plateau_factor=plateau_factor,
         plateau_patience=plateau_patience,
-        update_grid_every=update_grid_every, encoding=encoding, mesh=mesh)
+        update_grid_every=update_grid_every, encoding=encoding,
+        scaled_first=scaled_first, make_plots=make_plots,
+        visualization=visualization, profile=profile, mesh=mesh)
     return out["ckpt"]
 
 
@@ -337,6 +384,8 @@ def train_from_signal(experiment_path: str, tag: str,
                       plateau_factor: float = 0.8,
                       plateau_patience: int = 200,
                       update_grid_every: int = 0, encoding: str = "rff",
+                      scaled_first: bool = False, make_plots: bool = True,
+                      visualization: bool = False, profile: bool = False,
                       device: torch.device | str | None = None,
                       mesh: Mesh | None = None) -> dict[str, Any]:
     """In-memory experiment: coords span [-coord_scale, coord_scale], the
@@ -362,7 +411,7 @@ def train_from_signal(experiment_path: str, tag: str,
         grad_clip_norm=grad_clip_norm, plateau_factor=plateau_factor,
         plateau_patience=plateau_patience,
         multi_resolution_stft=multi_resolution_stft,
-        update_grid_every=update_grid_every, scaled_first=False,
+        update_grid_every=update_grid_every, scaled_first=scaled_first,
         encoding=encoding)
     return _run_experiment(
         problem, folder, np.asarray(input_signal, dtype=np.float32),
@@ -376,4 +425,6 @@ def train_from_signal(experiment_path: str, tag: str,
         hparams=hparams, fused=fused, first_linear=first_linear,
         last_linear=last_linear, grad_clip_norm=grad_clip_norm,
         plateau_factor=plateau_factor, plateau_patience=plateau_patience,
-        update_grid_every=update_grid_every, encoding=encoding, mesh=mesh)
+        update_grid_every=update_grid_every, encoding=encoding,
+        scaled_first=scaled_first, make_plots=make_plots,
+        visualization=visualization, profile=profile, mesh=mesh)

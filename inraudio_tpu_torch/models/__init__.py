@@ -1,7 +1,8 @@
-"""Model factory (port of ``inraudio_tpu/models/__init__.py``, archs 'mlp'
-and 'kan'): the production SirenWithSnakeTanh, the KAN, the input
-encodings, and the ``INRModel`` fields the fit and decode paths use.  The
-'siren' and 'relu' architectures are not ported yet."""
+"""Model zoo and factory (port of ``inraudio_tpu/models/__init__.py``):
+the production SirenWithSnakeTanh ('mlp', with its scaled-sine first
+layer), the classic SIREN ('siren'), the KAN ('kan'), the leaky-ReLU MLP
+('relu'), the input encodings, and the ``INRModel`` fields the fit and
+decode paths use."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Any, Callable
 import torch
 
 from ..tree import tree_leaves
-from .activations import snake_apply, snake_init
+from .activations import sine_activation, snake_apply, snake_init
 from .encodings import (num_frequencies_nyquist, posenc_nerf,
                         posenc_output_dim, rff_apply, rff_init,
                         rff_output_dim)
@@ -19,17 +20,27 @@ from .kan import (KANConfig, b_splines, curve2coeff, kan_apply, kan_init,
                   kan_linear_apply, kan_linear_init, kan_linear_update_grid,
                   kan_regularization_loss, kan_update_grid)
 from .quantize import dequantize_params, quantize_params
-from .siren import (SirenSnakeTanhConfig, params_from_jax, params_to_numpy,
+from .relu import ReluMLPConfig, relu_mlp_apply, relu_mlp_init
+from .siren import (SirenConfig, SirenSnakeTanhConfig, linear_apply,
+                    linear_init, params_from_jax, params_to_numpy,
+                    scaled_sine_layer_apply, scaled_sine_layer_init,
+                    sine_layer_apply, sine_layer_init, siren_activations,
+                    siren_apply, siren_init, siren_snake_tanh_activations,
                     siren_snake_tanh_apply, siren_snake_tanh_init)
 
-__all__ = ["INRModel", "KANConfig", "SirenSnakeTanhConfig", "b_splines",
-           "build_model", "curve2coeff", "dequantize_params", "kan_apply",
-           "kan_init", "kan_linear_apply", "kan_linear_init",
-           "kan_linear_update_grid", "kan_regularization_loss",
-           "kan_update_grid", "num_frequencies_nyquist", "param_bytes",
+__all__ = ["INRModel", "KANConfig", "ReluMLPConfig", "SirenConfig",
+           "SirenSnakeTanhConfig", "b_splines", "build_model", "curve2coeff",
+           "dequantize_params", "kan_apply", "kan_init", "kan_linear_apply",
+           "kan_linear_init", "kan_linear_update_grid",
+           "kan_regularization_loss", "kan_update_grid", "linear_apply",
+           "linear_init", "num_frequencies_nyquist", "param_bytes",
            "param_count", "params_from_jax", "params_to_numpy", "posenc_nerf",
-           "posenc_output_dim", "quantize_params", "rff_apply", "rff_init",
-           "rff_output_dim", "siren_snake_tanh_apply",
+           "posenc_output_dim", "quantize_params", "relu_mlp_apply",
+           "relu_mlp_init", "rff_apply", "rff_init", "rff_output_dim",
+           "scaled_sine_layer_apply", "scaled_sine_layer_init",
+           "sine_activation", "sine_layer_apply", "sine_layer_init",
+           "siren_activations", "siren_apply", "siren_init",
+           "siren_snake_tanh_activations", "siren_snake_tanh_apply",
            "siren_snake_tanh_init", "snake_apply", "snake_init"]
 
 
@@ -61,10 +72,13 @@ class INRModel:
     update_grid: Callable[[Any, torch.Tensor], Any] | None = None
 
 
-def build_model(arch: str, cfg: SirenSnakeTanhConfig | KANConfig,
-                fused: bool = False, approx_sin: bool = False,
-                rff_b: torch.Tensor | None = None) -> INRModel:
-    """arch 'mlp' = the production SirenWithSnakeTanh.  ``fused=True``
+def build_model(arch: str, cfg: Any = None, fused: bool = False,
+                approx_sin: bool = False, rff_b: torch.Tensor | None = None,
+                **overrides) -> INRModel:
+    """arch in {'mlp', 'siren', 'kan', 'relu'}; ``cfg`` None takes the
+    arch's config built from ``overrides`` (its defaults when none).
+
+    arch 'mlp' = the production SirenWithSnakeTanh.  ``fused=True``
     routes the forward through the stack kernel and its backward through
     kernel C (``ops.siren_fused``, ``ops.siren_train``: CUDA on a card,
     their plain versions on the CPU), and training steps through kernel D;
@@ -76,14 +90,32 @@ def build_model(arch: str, cfg: SirenSnakeTanhConfig | KANConfig,
 
     arch 'kan' = the KAN of ``cfg`` (a ``KANConfig``); ``fused=True`` routes
     its forward through kernel G and its backward through kernel H
-    (``ops.kan_fused``)."""
+    (``ops.kan_fused``).  A fused mlp with the scaled-sine first layer
+    raises: the kernels have no scaled-sine layer 0 (the JAX package
+    unfuses it silently); unfused, it fits by autograd.
+
+    arch 'siren' = the classic SIREN (``SirenConfig``), 'relu' = the
+    leaky-ReLU MLP (``ReluMLPConfig``): plain PyTorch models; ``fused`` and
+    ``rff_b`` raise for them (no kernel computes them)."""
     if arch == "kan":
         if rff_b is not None:
             raise ValueError("a KAN takes its encoded features as input; "
                              "rff_b is an mlp option")
-        return _build_kan(cfg, fused)
+        return _build_kan(cfg or KANConfig(**overrides), fused)
+    if arch in ("siren", "relu"):
+        if fused or rff_b is not None:
+            raise ValueError(f"arch {arch!r} has no kernels and owns no "
+                             "encoding: fused and rff_b are mlp / kan "
+                             "options")
+        return _build_plain(arch, cfg, overrides)
     if arch != "mlp":
-        raise ValueError(f"arch {arch!r} is not ported yet ('mlp', 'kan')")
+        raise ValueError(f"unknown arch {arch!r} ('mlp', 'siren', 'kan', "
+                         "'relu')")
+    cfg = cfg or SirenSnakeTanhConfig(**overrides)
+    if fused and cfg.scaled_first:
+        raise NotImplementedError(
+            "a fused mlp has no scaled-sine layer 0 in its kernels; fit the "
+            "scaled-first mlp with fused=False")
 
     def init(generator: torch.Generator, device="cpu", windows=None):
         return siren_snake_tanh_init(generator, cfg, device, windows)
@@ -121,6 +153,22 @@ def build_model(arch: str, cfg: SirenSnakeTanhConfig | KANConfig,
                                                         **tier(fit))),
         fused_step_ctx=dict(cfg=cfg, approx_sin=approx_sin, rff_b=rff_b,
                             step=fused_mse_step_call))
+
+
+def _build_plain(arch: str, cfg, overrides) -> INRModel:
+    """The classic SIREN or the leaky-ReLU MLP on autograd."""
+    if arch == "siren":
+        cfg = cfg or SirenConfig(**overrides)
+        init_fn, apply_fn, name = siren_init, siren_apply, "siren"
+    else:
+        cfg = cfg or ReluMLPConfig(**overrides)
+        init_fn, apply_fn, name = relu_mlp_init, relu_mlp_apply, "relu_mlp"
+
+    def init(generator: torch.Generator, device="cpu", windows=None):
+        return init_fn(generator, cfg, device, windows)
+
+    return INRModel(name=name, config=cfg, init=init,
+                    apply=lambda p, c: apply_fn(p, cfg, c))
 
 
 def _build_kan(cfg: KANConfig, fused: bool) -> INRModel:

@@ -1,4 +1,5 @@
-"""Snake activation (port of ``inraudio_tpu/models/activations.py``)."""
+"""Snake and the fixed sine activation (port of
+``inraudio_tpu/models/activations.py``)."""
 
 from __future__ import annotations
 
@@ -26,3 +27,10 @@ def snake_apply(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     ``x + (0.5/a)(1 - cos 2ax)``, as the reference evaluates it."""
     x = x.to(torch.float32)
     return x + (0.5 / a) * (1.0 - torch.cos(2.0 * a * x))
+
+
+def sine_activation(x: torch.Tensor, omega: float = 30.0) -> torch.Tensor:
+    """The fixed-frequency sine activation ``sin(omega * x)`` in float32
+    (the JAX package's ``sine_activation``; the sine layers fold omega
+    into their own products instead)."""
+    return torch.sin(omega * x.to(torch.float32))

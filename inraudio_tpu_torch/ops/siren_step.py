@@ -31,6 +31,14 @@ grads, Adam and the best snapshot, in place), with ``grad_plain`` and
 [grads (P) | loss | pad (3)]; the mesh all-reduces it, and F reads both the
 grads and the loss from it, so one collective serves a step.
 
+A step is built for one numerical tier (``tier_plan``): the forward's
+matmul tier, the backward's and the sin polynomial's degree, from the
+environment ladder by default or from a ``tier`` dict per call, as the JAX
+builders take it (the precision schedule's cheap tier,
+``train.loop.schedule_tiers``).  The tier reaches the kernels as launch
+arguments (``TrainArgs``' per-layer ``mode`` / ``deg`` and ``gmode``), so
+the cheap and the full step share one flat state.
+
 The optimizer epilogue (D's last two launches and F) is bound by bytes.
 D's runs ``siren_scale_kernel`` (each window's norm and loss, once) and
 ``siren_adam_kernel`` over (window, span) CTAs (``adam_spans``); F is one
@@ -49,9 +57,9 @@ import torch
 from ..models.siren import SirenSnakeTanhConfig
 from ._nvcc import LaunchCounter
 from .siren_fused import (_KERNEL_MAX_LAYERS, _MAX_SMALL_IN, StackPlan,
-                          _check_tensor, _prep_rff_bt, kernel_width,
-                          stack_plan, unpad_params)
-from .siren_train import (CHUNK_FLOATS, TRAIN_LIBRARY, _check_rc,
+                          _check_tensor, _f32_dot_mode, _prep_rff_bt,
+                          kernel_width, stack_plan, unpad_params)
+from .siren_train import (CHUNK_FLOATS, TC_MODES, TRAIN_LIBRARY, _check_rc,
                           bwd_sweep_plain, flatten_params, fwd_pres_plain,
                           grad_dot_mode, grad_reduce, tile_rows,
                           unflatten_params, validate_grad_launch)
@@ -63,7 +71,7 @@ __all__ = ["ADAM_SPAN_FLOATS", "FlatTrainState", "SIREN_ADAM", "SIREN_GRAD",
            "fused_mse_grad_call", "fused_mse_step_call", "grad_plain",
            "launch_adam", "make_fused_mse_train_step",
            "make_sharded_fused_mse_train_step", "sharded_step_call",
-           "step_block_rows", "step_plain", "step_supported",
+           "step_block_rows", "step_plain", "step_supported", "tier_plan",
            "train_state_from_flat"]
 
 # Adam constants (torch.optim.Adam defaults, as train.optim.AdamConfig)
@@ -471,9 +479,39 @@ def fused_adam_call(params, mu, nu, best, buf, lr, c1, c2, best_loss,
                       clip_norm)
 
 
+_TIER_KEYS = ("f32_mode", "grad_mode", "sin_degree")
+
+
+def tier_plan(cfg: SirenSnakeTanhConfig, approx_sin: bool, rff: bool,
+              tier: dict | None = None) -> tuple[StackPlan, str]:
+    """(StackPlan, grad tier) of a step built with ``tier`` = {f32_mode,
+    grad_mode, sin_degree}, each key optional, as the JAX step builders
+    read it: a missing ``f32_mode`` is INRAUDIO_F32_PRECISION's, a missing
+    ``grad_mode`` INRAUDIO_GRAD_PRECISION's (``grad_dot_mode``; None is the
+    environment's f32 tier, the JAX kernels' ``mode=None``), a missing
+    ``sin_degree`` 11.  The degree reaches every polynomial sine, layer 0
+    and an RFF model's features included, as the JAX step kernel feeds it
+    to ``_fwd_pres``; it has no effect without ``approx_sin``.  A key
+    outside the three raises."""
+    tier = dict(tier or {})
+    unknown = set(tier) - set(_TIER_KEYS)
+    if unknown:
+        raise ValueError(f"unknown tier keys {sorted(unknown)}; a tier "
+                         f"takes {_TIER_KEYS}")
+    plan = stack_plan(cfg, approx_sin=approx_sin,
+                      sin_poly_degree=tier.get("sin_degree", 11),
+                      f32_mode=tier.get("f32_mode"), rff=rff)
+    gm = tier.get("grad_mode", "env")
+    if gm == "env":
+        return plan, grad_dot_mode()
+    gm = gm or _f32_dot_mode()
+    return plan, gm if gm in TC_MODES else "highest"
+
+
 def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
                               n_valid: int, approx_sin: bool = False,
-                              step_call=fused_mse_step_call, rff_b=None):
+                              step_call=fused_mse_step_call, rff_b=None,
+                              tier: dict | None = None):
     """Build step(state: FlatTrainState, coords, targets, weight=None) ->
     (state, (loss, lr)): the semantics of ``train.loop.make_train_step``
     for loss_mode 'mse', alpha 0, per window, with the compute in kernel D.
@@ -484,17 +522,17 @@ def make_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
     scalars.  ``step_call`` does the arithmetic of one step
     (``fused_mse_step_call``; a caller that holds the kernel against its
     plain version passes ``step_plain``, which takes the same arguments).
-    The grad tier is ``INRAUDIO_GRAD_PRECISION``'s when the step is built.
-    ``rff_b`` (F, d): the model's RFF projection, folded into layer 0;
-    ``coords`` are then the raw (n, d) coordinates."""
+    ``tier`` ({f32_mode, grad_mode, sin_degree}, ``tier_plan``) fixes the
+    step's numerical tier; None reads the environment when the step is
+    built.  ``rff_b`` (F, d): the model's RFF projection, folded into
+    layer 0; ``coords`` are then the raw (n, d) coordinates."""
     from ..train.optim import PlateauConfig, PlateauState, plateau_update
 
     plateau_cfg = PlateauConfig(factor=train_cfg.plateau_factor,
                                 patience=train_cfg.plateau_patience,
                                 min_lr=train_cfg.min_learning_rate)
-    plan = stack_plan(cfg, approx_sin=approx_sin, rff=rff_b is not None)
+    plan, gmode = tier_plan(cfg, approx_sin, rff_b is not None, tier)
     bt = None if rff_b is None else _prep_rff_bt(rff_b)
-    gmode = grad_dot_mode()
     clip = float(train_cfg.grad_clip_norm)
     track_best = train_cfg.track_best
 
@@ -542,17 +580,19 @@ def sharded_step_call(mesh, limit):
 
 def make_sharded_fused_mse_train_step(cfg: SirenSnakeTanhConfig, train_cfg,
                                       n_valid: int, mesh, limit,
-                                      approx_sin: bool = False, rff_b=None):
+                                      approx_sin: bool = False, rff_b=None,
+                                      tier: dict | None = None):
     """Build step(state: FlatTrainState, coords, targets, weight=None) ->
     (state, (loss, lr)) for one rank of a row-sharded fit of one model
     (``coords`` (rows, d), ``targets`` and ``weight`` (1, rows) this rank's
     rows, ``limit`` their valid count): ``make_fused_mse_train_step`` with
     ``sharded_step_call``, so
-    the plateau and best bookkeeping run on the all-reduced loss.  Port of
-    the JAX package's ``make_sharded_fused_mse_train_step``."""
+    the plateau and best bookkeeping run on the all-reduced loss; ``tier``
+    as there (E's tier: F has none).  Port of the JAX package's
+    ``make_sharded_fused_mse_train_step``."""
     return make_fused_mse_train_step(cfg, train_cfg, n_valid, approx_sin,
                                      step_call=sharded_step_call(mesh, limit),
-                                     rff_b=rff_b)
+                                     rff_b=rff_b, tier=tier)
 
 
 def flat_state_from_train_state(state, cfg: SirenSnakeTanhConfig

@@ -20,7 +20,12 @@ Two steps:
 ``fit`` trains one model on full-batch (coords, targets) in rounds of
 ``scan_chunk`` steps; a fused mlp's mse fit goes through kernel D as a
 one-window population (with the per-row weight, when given), every other
-fit through ``make_train_step``.  On a mesh of more than one rank
+fit through ``make_train_step``.  ``INRAUDIO_FUSED_STEP=0`` sends the fused
+mlp's mse fit to the autograd step over kernels B and C instead (the JAX
+package's A/B switch).  With ``TrainConfig.precision_schedule`` a fit
+through D (or E + F) starts on the cheap tier of ``schedule_tiers`` and
+escalates to the full tier for good once a round's last loss crosses
+``schedule_db``.  On a mesh of more than one rank
 (``parallel.make_mesh``) the rows are sharded: a fused mlp's mse fit takes
 kernel E on each shard, one all-reduce and kernel F
 (``ops.siren_step.make_sharded_fused_mse_train_step``), every other mse or
@@ -36,6 +41,7 @@ parameters that produced the best loss; False keeps the initial ones.
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, NamedTuple
 
@@ -47,6 +53,7 @@ from ..models.siren import params_from_jax, params_to_numpy
 from ..parallel.mesh import (Mesh, normalise_weight, resolve_mesh,
                              shard_problem_arrays)
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..utils.observability import profile_trace
 from .losses import mix_loss
 from .optim import (AdamConfig, AdamState, PlateauConfig, PlateauState,
                     adam_init, adam_update, clip_by_global_norm,
@@ -55,10 +62,10 @@ from .optim import (AdamConfig, AdamState, PlateauConfig, PlateauState,
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's knobs that the ported steps and ``fit`` read, with
-    its names and defaults: loss_mode in {mse, mae, snr}, alpha mixes in
-    the STFT term (multi-resolution with ``multi_resolution_stft``).  The
-    precision schedule is not ported yet."""
+    """The JAX package's knobs, with its names and defaults: loss_mode in
+    {mse, mae, snr}, alpha mixes in the STFT term (multi-resolution with
+    ``multi_resolution_stft``), and the precision schedule
+    (``precision_schedule``, ``schedule_db``; ``schedule_tiers``)."""
 
     total_steps: int = 20000
     learning_rate: float = 1e-3
@@ -81,6 +88,12 @@ class TrainConfig:
     # steps per round: the fit reads nothing back from the device inside a
     # round (the JAX package's lax.scan length)
     scan_chunk: int = 500
+    # quality-scheduled precision (a fit through kernel D, or E + F on a
+    # mesh): rounds start on the cheap tier of schedule_tiers and move to
+    # the full tier for good once a round's last loss is below
+    # mean(targets^2) / 10^(schedule_db / 10); a no-op on every other route
+    precision_schedule: bool = False
+    schedule_db: float = 45.0
 
 
 class TrainState(NamedTuple):
@@ -251,7 +264,9 @@ def fused_step_plan(model: INRModel, cfg: TrainConfig,
                     n_rows: int) -> int | None:
     """Row tile of the whole-step kernel, or None when the fit cannot route
     through it (non-mse loss, a grid refresh, a model without the fused
-    step).  A weighted mse fit keeps the kernel: D and E stream the per-row
+    step, or ``INRAUDIO_FUSED_STEP=0``: the JAX package's A/B switch, which
+    sends a fused mlp's mse fit to the autograd step over kernels B and
+    C).  A weighted mse fit keeps the kernel: D and E stream the per-row
     weight beside the targets.  A fused model at a width the kernels do not
     take raises ``ValueError`` (it is not sent elsewhere silently)."""
     ctx = model.fused_step_ctx
@@ -262,11 +277,13 @@ def fused_step_plan(model: INRModel, cfg: TrainConfig,
     check_kernel_width(ctx["cfg"])
     if not _is_mse(cfg) or cfg.update_grid_every:
         return None
+    if os.environ.get("INRAUDIO_FUSED_STEP", "1") == "0":
+        return None
     return step_block_rows(ctx["cfg"], n_rows, ctx["rff_b"])
 
 
 def make_vmapped_fused_step(model: INRModel, cfg: TrainConfig,
-                            coords: torch.Tensor):
+                            coords: torch.Tensor, tier: dict | None = None):
     """Wire kernel D for a window population on one shared grid (a model
     that ``fused_step_plan`` admits).
 
@@ -279,7 +296,9 @@ def make_vmapped_fused_step(model: INRModel, cfg: TrainConfig,
     nothing is padded.  The step's arithmetic is the model's
     ``fused_step_ctx["step"]``; an RFF model's projection
     (``fused_step_ctx["rff_b"]``) goes to the step, and ``coords`` are its
-    raw coordinates."""
+    raw coordinates.  ``tier`` ({f32_mode, grad_mode, sin_degree}, as
+    ``ops.siren_step.tier_plan`` reads it) fixes the step's numerical tier;
+    None is the environment's."""
     from ..ops.siren_step import (flat_state_from_train_state,
                                   make_fused_mse_train_step,
                                   train_state_from_flat)
@@ -288,7 +307,7 @@ def make_vmapped_fused_step(model: INRModel, cfg: TrainConfig,
     fstep = make_fused_mse_train_step(mcfg, cfg, coords.shape[0],
                                       approx_sin=ctx["approx_sin"],
                                       step_call=ctx["step"],
-                                      rff_b=ctx["rff_b"])
+                                      rff_b=ctx["rff_b"], tier=tier)
 
     def vstep(states, targets, weight=None):
         return fstep(states, coords, targets, weight)
@@ -319,41 +338,60 @@ class FitResult:
     steps_per_sec: float
 
 
+def schedule_tiers() -> tuple[dict, None]:
+    """The precision schedule's ladder (cheap, full), as in the JAX
+    package: cheap = bf16x2 forward products, one bf16 pass for both
+    backward products, the degree-7 sin polynomial; full = None, the
+    environment's tiers (bf16x3 forward, INRAUDIO_GRAD_PRECISION's
+    backward, degree 11).  The flat train state does not depend on the
+    tier, so ``fit`` switches between the two steps on one carry."""
+    return dict(f32_mode="bf16x2", grad_mode="bf16", sin_degree=7), None
+
+
 def _one_window_step(model: INRModel, cfg: TrainConfig, state: TrainState,
                      coords: torch.Tensor, targets: np.ndarray,
-                     weight: np.ndarray | None):
+                     weight: np.ndarray | None, tiers=(None,)):
     """Kernel D for one model: the state as a population of one window,
     with the normalised per-row ``weight`` (n, 1) or None.  Returns (carry,
-    step(carry) -> (carry, (loss, lr)), carry -> TrainState)."""
-    vstep, to_flat, from_flat, prep_targets = make_vmapped_fused_step(
-        model, cfg, coords)
+    [step(carry) -> (carry, (loss, lr)) for each of ``tiers``], carry ->
+    TrainState); the steps share the carry."""
+    steps = []
+    for tier in tiers:
+        vstep, to_flat, from_flat, prep_targets = make_vmapped_fused_step(
+            model, cfg, coords, tier)
+        steps.append(vstep)
     targets_k = prep_targets(np.asarray(targets, np.float32)[None])
     weight_k = None if weight is None else prep_targets(weight[None])
     carry = to_flat(tree_map(lambda t: t.unsqueeze(0), state))
 
-    def step(carry):
-        carry, (loss, lr) = vstep(carry, targets_k, weight_k)
-        return carry, (loss[0], lr[0])
+    def one(vstep):
+        def step(carry):
+            carry, (loss, lr) = vstep(carry, targets_k, weight_k)
+            return carry, (loss[0], lr[0])
+        return step
 
-    return carry, step, lambda c: tree_map(lambda t: t[0], from_flat(c))
+    return (carry, [one(v) for v in steps],
+            lambda c: tree_map(lambda t: t[0], from_flat(c)))
 
 
 def _sharded_step(model: INRModel, cfg: TrainConfig, state: TrainState,
                   coords: np.ndarray, targets: np.ndarray, mesh: Mesh,
-                  weight: np.ndarray | None):
+                  weight: np.ndarray | None, tiers=(None,)):
     """One rank of a row-sharded fit: kernels E + F for a model that
     ``fused_step_plan`` admits (rows padded to whole row tiles per rank, as
-    the JAX fit pads them), the sharded autograd step otherwise; the
-    per-row ``weight`` (n,) or (n, 1) is normalised over the whole clip,
-    then split with the rows, 0 on padding.  Returns (carry, step(carry) -> (carry, (loss, lr)), carry ->
-    TrainState)."""
+    the JAX fit pads them), one step a tier of ``tiers`` sharing the carry;
+    the sharded autograd step otherwise (one step, whatever ``tiers``).
+    The per-row ``weight`` (n,) or (n, 1) is normalised over the whole
+    clip, then split with the rows, 0 on padding.  Returns (carry, [step
+    (carry) -> (carry, (loss, lr))], carry -> TrainState)."""
     n = coords.shape[0]
     block = fused_step_plan(model, cfg, -(-n // mesh.size))
     if block is None:
         cs, ts, ws, sh = shard_problem_arrays(mesh, coords, targets,
                                               weight=weight)
         train_step = make_sharded_train_step(model, cfg, mesh, n, sh.valid)
-        return state, (lambda c: train_step(c, cs, ts, ws)), (lambda c: c)
+        return (state, [lambda c: train_step(c, cs, ts, ws)],
+                lambda c: c)
     from ..ops.siren_step import (flat_state_from_train_state,
                                   make_sharded_fused_mse_train_step,
                                   train_state_from_flat)
@@ -364,18 +402,21 @@ def _sharded_step(model: INRModel, cfg: TrainConfig, state: TrainState,
     ts = ts.reshape(1, -1)
     ws = None if ws is None else ws.reshape(1, -1)
     limit = torch.tensor([sh.valid], dtype=torch.int32, device=mesh.device)
-    sstep = make_sharded_fused_mse_train_step(
-        mcfg, cfg, n, mesh, limit, approx_sin=ctx["approx_sin"],
-        rff_b=ctx["rff_b"])
     carry = flat_state_from_train_state(
         tree_map(lambda t: t.unsqueeze(0), state), mcfg)
 
-    def step(carry):
-        carry, (loss, lr) = sstep(carry, cs, ts, ws)
-        return carry, (loss[0], lr[0])
+    def one(tier):
+        sstep = make_sharded_fused_mse_train_step(
+            mcfg, cfg, n, mesh, limit, approx_sin=ctx["approx_sin"],
+            rff_b=ctx["rff_b"], tier=tier)
 
-    return carry, step, lambda c: tree_map(lambda t: t[0],
-                                           train_state_from_flat(c, mcfg))
+        def step(carry):
+            carry, (loss, lr) = sstep(carry, cs, ts, ws)
+            return carry, (loss[0], lr[0])
+        return step
+
+    return (carry, [one(t) for t in tiers],
+            lambda c: tree_map(lambda t: t[0], train_state_from_flat(c, mcfg)))
 
 
 def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
@@ -383,7 +424,8 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
         state: TrainState | None = None, checkpoint_every: int = 0,
         checkpoint_path: str | None = None, metrics=None,
         device: torch.device | str | None = None,
-        mesh: Mesh | None = None, weight=None) -> FitResult:
+        mesh: Mesh | None = None, weight=None,
+        profile_dir: str | None = None) -> FitResult:
     """Fit one model to full-batch (coords (n, d), targets (n, out)) on
     ``device`` (default the card; without one it raises), with the loss of
     ``cfg`` (``losses.mix_loss``) and an optional per-row loss ``weight``
@@ -403,15 +445,25 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
     ``train_time_s`` from the first rank's start to the last rank's end);
     only rank 0 writes checkpoints.
 
+    ``cfg.precision_schedule``: a fit through D (or E + F) builds the cheap
+    step of ``schedule_tiers`` beside the full one on the same carry;
+    rounds start on the cheap step, and after the first round whose last
+    loss is below mean(targets^2) / 10^(schedule_db / 10) every round takes
+    the full step (the JAX package's rule; on a mesh every rank reads the
+    same all-reduced loss, so all escalate at one round).  Every other
+    route ignores it, as in the JAX package.
+
     Rounds of ``scan_chunk`` steps read nothing back from the device.
     Between rounds: the grid refresh (``update_grid_every`` /
     ``update_grid_batch``, Adam moments kept, from a strided subsample of
     the whole clip on every rank), a ``metrics`` JSONL record (a
     ``utils.observability.MetricsLogger``), and a checkpoint of the
     whole TrainState to ``checkpoint_path`` about every
-    ``checkpoint_every`` steps.  ``state`` warm-starts; otherwise the state
-    is drawn from ``generator`` (seed 0 when None).  Not ported: the
-    precision schedule and the profiler."""
+    ``checkpoint_every`` steps.  ``profile_dir`` records a
+    ``torch.profiler`` trace of round min(1, rounds - 1) into that
+    directory, on rank 0 (``utils.observability.profile_trace``; the card is
+    synchronised before the trace closes).  ``state`` warm-starts;
+    otherwise the state is drawn from ``generator`` (seed 0 when None)."""
     cfg = cfg or TrainConfig()
     mesh = resolve_mesh(mesh, device)
     check_sharded_loss(cfg, mesh)
@@ -424,41 +476,59 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
     coords_d = torch.as_tensor(coords, dtype=torch.float32).to(dev)
     targets_np = np.asarray(targets, np.float32)
     weight_n = None if weight is None else normalise_weight(weight)
+    tiers = ((None, schedule_tiers()[0]) if cfg.precision_schedule
+             else (None,))
 
     if mesh.size > 1:
         # shard_problem_arrays normalises the weight over the whole clip,
         # then splits it
-        carry, step, unstack = _sharded_step(
+        carry, steps, unstack = _sharded_step(
             model, cfg, state, coords_d.cpu().numpy(), targets_np, mesh,
-            weight)
+            weight, tiers)
     elif fused_step_plan(model, cfg, coords_d.shape[0]) is not None:
-        carry, step, unstack = _one_window_step(model, cfg, state, coords_d,
-                                                targets, weight_n)
+        carry, steps, unstack = _one_window_step(
+            model, cfg, state, coords_d, targets, weight_n, tiers)
     else:
         train_step = make_train_step(model, cfg)
         targets_d = torch.from_numpy(targets_np).to(dev)
         weight_d = (None if weight_n is None
                     else torch.from_numpy(weight_n).to(dev))
         carry, unstack = state, (lambda c: c)
-        step = lambda c: train_step(c, coords_d, targets_d,  # noqa: E731
-                                    weight_d)
+        steps = [lambda c: train_step(c, coords_d, targets_d, weight_d)]
+    full_step = steps[0]
+    cheap_step = steps[1] if len(steps) > 1 else None
+    sched_thr = float("inf")
+    if cheap_step is not None:
+        power = float(np.mean(targets_np ** 2))
+        sched_thr = power / 10.0 ** (cfg.schedule_db / 10.0)
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     chunk = max(1, min(cfg.scan_chunk, cfg.total_steps))
+    n_rounds = -(-cfg.total_steps // chunk)
     sync()
     t0 = time.time()
     loss_chunks, lr_chunks = [], []
-    done = last_ckpt = last_grid_update = 0
+    done = last_ckpt = last_grid_update = rounds = 0
     while done < cfg.total_steps:
         m = min(chunk, cfg.total_steps - done)
+        step = cheap_step if cheap_step is not None else full_step
         losses, lrs = [], []
-        for _ in range(m):
-            carry, (loss, lr) = step(carry)
-            losses.append(loss)
-            lrs.append(lr)
+        # the trace holds a round after the first (its steps warm)
+        profiled = (profile_dir is not None and mesh.rank == 0
+                    and rounds == min(1, n_rounds - 1))
+        with profile_trace(profile_dir, enabled=profiled):
+            for _ in range(m):
+                carry, (loss, lr) = step(carry)
+                losses.append(loss)
+                lrs.append(lr)
+            if profiled:
+                sync()
         loss_chunks.append(torch.stack(losses))
         lr_chunks.append(torch.stack(lrs))
+        if cheap_step is not None and float(loss_chunks[-1][-1]) < sched_thr:
+            cheap_step = None  # escalated for good
         done += m
+        rounds += 1
         if (cfg.update_grid_every and model.update_grid is not None
                 and done - last_grid_update >= cfg.update_grid_every
                 and done < cfg.total_steps):

@@ -1,3 +1,4 @@
-from .observability import MetricsLogger, read_metrics
+from .observability import (MetricsLogger, StepTimer, profile_trace,
+                            read_metrics)
 
-__all__ = ["MetricsLogger", "read_metrics"]
+__all__ = ["MetricsLogger", "StepTimer", "profile_trace", "read_metrics"]

@@ -1,7 +1,8 @@
 """Card-only checks of the CUDA kernels (csrc/siren_stack.cu, the backward,
 whole-step and row-shard kernels of csrc/siren_train.cu, each at widths 32
 to 256 and with an RFF layer 0, the whole-step and row-shard kernels with
-the per-row loss weight, and the KAN forward and backward kernels of
+the per-row loss weight and on the precision schedule's cheap tier, and
+the KAN forward and backward kernels of
 csrc/kan.cu) against their plain PyTorch versions on the same card, a step
 of the row-sharded fit on two ranks sharing the card, the decode serving
 paths (``decode_many``, ``decode_stream``) against ``decode``, and the
@@ -578,19 +579,22 @@ def check_rff_backward(params, cfg, plan, gmode, coords, cot, bt):
 
 
 def check_rff_steps(cfg, tc, coords, targets, state, rff_b, steps=3,
-                    weight=None):
+                    weight=None, tier=None):
     """``steps`` kernel steps, plain steps, and plain steps from layer 0
     one ulp off (the control), from one stacked TrainState of an RFF (or
     raw, rff_b None) model, with the per-row loss ``weight`` (k, n) or
-    None.  Each loss, the first step's gradients (mu = 0.1 g) and the final
+    None, both steps built with ``tier`` (None: the environment's).  Each
+    loss, the first step's gradients (mu = 0.1 g) and the final
     parameters (in lr) are held to RFF_CTRL_X times the control's gap or to
     the raw-model tolerances above; returns (the kernel's FlatTrainState, a
     dict of the gaps)."""
-    n, gmode, lr = coords.shape[0], st.grad_dot_mode(), tc.learning_rate
+    n, lr = coords.shape[0], tc.learning_rate
+    gmode = ss.tier_plan(cfg, True, rff_b is not None, tier)[1]
     kstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
-                                         rff_b=rff_b)
+                                         rff_b=rff_b, tier=tier)
     pstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
-                                         step_call=ss.step_plain, rff_b=rff_b)
+                                         step_call=ss.step_plain, rff_b=rff_b,
+                                         tier=tier)
     a = ss.flat_state_from_train_state(state, cfg)
     p = clone_state(a)
     u = ss.flat_state_from_train_state(
@@ -1401,6 +1405,124 @@ def test_weight_is_validated(dev):
     with pytest.raises(ValueError, match="weight"):
         ss.SIREN_GRAD(fs.params[:1], coords, targets[:1], _limit(300, dev),
                       300, cfg, plan, "bf16x2", weight=w[:1].double())
+
+
+# ---------------------------------------------------------------------------
+# The precision schedule's cheap tier: bf16x2 forward, bf16 grads, degree 7
+# ---------------------------------------------------------------------------
+
+CHEAP = dict(f32_mode="bf16x2", grad_mode="bf16", sin_degree=7)
+
+
+def check_grad_shard_ctrl(fs, coords, targets, limit, n_valid, cfg, plan,
+                          gmode, bt):
+    """Kernel E against its plain version on one shard, the loss and the
+    grads held to RFF_CTRL_X times the control (the plain version with
+    layer 0 one ulp off) or to LOSS_RTOL / the grad tier's max tolerance:
+    a bf16-rounded forward (bf16x2) can flip a rounding under the other
+    summation order.  Returns (kernel buffer, grad error, control gap)."""
+    P = fs.params.shape[1]
+    out = ss.SIREN_GRAD(fs.params, coords, targets, limit, n_valid, cfg,
+                        plan, gmode, bt)
+    ref = ss.grad_plain(fs.params, coords, targets, limit, n_valid, cfg,
+                        plan, gmode, bt)
+    pert = st.flatten_params(perturb_layer0(st.unflatten_params(
+        fs.params, cfg)), cfg)
+    ctl = ss.grad_plain(pert, coords, targets, limit, n_valid, cfg, plan,
+                        gmode, bt)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    lerr = abs(float(out[P] - ref[P])) / float(ref[P])
+    lctl = abs(float(ctl[P] - ref[P])) / float(ref[P])
+    assert lerr <= max(RFF_CTRL_X * lctl, LOSS_RTOL), (lerr, lctl)
+    err, c = _gap(out[:P], ref[:P]), _gap(ctl[:P], ref[:P])
+    tol = GRAD_BF16_MAX_RTOL if is_bf16_grad(gmode) else GRAD_F32_RTOL
+    assert err <= max(RFF_CTRL_X * c, tol * float(ref[:P].abs().max())), \
+        (err, c)
+    return out, err, c
+
+
+@pytest.mark.parametrize("f", [0, 64], ids=["raw", "rff"])
+@pytest.mark.parametrize("h", [64, 128, 256])
+def test_cheap_tier_step_kernel_matches_plain(dev, h, f):
+    """D on the cheap tier against ``step_plain`` on the same tier, three
+    steps from one state, beside the 1-ulp control."""
+    if f:
+        cfg, model, tc, state, coords, targets, b = _rff_train_setup(
+            h, f, 1, 2000, dev)
+    else:
+        cfg, model, tc, state, coords, targets = _train_setup(h, 3, 300, dev)
+        b = None
+    before = ss.SIREN_STEP.launches
+    check_rff_steps(cfg, tc, coords, targets, state, b, tier=CHEAP)
+    assert ss.SIREN_STEP.launches == before + 3
+
+
+@pytest.mark.parametrize("f", [0, 64], ids=["raw", "rff"])
+@pytest.mark.parametrize("h", [64, 128, 256])
+def test_cheap_tier_grad_kernel_matches_plain(dev, h, f):
+    """E on the cheap tier on a tail shard (1000 rows, 700 real, a clip of
+    2500) against ``grad_plain`` on the same tier."""
+    cfg, _, bt, fs, coords, targets = shard_setup(h, f, 1000, dev)
+    plan, gmode = ss.tier_plan(cfg, True, f > 0, CHEAP)
+    assert gmode == "bf16" and set(plan.degrees) == {7}
+    before = ss.SIREN_GRAD.launches
+    check_grad_shard_ctrl(fs, coords, targets, _limit(700, dev), 2500, cfg,
+                          plan, gmode, bt)
+    assert ss.SIREN_GRAD.launches == before + 1
+
+
+@pytest.mark.parametrize("f", [0, 64], ids=["raw", "rff"])
+@pytest.mark.parametrize("h", [64, 128, 256])
+def test_cheap_tier_backward_kernel_matches_plain(dev, h, f):
+    """C with the cheap tier's plan (bf16x2 forward, degree 7) and bf16
+    grads against ``backward_plain``, beside the 1-ulp control."""
+    if f:
+        cfg, params, _, bt = _rff_model(h, f, dev)
+        params, d, k = stacked(params), 1, 1
+    else:
+        cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
+        params, bt, d, k = _population(cfg, 3, dev), None, 1, 3
+    plan, gmode = ss.tier_plan(cfg, True, f > 0, CHEAP)
+    coords = torch.rand(1000, d, device=dev,
+                        generator=torch.Generator(dev).manual_seed(2)) * 2 - 1
+    cot = torch.randn(k, 1000, 1, device=dev,
+                      generator=torch.Generator(dev).manual_seed(1))
+    before = st.SIREN_BWD.launches
+    check_rff_backward(params, cfg, plan, gmode, coords, cot, bt)
+    assert st.SIREN_BWD.launches == before + 1
+
+
+@pytest.mark.parametrize("f", [0, 64], ids=["raw", "rff"])
+def test_tier_switch_mid_fit_is_a_fresh_full_step(dev, f):
+    """Two cheap steps, then a full step, on one carry: the full step is
+    bit-equal to a full step freshly built and run on a copy of the same
+    carry (the flat state does not depend on the tier); repeat cheap
+    steps are bit-equal."""
+    if f:
+        cfg, model, tc, state, coords, targets, b = _rff_train_setup(
+            256, f, 1, 3000, dev)
+    else:
+        cfg, model, tc, state, coords, targets = _train_setup(256, 2, 3000,
+                                                              dev)
+        b = None
+    n = coords.shape[0]
+    build = lambda tier: ss.make_fused_mse_train_step(  # noqa: E731
+        cfg, tc, n, approx_sin=True, rff_b=b, tier=tier)
+    cheap, full = build(CHEAP), build(None)
+    fs = ss.flat_state_from_train_state(state, cfg)
+    for _ in range(2):
+        fs, _ = cheap(fs, coords, targets)
+    c1, (l1, _) = cheap(clone_state(fs), coords, targets)
+    c2, (l2, _) = cheap(clone_state(fs), coords, targets)
+    fresh, (lf, _) = build(None)(clone_state(fs), coords, targets)
+    fs, (ls, _) = full(fs, coords, targets)
+    torch.cuda.synchronize()
+    assert torch.isfinite(fs.params).all()
+    assert torch.equal(l1, l2) and all(torch.equal(p, q)
+                                       for p, q in zip(c1, c2))
+    assert torch.equal(ls, lf)
+    assert all(torch.equal(p, q) for p, q in zip(fs, fresh))
 
 
 # ---------------------------------------------------------------------------
