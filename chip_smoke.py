@@ -3,7 +3,9 @@
 path and its encode (training) path, the runner's single-model fit of the
 KAN and of the production mlp, the sharded fits on two ranks that share
 the card, the rest of the codec, the spectral fits, the precision
-schedule, the profiler and the rest of the model zoo and the runner.
+schedule, the profiler and the rest of the model zoo and the runner, the
+whole-signal losses on a mesh, a window population's other losses, and
+the KAN at any grid size and orders up to 8.
 
     python3 chip_smoke.py
 
@@ -19,7 +21,8 @@ h=128, 2 sine + 2 snake layers) at two shapes:
   float16 weights, INRA container; trained with CodecConfig defaults.
 
 Phases, each of which fails the run:
-0. build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
+0. build the CUDA kernels from csrc/ (one nvcc per library, in parallel;
+   kan.cu twice: the default library and the wide one, -DKAN_WIDE=1),
    print ptxas's register and spill lines, and the count of HMMA/HGMMA
    instructions in the SASS of the tensor-core kernels: G's and H's, every
    instance of the SIREN grad kernel's sweep and dW kernels, and the stack
@@ -250,6 +253,41 @@ runner mlp shapes over the same clip:
    a fit), each with its time and peak device memory; the plots and
    ``--visualization`` where matplotlib is installed.
 
+The losses that need the whole signal on a mesh, a window population's
+other losses, and the KAN at grid extension's sizes and orders:
+27. ``fit`` on two thread ranks sharing the card (gloo) with the snr loss
+   (the runner mlp on the clip, cut to an even 308,206 rows so that the
+   gathered clip is the one rank's), the wave target with alpha 0.5 and
+   the multi-resolution STFT term, the mdct target with its
+   hearing-threshold weight and the snr loss, and the runner KAN with the
+   snr loss, MESH_LOSS_STEPS steps each: every rank runs B (G) on its
+   shard, gathers the prediction of the whole clip, takes the loss and its
+   cotangent, and runs C (H) on its rows' part; each fit against the same
+   fit on one rank beside its 1-ulp control (phase 15's rule, and at least
+   SNR_FLOOR_DB for the snr loss), the ranks bit-equal, B and C (G and H)
+   launched once a step on each rank; and the parts of the sharded step
+   itself on rank 0 (forward, gather, loss, backward, all-reduce, update;
+   ``make_sharded_train_step``'s ``mark``);
+28. a window population's mae and snr (the headline windows) and alpha 0.5
+   with the multi-resolution STFT term (the codec-default windows) through
+   ``make_train_step``: the stack kernel (A) and kernel C once a step, the
+   first losses against the plain forward's beside a 1-ulp control, C on
+   the step's cotangent against its plain version in the step's grad tier
+   and in the highest (the tier's rule, or POP_ORDER_X times the plain
+   version's gap to itself with its rows and hidden units summed in
+   another order), the step against the plain forward and backward; and
+   the 512-row headline windows with alpha > 0, which raise as in the JAX
+   package;
+29. the runner KAN at grid 5 / order 3 through both builds of kan.cu
+   (timed, outputs bit-equal); its widths at grid 20 / order 3, grid 5 /
+   order 5 (whole
+   clip fits of 30 steps, the grid 20 fit refreshing its grid every 10
+   steps), grid 100 / order 3 and grid 5 / order 8 (fits of 5 steps): G and
+   H against their plain versions on a KAN_SUBSET_ROWS-row subset, at the
+   init and after ``update_grid``, repeat calls bit-equal, the fits'
+   launches, and G, H and each layer timed over the whole clip against
+   ``kan_bounds`` at the config's J.
+
 Every kernel's bound (the least time the card could take for the same
 work) is computed from the run's shapes: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak of the unit they
@@ -416,6 +454,40 @@ PROFILE_STEPS = 20
 ZOO_STEPS = 20
 LANDSCAPE_STEPS = 30
 PIPELINE_STEPS = 10
+# phases 27-29: the whole-signal losses on two ranks (depth cut to 30
+# steps a fit), a window population's other losses (steps through the
+# kernels a case), and the KAN at grid extension's sizes and orders:
+# (grid_size, spline_order, fit steps over the whole clip, grid refresh
+# every so many steps), the kernels held to their plain versions on a
+# KAN_SUBSET_ROWS-row subset of the clip
+MESH_LOSS_STEPS = 30
+# the snr loss near 0 dB moves in steps of 10 / ln 10 x 2^-23 ~ 5.2e-7 dB
+# (one f32 ulp of the energy ratio): a final-loss gate never tighter than
+# ~20 of them
+SNR_FLOOR_DB = 1e-5
+MESH_LOSS_FITS = {
+    "snr": ("wave", "mlp", dict(loss_mode="snr")),
+    "wave_alpha_mrstft": ("wave", "mlp", dict(alpha=0.5,
+                                              multi_resolution_stft=True)),
+    "mdct_mask_snr": ("mdct", "mlp", dict(loss_mode="snr")),
+    "kan_snr": ("wave", "kan", dict(loss_mode="snr")),
+}
+POP_STEPS = 5
+# phase 28's gate on C where the tier's rule does not hold: POP_ORDER_X
+# times the plain version's gap to itself with its sums in another order
+# (rows and hidden units permuted: the kind of difference the kernel's own
+# summation order makes), a limit that must stay under POP_RESOLVE of the
+# largest gradient
+POP_ORDER_X, POP_RESOLVE = 2.0, 0.1
+POP_CASES = {
+    "headline_mae": ("headline", dict(loss_mode="mae")),
+    "headline_snr": ("headline", dict(loss_mode="snr")),
+    "codec_default_alpha_mrstft": ("codec_default", dict(
+        alpha=0.5, multi_resolution_stft=True)),
+}
+KAN_ORDER_CASES = ((20, 3, 30, 10), (5, 5, 30, 0), (100, 3, 5, 0),
+                   (5, 8, 5, 0))
+KAN_SUBSET_ROWS = 32768
 # the CUDA kernels that serve C, D and E in the bf16 grad tiers (the
 # highest tier runs siren_grad_kernel in their place), for the kernels line
 TC_KERNELS = ["siren_wsplit_kernel", "siren_sweep_kernel", "siren_dw_kernel",
@@ -673,23 +745,26 @@ def siren_bounds(k, n, h, n_params, n_freq=0, d=1, weighted=False,
     return stack, step, bwd
 
 
-def kan_bounds(n, layers_hidden, n_coef=8):
+def kan_bounds(n, layers_hidden, n_coef=8, order=3):
     """Bounds of G and H for KAN(layers_hidden) over n rows at bf16x3:
-    the products on bf16 tensor cores (3 passes), and per (row, input
-    feature) ~300 fp32 operations for silu, the Cox-de-Boor recursion and
-    the hi/lo splits."""
+    the products on bf16 tensor cores (3 passes; J = n_coef + 1 values a
+    feature), and per (row, input feature) ~300 fp32 operations at order 3
+    and J = 9 for silu, the Cox-de-Boor recursion and the hi/lo splits:
+    ~10 more for each of the local recursion's further evaluations
+    (order (order + 3) / 2 of them) and ~4 for each further value of A."""
     J = 1 + n_coef
     dims = list(zip(layers_hidden[:-1], layers_hidden[1:]))
     macs = sum(i * J * o for i, o in dims)
     dx_macs = sum(i * J * o for i, o in dims[1:])
     feats = sum(i for i, _ in dims)
     p_bytes = 4 * sum(o * i * (J + 2) for i, o in dims)
+    ops = 300 + 10 * (order * (order + 3) // 2 - 9) + 4 * (J - 9)
     g = bound(4 * n * (layers_hidden[0] + layers_hidden[-1]) + p_bytes,
-              6 * macs * n, 300 * feats * n)
+              6 * macs * n, ops * feats * n)
     # H reads the saved layer inputs, the cotangent and the weights, and
     # writes the gradients
     h = bound(4 * n * (feats + layers_hidden[-1]) + 2 * p_bytes,
-              6 * (macs + dx_macs) * n, 2 * 300 * feats * n)
+              6 * (macs + dx_macs) * n, 2 * ops * feats * n)
     return g, h
 
 
@@ -3435,6 +3510,481 @@ def zoo_phases(np, torch, dev, clip, trained_params):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-29: the whole-signal losses on a mesh, a window population's
+# other losses, and G and H at grid extension's sizes and orders up to 8
+# ---------------------------------------------------------------------------
+
+def whole_signal_split(torch, model, tc, mesh, x, y, weight, reps=5):
+    """Rank ``mesh.rank``'s wall ms of each part of the sharded step of a
+    loss that needs the whole signal: ``train.loop.make_sharded_train_step``
+    with a synchronise after each part (its ``mark``): its shard's forward,
+    the all-gather of the prediction, the loss of the whole clip with its
+    cotangent, the shard's backward, the all-reduce of the gradients and
+    the update (clip, Adam, plateau, best); the mean over ``reps`` steps
+    after a warm-up."""
+    from inraudio_tpu_torch.train import loop as tloop
+    marks = []
+
+    def mark(part):
+        torch.cuda.synchronize()
+        marks.append((part, time.perf_counter()))
+
+    step = tloop.make_sharded_train_step(model, tc, mesh, x, y, weight,
+                                         mark=mark)
+    state = tloop_init(torch, model, tc, mesh.device)
+    total = {}
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        marks[:] = [("start", time.perf_counter())]
+        state, _ = step(state)
+        mark("update")
+        if rep:
+            for (_, a), (part, b) in zip(marks, marks[1:]):
+                total[part] = total.get(part, 0.0) + (b - a) * 1e3 / reps
+    return total
+
+
+def tloop_init(torch, model, tc, dev):
+    from inraudio_tpu_torch.train import loop as tloop
+    return tloop.init_train_state(model, torch.Generator().manual_seed(SEED),
+                                  tc, dev)
+
+
+def mesh_loss_phases(np, torch, dev, clip):
+    """Phase 27: the losses that need the whole signal, on two thread ranks
+    sharing the card (gloo), at full width: each fit against the same fit
+    on one rank beside its 1-ulp control, the ranks bit-equal, the launches
+    counted, and the sharded step's parts."""
+    from inraudio_tpu_torch.data import waveform_fitting, write_wav
+    from inraudio_tpu_torch.experiments import runner as trunner
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.tree import tree_leaves, tree_map
+    from test_torch_cuda import LOSS_RTOL, run_thread_ranks
+
+    # an even clip: the two ranks' gathered clip is then the one rank's
+    # clip (an odd one is padded by a zero row in both packages, whose
+    # STFT frames differ; tests/test_torch_whole_signal.py holds that case
+    # to the JAX package)
+    wav = os.path.join(WORK, "mesh_clip.wav")
+    write_wav(wav, FS, clip[:CLIP_SAMPLES - CLIP_SAMPLES % 2])
+    wave = waveform_fitting(wav, 7.0)
+    mdct = trunner.build_problem("mdct", wav, 7.0, n=SPECTRAL_N,
+                                 perceptual_mask=True, device=dev)
+    counters = launch_counters()
+    out, fails = {"launches": {}, "split": {}}, []
+    for tag, (method, arch, kw) in MESH_LOSS_FITS.items():
+        prob = wave if method == "wave" else mdct
+        x, y = prob.coords, prob.targets
+        weight = prob.loss_weight if method == "mdct" else None
+        model = spectral_model(arch, x.shape[1])
+        tc = tloop.TrainConfig(total_steps=MESH_LOSS_STEPS,
+                               scan_chunk=MESH_LOSS_STEPS, **kw)
+        s0 = tloop_init(torch, model, tc, dev)
+        one = tloop.fit(model, x, y, tc, state=tree_map(torch.clone, s0),
+                        device=dev, weight=weight)
+        ulp = tloop.fit(model, x, y, tc, device=dev, weight=weight,
+                        state=s0._replace(params=tree_map(
+                            lambda t: t * (1.0 + 2.0 ** -22), s0.params)))
+        for c in counters.values():
+            c.launches = 0
+        res = run_thread_ranks(2, lambda m: tloop.fit(
+            model, x, y, tc, state=s0, mesh=m, weight=weight), device=dev)
+        cnt = {k: c.launches for k, c in counters.items() if c.launches}
+        out["launches"][tag] = cnt
+        l1, lk, lu = (float(one.loss_history[0]), float(one.loss_history[-1]),
+                      float(ulp.loss_history[-1]))
+        l1s, ls = (float(res[0].loss_history[0]),
+                   float(res[0].loss_history[-1]))
+        limit = max(KAN_CMP_CONTROL_X * abs(lk - lu),
+                    KAN_CMP_FLOOR_REL * abs(lk),
+                    SNR_FLOOR_DB if tc.loss_mode == "snr" else 0.0)
+        first = LOSS_RTOL * max(abs(l1), 1.0)
+        same = (all(torch.equal(p, q) for p, q in zip(
+            tree_leaves(res[0].state), tree_leaves(res[1].state)))
+            and np.array_equal(res[0].loss_history, res[1].loss_history))
+        fwd, bwd = (("kan_fwd", "kan_bwd") if arch == "kan"
+                    else ("siren_stack", "siren_bwd"))
+        ok = (abs(l1s - l1) <= first and abs(ls - lk) <= limit and same
+              and np.isfinite(res[0].loss_history).all()
+              and cnt.get(fwd) == 2 * MESH_LOSS_STEPS
+              and cnt.get(bwd) == 2 * MESH_LOSS_STEPS
+              and not cnt.get("siren_step") and not cnt.get("siren_grad"))
+        split = run_thread_ranks(2, lambda m: whole_signal_split(
+            torch, model, tc, m, x, y, weight), device=dev)[0]
+        out["split"][tag] = split
+        out[tag] = dict(steps_s=res[0].steps_per_sec,
+                        one_steps_s=one.steps_per_sec)
+        log(f"phase27 {tag} ({method}, {arch}, {kw}, {x.shape[0]} rows, "
+            f"weight {'mask' if weight is not None else 'none'}) "
+            f"fit(mesh=2 ranks on one card, gloo), {MESH_LOSS_STEPS} steps: "
+            f"first loss {l1s:.9g} vs one rank {l1:.9g} (|diff| "
+            f"{abs(l1s - l1):.3e}, limit {first:.3e}); final loss sharded "
+            f"{ls:.9g} / one rank {lk:.9g} / perturbed one rank {lu:.9g}, "
+            f"gated |sharded - one| {abs(ls - lk):.3e} (limit {limit:.3e}); "
+            f"ranks bit-equal {same}; launches {cnt}; steps/s sharded "
+            f"{res[0].steps_per_sec:.2f} ({1e3 / res[0].steps_per_sec:.3f} "
+            f"ms a step), one rank {one.steps_per_sec:.2f} "
+            f"({1e3 / one.steps_per_sec:.3f} ms); rank 0's step parts (ms, "
+            f"host clock, synchronised): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in split.items())
+            + f"; {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(tag)
+        del one, ulp, res
+    if fails:
+        raise AssertionError(f"phase 27 failed: {fails}")
+    return out
+
+
+def permute_hidden(params, q):
+    """An mlp's params (one model or a population) with every hidden
+    layer's units in the order ``q``: the same function, its sums over
+    hidden units taken in another order.  Applied to gradients with
+    ``argsort(q)`` it puts them back."""
+    layers, last = [], len(params["layers"]) - 1
+    for li, p in enumerate(params["layers"]):
+        p = dict(p)
+        if li > 0:
+            p["w"] = p["w"][..., q, :]
+        if li < last:
+            p["w"] = p["w"][..., :, q]
+            for key in ("b", "snake_a"):
+                if key in p:
+                    p[key] = p[key][..., q]
+        layers.append(p)
+    return {"layers": layers}
+
+
+def population_phases(np, torch, dev, clip):
+    """Phase 28: a window population's other losses (``make_train_step``,
+    every window's own ``mix_loss``) through the stack kernel (A) and
+    kernel C: the losses against the plain forward's beside a 1-ulp
+    control, C on the step's cotangent against its plain version, the
+    launches of POP_STEPS steps, timings; and the 512-row windows that the
+    STFT term refuses."""
+    from inraudio_tpu_torch.ops import siren_fused as sf
+    from inraudio_tpu_torch.ops import siren_train as st
+    from inraudio_tpu_torch.train import loop as tloop
+    from inraudio_tpu_torch.train.losses import mix_loss
+    from test_torch_cuda import check_grads, perturb_layer0
+
+    counters = launch_counters()
+    gmode = st.grad_dot_mode()
+    out, fails = {}, []
+    for tag, (shape, kw) in POP_CASES.items():
+        cfg, model, tc0, coords, targets = train_population(
+            np, torch, dev, clip, shape, SHAPES[shape])
+        tc = dataclasses.replace(tc0, **kw)
+        k, n = targets.shape
+        t3 = targets[..., None].contiguous()
+        state = tloop.init_train_state(
+            model, torch.Generator().manual_seed(SEED), tc, dev, windows=k)
+        plan = sf.stack_plan(cfg, approx_sin=True)
+        step = tloop.make_train_step(model, tc)
+
+        def loss_of(pred):
+            return mix_loss(pred, t3, loss_mode=tc.loss_mode, alpha=tc.alpha,
+                            multi_resolution=tc.multi_resolution_stft,
+                            windows=True)
+
+        for c in counters.values():
+            c.launches = 0
+        s = state
+        for i in range(POP_STEPS):
+            s, (loss, _) = step(s, coords, t3)
+            if i == 0:
+                loss0 = loss.clone()
+        torch.cuda.synchronize()
+        cnt = {name: c.launches for name, c in counters.items()
+               if c.launches}
+        ref = loss_of(sf.stack_forward_plain(state.params, plan, coords))
+        ctl = loss_of(sf.stack_forward_plain(perturb_layer0(state.params),
+                                             plan, coords))
+        gap, cgap = (float((a - ref).abs().max()) for a in (loss0, ctl))
+        limit = max(KAN_CMP_CONTROL_X * cgap,
+                    KAN_CMP_FLOOR_REL * float(ref.abs().max()))
+        pred = st.fused_siren_train_apply(state.params, cfg, coords,
+                                          approx_sin=True).detach()
+        pred.requires_grad_(True)
+        (cot,) = torch.autograd.grad(loss_of(pred).sum(), pred)
+        # C on the step's cotangent against its plain version, in the step's
+        # grad tier and in the highest: within the tier's rule
+        # (check_grads), or within POP_ORDER_X times the plain version's own
+        # gap to itself with its sums in another order (the rows and the
+        # hidden units permuted, seeded), a limit that must resolve
+        # POP_RESOLVE of the gradient.  The plain backward with layer 0 one
+        # ulp off is printed beside it.
+        gen = torch.Generator().manual_seed(SEED)
+        rows = torch.randperm(n, generator=gen).to(dev)
+        units = torch.randperm(cfg.hidden_features, generator=gen).to(dev)
+        gok, gdesc = bool(torch.isfinite(loss0).all()), []
+        for tier in dict.fromkeys((gmode, "highest")):
+            gk = st.flatten_params(st.SIREN_BWD(
+                state.params, cfg, plan, tier, coords, cot), cfg)
+            gp, gc = (st.flatten_params(st.backward_plain(
+                p, plan, tier, coords, cot), cfg)
+                for p in (state.params, perturb_layer0(state.params)))
+            gq = st.flatten_params(permute_hidden(st.backward_plain(
+                permute_hidden(state.params, units), plan, tier,
+                coords[rows], cot[:, rows]), torch.argsort(units)), cfg)
+            torch.cuda.synchronize()
+            diff = (gk - gp).abs()
+            gerr, scale = float(diff.max()), float(gp.abs().max())
+            bulk = float((diff <= 1e-3 * scale).float().mean())
+            order_gap = float((gq - gp).abs().max())
+            ulp_gap = float((gc - gp).abs().max())
+            glimit = POP_ORDER_X * order_gap
+            try:
+                check_grads(gk, gp, tier)
+                rule = "within"
+            except AssertionError:
+                rule = "beyond"
+            t_ok = (bool(torch.isfinite(gk).all()) and (
+                rule == "within"
+                or (gerr <= glimit and glimit <= POP_RESOLVE * scale)))
+            gok = gok and t_ok
+            gdesc.append(
+                f"{tier}: max abs {gerr:.3e} ({rule} the tier's rule; "
+                f"limit {glimit:.3e} = {POP_ORDER_X} x the plain version's "
+                f"gap to itself with rows and hidden units permuted "
+                f"{order_gap:.3e}; max "
+                f"|grad| {scale:.3e}; layer 0 one ulp off moves it "
+                f"{ulp_gap:.3e}; {bulk:.2%} of the entries within 1e-3 of "
+                f"max |grad|) {'ok' if t_ok else 'FAILED'}")
+            if tier == gmode:
+                out_err = gerr
+            del gk, gp, gq, gc, diff
+
+        def plain_step():
+            p = sf.stack_forward_plain(state.params, plan, coords)
+            p.requires_grad_(True)
+            (c,) = torch.autograd.grad(loss_of(p).sum(), p)
+            return st.backward_plain(state.params, plan, gmode, coords, c)
+
+        ms = cuda_ms(torch, lambda: step(state, coords, t3), 5)
+        plain_ms = cuda_ms(torch, plain_step, 2)
+        ok = (gap <= limit and gok
+              and cnt.get("siren_stack") == POP_STEPS
+              and cnt.get("siren_bwd") == POP_STEPS
+              and not cnt.get("siren_step"))
+        out[tag] = dict(ms=ms, plain_ms=plain_ms, launches=cnt, err=out_err)
+        log(f"phase28 {tag}: {k} windows of {n} rows, h={cfg.hidden_features}"
+            f", {kw}: {POP_STEPS} steps launched {cnt}; first losses vs the "
+            f"plain forward's max |diff| {gap:.3e} (limit {limit:.3e}, "
+            f"control {cgap:.3e}); C on the step's cotangent vs its plain "
+            f"version, " + "; ".join(gdesc) + "; step "
+            f"{ms:.3f} ms (A + loss + C + Adam, CUDA events), plain forward "
+            f"+ loss + backward {plain_ms:.3f} ms; "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(tag)
+        if shape == "headline":
+            try:
+                tloop.make_train_step(model, dataclasses.replace(
+                    tc, alpha=0.5))(state, coords, t3)
+                fails.append("512-row windows took the STFT term")
+            except ValueError as e:
+                log(f"phase28 headline windows ({n} rows) with alpha 0.5: "
+                    f"ValueError as in the JAX package ({e})")
+        del state, s, pred, cot
+    if fails:
+        raise AssertionError(f"phase 28 failed: {fails}")
+    return out
+
+
+def kan_library_ab(torch, dev, iters=10):
+    """G and H of the runner KAN (grid 5, order 3) over the whole clip
+    through the default build of kan.cu and through the wide one
+    (``kan_fused.is_wide`` forced), timed in the order default, wide, wide,
+    default: {library: [(G ms, H ms), ...]} and the largest gap between
+    the two libraries' outputs and gradients."""
+    from inraudio_tpu_torch.models import KANConfig, build_model
+    from inraudio_tpu_torch.ops import kan_fused as kf
+    cfg = KANConfig(layers_hidden=KAN_LAYERS)
+    params = build_model("kan", cfg, fused=True).init(
+        torch.Generator().manual_seed(SEED), dev)
+    flat = [t.detach().contiguous() for t in kf.flatten_kan_params(params)]
+    layers = list(zip(flat[0::2], flat[1::2]))
+    mode, order, n = kf.kan_dot_mode(), cfg.spline_order, CLIP_SAMPLES
+    coords = torch.linspace(-1, 1, n, device=dev)[:, None]
+    g = torch.ones((n, 1), device=dev) / n
+    is_wide = kf.is_wide
+    times, outs = {"default": [], "wide": []}, {}
+    try:
+        for lib in ("default", "wide", "wide", "default"):
+            kf.is_wide = (lambda o, nk: True) if lib == "wide" else is_wide
+            out, xs = kf.KAN_FWD(layers, coords, order, mode)
+            outs[lib] = [out] + kf.KAN_BWD(layers, xs, g, order, mode)
+            times[lib].append((
+                cuda_ms(torch, lambda: kf.KAN_FWD(layers, coords, order,
+                                                  mode), iters),
+                cuda_ms(torch, lambda: kf.KAN_BWD(layers, xs, g, order,
+                                                  mode), iters)))
+            del out, xs
+    finally:
+        kf.is_wide = is_wide
+    gap = max(float((a - b).abs().max())
+              for a, b in zip(outs["default"], outs["wide"]))
+    return times, gap
+
+
+def kan_order_phases(np, torch, dev, clip):
+    """Phase 29: G and H at the runner KAN's widths with grid extension's
+    sizes and orders up to 8 (the wide library), after the runner's grid 5
+    / order 3 timed through both builds of kan.cu: G and H against their
+    plain versions on a row subset (the plain bases at grid 100 over the
+    whole clip would take tens of GB), two calls bit-equal, the same after
+    an ``update_grid`` refresh; fits over the whole clip served through
+    ``fit`` with the launches counted (the grid 20 fit refreshes its grid
+    every 10 steps); per-layer and whole-stack timings against the plain
+    versions and the bounds."""
+    from inraudio_tpu_torch.data import waveform_fitting, write_wav
+    from inraudio_tpu_torch.models import KANConfig, build_model
+    from inraudio_tpu_torch.ops import kan_fused as kf
+    from inraudio_tpu_torch.train import loop as tloop
+    from test_torch_cuda import (KAN_GRAD_RTOL, check_kan,
+                                 check_kan_outputs)
+
+    wav = os.path.join(WORK, "kan_order_clip.wav")
+    write_wav(wav, FS, clip)
+    prob = waveform_fitting(wav, 7.0)
+    x, y = prob.coords, prob.targets
+    n = x.shape[0]
+    coords = torch.from_numpy(x).to(dev)
+    sub = coords[::-(-n // KAN_SUBSET_ROWS)].contiguous()
+    tsub = torch.from_numpy(y[::-(-n // KAN_SUBSET_ROWS)]).to(dev)
+    mode = kf.kan_dot_mode()
+    out, fails = {}, []
+    # the default build against the wide one at the runner's grid 5 / order
+    # 3, which both take: what keeping the default build buys
+    ab, ab_gap = kan_library_ab(torch, dev)
+    log(f"phase29 runner KAN{KAN_LAYERS} grid 5 order 3 over {CLIP_SAMPLES}"
+        f" rows through each build of kan.cu (CUDA events, in the order "
+        f"default, wide, wide, default): " + "; ".join(
+            f"{lib} G " + "/".join(f"{g:.3f}" for g, _ in t) + " ms, H "
+            + "/".join(f"{h:.3f}" for _, h in t) + " ms"
+            for lib, t in ab.items())
+        + f"; the builds' outputs and gradients max |diff| {ab_gap:.3e}")
+    if not ab_gap == 0.0:
+        fails.append("the two builds of kan.cu disagree at grid 5 order 3")
+    for grid_size, order, steps, every in KAN_ORDER_CASES:
+        tag = f"g{grid_size}o{order}"
+        cfg = KANConfig(layers_hidden=KAN_LAYERS, grid_size=grid_size,
+                        spline_order=order)
+        model = build_model("kan", cfg, fused=True)
+        nk = grid_size + 2 * order + 1
+        J = nk - order
+        params = model.init(torch.Generator().manual_seed(SEED), dev)
+        checks = {}
+        for label, p in (("init", params), ("refreshed", None)):
+            if p is None:  # knots from the data: non-uniform
+                p = model.update_grid(params, coords[::-(-n // 4096)])
+            flat = [t.detach().contiguous() for t in
+                    kf.flatten_kan_params(p)]
+            layers = list(zip(flat[0::2], flat[1::2]))
+            gout, xs = kf.KAN_FWD(layers, sub, order, mode)
+            ref, xr = kf.kan_forward_plain(layers, sub, order, mode)
+            cot = (2.0 / sub.shape[0]) * (ref - tsub)
+            gk = kf.KAN_BWD(layers, xr, cot, order, mode)
+            gp = kf.kan_backward_plain(layers, xr, cot, order, mode)
+            gk2 = kf.KAN_BWD(layers, xr, cot, order, mode)
+            gout2, _ = kf.KAN_FWD(layers, sub, order, mode)
+            torch.cuda.synchronize()
+            try:
+                ferr, _ = check_kan_outputs(layers, xs, gout, xr, ref, order)
+                berr = max(check_kan(a, b, KAN_GRAD_RTOL)
+                           for a, b in zip(gk, gp))
+                good = (torch.equal(gout, gout2) and all(
+                    torch.equal(a, b) for a, b in zip(gk, gk2)))
+            except AssertionError as e:
+                ferr = berr = float("nan")
+                good = False
+                log(f"phase29 {tag} {label}: {e}")
+            checks[label] = (ferr, berr, good)
+            if label == "init":
+                keep = (layers, xr, cot)
+        # the fit over the whole clip through the entry point
+        tc = tloop.TrainConfig(total_steps=steps, scan_chunk=min(steps, 10),
+                               update_grid_every=every)
+        kf.KAN_FWD.launches = kf.KAN_BWD.launches = 0
+        res = tloop.fit(model, x, y, tc, state=tloop_init(torch, model, tc,
+                                                          dev), device=dev)
+        launches = {"kan_fwd": kf.KAN_FWD.launches,
+                    "kan_bwd": kf.KAN_BWD.launches}
+        # timings over the whole clip (the kernels) and on the subset
+        # (kernels and plain versions)
+        flat = [t.detach().contiguous()
+                for t in kf.flatten_kan_params(params)]
+        layers = list(zip(flat[0::2], flat[1::2]))
+        g_ms = cuda_ms(torch, lambda: kf.KAN_FWD(layers, coords, order,
+                                                 mode), 3)
+        _, xf = kf.KAN_FWD(layers, coords, order, mode)
+        gfull = torch.ones((n, 1), device=dev) / n
+        h_ms = cuda_ms(torch, lambda: kf.KAN_BWD(layers, xf, gfull, order,
+                                                 mode), 3)
+        lib = kf.kan_library(order, nk)()
+        stream = torch.cuda.current_stream().cuda_stream
+        per_layer = []
+        for li, (grid, w_t) in enumerate(layers):
+            s = kf._layer_shape(xf[li], grid, w_t, order, li)
+            g = torch.ones((n, s.dout), device=dev) / n
+            per_layer.append((li, s.din, s.dout, kf.fwd_plan(
+                s.din, s.dout, J, mode, s.ks).route, kf.dw_plan(
+                n, s.din, s.dout, J, mode, s.ks).route, cuda_ms(
+                torch, lambda: kf.KAN_FWD([(grid, w_t)], xf[li], order,
+                                          mode), 3),
+                cuda_ms(torch, lambda: kf.layer_backward(
+                    lib, xf[li], grid, g, w_t, s, order, mode, stream,
+                    li > 0), 3)))
+        del xf, gfull
+        slayers, sxr, scot = keep
+        sg_ms = cuda_ms(torch, lambda: kf.KAN_FWD(slayers, sub, order, mode),
+                        3)
+        sg_plain = cuda_ms(torch, lambda: kf.kan_forward_plain(
+            slayers, sub, order, mode), 2)
+        sh_ms = cuda_ms(torch, lambda: kf.KAN_BWD(slayers, sxr, scot, order,
+                                                  mode), 3)
+        sh_plain = cuda_ms(torch, lambda: kf.kan_backward_plain(
+            slayers, sxr, scot, order, mode), 2)
+        bounds = kan_bounds(n, KAN_LAYERS, n_coef=J - 1, order=order)
+        sbounds = kan_bounds(sub.shape[0], KAN_LAYERS, n_coef=J - 1,
+                             order=order)
+        ok = (all(c[2] for c in checks.values())
+              and np.isfinite(res.loss_history).all()
+              and launches["kan_fwd"] == steps
+              and launches["kan_bwd"] == steps)
+        out[tag] = dict(J=J, wide=kf.is_wide(order, nk), launches=launches,
+                        fwd_err=checks["init"][0], bwd_err=checks["init"][1],
+                        g_ms=g_ms, h_ms=h_ms, bounds=bounds, sub_rows=int(
+                            sub.shape[0]), sub_g_ms=sg_ms,
+                        sub_g_plain=sg_plain, sub_h_ms=sh_ms,
+                        sub_h_plain=sh_plain, sub_bounds=sbounds,
+                        steps_s=res.steps_per_sec)
+        log(f"phase29 KAN{KAN_LAYERS} grid {grid_size} order {order} (J "
+            f"{J}, {'wide' if out[tag]['wide'] else 'default'} library): "
+            f"vs plain on {sub.shape[0]} rows " + "; ".join(
+                f"{lab}: G max abs {c[0]:.3e}, H max abs {c[1]:.3e}, repeats "
+                f"bit-equal {c[2]}" for lab, c in checks.items())
+            + f"; fit {steps} steps over {n} rows (grid refresh every "
+            f"{every or 'never'}) {res.steps_per_sec:.2f} steps/s, final "
+            f"loss {float(res.loss_history[-1]):.6g}, launches {launches}; "
+            f"whole clip G {g_ms:.3f} ms (bound {bounds[0][0]:.3f} ms, "
+            f"{bounds[0][1]}), H {h_ms:.3f} ms (bound {bounds[1][0]:.3f} ms,"
+            f" {bounds[1][1]}); per layer " + ", ".join(
+                f"{li} ({di}->{do}, G {fr} {gm:.3f} ms, H {hr} {hm:.3f} ms)"
+                for li, di, do, fr, hr, gm, hm in per_layer)
+            + f"; on the subset G {sg_ms:.3f} ms (plain {sg_plain:.3f}), H "
+            f"{sh_ms:.3f} ms (plain {sh_plain:.3f}); "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fails.append(tag)
+        del keep, slayers, sxr, scot
+    if fails:
+        raise AssertionError(f"phase 29 failed: {fails}")
+    return out
+
+
 def build_kernels():
     """Phase 0: every CUDA source built at once (one nvcc each, in threads),
     with ptxas's register and spill lines printed."""
@@ -3443,7 +3993,11 @@ def build_kernels():
     from inraudio_tpu_torch.ops import siren_train as st
     from inraudio_tpu_torch.ops._nvcc import library_path
     builds = {"siren_stack": sf.SIREN_STACK.library,
-              "siren_train": st.TRAIN_LIBRARY, "kan": kf.KAN_LIBRARY}
+              "siren_train": st.TRAIN_LIBRARY, "kan": kf.KAN_LIBRARY,
+              "kan_wide": kf.KAN_WIDE_LIBRARY}
+    # (source, extra nvcc defines) of each library
+    sources = {name: (name + ".cu", ()) for name in builds}
+    sources["kan_wide"] = ("kan.cu", kf.KAN_WIDE_LIBRARY.defines)
     build_s, failures = {}, []
 
     def build(name, fn):
@@ -3463,9 +4017,10 @@ def build_kernels():
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     for name in builds:
-        lib = library_path(name, [name + ".cu"])
-        log(f"build: {name}.cu -> {lib.relative_to(HERE)} in "
-            f"{build_s[name]:.1f} s")
+        src, defines = sources[name]
+        lib = library_path(name, [src], defines)
+        log(f"build: {src} {' '.join(defines)} -> {lib.relative_to(HERE)} "
+            f"in {build_s[name]:.1f} s")
         for line in ptxas_lines((lib.parent / "build.log").read_text()):
             log(f"  ptxas: {line}")
     # the tensor-core kernels (G's and H's, the SIREN grad kernel's sweep
@@ -3473,10 +4028,14 @@ def build_kernels():
     # their SASS must hold HMMA / HGMMA
     for lib_name, marks in (("kan", ("kan_fwd_tc_kernel",
                                      "kan_bwd_tc_kernel")),
+                            ("kan_wide", ("kan_fwd_tc_kernel",
+                                          "kan_bwd_tc_kernel")),
                             ("siren_train", ("siren_sweep_kernel",
                                              "siren_dw_kernel")),
                             ("siren_stack", ("siren_stack_tc_kernel",))):
-        counts = sass_mma_counts(library_path(lib_name, [lib_name + ".cu"]))
+        counts = sass_mma_counts(library_path(lib_name,
+                                              [sources[lib_name][0]],
+                                              sources[lib_name][1]))
         if counts is None:
             log("  sass: the toolkit has no cuobjdump beside nvcc; the HMMA "
                 "count of the tensor-core kernels is not read")
@@ -3721,6 +4280,9 @@ def main() -> int:
     spectral = spectral_phases(np, torch, dev, clip)
     schedule = schedule_phases(np, torch, dev, clip)
     zoo_phases(np, torch, dev, clip, schedule.pop("params"))
+    mesh_loss_phases(np, torch, dev, clip)
+    population_phases(np, torch, dev, clip)
+    kan_orders = kan_order_phases(np, torch, dev, clip)
 
     shutil.rmtree(WORK, ignore_errors=True)
     ms, plain_ms = timing[("headline", "deg11")]
@@ -3969,6 +4531,32 @@ def main() -> int:
         "rff_ms": tr["grad_cheap"], "rff_full_ms": tr["grad_full"],
         "rff_max_abs_err": schedule[("runner_mlp_rff", "grad_err")],
     }]
+    for tag, t in kan_orders.items():
+        shape = (f"runner KAN{KAN_LAYERS} at grid {tag[1:tag.index('o')]}, "
+                 f"order {tag[tag.index('o') + 1:]} (J {t['J']}, "
+                 f"{'wide' if t['wide'] else 'default'} library), bf16x3; "
+                 f"ms, plain_ms and bound_ms on a {t['sub_rows']}-row "
+                 f"subset of the clip (whole clip: {{}}); launches from the "
+                 f"served fit of phase 29")
+        for name, line, key, b in (
+                ("kan_fwd", "inraudio_tpu/ops/pallas_kan.py:75", "g", 0),
+                ("kan_bwd", "inraudio_tpu/ops/pallas_kan.py:194", "h", 1)):
+            kernels["kernels"].append({
+                "name": f"{name}_{tag}",
+                "route": "cuda",
+                "source": "inraudio_tpu_torch/csrc/kan.cu",
+                "replaces": line,
+                "launches": t["launches"][name],
+                "max_abs_err": t[name[4:] + "_err"],
+                "ms": t[f"sub_{key}_ms"],
+                "plain_ms": t[f"sub_{key}_plain"],
+                "bound_ms": t["sub_bounds"][b][0],
+                "bound_by": t["sub_bounds"][b][1],
+                "library_ms": None,
+                "shape": shape.format(
+                    f"{t[key + '_ms']:.3f} ms against a bound of "
+                    f"{t['bounds'][b][0]:.3f} ms"),
+            })
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

@@ -47,29 +47,33 @@ def _irdft_basis(n_fft: int) -> np.ndarray:
 
 def frame_signal(x: torch.Tensor, frame_length: int, hop: int,
                  center: bool = True) -> torch.Tensor:
-    """Overlapping frames of a 1-D signal -> (num_frames, frame_length),
-    a view where no padding is needed."""
+    """Overlapping frames of a signal along its last axis -> (...,
+    num_frames, frame_length), a view where no padding is needed.  A
+    leading axis frames each signal on its own (the JAX package's vmap)."""
+    n = x.shape[-1]
     if center:
         pad = frame_length // 2
-        if x.shape[0] <= pad:
+        if n <= pad:
             raise ValueError(
-                f"signal length {x.shape[0]} too short for reflect padding: "
+                f"signal length {n} too short for reflect padding: "
                 f"need > frame_length//2 = {pad} samples (torch.stft "
                 f"pad_mode='reflect' has the same requirement)")
-        x = torch.cat([torch.flip(x[1:pad + 1], [0]), x,
-                       torch.flip(x[-(pad + 1):-1], [0])])
-    if x.shape[0] < frame_length:
+        x = torch.cat([torch.flip(x[..., 1:pad + 1], [-1]), x,
+                       torch.flip(x[..., -(pad + 1):-1], [-1])], -1)
+    if x.shape[-1] < frame_length:
         raise ValueError(
-            f"signal length {x.shape[0]} shorter than frame_length "
+            f"signal length {x.shape[-1]} shorter than frame_length "
             f"{frame_length}; pad the signal or reduce n_fft")
-    return x.unfold(0, frame_length, hop)
+    return x.unfold(-1, frame_length, hop)
 
 
 def stft_real_imag(x, n_fft: int = 1024, hop: int | None = None,
                    window: torch.Tensor | None = None, center: bool = True,
                    use_fft: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Onesided STFT -> (real, imag), each (n_fft // 2 + 1, num_frames)."""
+    """Onesided STFT -> (real, imag), each (n_fft // 2 + 1, num_frames);
+    a leading axis of x stays in front, and all of its frames go through
+    one basis matmul."""
     x = torch.as_tensor(x)
     if hop is None:
         hop = n_fft // 4
@@ -78,11 +82,12 @@ def stft_real_imag(x, n_fft: int = 1024, hop: int | None = None,
         frames = frames * window
     if use_fft:
         spec = torch.fft.rfft(frames, dim=-1)
-        return spec.real.T, spec.imag.T
+        return spec.real.transpose(-1, -2), spec.imag.transpose(-1, -2)
     out = torch.matmul(frames, on_device(_rdft_basis, (n_fft,), x.device,
                                          frames.dtype))
     bins = n_fft // 2 + 1
-    return out[:, :bins].T, out[:, bins:].T
+    return (out[..., :bins].transpose(-1, -2),
+            out[..., bins:].transpose(-1, -2))
 
 
 def stft(x, n_fft: int = 1024, hop: int | None = None,

@@ -19,8 +19,9 @@ path; ``train_from_signal`` takes an in-memory signal (coords in
 Every fit runs on ``device`` (default the card; it raises without one),
 or on the ranks of ``mesh`` (``parallel.make_mesh(device)`` when None, so
 ``torchrun --nproc-per-node N -m inraudio_tpu_torch fit ...`` shards the
-rows over N ranks; a device given beside a mesh must be its own); only
-rank 0 decodes and writes the artefacts.
+rows over N ranks, with every loss mode: the snr loss and the STFT term
+gather the whole clip's prediction on every rank; a device given beside a
+mesh must be its own); only rank 0 decodes and writes the artefacts.
 With ``num_freq``, the mlp owns its RFF encoding, as in the JAX runner: raw
 coordinates go to the fit and the decode, and a fused mlp folds the
 encoding into its kernels' layer 0.  Every other encoding (the NeRF

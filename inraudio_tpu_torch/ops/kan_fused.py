@@ -23,6 +23,12 @@ artefacts: the first layer's lane padding to 8 inputs, the final layer's
 the VMEM gate that sends stacks of h >= 512 to XLA autodiff (H here takes
 every width).
 
+The kernels take spline orders 1..8 and up to 128 knots a feature
+(grid_size + 2 * order <= 127) from two builds of ``csrc/kan.cu``: the
+default library for orders up to 4 with at most 16 degree-0 bases (the
+runner's KAN, grid 5, order 3) and the wide one (``-DKAN_WIDE=1``) for the
+rest (``kan_library``); a config past that bound raises.
+
 The wrappers run the plain versions for CPU tensors only; a CUDA tensor
 launches the kernels or raises.
 """
@@ -42,10 +48,13 @@ from .siren_train import _check_rc
 
 Params = dict[str, Any]
 
-# shapes the kernels take (csrc/kan.cu)
+# shapes the kernels take (csrc/kan.cu): the default library's, and the
+# wide library's bound
 _MAX_BASES = 16          # degree-0 bases per feature (n_knots - 1)
 _MAX_ORDER = 4
 _KNOT_STRIDE = 20        # floats per feature's knot row in shared memory
+_WIDE_MAX_ORDER = 8
+_WIDE_MAX_KNOTS = 128    # the wide library's knot row: n_knots floats
 # shared memory per CTA the plans stay within: two CTAs fit on an SM
 _SMEM_BUDGET = 110 * 1024
 _DX_TM, _DX_TN = 32, 256
@@ -67,6 +76,17 @@ def kan_dot_mode() -> str:
 # Launch plans (the shared-memory formulas of csrc/kan.cu)
 # ---------------------------------------------------------------------------
 
+def is_wide(order: int, n_knots: int) -> bool:
+    """Whether a config needs the wide library: an order above 4 or more
+    than 16 degree-0 bases."""
+    return order > _MAX_ORDER or n_knots - 1 > _MAX_BASES
+
+
+def knot_stride(order: int, n_knots: int) -> int:
+    """Floats per feature's knot row in shared memory (kan.cu knot_row)."""
+    return n_knots if is_wide(order, n_knots) else _KNOT_STRIDE
+
+
 def _round4(v: int) -> int:
     return (v + 3) // 4 * 4
 
@@ -85,9 +105,9 @@ def _col_groups(width: int, cap: int) -> int:
 
 
 # H's tensor-core kernel (csrc/kan.cu): K values per tile, rows per chunk;
-# the narrow kernel's feature lanes and row groups
+# the narrow kernel's feature lanes, row groups and A values per block
 _TC_TK, _TC_RC = 64, 32
-_NW_F, _NW_RG = 32, 8
+_NW_F, _NW_RG, _NW_JB = 32, 8, 16
 # G's kernels: threads a CTA (the narrow kernel's rows, one a thread); the
 # tensor-core kernel's rows a tile and most features a chunk; the narrow
 # kernel's features a chunk
@@ -131,19 +151,21 @@ class FwdPlan:
     tm: int
 
 
-def fwd_tc_smem(tn: int, fc: int, J: int) -> int:
+def fwd_tc_smem(tn: int, fc: int, J: int, ks: int = _KNOT_STRIDE) -> int:
     """Dynamic shared memory of the tensor-core G (kan.cu fwd_tc_smem): two
-    buffers of A's bf16 planes, two stages of W's, two of knots."""
+    buffers of A's bf16 planes, two stages of W's, two of knots (rows of
+    ``ks`` floats)."""
     kcp = _round16(fc * J)
     return (2 * 2 * _FW_TM * (kcp + 8) * 2 + 2 * 2 * kcp * (tn + 8) * 2
-            + 2 * fc * _KNOT_STRIDE * 4)
+            + 2 * fc * ks * 4)
 
 
-def fwd_narrow_smem(no: int, J: int) -> int:
+def fwd_narrow_smem(no: int, J: int, fc: int = _NF_FC,
+                    ks: int = _KNOT_STRIDE) -> int:
     """Dynamic shared memory of the narrow G (kan.cu fwd_narrow_smem): the
-    rows' inputs, W's f32 planes and the knots of one feature chunk."""
-    return 4 * (_THREADS * (_NF_FC + 1) + 2 * _NF_FC * J * no
-                + _NF_FC * _KNOT_STRIDE)
+    rows' inputs, W's f32 planes and the knots of a chunk of ``fc``
+    features."""
+    return 4 * (_THREADS * (_NF_FC + 1) + 2 * fc * J * no + fc * ks)
 
 
 def _fc_steps(din: int, fc: int, J: int) -> int:
@@ -169,33 +191,47 @@ def _fc_cost(din: int, fc: int, J: int) -> int:
             + _FW_CHUNK * len(chunks))
 
 
-def fwd_plan(din: int, dout: int, J: int, mode: str = "bf16x3") -> FwdPlan:
-    """G's launch for one layer.  tc: the column tile is the least power of
-    two >= dout in 64..256, and the chunk (at most _FW_MAX_FC features: two
-    (row, feature) pairs a thread) the one of least ``_fc_cost`` within
-    shared memory, ties to the larger.  fma: the column groups that cover
-    dout (<= 32) and the most features a chunk within _SMEM_BUDGET."""
+def fwd_plan(din: int, dout: int, J: int, mode: str = "bf16x3",
+             ks: int = _KNOT_STRIDE) -> FwdPlan:
+    """G's launch for one layer (knot rows of ``ks`` floats).  tc: the
+    column tile is the least power of two >= dout in 64..256, halved (not
+    below 64) while one feature's chunk does not fit in shared memory (a
+    large J), and the chunk (at most _FW_MAX_FC features: two (row,
+    feature) pairs a thread) the one of least ``_fc_cost`` within shared
+    memory, ties to the larger.  narrow: every output held, up to 32
+    features a chunk within shared memory.  fma: the column groups that
+    cover dout (<= 32), or the nearest whose tile holds one feature's
+    chunk, and the most features a chunk within _SMEM_BUDGET."""
     route = layer_route(dout, mode)
     if route == "tc":
         tile = _pow2_at_least(dout, 64, 256)
+        while tile > 64 and fwd_tc_smem(tile, 1, J, ks) > _SMEM_MAX:
+            tile //= 2
         fits = [fc for fc in range(1, min(din, _FW_MAX_FC) + 1)
-                if fwd_tc_smem(tile, fc, J) <= _SMEM_MAX]
+                if fwd_tc_smem(tile, fc, J, ks) <= _SMEM_MAX]
         fc = min(fits, key=lambda fc: (_fc_cost(din, fc, J), -fc))
         return FwdPlan(route, tile, fc, _FW_TM)
     if route == "narrow":
-        return FwdPlan(route, _pow2_at_least(dout, 1, 8), min(din, _NF_FC),
-                       _THREADS)
-    cg = _col_groups(dout, 32)
-    tm, tn = 1024 // cg, 8 * cg
+        no = _pow2_at_least(dout, 1, 8)
+        fc = min(din, _NF_FC)
+        while fc > 1 and fwd_narrow_smem(no, J, fc, ks) > _SMEM_MAX:
+            fc -= 1
+        return FwdPlan(route, no, fc, _THREADS)
 
-    def smem(fc):
-        kcp = _round4(fc * J)
-        return 4 * (2 * tm * _ld(kcp) + 2 * kcp * tn + fc * _KNOT_STRIDE)
+    def smem(cg, fc):
+        tm, tn, kcp = 1024 // cg, 8 * cg, _round4(fc * J)
+        return 4 * (2 * tm * _ld(kcp) + 2 * kcp * tn + fc * ks)
 
+    # the column groups nearest those that cover dout whose tile holds one
+    # feature's chunk (fewer rows for a narrow layer, fewer columns for a
+    # wide one, at a large J)
+    want = _col_groups(dout, 32).bit_length()
+    cg = min((c for c in (1, 2, 4, 8, 16, 32) if smem(c, 1) <= _SMEM_MAX),
+             key=lambda c: (abs(c.bit_length() - want), c))
     fc = 1
-    while fc < din and smem(fc + 1) <= _SMEM_BUDGET:
+    while fc < din and smem(cg, fc + 1) <= _SMEM_BUDGET:
         fc += 1
-    return FwdPlan(route, cg, fc, tm)
+    return FwdPlan(route, cg, fc, 1024 // cg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,8 +239,10 @@ class DwPlan:
     """H's dW launch for one layer: its route ('tc': tensor cores, dout >=
     8; 'narrow': dout < 8; 'fma': the highest tier on CUDA cores), its
     column tile (tc: columns; narrow: outputs held, >= dout; fma: column
-    groups of 8), input features per K tile, rows per chunk, rows per
-    slice, slices."""
+    groups of 8), input features per K tile (tc: the most a tile
+    touches), rows per chunk, rows per slice, slices, and (tc) the K values
+    a tile: fck whole features while J <= 64, else 64 values that may cut
+    through features."""
 
     route: str
     tile: int
@@ -212,42 +250,52 @@ class DwPlan:
     rc: int
     rows_per_slice: int
     slices: int
+    ktile: int = 0
 
 
-def bwd_tc_smem(tn: int, fck: int, dx: bool) -> int:
+def bwd_tc_smem(tn: int, fck: int, dx: bool, ks: int = _KNOT_STRIDE) -> int:
     """Dynamic shared memory of the tensor-core backward (kan.cu
     bwd_tc_smem): A^T's planes, two stages of g's planes, the knots and,
     with dx, W's planes and the parked GX."""
     return (2 * _TC_TK * (_TC_RC + 8) * 2 + 2 * 2 * _TC_RC * (tn + 8) * 2
-            + fck * _KNOT_STRIDE * 4
+            + fck * ks * 4
             + (2 * _TC_TK * (tn + 8) * 2 + _TC_RC * (_TC_TK + 1) * 4
                if dx else 0))
 
 
-def dw_plan(n: int, din: int, dout: int, J: int,
-            mode: str = "bf16x3") -> DwPlan:
+def dw_plan(n: int, din: int, dout: int, J: int, mode: str = "bf16x3",
+            ks: int = _KNOT_STRIDE) -> DwPlan:
     """Enough slices of rows that the (K tile, column tile, slice) grid
     fills the card; the slice count depends on the shapes (and the tier's
     route) alone, so the summation order does not depend on the scratch
-    budget."""
+    budget.  A large J (the wide library) cuts the tensor-core K tiles
+    through features, adds blocks of _NW_JB values to the narrow grid, and
+    narrows the FMA column tile until its K tile holds a feature."""
     route = layer_route(dout, mode)
+    ktile = 0
     if route == "tc":
         tile = _pow2_at_least(dout, 32, 256)
-        fck = min(din, _TC_TK // J)
+        if J <= _TC_TK:
+            fck = min(din, _TC_TK // J)
+            ktile = fck * J
+        else:
+            ktile = _TC_TK
+            fck = min(din, (ktile - 1) // J + 2)
         rc = _TC_RC
-        tiles = -(-din // fck) * -(-dout // tile)
+        tiles = -(-din * J // ktile) * -(-dout // tile)
     elif route == "narrow":
         tile = _pow2_at_least(dout, 1, 8)
         fck, rc = _NW_F, _NW_RG
-        tiles = -(-din // fck)
+        tiles = -(-din // fck) * -(-J // _NW_JB)
     else:
         tile = _col_groups(dout, 16)
+        while 1024 // tile < J:
+            tile //= 2
         tmk, tn = 1024 // tile, 8 * tile
         fck = min(din, tmk // J)
 
         def smem(rc):
-            return 4 * (2 * tmk * _ld(rc) + 2 * rc * tn
-                        + fck * _KNOT_STRIDE)
+            return 4 * (2 * tmk * _ld(rc) + 2 * rc * tn + fck * ks)
 
         rc = 4
         while rc < 256 and smem(rc + 4) <= _SMEM_BUDGET:
@@ -255,7 +303,7 @@ def dw_plan(n: int, din: int, dout: int, J: int,
         tiles = -(-din // fck) * -(-dout // tn)
     slices = max(1, min(-(-_TARGET_CTAS // tiles), -(-n // rc)))
     rows = -(-(-(-n // slices)) // rc) * rc
-    return DwPlan(route, tile, fck, rc, rows, -(-n // rows))
+    return DwPlan(route, tile, fck, rc, rows, -(-n // rows), ktile)
 
 
 def dw_group(plan: DwPlan, dout: int, K: int) -> int:
@@ -264,22 +312,26 @@ def dw_group(plan: DwPlan, dout: int, K: int) -> int:
     return max(1, min(plan.slices, SCRATCH_BYTES // (4 * dout * K)))
 
 
-def dx_fused(dout: int, mode: str) -> bool:
+def dx_fused(dout: int, mode: str, J: int = 1) -> bool:
     """Whether a layer's dx comes out of its dW pass (the tensor-core and
     narrow routes; the tensor-core one needs every output in one column
-    tile, dout <= 256); else the FMA dx kernel runs after it."""
+    tile, dout <= 256, and whole features in a K tile, J <= 64); else the
+    FMA dx kernel runs after it."""
     route = layer_route(dout, mode)
-    return route == "narrow" or (route == "tc" and dout <= 256)
+    return route == "narrow" or (route == "tc" and dout <= 256
+                                 and J <= _TC_TK)
 
 
-def dx_plan(din: int, dout: int, J: int) -> tuple[int, int]:
-    """H's FMA dx launch for one layer (the highest tier, and dout > 256
-    in the others): (input features per chunk, dout per inner chunk)."""
+def dx_plan(din: int, dout: int, J: int,
+            ks: int = _KNOT_STRIDE) -> tuple[int, int]:
+    """H's FMA dx launch for one layer (the highest tier, and in the others
+    dout > 256 or J > 64): (input features per chunk, dout per inner
+    chunk)."""
     fcx = min(din, _DX_TN // J)
 
     def smem(ic):
         return 4 * (2 * _DX_TM * _ld(ic) + 2 * ic * _DX_TN
-                    + _DX_TM * _DX_TN + fcx * _KNOT_STRIDE)
+                    + _DX_TM * _DX_TN + fcx * ks)
 
     ic = min(32, _round4(dout))
     while ic > 4 and smem(ic) > _SMEM_BUDGET:
@@ -369,24 +421,26 @@ _I = ctypes.c_int
 
 
 class _KanLibrary:
-    """``csrc/kan.cu`` built once per process (at first use)."""
+    """``csrc/kan.cu`` built once per process (at first use) under ``name``
+    with the extra nvcc ``defines``."""
 
-    def __init__(self):
+    def __init__(self, name: str = "kan", defines: tuple[str, ...] = ()):
+        self.name, self.defines = name, defines
         self._lib = None
 
     def __call__(self):
         if self._lib is None:
-            lib = build_library("kan", ["kan.cu"])
+            lib = build_library(self.name, ["kan.cu"], self.defines)
             lib.kan_split.argtypes = [_P] * 7 + [_I] * 4 + [_P]
             lib.kan_gsplit.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I,
                                                   _P]
             lib.kan_forward.argtypes = [_P] * 5 + [_I] * 8 + [_P]
             lib.kan_forward_tc.argtypes = ([_P] * 4 + [_I, _P] + [_I] * 8
                                            + [_P])
-            lib.kan_forward_narrow.argtypes = [_P] * 5 + [_I] * 7 + [_P]
+            lib.kan_forward_narrow.argtypes = [_P] * 5 + [_I] * 8 + [_P]
             lib.kan_dw.argtypes = [_P] * 4 + [_I] * 12 + [_P]
             lib.kan_bwd_tc.argtypes = ([_P] * 6 + [_I] + [_P] * 2
-                                       + [_I] * 11 + [_P])
+                                       + [_I] * 12 + [_P])
             lib.kan_bwd_narrow.argtypes = [_P] * 7 + [_I] * 10 + [_P]
             lib.kan_reduce.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _P]
             lib.kan_dx.argtypes = [_P] * 6 + [_I] * 8 + [_P]
@@ -400,6 +454,16 @@ class _KanLibrary:
 
 
 KAN_LIBRARY = _KanLibrary()
+KAN_WIDE_LIBRARY = _KanLibrary("kan_wide", ("-DKAN_WIDE=1",))
+
+
+def kan_library(order: int, n_knots: int) -> _KanLibrary:
+    """The build of ``csrc/kan.cu`` that takes the config: the default one
+    for orders up to 4 with at most 16 degree-0 bases, the wide one
+    otherwise.  The wide build takes the default one's configs too, with
+    the same outputs and gradients, but its H is ~8% slower at the runner's
+    grid 5 / order 3 on an H100 (chip_smoke.py phase 29 times both)."""
+    return KAN_WIDE_LIBRARY if is_wide(order, n_knots) else KAN_LIBRARY
 
 
 def _check_cuda(name: str, dev: torch.device) -> None:
@@ -420,15 +484,23 @@ class LayerShape:
     def K(self) -> int:
         return self.din * self.J
 
+    @property
+    def ks(self) -> int:
+        """The knot row's floats (the order is nk - J)."""
+        return knot_stride(self.nk - self.J, self.nk)
+
 
 def check_kernel_config(order: int, n_knots: int) -> None:
-    """The kernels take spline orders 1..4 and at most 16 degree-0 bases
-    (grid_size + 2 * order <= 16); anything else raises."""
-    if not 1 <= order <= _MAX_ORDER or not order < n_knots - 1 <= _MAX_BASES:
+    """The kernels take spline orders 1..8 and up to 128 knots a feature
+    (grid_size + 2 * spline_order <= 127, grid_size >= 1); anything else
+    raises."""
+    if (not 1 <= order <= _WIDE_MAX_ORDER
+            or not order < n_knots - 1 < _WIDE_MAX_KNOTS):
         raise ValueError(
-            f"the KAN kernels take spline_order 1..{_MAX_ORDER} and "
-            f"grid_size + 2 * spline_order <= {_MAX_BASES}; got order "
-            f"{order} with {n_knots} knots")
+            f"the KAN kernels take spline_order 1..{_WIDE_MAX_ORDER} and "
+            f"grid_size + 2 * spline_order <= {_WIDE_MAX_KNOTS - 1} (at "
+            f"most {_WIDE_MAX_KNOTS} knots a feature); got order {order} "
+            f"with {n_knots} knots")
 
 
 def _layer_shape(x: torch.Tensor, grid: torch.Tensor, w_t: torch.Tensor,
@@ -489,7 +561,7 @@ def layer_forward(lib, x, grid, w_t, s: LayerShape, order: int, mode: str,
     """One layer of G: y (n, dout) on the route of ``fwd_plan``, with W's
     planes made here: bf16 (K, whole column tiles) for the tensor cores,
     f32 (K, dout) for the narrow and FMA kernels."""
-    plan = fwd_plan(s.din, s.dout, s.J, mode)
+    plan = fwd_plan(s.din, s.dout, s.J, mode, s.ks)
     code = _MODE_CODE[mode]
     y = torch.empty((s.n, s.dout), dtype=torch.float32, device=x.device)
     dims = (s.n, s.din, s.dout, s.nk, order, code)
@@ -504,7 +576,7 @@ def layer_forward(lib, x, grid, w_t, s: LayerShape, order: int, mode: str,
     if plan.route == "narrow":
         _check_rc("kan_forward_narrow", lib.kan_forward_narrow(
             x.data_ptr(), grid.data_ptr(), whi.data_ptr(), wlo.data_ptr(),
-            y.data_ptr(), *dims, plan.tile, stream))
+            y.data_ptr(), *dims, plan.tile, plan.fc, stream))
     else:
         _check_rc("kan_forward", lib.kan_forward(
             x.data_ptr(), grid.data_ptr(), whi.data_ptr(), wlo.data_ptr(),
@@ -523,12 +595,12 @@ class _KanFwdKernel(LaunchCounter):
         (out (n, dout), the input of every layer)."""
         dev = coords.device
         _check_cuda("coords", dev)
-        lib = KAN_LIBRARY()
         x, xs = coords, [coords]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             for li, (grid, w_t) in enumerate(layers):
                 s = _layer_shape(x, grid, w_t, order, li)
+                lib = kan_library(order, s.nk)()
                 x = layer_forward(lib, x, grid, w_t, s, order, mode, stream)
                 if li < len(layers) - 1:
                     xs.append(x)
@@ -545,9 +617,9 @@ def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
     (``dx_fused``), else the FMA dx kernel runs after them.  The planes
     (the cotangent's and W's bf16 splits for the tensor cores, W^T's f32
     split otherwise) are made here, once per layer."""
-    plan = dw_plan(s.n, s.din, s.dout, s.J, mode)
+    plan = dw_plan(s.n, s.din, s.dout, s.J, mode, s.ks)
     code = _MODE_CODE[mode]
-    fused = need_dx and dx_fused(s.dout, mode)
+    fused = need_dx and dx_fused(s.dout, mode, s.J)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((s.n, s.din), **f32) if need_dx else None
     if plan.route == "tc":
@@ -569,7 +641,8 @@ def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
             _check_rc("kan_bwd_tc", lib.kan_bwd_tc(
                 x.data_ptr(), grid.data_ptr(), ghi.data_ptr(),
                 glo.data_ptr(), ptr(whi), ptr(wlo), ghi.shape[1],
-                partial.data_ptr(), out, *dims, plan.tile, plan.fck, *rows))
+                partial.data_ptr(), out, *dims, plan.tile, plan.fck,
+                plan.ktile, *rows))
         elif plan.route == "narrow":
             _check_rc("kan_bwd_narrow", lib.kan_bwd_narrow(
                 x.data_ptr(), grid.data_ptr(), g.data_ptr(),
@@ -586,7 +659,7 @@ def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
     if need_dx and not fused:
         if plan.route == "tc":
             thi, tlo = _split(lib, w_t, s, code, stream, rows=False)
-        fcx, ic = dx_plan(s.din, s.dout, s.J)
+        fcx, ic = dx_plan(s.din, s.dout, s.J, s.ks)
         _check_rc("kan_dx", lib.kan_dx(
             x.data_ptr(), grid.data_ptr(), g.data_ptr(), thi.data_ptr(),
             tlo.data_ptr(), dx.data_ptr(), *dims, fcx, ic, stream))
@@ -605,7 +678,6 @@ class _KanBwdKernel(LaunchCounter):
                  mode: str) -> list[torch.Tensor]:
         dev = g.device
         _check_cuda("cotangent", dev)
-        lib = KAN_LIBRARY()
         grads: list[torch.Tensor] = [None] * len(layers)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -613,6 +685,7 @@ class _KanBwdKernel(LaunchCounter):
                 grid, w_t = layers[li]
                 x = xs[li]
                 s = _layer_shape(x, grid, w_t, order, li)
+                lib = kan_library(order, s.nk)()
                 _check_tensor("cotangent", g, dev, (s.n, s.dout))
                 grads[li], g = layer_backward(lib, x, grid, g, w_t, s, order,
                                               mode, stream, need_dx=li > 0)

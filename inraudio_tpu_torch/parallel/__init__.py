@@ -1,7 +1,7 @@
 from .mesh import (Mesh, RowShard, make_mesh, normalise_weight,
                    pad_to_multiple, resolve_mesh, shard_problem_arrays,
-                   shard_rows)
+                   shard_rows, whole_signal_arrays)
 
 __all__ = ["Mesh", "RowShard", "make_mesh", "normalise_weight",
            "pad_to_multiple", "resolve_mesh", "shard_problem_arrays",
-           "shard_rows"]
+           "shard_rows", "whole_signal_arrays"]

@@ -23,7 +23,10 @@ CUDA support in the installed build.
 
 The row layout is the JAX fit's: the rows are padded to a multiple of
 ``block * size`` (``pad_to_multiple``) and split into equal shards, so every
-rank holds whole row tiles; padded rows carry no loss.
+rank holds whole row tiles; padded rows carry no loss.  A loss that needs
+the whole signal (snr, the STFT term) sees the whole padded clip on every
+rank (``whole_signal_arrays``), as the JAX package's partitioner computes
+it over its padded batch.
 """
 
 from __future__ import annotations
@@ -199,15 +202,42 @@ def shard_problem_arrays(mesh: Mesh, coords: np.ndarray, targets: np.ndarray,
     JAX package normalises over the padded batch and divides the loss by
     it: the same loss)."""
     sh = shard_rows(mesh, coords.shape[0], block)
-    arrays = [coords, targets]
-    if weight is not None:
-        arrays.append(normalise_weight(weight))
-    out = []
-    for a in arrays:
-        a = np.asarray(a, np.float32).reshape(coords.shape[0], -1)
-        part = np.zeros((sh.rows, a.shape[1]), np.float32)
-        part[:sh.valid] = a[sh.start:sh.start + sh.valid]
-        out.append(torch.from_numpy(part).to(mesh.device))
-    if weight is None:
-        out.append(None)
-    return out[0], out[1], out[2], sh
+    return (shard_array(mesh, sh, coords), shard_array(mesh, sh, targets),
+            None if weight is None
+            else shard_array(mesh, sh, normalise_weight(weight)), sh)
+
+
+def shard_array(mesh: Mesh, sh: RowShard, a: np.ndarray) -> torch.Tensor:
+    """The rows ``sh`` of a host array (n, ...) as float32 (sh.rows, -1) on
+    the rank's device, zero past the clip's end."""
+    a = np.asarray(a, np.float32)
+    a = a.reshape(a.shape[0], -1)
+    part = np.zeros((sh.rows, a.shape[1]), np.float32)
+    part[:sh.valid] = a[sh.start:sh.start + sh.valid]
+    return torch.from_numpy(part).to(mesh.device)
+
+
+def whole_signal_arrays(mesh: Mesh, targets: np.ndarray,
+                        weight: np.ndarray | None = None):
+    """The whole clip as a loss that needs the whole signal sees it on a
+    mesh, on this rank's device: (targets (n_pad, out), weight (n_pad, 1)
+    or None), n_pad = ``shard_rows(mesh, n)``'s rows times the ranks, the
+    rows the gathered prediction holds (the JAX package's padding to a
+    multiple of its devices).  Targets are zero on the padding.  As in the
+    JAX package's ``shard_problem_arrays``, the weight, or ones over the
+    real rows when rows were padded, is normalised to mean 1 over the
+    padded batch and is 0 on the padding; with neither it is None."""
+    t = np.asarray(targets, np.float32)
+    n = t.shape[0]
+    t = t.reshape(n, -1)
+    n_pad = shard_rows(mesh, n).rows * mesh.size
+    full = np.zeros((n_pad, t.shape[1]), np.float32)
+    full[:n] = t
+    w = None
+    if weight is not None or n_pad != n:
+        w = np.zeros((n_pad, 1), np.float32)
+        w[:n] = (np.ones((n, 1), np.float32) if weight is None
+                 else np.asarray(weight, np.float32).reshape(n, 1))
+        w = w * (n_pad / max(float(np.sum(w)), 1e-12))
+    return (torch.from_numpy(full).to(mesh.device),
+            None if w is None else torch.from_numpy(w).to(mesh.device))

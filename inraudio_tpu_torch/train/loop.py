@@ -9,10 +9,11 @@ best snapshot and best loss, as under the JAX package's ``vmap``.
 Two steps:
 - ``make_train_step``: autograd of the model's apply through
   ``losses.mix_loss`` (mse, mae or snr, the STFT term at alpha > 0, an
-  optional per-row weight); for a window population the per-window MSE, so
-  the gradient of the summed loss is each window's own; clip, Adam,
-  plateau and best per window.  With a fused mlp its backward is kernel C,
-  with a fused KAN kernel H.
+  optional per-row weight); for a window population the per-window
+  ``mix_loss`` of the same config (the JAX package's ``vmap``), so the
+  gradient of the summed loss is each window's own; clip, Adam, plateau
+  and best per window.  With a fused mlp its backward is kernel C, with a
+  fused KAN kernel H.
 - the whole-step kernel D (``ops.siren_step``), wired for a population by
   ``make_vmapped_fused_step`` when ``fused_step_plan`` admits the model
   (mse at alpha 0, weighted or not).
@@ -28,11 +29,14 @@ escalates to the full tier for good once a round's last loss crosses
 ``schedule_db``.  On a mesh of more than one rank
 (``parallel.make_mesh``) the rows are sharded: a fused mlp's mse fit takes
 kernel E on each shard, one all-reduce and kernel F
-(``ops.siren_step.make_sharded_fused_mse_train_step``), every other mse or
-mae fit an autograd step whose local loss is normalised by the whole
-clip's rows and whose gradients are all-reduced in one buffer
-(``make_sharded_train_step``).  The snr loss and the STFT term need the
-whole signal, which no row shard holds: on a mesh they raise.
+(``ops.siren_step.make_sharded_fused_mse_train_step``), every other fit an
+autograd step whose gradients are all-reduced in one buffer
+(``make_sharded_train_step``).  mse and mae are sums over rows: the local
+loss is normalised by the whole clip's rows.  The snr loss and the STFT
+term need the whole signal: every rank gathers the prediction of every
+shard, computes the loss of the whole padded clip as the JAX package's
+partitioner does, and backpropagates its own rows' part of the loss's
+cotangent through its shard.
 
 Best-params semantics as the JAX package: ``track_best=True`` snapshots the
 parameters that produced the best loss; False keeps the initial ones.
@@ -51,7 +55,8 @@ import torch
 from ..models import INRModel
 from ..models.siren import params_from_jax, params_to_numpy
 from ..parallel.mesh import (Mesh, normalise_weight, resolve_mesh,
-                             shard_problem_arrays)
+                             shard_array, shard_problem_arrays, shard_rows,
+                             whole_signal_arrays)
 from ..tree import tree_leaves, tree_map, tree_unflatten
 from ..utils.observability import profile_trace
 from .losses import mix_loss
@@ -131,22 +136,17 @@ def make_train_step(model: INRModel, cfg: TrainConfig):
     """One full-batch step: (state, coords, targets, weight=None) ->
     (state, (loss, lr)), the loss ``losses.mix_loss`` of the config with
     the per-row ``weight`` (n, 1) (mean 1 over the real rows) or None.
-    With stacked state (leading k) ``targets`` is (k, n, out) and every
-    window's MSE, clip, Adam, plateau and best are its own; a window
-    population trains with the unweighted MSE only."""
+    With stacked state (leading k) ``targets`` is (k, n, out), ``weight``
+    (k, n) or None, and every window's loss (``mix_loss`` over its own
+    rows, the STFT terms on its own signal), clip, Adam, plateau and best
+    are its own."""
 
     def loss_fn(params, coords, targets, weight):
         pred = model.apply(params, coords)
-        if pred.dim() == 3:  # per window
-            if not _is_mse(cfg) or weight is not None:
-                raise NotImplementedError(
-                    "a window population trains with the unweighted mse "
-                    f"(got loss_mode={cfg.loss_mode!r}, alpha={cfg.alpha}, "
-                    f"weight {'given' if weight is not None else 'None'})")
-            return torch.mean(torch.square(pred - targets), dim=(1, 2))
         return mix_loss(pred, targets, loss_mode=cfg.loss_mode,
                         alpha=cfg.alpha, weight=weight,
-                        multi_resolution=cfg.multi_resolution_stft)
+                        multi_resolution=cfg.multi_resolution_stft,
+                        windows=pred.dim() == 3)
 
     update = _make_update(cfg)
 
@@ -208,43 +208,89 @@ def _make_update(cfg: TrainConfig):
     return update
 
 
-def check_sharded_loss(cfg: TrainConfig, mesh: Mesh) -> None:
-    """On a mesh of more than one rank only losses that are sums over rows
-    shard (mse, mae, weighted or not): the snr loss's energy ratio and the
-    STFT term's frames need the whole signal."""
-    if mesh.size > 1 and (cfg.loss_mode not in ("mse", "mae")
-                          or cfg.alpha != 0.0):
-        raise NotImplementedError(
-            f"loss_mode={cfg.loss_mode!r} with alpha={cfg.alpha} needs the "
-            f"whole signal; a fit on {mesh.size} ranks takes mse or mae at "
-            "alpha 0")
-
-
 def make_sharded_train_step(model: INRModel, cfg: TrainConfig, mesh: Mesh,
-                            n_valid: int, valid: int):
-    """One rank's autograd step of a row-sharded fit of one model:
-    (state, coords, targets, weight=None) -> (state, (loss, lr)),
-    ``coords`` / ``targets`` / ``weight`` this rank's (padded) rows of
-    which the first ``valid`` are real.  The local loss is sum(err^2 w)
-    (mse) or sum(|err| w) (mae) over ``n_valid`` (the whole clip's rows; w
-    the weight, mean 1 over the clip's real rows, or 1); its gradients and
-    the loss go through one all-reduce as one buffer, then clip, Adam,
-    plateau and best run on the replicated values, as XLA's partitioner
-    runs the JAX package's sharded step."""
-    check_sharded_loss(cfg, mesh)
+                            coords: np.ndarray, targets: np.ndarray,
+                            weight: np.ndarray | None = None, mark=None):
+    """One rank's autograd step of a row-sharded fit of one model on the
+    whole clip (host arrays: ``coords`` (n, d), ``targets`` (n, out), the
+    per-row ``weight`` (n,) or (n, 1) or None): step(state) -> (state,
+    (loss, lr)), over this rank's rows (``parallel.shard_rows``).
+
+    mse and mae: the local loss is sum(err^2 w) or sum(|err| w) over the
+    rank's real rows, divided by n (w the weight, mean 1 over the clip's
+    real rows, or 1); its gradients and the loss go through one all-reduce
+    as one buffer.
+
+    snr and alpha > 0: every rank holds the whole padded clip's targets and
+    loss weight (``parallel.whole_signal_arrays``), gathers the detached
+    prediction of every shard (the clip in rank order, padded as the JAX
+    package pads it to a multiple of its devices), computes ``mix_loss`` of
+    the whole clip and its cotangent, and backpropagates its own rows'
+    slice of that cotangent through its shard; the gradients go through one
+    all-reduce.  Every rank computes the same loss from the same gathered
+    clip.  ``mark(part)``, when given, is called after each part of this
+    step (forward, gather, loss, backward, all-reduce), for a caller that
+    times them.
+
+    Then clip, Adam, plateau and best run on the replicated values, as
+    XLA's partitioner runs the JAX package's sharded step."""
     update = _make_update(cfg)
+    n = coords.shape[0]
+    if cfg.loss_mode in ("mse", "mae") and cfg.alpha == 0.0:  # row sums
+        cs, ts, ws, sh = shard_problem_arrays(mesh, coords, targets,
+                                              weight=weight)
+        return _row_sum_step(model, cfg, mesh, n, sh.valid, update, cs, ts,
+                             ws)
+    sh = shard_rows(mesh, n)
+    cs = shard_array(mesh, sh, coords)
+    targets_all, weight_all = whole_signal_arrays(mesh, targets, weight)
+    own = slice(sh.start, sh.start + sh.rows)
+    mark = mark or (lambda part: None)
+
+    def train_step(state: TrainState):
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_leaves(state.params)]
+        params = tree_unflatten(state.params, leaves)
+        with torch.enable_grad():
+            pred = model.apply(params, cs)
+            mark("forward")
+            clip = mesh.all_gather(pred.detach()).requires_grad_(True)
+            mark("gather")
+            loss = mix_loss(clip, targets_all, loss_mode=cfg.loss_mode,
+                            alpha=cfg.alpha, weight=weight_all,
+                            multi_resolution=cfg.multi_resolution_stft)
+            (cot,) = torch.autograd.grad(loss, clip)
+            mark("loss")
+            grads = torch.autograd.grad(pred, leaves, cot[own],
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            mark("backward")
+        buf = torch.cat([g.reshape(-1) for g in grads])
+        mesh.all_reduce_(buf)
+        mark("all-reduce")
+        parts = torch.split(buf, [g.numel() for g in grads])
+        grads = tree_unflatten(state.params, [p.view_as(g)
+                                              for p, g in zip(parts, grads)])
+        return update(state, loss.detach().to(torch.float32), grads)
+
+    return train_step
+
+
+def _row_sum_step(model: INRModel, cfg: TrainConfig, mesh: Mesh,
+                  n_valid: int, valid: int, update, coords, targets, weight):
+    """The mse / mae step of ``make_sharded_train_step`` on this rank's
+    (padded) rows, of which the first ``valid`` are real."""
     inv_n = 1.0 / float(n_valid)
     term = torch.square if cfg.loss_mode == "mse" else torch.abs
 
-    def loss_fn(params, coords, targets, weight):
+    def loss_fn(params):
         per_row = term(model.apply(params, coords) - targets)
         if weight is not None:
             per_row = per_row * weight
         return torch.sum(per_row[:valid]) * inv_n
 
-    def train_step(state: TrainState, coords, targets, weight=None):
-        loss, grads = _loss_and_grads(
-            state, lambda p: loss_fn(p, coords, targets, weight))
+    def train_step(state: TrainState):
+        loss, grads = _loss_and_grads(state, loss_fn)
         leaves = tree_leaves(grads)
         buf = torch.cat([g.reshape(-1) for g in leaves] + [loss.reshape(1)])
         mesh.all_reduce_(buf)
@@ -380,17 +426,16 @@ def _sharded_step(model: INRModel, cfg: TrainConfig, state: TrainState,
     """One rank of a row-sharded fit: kernels E + F for a model that
     ``fused_step_plan`` admits (rows padded to whole row tiles per rank, as
     the JAX fit pads them), one step a tier of ``tiers`` sharing the carry;
-    the sharded autograd step otherwise (one step, whatever ``tiers``).
+    the sharded autograd step (``make_sharded_train_step``) otherwise (one
+    step, whatever ``tiers``).
     The per-row ``weight`` (n,) or (n, 1) is normalised over the whole
     clip, then split with the rows, 0 on padding.  Returns (carry, [step
     (carry) -> (carry, (loss, lr))], carry -> TrainState)."""
     n = coords.shape[0]
     block = fused_step_plan(model, cfg, -(-n // mesh.size))
     if block is None:
-        cs, ts, ws, sh = shard_problem_arrays(mesh, coords, targets,
-                                              weight=weight)
-        train_step = make_sharded_train_step(model, cfg, mesh, n, sh.valid)
-        return (state, [lambda c: train_step(c, cs, ts, ws)],
+        return (state, [make_sharded_train_step(model, cfg, mesh, coords,
+                                                targets, weight)],
                 lambda c: c)
     from ..ops.siren_step import (flat_state_from_train_state,
                                   make_sharded_fused_mse_train_step,
@@ -440,8 +485,9 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
     otherwise).  On more ranks each rank holds an equal shard of the rows
     (and of the weight) and a copy of the state: a fused mlp's mse fit
     steps through kernel E on its shard, one all-reduce and kernel F; every
-    other mse or mae fit (the KAN with kernels G and H included) through
-    the sharded autograd step; the snr loss and alpha > 0 raise.  Every rank gets the same ``FitResult`` (its
+    other fit (the KAN with kernels G and H included) through the sharded
+    autograd step, which gathers the prediction of the whole clip for the
+    snr loss and the STFT term.  Every rank gets the same ``FitResult`` (its
     ``train_time_s`` from the first rank's start to the last rank's end);
     only rank 0 writes checkpoints.
 
@@ -466,7 +512,6 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
     otherwise the state is drawn from ``generator`` (seed 0 when None)."""
     cfg = cfg or TrainConfig()
     mesh = resolve_mesh(mesh, device)
-    check_sharded_loss(cfg, mesh)
     dev = mesh.device
     if state is None:
         state = init_train_state(

@@ -34,6 +34,7 @@ from inraudio_tpu_torch.ops import siren_step as ss
 from inraudio_tpu_torch.ops import siren_train as st
 from inraudio_tpu_torch.parallel import Mesh, make_mesh
 from inraudio_tpu_torch.train import loop as tloop
+from inraudio_tpu_torch.tree import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -1554,10 +1555,31 @@ KAN_CONFIGS = [dict(layers_hidden=(1, 32, 32, 1)),
                dict(layers_hidden=(512, 128, 128, 1)),
                # dout > 256: dW over several tensor-core column tiles, then
                # layer 1's dx on the FMA route
-               dict(layers_hidden=(1, 320, 320, 1))]
+               dict(layers_hidden=(1, 320, 320, 1)),
+               # the wide library (kan.cu with KAN_WIDE): grid extension's
+               # sizes and orders up to 8; at J > 64 (grid 100) H's
+               # tensor-core K tiles cut through features and dx runs on
+               # the FMA kernel, G's column tile shrinks to 128
+               dict(layers_hidden=(1, 16, 1), grid_size=20, spline_order=3),
+               dict(layers_hidden=(1, 16, 1), grid_size=100, spline_order=3),
+               dict(layers_hidden=(1, 16, 1), grid_size=5, spline_order=5),
+               dict(layers_hidden=(1, 16, 1), grid_size=5, spline_order=8),
+               dict(layers_hidden=(1, 64, 64, 1), grid_size=20,
+                    spline_order=3),
+               dict(layers_hidden=(1, 64, 64, 1), grid_size=100,
+                    spline_order=8),
+               # knots from update_grid: non-uniform, searched per row
+               dict(layers_hidden=(1, 64, 64, 1), grid_size=20,
+                    spline_order=3, refresh=True)]
 KAN_IDS = ["x".join(map(str, c["layers_hidden"]))
            + f"-g{c.get('grid_size', 5)}o{c.get('spline_order', 3)}"
+           + ("-refreshed" if c.get("refresh") else "")
            for c in KAN_CONFIGS]
+
+
+def kan_config(cfg_kw) -> KANConfig:
+    """The KANConfig of a KAN_CONFIGS entry (``refresh`` is the setup's)."""
+    return KANConfig(**{k: v for k, v in cfg_kw.items() if k != "refresh"})
 
 
 def check_kan(out: torch.Tensor, ref: torch.Tensor, rtol: float,
@@ -1595,10 +1617,16 @@ def check_kan_outputs(layers, xs, out, xs_ref, ref, order, rtol=KAN_RTOL):
 
 def kan_setup(cfg_kw, n, dev, seed=0):
     """(layers [(grid, W^T)], coords (n, d), cotangent (n, out)) for a
-    KAN drawn from ``seed``, coords a little past the grid range."""
-    cfg = KANConfig(**cfg_kw)
-    params = build_model("kan", cfg).init(torch.Generator().manual_seed(seed),
-                                          dev)
+    KAN drawn from ``seed``, coords a little past the grid range; with
+    ``refresh`` the knots of every layer come from ``update_grid`` on a
+    skewed sample (non-uniform)."""
+    cfg = kan_config(cfg_kw)
+    model = build_model("kan", cfg)
+    params = model.init(torch.Generator().manual_seed(seed), dev)
+    if cfg_kw.get("refresh"):
+        skew = torch.linspace(-0.9, 1.0, 512, device=dev)[:, None] ** 3
+        params = model.update_grid(params, skew.repeat(
+            1, cfg.layers_hidden[0]))
     flat = [t.detach().contiguous() for t in kf.flatten_kan_params(params)]
     g = torch.Generator(dev).manual_seed(seed + 1)
     d, out = cfg.layers_hidden[0], cfg.layers_hidden[-1]
@@ -1616,7 +1644,7 @@ def kan_fwd_routes(layers, mode) -> list[str]:
 
 @pytest.mark.parametrize("cfg_kw", KAN_CONFIGS, ids=KAN_IDS)
 def test_kan_kernels_match_plain(dev, cfg_kw):
-    order = KANConfig(**cfg_kw).spline_order
+    order = kan_config(cfg_kw).spline_order
     layers, coords, cot = kan_setup(cfg_kw, 3001, dev)
     # 3001 rows: a part tile on both routes (64 rows a tensor-core tile,
     # 256 a narrow CTA); every config has a tensor-core layer, and a head
@@ -1637,7 +1665,7 @@ def test_kan_kernels_match_plain(dev, cfg_kw):
 @pytest.mark.parametrize("cfg_kw", KAN_CONFIGS, ids=KAN_IDS)
 @pytest.mark.parametrize("mode", ["highest", "bf16x2", "bf16"])
 def test_kan_kernels_every_tier(dev, mode, cfg_kw):
-    order = KANConfig(**cfg_kw).spline_order
+    order = kan_config(cfg_kw).spline_order
     layers, coords, cot = kan_setup(cfg_kw, 2000, dev)
     exact = mode == "highest"
     out, xs = kf.KAN_FWD(layers, coords, order, mode)
@@ -1731,8 +1759,110 @@ def test_kan_autograd_counts_launches(dev):
 def test_kan_kernels_validate(dev):
     layers, coords, cot = kan_setup(dict(layers_hidden=(1, 16, 1)), 100, dev)
     before = kf.KAN_FWD.launches
+    # past the kernels' bound (orders 1..8)
     with pytest.raises(ValueError, match="spline_order"):
-        kf.KAN_FWD(layers, coords, 5, "bf16x3")
+        kf.KAN_FWD(layers, coords, 9, "bf16x3")
     with pytest.raises(ValueError, match="is on"):
         kf.KAN_FWD(layers, coords.cpu(), 3, "bf16x3")
     assert kf.KAN_FWD.launches == before
+
+
+def test_kan_wide_kernels_are_deterministic(dev):
+    """The wide library's G and H, repeated from one state, bit-equal: at
+    grid 100 (H's K tiles cut through features, its dx on the FMA kernel)
+    and at order 8."""
+    for cfg_kw in (dict(layers_hidden=(1, 64, 64, 1), grid_size=100),
+                   dict(layers_hidden=(1, 64, 64, 1), grid_size=5,
+                        spline_order=8)):
+        order = kan_config(cfg_kw).spline_order
+        layers, coords, cot = kan_setup(cfg_kw, 4000, dev)
+        a, xa = kf.KAN_FWD(layers, coords, order, "bf16x3")
+        b, xb = kf.KAN_FWD(layers, coords, order, "bf16x3")
+        ga = kf.KAN_BWD(layers, xa, cot, order, "bf16x3")
+        gb = kf.KAN_BWD(layers, xa, cot, order, "bf16x3")
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        assert all(torch.equal(p, q) for p, q in zip(xa, xb))
+        assert all(torch.equal(p, q) for p, q in zip(ga, gb))
+
+
+# ---------------------------------------------------------------------------
+# A window population's other losses, and the whole-signal losses on a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["mae", "snr"])
+def test_population_losses_run_a_and_c(dev, mode):
+    """A window population's mae / snr step (``make_train_step``: every
+    window's own loss) launches the stack kernel (A) once and kernel C
+    once; its losses are those of the plain forward, and C on the step's
+    own cotangent meets the grad tier's tolerance against its plain
+    version."""
+    from inraudio_tpu_torch.train.losses import mix_loss
+    cfg = SirenSnakeTanhConfig(hidden_features=64, first_omega_0=115.0)
+    model = build_model("mlp", cfg, fused=True, approx_sin=True)
+    k, n = 6, 512
+    tc = tloop.TrainConfig(loss_mode=mode, grad_clip_norm=1.0)
+    state = tloop.init_train_state(model, torch.Generator().manual_seed(4),
+                                   tc, dev, windows=k)
+    coords = torch.linspace(-1, 1, n, device=dev)[:, None]
+    freq = torch.arange(1, k + 1, device=dev, dtype=torch.float32)
+    targets = (0.7 * torch.sin(3.1 * freq[:, None] * coords[None, :, 0])
+               )[..., None]
+    plan = sf.stack_plan(cfg, approx_sin=True)
+    gmode = st.grad_dot_mode()
+    ref = sf.stack_forward_plain(state.params, plan, coords)
+    a0, c0 = sf.SIREN_STACK.launches, st.SIREN_BWD.launches
+    step = tloop.make_train_step(model, tc)
+    _, (loss, _) = step(state, coords, targets)
+    torch.cuda.synchronize()
+    assert sf.SIREN_STACK.launches == a0 + 1
+    assert st.SIREN_BWD.launches == c0 + 1
+    assert loss.shape == (k,)
+    # the forward's bf16x3 sums against the plain version's (F32_ATOL a
+    # sample): about 1e-5 relative in mae, 1e-4 dB in snr
+    torch.testing.assert_close(loss, mix_loss(ref, targets, loss_mode=mode,
+                                              windows=True),
+                               rtol=1e-5, atol=1e-4)
+    pred = st.fused_siren_train_apply(state.params, cfg, coords,
+                                      approx_sin=True).detach()
+    pred.requires_grad_(True)
+    (cot,) = torch.autograd.grad(mix_loss(pred, targets, loss_mode=mode,
+                                          windows=True).sum(), pred)
+    out = st.flatten_params(st.SIREN_BWD(state.params, cfg, plan, gmode,
+                                         coords, cot), cfg)
+    exp = st.flatten_params(st.backward_plain(state.params, plan, gmode,
+                                              coords, cot), cfg)
+    torch.cuda.synchronize()
+    check_grads(out, exp, gmode)
+
+
+def test_sharded_snr_step_is_bit_equal_across_repeats(dev):
+    """The snr fit on two thread ranks sharing the card (each gathers the
+    whole clip's prediction; B forward and C backward on its shard, one
+    all-reduce): both ranks' states and histories bit-equal, and a second
+    run from the same state repeats the first bit for bit; B and C launch
+    once a step on each rank."""
+    cfg = SirenSnakeTanhConfig(hidden_features=64, first_omega_0=300.0)
+    model = build_model("mlp", cfg, fused=True, approx_sin=True)
+    n = 3001  # not a multiple of the ranks: one padded row
+    x = torch.linspace(-1, 1, n)[:, None].numpy()
+    y = (0.6 * np.sin(2 * np.pi * 5 * x)).astype(np.float32)
+    tc = tloop.TrainConfig(total_steps=4, scan_chunk=2, loss_mode="snr",
+                           alpha=0.0)
+    state = tloop.init_train_state(model, torch.Generator().manual_seed(2),
+                                   tc, dev)
+    b0, c0 = sf.SIREN_STACK.launches, st.SIREN_BWD.launches
+    runs = [run_thread_ranks(2, lambda m: tloop.fit(model, x, y, tc,
+                                                    state=state, mesh=m),
+                             device=dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sf.SIREN_STACK.launches - b0 == 2 * 2 * 4
+    assert st.SIREN_BWD.launches - c0 == 2 * 2 * 4
+    first = runs[0][0]
+    assert np.isfinite(first.loss_history).all()
+    for res in runs:
+        for r in res:
+            np.testing.assert_array_equal(r.loss_history,
+                                          first.loss_history)
+            for p, q in zip(tree_leaves(r.state), tree_leaves(first.state)):
+                assert torch.equal(p, q)

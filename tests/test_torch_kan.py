@@ -354,7 +354,12 @@ def test_plans_fit_the_kernels(monkeypatch):
     monkeypatch.setattr(kf, "SCRATCH_BYTES", 4096)
     assert [kf.dw_plan(n, din, dout, J)
             for din, dout, J, n in shapes] == before
+    # grid extension's configs take the wide library: grid 20 / order 3
+    # (27 knots) and grid 5 / order 5 (16 knots); past orders 1..8 or 128
+    # knots a feature the kernels refuse
+    kf.check_kernel_config(3, 27)
+    kf.check_kernel_config(5, 16)
     with pytest.raises(ValueError, match="spline_order"):
-        kf.check_kernel_config(5, 20)
+        kf.check_kernel_config(9, 28)
     with pytest.raises(ValueError, match="spline_order"):
-        kf.check_kernel_config(3, 20)
+        kf.check_kernel_config(3, 129)

@@ -1,0 +1,274 @@
+"""The KAN at the grid sizes and spline orders of the wide library of
+``csrc/kan.cu`` (grid extension to 20 and 100 knots' worth of intervals,
+orders 1 and 5..8), held against the JAX package on the CPU: the plain
+versions of kernels G and H through the port's autograd Function against
+the JAX package's ``kan_apply`` and ``jax.grad`` of it (the plain reference
+the Pallas kernels are tested against; interpret-mode Pallas at these
+widths is the slow tier), including a grid refreshed by ``update_grid``;
+and the launch plans of both libraries, on a library that records every
+launch instead of running it.
+
+Tolerances: tests/test_torch_kan.py's (ATOL / RTOL on outputs, GRAD_ATOL /
+GRAD_RTOL on gradients), with the products in the highest tier so that
+both packages compute true f32 products (the bf16 tiers are the card
+tests' business)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from inraudio_tpu.models import KANConfig as JaxKANConfig
+from inraudio_tpu.models import kan as jkan
+from inraudio_tpu_torch.models import (KANConfig, build_model,
+                                       params_from_jax, params_to_numpy)
+from inraudio_tpu_torch.models import kan as tkan
+from inraudio_tpu_torch.ops import kan_fused as kf
+from inraudio_tpu_torch.tree import tree_leaves, tree_unflatten
+
+torch.set_num_threads(1)
+
+ATOL, RTOL = 2e-5, 1e-4
+GRAD_ATOL, GRAD_RTOL = 1e-5, 1e-4
+
+# (grid_size, spline_order): grid extension's sizes, orders 1 and 5..8, and
+# the bound's corner
+ORDERS = [(20, 3), (5, 5), (100, 3), (5, 8), (3, 1), (100, 8)]
+ORDER_IDS = [f"g{g}o{o}" for g, o in ORDERS]
+
+
+@pytest.fixture
+def highest(monkeypatch):
+    monkeypatch.setenv("INRAUDIO_F32_PRECISION", "highest")
+
+
+def _pair(grid_size, order, layers=(1, 8, 6, 1), seed=5):
+    """(JAX config, port config, JAX params, port params): the port draws
+    the init (the JAX init's eager least-squares solves take seconds a
+    config) and the parameters cross as numpy arrays."""
+    kw = dict(layers_hidden=layers, grid_size=grid_size, spline_order=order)
+    jcfg, tcfg = JaxKANConfig(**kw), KANConfig(**kw)
+    tp = build_model("kan", tcfg).init(torch.Generator().manual_seed(seed))
+    jp = jax.tree.map(jnp.asarray, params_to_numpy(tp))
+    return jcfg, tcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp))
+
+
+def _xy(n=400, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.05, 1.05, (n, 1)).astype(np.float32)
+    return x, np.sin(3.0 * x).astype(np.float32)
+
+
+def _close(a, b, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(b, np.float64),
+                               np.asarray(a, np.float64), atol=atol,
+                               rtol=rtol)
+
+
+def _check_forward_and_grads(jcfg, tcfg, jp, tp, x, t):
+    xj, tj = jnp.asarray(x), jnp.asarray(t)
+
+    def jloss(p):
+        return jnp.mean((jkan.kan_apply(p, jcfg, xj) - tj) ** 2)
+
+    lj, gj = jax.jit(jax.value_and_grad(jloss))(jp)
+    leaves = [v.detach().clone().requires_grad_(True)
+              for v in tree_leaves(tp)]
+    params = tree_unflatten(tp, leaves)
+    out = kf.fused_kan_apply(params, tcfg, torch.from_numpy(x))
+    _close(jax.jit(lambda p: jkan.kan_apply(p, jcfg, xj))(jp), out.detach())
+    lt = torch.mean((out - torch.from_numpy(t)) ** 2)
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-5)
+    gt = torch.autograd.grad(lt, leaves)
+    paths = jax.tree_util.tree_leaves_with_path(gj)
+    assert len(paths) == len(gt)
+    for (path, a), b in zip(paths, gt):
+        key = jax.tree_util.keystr(path)
+        if "grid" in key:
+            assert not b.any()
+            continue
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=GRAD_ATOL,
+                                   rtol=GRAD_RTOL, err_msg=key)
+
+
+@pytest.mark.parametrize("grid_size,order", ORDERS, ids=ORDER_IDS)
+def test_plain_kan_matches_jax_at_every_order(highest, grid_size, order):
+    """G's and H's plain versions (the kernels' references on the card)
+    against ``kan_apply`` and ``jax.grad`` of its MSE, every leaf, at the
+    wide library's grid sizes and orders."""
+    kf.check_kernel_config(order, grid_size + 2 * order + 1)
+    jcfg, tcfg, jp, tp = _pair(grid_size, order)
+    x, t = _xy()
+    _check_forward_and_grads(jcfg, tcfg, jp, tp, x, t)
+
+
+def test_plain_kan_after_a_grid_refresh_matches_jax(highest):
+    """After ``update_grid`` the knots are the data's, non-uniform (the
+    wide kernels search them for the interval), and the applies and
+    gradients still agree."""
+    jcfg, tcfg, jp, tp = _pair(20, 3)
+    x, t = _xy(300, seed=1)
+    xr = np.linspace(-0.7, 0.9, 200, dtype=np.float32)[:, None] ** 3
+    # the port's refresh (tests/test_torch_kan.py holds it to the JAX one)
+    tp = tkan.kan_update_grid(tp, tcfg, torch.from_numpy(xr))
+    jp = jax.tree.map(jnp.asarray, params_to_numpy(tp))
+    knots = np.asarray(jp["layers"][0]["grid"])[0]
+    steps = np.diff(knots)
+    assert (steps >= 0).all() and steps.max() > 1.5 * steps.min()
+    _check_forward_and_grads(jcfg, tcfg, jp, tp, x, t)
+
+
+def test_bases_match_jax_at_order_8():
+    """The Cox-de-Boor bases themselves at order 8 over 100 intervals,
+    the plain recursion of both packages (the wide kernels' reference),
+    and the partition of unity on the grid range."""
+    _, tcfg, jp, tp = _pair(100, 8, layers=(2, 3))
+    x = np.random.default_rng(2).uniform(-1, 1, (500, 2)).astype(np.float32)
+    grid = jp["layers"][0]["grid"]
+    ref = jax.jit(lambda v: jkan.b_splines(v, grid, 8))(jnp.asarray(x))
+    out = tkan.b_splines(torch.from_numpy(x), tp["layers"][0]["grid"], 8)
+    assert out.shape == (500, 2, 108)
+    _close(ref, out, atol=1e-6, rtol=1e-5)
+    np.testing.assert_allclose(out.sum(-1).numpy(), 1.0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Launch plans
+# ---------------------------------------------------------------------------
+
+# (din, dout): the runner KAN's layers, the card tests' and wider ones
+WIDE_SHAPES = [(1, 256), (256, 256), (256, 1), (1, 16), (16, 1), (64, 64),
+               (320, 320), (2, 3), (512, 128)]
+
+
+@pytest.mark.parametrize("grid_size,order",
+                         ORDERS + [(125, 1), (111, 8), (9, 4), (10, 3)],
+                         ids=ORDER_IDS + ["g125o1", "g111o8", "g9o4",
+                                          "g10o3"])
+def test_wide_plans_fit_the_kernels(grid_size, order):
+    """Every plan of G and H stays within a CTA's shared memory and within
+    what the C launchers check, at every layer shape and tier: the
+    tensor-core G's column tile shrinks to fit one feature's chunk, H's
+    tensor-core K tiles cut through a feature past J = 64 (then dx runs on
+    the FMA kernel), the narrow H's grid covers J in blocks of 16, the FMA
+    dW's K tile holds a whole feature.  The library follows the config:
+    the default one up to order 4 and 16 degree-0 bases."""
+    nk = grid_size + 2 * order + 1
+    J = nk - order
+    kf.check_kernel_config(order, nk)
+    wide = kf.is_wide(order, nk)
+    assert wide == (order > 4 or nk - 1 > 16)
+    assert kf.kan_library(order, nk) is (kf.KAN_WIDE_LIBRARY if wide
+                                         else kf.KAN_LIBRARY)
+    ks = kf.knot_stride(order, nk)
+    assert ks == (nk if wide else 20) and ks >= nk
+    for din, dout in WIDE_SHAPES:
+        for mode in ("bf16x3", "bf16x2", "bf16", "highest"):
+            fp = kf.fwd_plan(din, dout, J, mode, ks)
+            if fp.route == "tc":
+                assert fp.tile in (64, 128, 256) and 1 <= fp.fc <= 8
+                assert kf.fwd_tc_smem(fp.tile, fp.fc, J, ks) <= kf._SMEM_MAX
+            elif fp.route == "narrow":
+                assert dout <= fp.tile and 1 <= fp.fc <= 32
+                assert kf.fwd_narrow_smem(fp.tile, J, fp.fc,
+                                          ks) <= kf._SMEM_MAX
+            else:
+                tm, tn, kcp = 1024 // fp.tile, 8 * fp.tile, kf._round4(
+                    fp.fc * J)
+                assert 4 * (2 * tm * kf._ld(kcp) + 2 * kcp * tn
+                            + fp.fc * ks) <= kf._SMEM_MAX
+            dp = kf.dw_plan(50_000, din, dout, J, mode, ks)
+            fused = kf.dx_fused(dout, mode, J)
+            if dp.route == "tc":
+                assert 1 <= dp.ktile <= 64
+                touch = (dp.ktile // J if dp.ktile % J == 0
+                         else (dp.ktile - 1) // J + 2)
+                assert dp.fck >= min(din, touch)
+                assert (dp.ktile == dp.fck * J) == (J <= 64)
+                assert fused == (dout <= 256 and J <= 64)
+                assert kf.bwd_tc_smem(dp.tile, dp.fck, fused,
+                                      ks) <= kf._SMEM_MAX
+            elif dp.route == "narrow":
+                assert fused and dp.fck == 32
+                # the kernel's static shared memory: the row groups' sums
+                # and the knot rows (kan.cu kMaxKnots in the wide library)
+                assert 4 * (8 * 32 * 16 + 32 * (128 if wide else 20)) \
+                    <= 48 * 1024
+            else:
+                assert 1 <= dp.fck and dp.fck * J <= 1024 // dp.tile
+            assert dp.slices * dp.rows_per_slice >= 50_000
+            if not fused:
+                fcx, ic = kf.dx_plan(din, dout, J, ks)
+                assert 1 <= fcx and fcx * J <= 256 and ic % 4 == 0
+
+
+def test_kernel_config_bound():
+    """Orders 1..8 and up to 128 knots a feature; past that the kernels
+    raise with the bound in the message."""
+    for order, nk in ((3, 27), (5, 16), (3, 107), (8, 22), (8, 117),
+                      (1, 128), (4, 16)):
+        kf.check_kernel_config(order, nk)
+    for order, nk in ((9, 30), (0, 10), (3, 129), (3, 4)):
+        with pytest.raises(ValueError, match="spline_order 1..8"):
+            kf.check_kernel_config(order, nk)
+
+
+class _RecordingLibrary:
+    """Records each C entry's arguments and returns 0 (success)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("kan_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("grid_size,order,dims", [
+    (100, 3, (1, 256, 256, 1)), (20, 3, (1, 256, 256, 1)),
+    (5, 8, (1, 64, 3)), (5, 3, (1, 256, 256, 1))],
+    ids=["g100o3", "g20o3", "g5o8", "g5o3"])
+def test_layer_launches_follow_the_plans(grid_size, order, dims):
+    """Each layer's G and H launches on a recording library: the plan's
+    tiles, chunks and K tiles reach the C entries, the knot count and
+    order pass as given, a wide config's H on tensor cores past J = 64
+    launches no dx in its dW pass and runs the FMA dx after it."""
+    nk = grid_size + 2 * order + 1
+    J = nk - order
+    lib = _RecordingLibrary()
+    n = 3000
+    for li, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
+        x = torch.zeros((n, din))
+        grid = torch.zeros((din, nk))
+        w_t = torch.zeros((dout, din * J))
+        s = kf._layer_shape(x, grid, w_t, order, li)
+        assert s.ks == kf.knot_stride(order, nk)
+        lib.calls.clear()
+        kf.layer_forward(lib, x, grid, w_t, s, order, "bf16x3", 0)
+        fp = kf.fwd_plan(din, dout, J, "bf16x3", s.ks)
+        name, args = lib.calls[-1]
+        if fp.route == "tc":
+            assert name == "kan_forward_tc"
+            assert args[6:14] == (n, din, dout, nk, order, 3, fp.tile, fp.fc)
+        else:
+            assert name == "kan_forward_narrow"
+            assert args[5:13] == (n, din, dout, nk, order, 3, fp.tile, fp.fc)
+        lib.calls.clear()
+        g = torch.zeros((n, dout))
+        kf.layer_backward(lib, x, grid, g, w_t, s, order, "bf16x3", 0,
+                          need_dx=li > 0)
+        dp = kf.dw_plan(n, din, dout, J, "bf16x3", s.ks)
+        names = [c[0] for c in lib.calls]
+        if dp.route == "tc":
+            bwd = [a for nm, a in lib.calls if nm == "kan_bwd_tc"]
+            assert bwd and all(a[9:18] == (n, din, dout, nk, order, 3,
+                                           dp.tile, dp.fck, dp.ktile)
+                               for a in bwd)
+            fused = kf.dx_fused(dout, "bf16x3", J)
+            assert all((a[8] != 0) == (fused and li > 0) for a in bwd)
+            assert ("kan_dx" in names) == (li > 0 and not fused)
+            assert (J > 64) == (not fused)
+        else:
+            assert "kan_bwd_narrow" in names and "kan_dx" not in names

@@ -386,24 +386,33 @@ def test_refit_matches_jax(inherit_grad_tier):
                                        atol=1e-6)
 
 
-def test_step_gates_and_width_error():
-    _, tm = _models()
+def test_step_gates_and_width_error(inherit_grad_tier):
+    jm, tm = _models()
     tc = tloop.TrainConfig()
     assert tloop.fused_step_plan(tm, tc, 512) == 8192 // 32
     assert ss.step_block_rows(SirenSnakeTanhConfig(hidden_features=128),
                               512) == 64
     assert tloop.fused_step_plan(build_model(
         "mlp", SirenSnakeTanhConfig(**CFG)), tc, 512) is None
-    # the other losses run autograd, which a window population (the codec)
-    # takes only for the unweighted mse
+    # the other losses run autograd; a window population trains each
+    # window on its own mae, as the JAX package's vmapped step does
     for other in (dict(loss_mode="mae"), dict(alpha=0.5)):
         assert tloop.fused_step_plan(tm, tloop.TrainConfig(**other),
                                      512) is None
-    mae = tloop.make_train_step(tm, tloop.TrainConfig(loss_mode="mae"))
-    state = tloop.init_train_state(tm, torch.Generator().manual_seed(0), tc,
-                                   windows=2)
-    with pytest.raises(NotImplementedError, match="window population"):
-        mae(state, torch.linspace(-1, 1, 16)[:, None], torch.zeros(2, 16, 1))
+    mae_kw = dict(loss_mode="mae", grad_clip_norm=1.0)
+    coords, targets = _problem()
+    js = _jax_population(jm, jloop.TrainConfig(**mae_kw), seed=2)
+    jmae = jax.jit(jax.vmap(jloop.make_train_step(
+        jm, jloop.TrainConfig(**mae_kw)), in_axes=(0, None, 0)))
+    mae = tloop.make_train_step(tm, tloop.TrainConfig(**mae_kw))
+    state = tloop.train_state_from_jax(jax.tree.map(np.asarray, js))
+    for _ in range(2):
+        js, (jl, _) = jmae(js, jnp.asarray(coords), jnp.asarray(targets))
+        state, (loss, _) = mae(state, torch.from_numpy(coords),
+                               torch.from_numpy(targets))
+        assert loss.shape == (K,)
+        np.testing.assert_allclose(loss.numpy(), np.asarray(jl), rtol=1e-6)
+    _assert_state_close(js, state)
     assert not ss.step_supported(SirenSnakeTanhConfig(out_features=2,
                                                       hidden_features=32))
     # the int8 rate points use h=36..48: a fused fit there runs padded to
