@@ -286,7 +286,8 @@ other losses, and the KAN at grid extension's sizes and orders:
    H against their plain versions on a KAN_SUBSET_ROWS-row subset, at the
    init and after ``update_grid``, repeat calls bit-equal, the fits'
    launches, and G, H and each layer timed over the whole clip against
-   ``kan_bounds`` at the config's J.
+   ``kan_bounds`` at the config's J, each layer's H also launch by launch
+   (``ops/kan_h_split.py``: the splits, the dW pass, the reduce, dx).
 
 Every kernel's bound (the least time the card could take for the same
 work) is computed from the run's shapes: the larger of the bytes it must
@@ -488,6 +489,15 @@ POP_CASES = {
 KAN_ORDER_CASES = ((20, 3, 30, 10), (5, 5, 30, 0), (100, 3, 5, 0),
                    (5, 8, 5, 0))
 KAN_SUBSET_ROWS = 32768
+# the CUDA kernel behind each C entry of kan.cu (the narrow H's: the
+# default build's, then the wide build's), for the kernels line
+KAN_ENTRY_KERNELS = {
+    "kan_split": "kan_split_kernel", "kan_gsplit": "kan_gsplit_kernel",
+    "kan_bwd_tc": "kan_bwd_tc_kernel", "kan_reduce": "kan_reduce_kernel",
+    "kan_dx_tc": "kan_dx_tc_kernel", "kan_dx": "kan_dx_kernel",
+    "kan_dw": "kan_dw_kernel",
+    "kan_bwd_narrow": ("kan_bwd_narrow_kernel",
+                       "kan_bwd_narrow_bins_kernel")}
 # the CUDA kernels that serve C, D and E in the bf16 grad tiers (the
 # highest tier runs siren_grad_kernel in their place), for the kernels line
 TC_KERNELS = ["siren_wsplit_kernel", "siren_sweep_kernel", "siren_dw_kernel",
@@ -3842,6 +3852,7 @@ def kan_order_phases(np, torch, dev, clip):
     from inraudio_tpu_torch.data import waveform_fitting, write_wav
     from inraudio_tpu_torch.models import KANConfig, build_model
     from inraudio_tpu_torch.ops import kan_fused as kf
+    from inraudio_tpu_torch.ops.kan_h_split import stack_split
     from inraudio_tpu_torch.train import loop as tloop
     from test_torch_cuda import (KAN_GRAD_RTOL, check_kan,
                                  check_kan_outputs)
@@ -3923,20 +3934,23 @@ def kan_order_phases(np, torch, dev, clip):
         gfull = torch.ones((n, 1), device=dev) / n
         h_ms = cuda_ms(torch, lambda: kf.KAN_BWD(layers, xf, gfull, order,
                                                  mode), 3)
-        lib = kf.kan_library(order, nk)()
-        stream = torch.cuda.current_stream().cuda_stream
+        # each layer's H whole and launch by launch (CUDA events around
+        # each C entry's call), on the cotangent ones / n
+        split = stack_split(torch, kf, layers, xf, order, mode)
         per_layer = []
-        for li, (grid, w_t) in enumerate(layers):
+        for (li, din, dout, layer_h_ms, _), (grid, w_t) in zip(split,
+                                                                  layers):
             s = kf._layer_shape(xf[li], grid, w_t, order, li)
-            g = torch.ones((n, s.dout), device=dev) / n
-            per_layer.append((li, s.din, s.dout, kf.fwd_plan(
-                s.din, s.dout, J, mode, s.ks).route, kf.dw_plan(
-                n, s.din, s.dout, J, mode, s.ks).route, cuda_ms(
+            per_layer.append((li, din, dout, kf.fwd_plan(
+                din, dout, J, mode, s.ks).route, kf.dw_plan(
+                n, din, dout, J, mode, s.ks, s.wide).route, cuda_ms(
                 torch, lambda: kf.KAN_FWD([(grid, w_t)], xf[li], order,
-                                          mode), 3),
-                cuda_ms(torch, lambda: kf.layer_backward(
-                    lib, xf[li], grid, g, w_t, s, order, mode, stream,
-                    li > 0), 3)))
+                                          mode), 3), layer_h_ms))
+        wide = kf.is_wide(order, nk)
+        h_kernels = sorted({
+            k[wide] if isinstance(k, tuple) else k
+            for *_, parts in split
+            for k in (KAN_ENTRY_KERNELS[e] for e in parts)})
         del xf, gfull
         slayers, sxr, scot = keep
         sg_ms = cuda_ms(torch, lambda: kf.KAN_FWD(slayers, sub, order, mode),
@@ -3954,13 +3968,19 @@ def kan_order_phases(np, torch, dev, clip):
               and np.isfinite(res.loss_history).all()
               and launches["kan_fwd"] == steps
               and launches["kan_bwd"] == steps)
-        out[tag] = dict(J=J, wide=kf.is_wide(order, nk), launches=launches,
+        out[tag] = dict(J=J, wide=wide, launches=launches,
                         fwd_err=checks["init"][0], bwd_err=checks["init"][1],
                         g_ms=g_ms, h_ms=h_ms, bounds=bounds, sub_rows=int(
                             sub.shape[0]), sub_g_ms=sg_ms,
                         sub_g_plain=sg_plain, sub_h_ms=sh_ms,
                         sub_h_plain=sh_plain, sub_bounds=sbounds,
-                        steps_s=res.steps_per_sec)
+                        steps_s=res.steps_per_sec, h_split=split,
+                        h_kernels=h_kernels, g_kernels=sorted(
+                            {"kan_split_kernel"} | {
+                                {"tc": "kan_fwd_tc_kernel",
+                                 "narrow": "kan_fwd_narrow_kernel",
+                                 "fma": "kan_fwd_kernel"}[r]
+                                for *_, r, _, _, _ in per_layer}))
         log(f"phase29 KAN{KAN_LAYERS} grid {grid_size} order {order} (J "
             f"{J}, {'wide' if out[tag]['wide'] else 'default'} library): "
             f"vs plain on {sub.shape[0]} rows " + "; ".join(
@@ -3977,6 +3997,11 @@ def kan_order_phases(np, torch, dev, clip):
             + f"; on the subset G {sg_ms:.3f} ms (plain {sg_plain:.3f}), H "
             f"{sh_ms:.3f} ms (plain {sh_plain:.3f}); "
             f"{'ok' if ok else 'FAILED'}")
+        log(f"phase29 {tag} H per launch over {n} rows (ms a call, CUDA "
+            f"events around each launch, 3 calls): " + "; ".join(
+                f"layer {li} ({di}->{do}) {ms:.3f} ms = " + ", ".join(
+                    f"{e} {c}x {t:.3f}" for e, (c, t) in parts.items())
+                for li, di, do, ms, parts in split))
         if not ok:
             fails.append(tag)
         del keep, slayers, sxr, scot
@@ -4027,9 +4052,11 @@ def build_kernels():
     # and dW in every bf16 tier, and the stack forward's at every width):
     # their SASS must hold HMMA / HGMMA
     for lib_name, marks in (("kan", ("kan_fwd_tc_kernel",
-                                     "kan_bwd_tc_kernel")),
+                                     "kan_bwd_tc_kernel",
+                                     "kan_dx_tc_kernel")),
                             ("kan_wide", ("kan_fwd_tc_kernel",
-                                          "kan_bwd_tc_kernel")),
+                                          "kan_bwd_tc_kernel",
+                                          "kan_dx_tc_kernel")),
                             ("siren_train", ("siren_sweep_kernel",
                                              "siren_dw_kernel")),
                             ("siren_stack", ("siren_stack_tc_kernel",))):
@@ -4556,6 +4583,7 @@ def main() -> int:
                 "shape": shape.format(
                     f"{t[key + '_ms']:.3f} ms against a bound of "
                     f"{t['bounds'][b][0]:.3f} ms"),
+                "cuda_kernels": t[key + "_kernels"],
             })
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))

@@ -62,6 +62,12 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads));
 }
 
+// bar.arrive on named barrier `id`: this thread's arrival (its prior shared
+// memory writes visible to the threads that wait there), without waiting
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads));
+}
+
 // one mma step of a tier: the A operand (x role, rounded) and B (w role,
 // split); hh += Ahi.Bhi, cross += Ahi.Blo (bf16x2, bf16x3) + Alo.Bhi (bf16x3)
 template <int MODE>

@@ -105,9 +105,14 @@ def _col_groups(width: int, cap: int) -> int:
 
 
 # H's tensor-core kernel (csrc/kan.cu): K values per tile, rows per chunk;
-# the narrow kernel's feature lanes, row groups and A values per block
+# the narrow kernels' feature lanes (at most, in the wide library) and row
+# groups, and the A values per block of the grid that sets their slices
 _TC_TK, _TC_RC = 64, 32
 _NW_F, _NW_RG, _NW_JB = 32, 8, 16
+# the tensor-core dx (kan.cu kan_dx_tc_kernel): its row tiles, W's outputs
+# a slab, K values a chunk at most, W's stages, and a chunk's cost beside
+# its K values in the plan (the GX park and the contraction)
+_DX_TC_TMS, _DX_OC, _DX_NC, _DX_STAGES, _DX_CHUNK = (64, 32), 64, 128, 3, 16
 # G's kernels: threads a CTA (the narrow kernel's rows, one a thread); the
 # tensor-core kernel's rows a tile and most features a chunk; the narrow
 # kernel's features a chunk
@@ -263,14 +268,28 @@ def bwd_tc_smem(tn: int, fck: int, dx: bool, ks: int = _KNOT_STRIDE) -> int:
                if dx else 0))
 
 
+def narrow_bins_smem(no: int, J: int, fck: int,
+                     ks: int = _KNOT_STRIDE) -> int:
+    """Dynamic shared memory of the wide library's narrow H (kan.cu
+    narrow_bins_smem): hi.hi and cross bins of ``no`` outputs x J values
+    for each of the CTA's _NW_RG * fck threads (the column stride padded to
+    a multiple of 32 from 4 features up), and the knot rows."""
+    threads = _NW_RG * fck
+    stride = -(-threads // 32) * 32 if fck >= 4 else threads
+    return 4 * (no * J * 2 * stride + fck * ks)
+
+
 def dw_plan(n: int, din: int, dout: int, J: int, mode: str = "bf16x3",
-            ks: int = _KNOT_STRIDE) -> DwPlan:
+            ks: int = _KNOT_STRIDE, wide: bool = False) -> DwPlan:
     """Enough slices of rows that the (K tile, column tile, slice) grid
     fills the card; the slice count depends on the shapes (and the tier's
     route) alone, so the summation order does not depend on the scratch
     budget.  A large J (the wide library) cuts the tensor-core K tiles
-    through features, adds blocks of _NW_JB values to the narrow grid, and
-    narrows the FMA column tile until its K tile holds a feature."""
+    through features and narrows the FMA column tile until its K tile
+    holds a feature.  The narrow route's slices are those of a grid of 32
+    features x blocks of _NW_JB values (the sum order of dW, kept by the
+    wide library's bins kernel, whose CTAs take as many features, up to 32,
+    as its bins hold in shared memory)."""
     route = layer_route(dout, mode)
     ktile = 0
     if route == "tc":
@@ -286,7 +305,11 @@ def dw_plan(n: int, din: int, dout: int, J: int, mode: str = "bf16x3",
     elif route == "narrow":
         tile = _pow2_at_least(dout, 1, 8)
         fck, rc = _NW_F, _NW_RG
-        tiles = -(-din // fck) * -(-J // _NW_JB)
+        if wide:
+            fck = min(_NW_F, din)
+            while fck > 1 and narrow_bins_smem(tile, J, fck, ks) > _SMEM_MAX:
+                fck -= 1
+        tiles = -(-din // _NW_F) * -(-J // _NW_JB)
     else:
         tile = _col_groups(dout, 16)
         while 1024 // tile < J:
@@ -315,18 +338,63 @@ def dw_group(plan: DwPlan, dout: int, K: int) -> int:
 def dx_fused(dout: int, mode: str, J: int = 1) -> bool:
     """Whether a layer's dx comes out of its dW pass (the tensor-core and
     narrow routes; the tensor-core one needs every output in one column
-    tile, dout <= 256, and whole features in a K tile, J <= 64); else the
-    FMA dx kernel runs after it."""
+    tile, dout <= 256, and whole features in a K tile, J <= 64); else
+    ``dx_plan``'s launch runs after it."""
     route = layer_route(dout, mode)
     return route == "narrow" or (route == "tc" and dout <= 256
                                  and J <= _TC_TK)
 
 
-def dx_plan(din: int, dout: int, J: int,
-            ks: int = _KNOT_STRIDE) -> tuple[int, int]:
-    """H's FMA dx launch for one layer (the highest tier, and in the others
-    dout > 256 or J > 64): (input features per chunk, dout per inner
-    chunk)."""
+@dataclasses.dataclass(frozen=True)
+class DxPlan:
+    """H's dx launch for a layer whose dW pass does not form it: its route
+    ('tc': kan_dx_tc_kernel on the tensor cores; 'fma': kan_dx_kernel),
+    rows a CTA, input features a chunk, and ``inner``: the chunk's K values
+    padded to the warps' n8 tiles (tc) or dout per inner chunk (fma)."""
+
+    route: str
+    tm: int
+    fc: int
+    inner: int
+
+
+def _round32(v: int) -> int:
+    return (v + 31) // 32 * 32
+
+
+def dx_tc_smem(tm: int, dout: int, nc: int, fc: int,
+               ks: int = _KNOT_STRIDE) -> int:
+    """Dynamic shared memory of the tensor-core dx (kan.cu dx_tc_smem): g's
+    resident bf16 planes (tm rows x dout rounded up to 32), _DX_STAGES
+    stages of W's planes (nc K values x _DX_OC outputs), two buffers of
+    parked GX and of knots."""
+    return (2 * tm * (_round32(dout) + 8) * 2
+            + _DX_STAGES * 2 * nc * (_DX_OC + 8) * 2 + 2 * tm * (nc + 4) * 4
+            + 2 * fc * ks * 4)
+
+
+def dx_plan(din: int, dout: int, J: int, mode: str = "bf16x3",
+            ks: int = _KNOT_STRIDE) -> DxPlan:
+    """H's dx launch for a layer whose dW pass does not form it (dout >
+    256, or J > 64 in the wide library; the highest tier's every layer).
+    The bf16 tiers take the tensor cores: 64-row tiles, or 32 where g's
+    resident tile does not fit beside W's stages, with the chunk of whole
+    features of least padded K values (plus _DX_CHUNK a chunk) within 128
+    values and shared memory, ties to the larger.  Past what fits (dout
+    672 at J = 127, 1504 at J = 9) and in the highest tier, the FMA
+    kernel: (input features per chunk, dout per inner chunk)."""
+    if mode in _TC_MODES:
+        for tm in _DX_TC_TMS:
+            step = 8 * (8 // (tm // 16))   # K values per n8 tile of all warps
+            fits = []
+            for fc in range(1, min(din, _DX_NC // J) + 1):
+                nc = -(-fc * J // step) * step
+                if nc <= _DX_NC and dx_tc_smem(tm, dout, nc, fc,
+                                               ks) <= _SMEM_MAX:
+                    fits.append((-(-din // fc) * (nc + _DX_CHUNK), -fc, nc))
+            if fits:
+                _, fc, nc = min(fits)
+                return DxPlan("tc", tm, -fc, nc)
     fcx = min(din, _DX_TN // J)
 
     def smem(ic):
@@ -336,7 +404,7 @@ def dx_plan(din: int, dout: int, J: int,
     ic = min(32, _round4(dout))
     while ic > 4 and smem(ic) > _SMEM_BUDGET:
         ic -= 4
-    return fcx, ic
+    return DxPlan("fma", _DX_TM, fcx, ic)
 
 
 # ---------------------------------------------------------------------------
@@ -421,16 +489,18 @@ _I = ctypes.c_int
 
 
 class _KanLibrary:
-    """``csrc/kan.cu`` built once per process (at first use) under ``name``
-    with the extra nvcc ``defines``."""
+    """``csrc/kan.cu`` (or a variant ``source`` of it) built once per
+    process (at first use) under ``name`` with the extra nvcc
+    ``defines``."""
 
-    def __init__(self, name: str = "kan", defines: tuple[str, ...] = ()):
-        self.name, self.defines = name, defines
+    def __init__(self, name: str = "kan", defines: tuple[str, ...] = (),
+                 source: str = "kan.cu"):
+        self.name, self.defines, self.source = name, defines, source
         self._lib = None
 
     def __call__(self):
         if self._lib is None:
-            lib = build_library(self.name, ["kan.cu"], self.defines)
+            lib = build_library(self.name, [self.source], self.defines)
             lib.kan_split.argtypes = [_P] * 7 + [_I] * 4 + [_P]
             lib.kan_gsplit.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I,
                                                   _P]
@@ -441,13 +511,14 @@ class _KanLibrary:
             lib.kan_dw.argtypes = [_P] * 4 + [_I] * 12 + [_P]
             lib.kan_bwd_tc.argtypes = ([_P] * 6 + [_I] + [_P] * 2
                                        + [_I] * 12 + [_P])
-            lib.kan_bwd_narrow.argtypes = [_P] * 7 + [_I] * 10 + [_P]
+            lib.kan_bwd_narrow.argtypes = [_P] * 7 + [_I] * 11 + [_P]
             lib.kan_reduce.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _P]
             lib.kan_dx.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+            lib.kan_dx_tc.argtypes = [_P] * 6 + [_I, _P] + [_I] * 9 + [_P]
             for fn in (lib.kan_split, lib.kan_gsplit, lib.kan_forward,
                        lib.kan_forward_tc, lib.kan_forward_narrow,
                        lib.kan_dw, lib.kan_bwd_tc, lib.kan_bwd_narrow,
-                       lib.kan_reduce, lib.kan_dx):
+                       lib.kan_reduce, lib.kan_dx, lib.kan_dx_tc):
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
@@ -461,8 +532,9 @@ def kan_library(order: int, n_knots: int) -> _KanLibrary:
     """The build of ``csrc/kan.cu`` that takes the config: the default one
     for orders up to 4 with at most 16 degree-0 bases, the wide one
     otherwise.  The wide build takes the default one's configs too, with
-    the same outputs and gradients, but its H is ~8% slower at the runner's
-    grid 5 / order 3 on an H100 (chip_smoke.py phase 29 times both)."""
+    the same outputs and gradients; at the runner's grid 5 / order 3 its G
+    reads 3% and its H 11% faster on an H100, H by its narrow head's bins
+    (chip_smoke.py phase 29 times both)."""
     return KAN_WIDE_LIBRARY if is_wide(order, n_knots) else KAN_LIBRARY
 
 
@@ -488,6 +560,11 @@ class LayerShape:
     def ks(self) -> int:
         """The knot row's floats (the order is nk - J)."""
         return knot_stride(self.nk - self.J, self.nk)
+
+    @property
+    def wide(self) -> bool:
+        """Whether the wide library takes the layer."""
+        return is_wide(self.nk - self.J, self.nk)
 
 
 def check_kernel_config(order: int, n_knots: int) -> None:
@@ -614,18 +691,22 @@ def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
     (n, din) or None).  dW goes over slices of rows in groups of
     ``dw_group``, each group's partial sums folded into the result in slice
     order; on the tensor-core and narrow routes the same launches write dx
-    (``dx_fused``), else the FMA dx kernel runs after them.  The planes
-    (the cotangent's and W's bf16 splits for the tensor cores, W^T's f32
-    split otherwise) are made here, once per layer."""
-    plan = dw_plan(s.n, s.din, s.dout, s.J, mode, s.ks)
+    (``dx_fused``), else ``dx_plan``'s kernel runs after them (the
+    tensor-core dx on the same planes, or the FMA one).  The planes (the
+    cotangent's and W's bf16 splits for the tensor cores, W^T's f32 split
+    otherwise) are made here, once per layer."""
+    plan = dw_plan(s.n, s.din, s.dout, s.J, mode, s.ks, s.wide)
     code = _MODE_CODE[mode]
     fused = need_dx and dx_fused(s.dout, mode, s.J)
+    xplan = (dx_plan(s.din, s.dout, s.J, mode, s.ks)
+             if need_dx and not fused else None)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((s.n, s.din), **f32) if need_dx else None
     if plan.route == "tc":
         ghi, glo = split_g(lib, g, s, plan, stream)
-        whi, wlo = (split_w_bf16(lib, w_t, s, plan.tile, code, stream)
-                    if fused else (None, None))
+        whi, wlo = (split_w_bf16(lib, w_t, s, ghi.shape[1], code, stream)
+                    if fused or (xplan and xplan.route == "tc")
+                    else (None, None))
     elif need_dx:
         thi, tlo = _split(lib, w_t, s, code, stream, rows=False)
     group = dw_group(plan, s.dout, s.K)
@@ -647,7 +728,8 @@ def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
             _check_rc("kan_bwd_narrow", lib.kan_bwd_narrow(
                 x.data_ptr(), grid.data_ptr(), g.data_ptr(),
                 ptr(thi) if fused else 0, ptr(tlo) if fused else 0,
-                partial.data_ptr(), out, *dims, plan.tile, *rows))
+                partial.data_ptr(), out, *dims, plan.tile, plan.fck,
+                *rows))
         else:
             _check_rc("kan_dw", lib.kan_dw(
                 x.data_ptr(), grid.data_ptr(), g.data_ptr(),
@@ -656,13 +738,18 @@ def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
         _check_rc("kan_reduce", lib.kan_reduce(
             partial.data_ptr(), dw_t.data_ptr(), s.dout * s.K, sg,
             int(s0 == 0), stream))
-    if need_dx and not fused:
+    if xplan and xplan.route == "tc":
+        _check_rc("kan_dx_tc", lib.kan_dx_tc(
+            x.data_ptr(), grid.data_ptr(), ghi.data_ptr(), glo.data_ptr(),
+            whi.data_ptr(), wlo.data_ptr(), ghi.shape[1], dx.data_ptr(),
+            *dims, xplan.tm, xplan.fc, xplan.inner, stream))
+    elif xplan:
         if plan.route == "tc":
             thi, tlo = _split(lib, w_t, s, code, stream, rows=False)
-        fcx, ic = dx_plan(s.din, s.dout, s.J, s.ks)
         _check_rc("kan_dx", lib.kan_dx(
             x.data_ptr(), grid.data_ptr(), g.data_ptr(), thi.data_ptr(),
-            tlo.data_ptr(), dx.data_ptr(), *dims, fcx, ic, stream))
+            tlo.data_ptr(), dx.data_ptr(), *dims, xplan.fc, xplan.inner,
+            stream))
     return dw_t, dx
 
 
@@ -670,7 +757,8 @@ class _KanBwdKernel(LaunchCounter):
     """Kernel H: the stack backward for a supplied output cotangent, per
     layer in reverse: dW (product over rows + fixed-order reduce) and, for
     layers > 0, dx, one pass for both in the bf16 tiers: on tensor cores
-    (dout >= 8) or as weighted sums (dout < 8); CUDA-core FMAs in the
+    (dout >= 8; past 256 outputs or J = 64, dx on the tensor cores after
+    the dW pass) or as weighted sums (dout < 8); CUDA-core FMAs in the
     highest tier.
     ``launches`` rises by one per stack backward."""
 

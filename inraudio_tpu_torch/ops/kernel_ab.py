@@ -12,7 +12,7 @@ the same card:
     python3 inraudio_tpu_torch/ops/kernel_ab.py save . change.pt
     python3 inraudio_tpu_torch/ops/kernel_ab.py compare parent.pt change.pt
 
-The results (61), each at the kernel widths h = 32, 64, 128, 256 where it
+The results (91), each at the kernel widths h = 32, 64, 128, 256 where it
 has an h: the stack kernel's output (3 windows x 700 rows, approx_sin) in
 the default bf16x3 tier, in the highest tier and in the decode's bf16 and
 mixed (bf16 / bf16x2) degree-7 tiers; C's gradients (bf16x2 and highest
@@ -26,7 +26,12 @@ below and above best_loss, D's epilogue on fixed grads at k = 3 at clip 0
 and 1.0); for KAN([1, 64, 64, 1]) and
 KAN([2, 32, 3]) over 3000 rows: G's output in the bf16x3 and highest
 tiers, G's bf16x3 output of each layer alone on a fixed input of its
-width, and H's dW per layer (highest tier).  The bf16-tier C, D and E
+width, and H's dW per layer (highest tier); for KAN([1, 64, 64, 1]) at
+grid 20 / order 3, grid 100 / order 3 and grid 5 / order 8 (the wide
+build of kan.cu), H of each layer alone (``layer_backward`` on a fixed
+input and cotangent of its widths, 3000 rows) in the bf16x3 and highest
+tiers: its dW, and the dx of layers 1 and 2 (the head's from the narrow
+H).  The bf16-tier C, D and E
 results follow the grad kernel's route, G's bf16x3 results of a layer
 with dout >= 8 (and so both stacks' bf16x3 outputs) the tensor-core G's,
 and the stack's bf16x3 outputs (``stack{h}``) its tensor-core route.  H's,
@@ -35,7 +40,10 @@ the stack's bf16 and mixed outputs (``stack-bf16{h}``, ``stack-mixed{h}``:
 the tensor-core kernel runs those tiers' products as the FMA kernel's
 chains) and G's bf16x3 output of a layer with dout < 8 (the narrow G,
 tile_gemm's chains) are the ones that must stay bit-equal across those
-changes.
+changes.  Of the wide KAN results, only a dx that moved to the
+tensor-core dx kernel (layer 1's at grid 100 in bf16x3: J > 64) may
+differ from a tree that formed it on the FMA kernel; the narrow H's dW and
+dx, and every dW, stay bit-equal.
 """
 
 from __future__ import annotations
@@ -58,10 +66,12 @@ def save(root: str, dest: str) -> int:
     from inraudio_tpu_torch.ops._nvcc import build_library
     from inraudio_tpu_torch.train import loop as tloop
 
-    # the tree's three libraries, one nvcc each, all started together
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(lambda name: build_library(name, [name + ".cu"]),
-                      ("siren_stack", "siren_train", "kan")))
+    # the tree's four libraries, one nvcc each, all started together
+    builds = [(name, [name + ".cu"], ()) for name in
+              ("siren_stack", "siren_train", "kan")]
+    builds.append(("kan_wide", ["kan.cu"], ("-DKAN_WIDE=1",)))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: build_library(*b), builds))
     dev = torch.device("cuda")
     out = {}
     for h in (32, 64, 128, 256):
@@ -138,10 +148,42 @@ def save(root: str, dest: str) -> int:
         _, xs = kf.KAN_FWD(layers, x, 3, "highest")
         for i, t in enumerate(kf.KAN_BWD(layers, xs, g, 3, "highest")):
             out[f"H-highest{lh}-{i}"] = t
+    out.update(wide_kan_results(torch, kf, build_model, KANConfig, dev))
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in out.items()}, dest)
     print(f"saved {len(out)} results of {root} to {dest}")
     return 0
+
+
+def wide_kan_results(torch, kf, build_model, KANConfig, dev) -> dict:
+    """H of each layer of KAN([1, 64, 64, 1]) alone at grid 20 / order 3,
+    grid 100 / order 3 and grid 5 / order 8, in the bf16x3 and highest
+    tiers, on fixed inputs and cotangents: dW of every layer, dx of layers
+    1 and 2."""
+    out = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for grid_size, order in ((20, 3), (100, 3), (5, 8)):
+        cfg = KANConfig(layers_hidden=(1, 64, 64, 1), grid_size=grid_size,
+                        spline_order=order)
+        p = build_model("kan", cfg).init(torch.Generator().manual_seed(1),
+                                          dev)
+        flat = [t.detach().contiguous() for t in kf.flatten_kan_params(p)]
+        gen = torch.Generator(dev).manual_seed(6)
+        for mode in ("bf16x3", "highest"):
+            for li, (grid, w_t) in enumerate(zip(flat[0::2], flat[1::2])):
+                x = torch.rand(3000, grid.shape[0], device=dev,
+                               generator=gen) * 2.2 - 1.1
+                g = torch.randn(3000, w_t.shape[0], device=dev,
+                                generator=gen) / 3000
+                s = kf._layer_shape(x, grid, w_t, order, li)
+                lib = kf.kan_library(order, s.nk)()
+                dw, dx = kf.layer_backward(lib, x, grid, g, w_t, s, order,
+                                           mode, stream, need_dx=li > 0)
+                tag = f"H-g{grid_size}o{order}-{mode}-layer{li}"
+                out[tag + "-dW"] = dw
+                if dx is not None:
+                    out[tag + "-dx"] = dx
+    return out
 
 
 def adam_results(torch, ss, st, dev) -> dict:

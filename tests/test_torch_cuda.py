@@ -1554,12 +1554,12 @@ KAN_CONFIGS = [dict(layers_hidden=(1, 32, 32, 1)),
                dict(layers_hidden=(1, 256, 256, 1)),
                dict(layers_hidden=(512, 128, 128, 1)),
                # dout > 256: dW over several tensor-core column tiles, then
-               # layer 1's dx on the FMA route
+               # layer 1's dx on the tensor-core dx kernel
                dict(layers_hidden=(1, 320, 320, 1)),
                # the wide library (kan.cu with KAN_WIDE): grid extension's
                # sizes and orders up to 8; at J > 64 (grid 100) H's
                # tensor-core K tiles cut through features and dx runs on
-               # the FMA kernel, G's column tile shrinks to 128
+               # the tensor-core dx kernel, G's column tile shrinks to 128
                dict(layers_hidden=(1, 16, 1), grid_size=20, spline_order=3),
                dict(layers_hidden=(1, 16, 1), grid_size=100, spline_order=3),
                dict(layers_hidden=(1, 16, 1), grid_size=5, spline_order=5),
@@ -1568,6 +1568,10 @@ KAN_CONFIGS = [dict(layers_hidden=(1, 32, 32, 1)),
                     spline_order=3),
                dict(layers_hidden=(1, 64, 64, 1), grid_size=100,
                     spline_order=8),
+               # a narrow head of 5 outputs (8 held) at J = 104: the wide
+               # narrow H's bins at their largest per feature
+               dict(layers_hidden=(1, 64, 5), grid_size=100,
+                    spline_order=3),
                # knots from update_grid: non-uniform, searched per row
                dict(layers_hidden=(1, 64, 64, 1), grid_size=20,
                     spline_order=3, refresh=True)]
@@ -1769,8 +1773,8 @@ def test_kan_kernels_validate(dev):
 
 def test_kan_wide_kernels_are_deterministic(dev):
     """The wide library's G and H, repeated from one state, bit-equal: at
-    grid 100 (H's K tiles cut through features, its dx on the FMA kernel)
-    and at order 8."""
+    grid 100 (H's K tiles cut through features, its dx on the tensor-core
+    dx kernel) and at order 8."""
     for cfg_kw in (dict(layers_hidden=(1, 64, 64, 1), grid_size=100),
                    dict(layers_hidden=(1, 64, 64, 1), grid_size=5,
                         spline_order=8)):
@@ -1784,6 +1788,80 @@ def test_kan_wide_kernels_are_deterministic(dev):
         assert torch.equal(a, b)
         assert all(torch.equal(p, q) for p, q in zip(xa, xb))
         assert all(torch.equal(p, q) for p, q in zip(ga, gb))
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "bf16x2", "bf16"])
+@pytest.mark.parametrize("cfg_kw", [
+    dict(layers_hidden=(1, 256, 256, 1)),
+    dict(layers_hidden=(1, 64, 64, 1), grid_size=20),
+    dict(layers_hidden=(1, 48, 40, 1), grid_size=5, spline_order=8)],
+    ids=["256-g5o3", "64-g20o3", "40-g5o8"])
+def test_kan_dx_tc_matches_the_fused_dx(dev, mode, cfg_kw):
+    """The tensor-core dx kernel (kan_dx_tc_kernel, run past J = 64 and
+    dout = 256) forms GX from the same bf16 planes in the same order as
+    the dW pass's fused dx, and contracts it with the same window: where
+    both take a layer (J <= 64, dout <= 256) their dx are bit-equal, at 64
+    and at 32 rows a CTA, with several row tiles a CTA (the persistent
+    grid has one CTA an SM)."""
+    cfg = kan_config(cfg_kw)
+    order = cfg.spline_order
+    layers, coords, _ = kan_setup(cfg_kw, 12001, dev)
+    _, xs = kf.KAN_FWD(layers, coords, order, mode)
+    grid, w_t = layers[1]
+    x = xs[1]
+    s = kf._layer_shape(x, grid, w_t, order, 1)
+    g = torch.randn(s.n, s.dout, device=dev,
+                    generator=torch.Generator(dev).manual_seed(9)) / s.n
+    lib = kf.kan_library(order, s.nk)()
+    stream = torch.cuda.current_stream().cuda_stream
+    assert kf.dx_fused(s.dout, mode, s.J)
+    _, fused = kf.layer_backward(lib, x, grid, g, w_t, s, order, mode,
+                                 stream, need_dx=True)
+    plan = kf.dw_plan(s.n, s.din, s.dout, s.J, mode, s.ks, s.wide)
+    code = kf._MODE_CODE[mode]
+    ghi, glo = kf.split_g(lib, g, s, plan, stream)
+    whi, wlo = kf.split_w_bf16(lib, w_t, s, ghi.shape[1], code, stream)
+    xp = kf.dx_plan(s.din, s.dout, s.J, mode, s.ks)
+    assert xp.route == "tc" and xp.tm == 64
+    for tm, fc, nc in ((64, xp.fc, xp.inner),
+                       (32, 1, -(-s.J // 32) * 32)):
+        dx = torch.full_like(fused, float("nan"))
+        assert lib.kan_dx_tc(
+            x.data_ptr(), grid.data_ptr(), ghi.data_ptr(), glo.data_ptr(),
+            whi.data_ptr(), wlo.data_ptr(), ghi.shape[1], dx.data_ptr(),
+            s.n, s.din, s.dout, s.nk, order, code, tm, fc, nc, stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(dx, fused), (tm, float((dx - fused).abs().max()))
+
+
+@pytest.mark.parametrize("dout", [1, 2, 3, 5])
+def test_kan_narrow_bins_match_the_default_narrow(dev, dout, monkeypatch):
+    """The wide library's narrow H (its bins over every J value, one
+    recursion a (row, feature)) and the default library's (registers over
+    16 values) at grid 5 / order 3, which both take: dW and dx bit-equal
+    in every bf16 tier, at 1, 2, 4 and 8 outputs held."""
+    cfg_kw = dict(layers_hidden=(1, 64, dout))
+    layers, coords, _ = kan_setup(cfg_kw, 5001, dev)
+    grid, w_t = layers[1]
+    _, xs = kf.KAN_FWD(layers, coords, 3, "bf16x3")
+    x = xs[1]
+    g = torch.randn(x.shape[0], dout, device=dev,
+                    generator=torch.Generator(dev).manual_seed(5)) / 5001
+    stream = torch.cuda.current_stream().cuda_stream
+    is_wide = kf.is_wide
+    for mode in ("bf16x3", "bf16x2", "bf16"):
+        out = {}
+        for lib_name in ("default", "wide"):
+            monkeypatch.setattr(kf, "is_wide", is_wide if lib_name ==
+                                "default" else (lambda o, nk: True))
+            s = kf._layer_shape(x, grid, w_t, 3, 1)
+            assert s.wide == (lib_name == "wide")
+            lib = kf.kan_library(3, s.nk)()
+            out[lib_name] = kf.layer_backward(lib, x, grid, g, w_t, s, 3,
+                                              mode, stream, need_dx=True)
+        torch.cuda.synchronize()
+        for a, b in zip(out["default"], out["wide"]):
+            assert torch.isfinite(a).all() and torch.equal(a, b), mode
 
 
 # ---------------------------------------------------------------------------

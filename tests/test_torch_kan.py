@@ -332,11 +332,21 @@ def test_plans_fit_the_kernels(monkeypatch):
             if kf.dx_fused(dout, mode):
                 routes.add("dx in the " + plan.route + " pass")
             else:
-                routes.add("dx-fma")
-                fcx, ic = kf.dx_plan(din, dout, J)
-                assert fcx * J <= 256 and ic % 4 == 0 and ic >= 4
+                xp = kf.dx_plan(din, dout, J, mode)
+                routes.add("dx-" + xp.route)
+                # the bf16 tiers' dx of dout > 256 on the tensor cores, the
+                # highest tier's on the FMA kernel
+                assert (xp.route == "tc") == (mode != "highest")
+                if xp.route == "tc":
+                    assert xp.tm in (64, 32) and xp.fc * J <= xp.inner <= 128
+                    assert xp.inner % (8 * (8 // (xp.tm // 16))) == 0
+                    assert kf.dx_tc_smem(xp.tm, dout, xp.inner,
+                                         xp.fc) <= kf._SMEM_MAX
+                else:
+                    assert xp.fc * J <= 256 and xp.inner % 4 == 0
+                    assert xp.inner >= 4
     assert routes == {"tc", "narrow", "fma", "dx in the tc pass",
-                      "dx in the narrow pass", "dx-fma"}
+                      "dx in the narrow pass", "dx-tc", "dx-fma"}
     # the runner shape: layer 1 on tensor cores with all 256 columns in one
     # tile (bases once per row), the head narrow, in G as in H, and both dx
     # in their dW pass

@@ -137,9 +137,10 @@ def test_bases_match_jax_at_order_8():
 # Launch plans
 # ---------------------------------------------------------------------------
 
-# (din, dout): the runner KAN's layers, the card tests' and wider ones
+# (din, dout): the runner KAN's layers, the card tests' and wider ones,
+# past the tensor-core dx's bound too
 WIDE_SHAPES = [(1, 256), (256, 256), (256, 1), (1, 16), (16, 1), (64, 64),
-               (320, 320), (2, 3), (512, 128)]
+               (320, 320), (2, 3), (512, 128), (64, 5), (2, 1200)]
 
 
 @pytest.mark.parametrize("grid_size,order",
@@ -151,9 +152,12 @@ def test_wide_plans_fit_the_kernels(grid_size, order):
     what the C launchers check, at every layer shape and tier: the
     tensor-core G's column tile shrinks to fit one feature's chunk, H's
     tensor-core K tiles cut through a feature past J = 64 (then dx runs on
-    the FMA kernel), the narrow H's grid covers J in blocks of 16, the FMA
-    dW's K tile holds a whole feature.  The library follows the config:
-    the default one up to order 4 and 16 degree-0 bases."""
+    the tensor-core dx kernel in the bf16 tiers, as it does past 256
+    outputs, and on the FMA kernel in the highest tier or past the
+    tensor-core dx's bound), the wide narrow H's bins fit at every number
+    of outputs held, the FMA dW's K tile holds a whole feature.  The
+    library follows the config: the default one up to order 4 and 16
+    degree-0 bases."""
     nk = grid_size + 2 * order + 1
     J = nk - order
     kf.check_kernel_config(order, nk)
@@ -178,7 +182,7 @@ def test_wide_plans_fit_the_kernels(grid_size, order):
                     fp.fc * J)
                 assert 4 * (2 * tm * kf._ld(kcp) + 2 * kcp * tn
                             + fp.fc * ks) <= kf._SMEM_MAX
-            dp = kf.dw_plan(50_000, din, dout, J, mode, ks)
+            dp = kf.dw_plan(50_000, din, dout, J, mode, ks, wide)
             fused = kf.dx_fused(dout, mode, J)
             if dp.route == "tc":
                 assert 1 <= dp.ktile <= 64
@@ -190,17 +194,54 @@ def test_wide_plans_fit_the_kernels(grid_size, order):
                 assert kf.bwd_tc_smem(dp.tile, dp.fck, fused,
                                       ks) <= kf._SMEM_MAX
             elif dp.route == "narrow":
-                assert fused and dp.fck == 32
-                # the kernel's static shared memory: the row groups' sums
-                # and the knot rows (kan.cu kMaxKnots in the wide library)
-                assert 4 * (8 * 32 * 16 + 32 * (128 if wide else 20)) \
-                    <= 48 * 1024
+                assert fused and dp.rc == 8
+                # the slices of 32-feature tiles x blocks of 16 values,
+                # whatever the features a CTA
+                tiles = -(-din // 32) * -(-J // 16)
+                aim = max(1, min(-(-1056 // tiles), -(-50_000 // 8)))
+                assert dp.rows_per_slice == -(-(-(-50_000 // aim)) // 8) * 8
+                if wide:
+                    # one grid, its CTAs' bins within shared memory: as
+                    # many features as fit, up to 32
+                    assert 1 <= dp.fck <= min(32, din)
+                    assert kf.narrow_bins_smem(dp.tile, J, dp.fck,
+                                               ks) <= kf._SMEM_MAX
+                    assert dp.fck == min(32, din) or kf.narrow_bins_smem(
+                        dp.tile, J, dp.fck + 1, ks) > kf._SMEM_MAX
+                else:
+                    # the kernel's static shared memory: the row groups'
+                    # sums and the knot rows
+                    assert dp.fck == 32
+                    assert 4 * (8 * 32 * 16 + 32 * 20) <= 48 * 1024
             else:
                 assert 1 <= dp.fck and dp.fck * J <= 1024 // dp.tile
             assert dp.slices * dp.rows_per_slice >= 50_000
             if not fused:
-                fcx, ic = kf.dx_plan(din, dout, J, ks)
-                assert 1 <= fcx and fcx * J <= 256 and ic % 4 == 0
+                xp = kf.dx_plan(din, dout, J, mode, ks)
+                if xp.route == "tc":
+                    assert mode != "highest" and xp.tm in (64, 32)
+                    assert 1 <= xp.fc and xp.fc * J <= xp.inner <= 128
+                    assert xp.inner % (8 * (8 // (xp.tm // 16))) == 0
+                    assert kf.dx_tc_smem(xp.tm, dout, xp.inner, xp.fc,
+                                         ks) <= kf._SMEM_MAX
+                else:
+                    # the highest tier, or a dout whose g tile leaves no
+                    # room at 32 rows
+                    assert mode == "highest" or kf.dx_tc_smem(
+                        32, dout, -(-J // 32) * 32, 1, ks) > kf._SMEM_MAX
+                    assert 1 <= xp.fc and xp.fc * J <= 256
+                    assert xp.inner % 4 == 0
+                # the bf16 tiers' dx is on the tensor cores up to dout
+                # 672 at every J
+                assert (xp.route == "tc") == (mode != "highest") or \
+                    dout > 672
+    # the wide narrow H's bins at every number of outputs held
+    for dout in (1, 2, 3, 4, 5, 7):
+        dp = kf.dw_plan(50_000, 256, dout, J, "bf16x3", ks, wide)
+        assert dp.route == "narrow" and dp.tile in (1, 2, 4, 8)
+        if wide:
+            assert kf.narrow_bins_smem(dp.tile, J, dp.fck,
+                                       ks) <= kf._SMEM_MAX
 
 
 def test_kernel_config_bound():
@@ -226,17 +267,24 @@ class _RecordingLibrary:
         return lambda *args: self.calls.append((name, args)) or 0
 
 
+@pytest.mark.parametrize("mode", ["bf16x3", "highest"])
 @pytest.mark.parametrize("grid_size,order,dims", [
     (100, 3, (1, 256, 256, 1)), (20, 3, (1, 256, 256, 1)),
-    (5, 8, (1, 64, 3)), (5, 3, (1, 256, 256, 1))],
-    ids=["g100o3", "g20o3", "g5o8", "g5o3"])
-def test_layer_launches_follow_the_plans(grid_size, order, dims):
+    (5, 8, (1, 64, 3)), (5, 3, (1, 256, 256, 1)), (5, 3, (1, 320, 320, 1)),
+    (100, 3, (1, 64, 5))],
+    ids=["g100o3", "g20o3", "g5o8", "g5o3", "g5o3-320", "g100o3-no8"])
+def test_layer_launches_follow_the_plans(grid_size, order, dims, mode):
     """Each layer's G and H launches on a recording library: the plan's
     tiles, chunks and K tiles reach the C entries, the knot count and
-    order pass as given, a wide config's H on tensor cores past J = 64
-    launches no dx in its dW pass and runs the FMA dx after it."""
+    order pass as given.  In the bf16 tier a layer whose dW pass cannot
+    form dx (J > 64, or dout > 256) launches no dx in that pass and runs
+    the tensor-core dx after it on the same planes (g's and W's bf16
+    planes, ldg wide), never the FMA dx; the narrow H launches one grid a
+    slice group, with the plan's features a CTA and no block dimension
+    over J.  The highest tier keeps the FMA dW and dx."""
     nk = grid_size + 2 * order + 1
     J = nk - order
+    code = {"bf16x3": 3, "highest": 0}[mode]
     lib = _RecordingLibrary()
     n = 3000
     for li, (din, dout) in enumerate(zip(dims[:-1], dims[1:])):
@@ -245,30 +293,110 @@ def test_layer_launches_follow_the_plans(grid_size, order, dims):
         w_t = torch.zeros((dout, din * J))
         s = kf._layer_shape(x, grid, w_t, order, li)
         assert s.ks == kf.knot_stride(order, nk)
+        assert s.wide == kf.is_wide(order, nk)
         lib.calls.clear()
-        kf.layer_forward(lib, x, grid, w_t, s, order, "bf16x3", 0)
-        fp = kf.fwd_plan(din, dout, J, "bf16x3", s.ks)
+        kf.layer_forward(lib, x, grid, w_t, s, order, mode, 0)
+        fp = kf.fwd_plan(din, dout, J, mode, s.ks)
         name, args = lib.calls[-1]
         if fp.route == "tc":
             assert name == "kan_forward_tc"
-            assert args[6:14] == (n, din, dout, nk, order, 3, fp.tile, fp.fc)
+            assert args[6:14] == (n, din, dout, nk, order, code, fp.tile,
+                                  fp.fc)
         else:
-            assert name == "kan_forward_narrow"
-            assert args[5:13] == (n, din, dout, nk, order, 3, fp.tile, fp.fc)
+            assert name == {"narrow": "kan_forward_narrow",
+                            "fma": "kan_forward"}[fp.route]
+            assert args[5:13] == (n, din, dout, nk, order, code, fp.tile,
+                                  fp.fc)
         lib.calls.clear()
         g = torch.zeros((n, dout))
-        kf.layer_backward(lib, x, grid, g, w_t, s, order, "bf16x3", 0,
+        kf.layer_backward(lib, x, grid, g, w_t, s, order, mode, 0,
                           need_dx=li > 0)
-        dp = kf.dw_plan(n, din, dout, J, "bf16x3", s.ks)
+        dp = kf.dw_plan(n, din, dout, J, mode, s.ks, s.wide)
         names = [c[0] for c in lib.calls]
+        groups = -(-dp.slices // kf.dw_group(dp, dout, din * J))
+        fused = kf.dx_fused(dout, mode, J)
+        xp = kf.dx_plan(din, dout, J, mode, s.ks)
+        assert names.count("kan_reduce") == groups
         if dp.route == "tc":
             bwd = [a for nm, a in lib.calls if nm == "kan_bwd_tc"]
-            assert bwd and all(a[9:18] == (n, din, dout, nk, order, 3,
-                                           dp.tile, dp.fck, dp.ktile)
-                               for a in bwd)
-            fused = kf.dx_fused(dout, "bf16x3", J)
+            assert len(bwd) == groups and all(
+                a[9:18] == (n, din, dout, nk, order, code, dp.tile, dp.fck,
+                            dp.ktile) for a in bwd)
             assert all((a[8] != 0) == (fused and li > 0) for a in bwd)
-            assert ("kan_dx" in names) == (li > 0 and not fused)
-            assert (J > 64) == (not fused)
+            assert fused == (J <= 64 and dout <= 256)
+            assert "kan_dx" not in names
+            dxtc = [a for nm, a in lib.calls if nm == "kan_dx_tc"]
+            if li > 0 and not fused:
+                assert xp.route == "tc" and len(dxtc) == 1
+                a = dxtc[0]
+                ldg = -(-dout // dp.tile) * dp.tile
+                assert a[6] == ldg and a[8:17] == (
+                    n, din, dout, nk, order, code, xp.tm, xp.fc, xp.inner)
+                # W's bf16 planes split once, (K, ldg) like g's
+                split = [b for nm, b in lib.calls if nm == "kan_split"]
+                assert len(split) == 1 and split[0][7:10] == (ldg, dout,
+                                                              din * J)
+            else:
+                assert not dxtc
+        elif dp.route == "narrow":
+            assert fused and "kan_dx" not in names
+            assert "kan_dx_tc" not in names
+            bwd = [a for nm, a in lib.calls if nm == "kan_bwd_narrow"]
+            assert len(bwd) == groups and all(
+                a[7:15] == (n, din, dout, nk, order, code, dp.tile, dp.fck)
+                for a in bwd)
+            if s.wide:
+                assert kf.narrow_bins_smem(dp.tile, J, dp.fck,
+                                           s.ks) <= kf._SMEM_MAX
+            else:
+                assert dp.fck == 32
         else:
-            assert "kan_bwd_narrow" in names and "kan_dx" not in names
+            assert mode == "highest" and "kan_dx_tc" not in names
+            assert names.count("kan_dw") == groups
+            assert names.count("kan_dx") == (li > 0)
+            if li > 0:
+                a = next(a for nm, a in lib.calls if nm == "kan_dx")
+                assert xp.route == "fma"
+                assert a[6:14] == (n, din, dout, nk, order, code, xp.fc,
+                                   xp.inner)
+
+
+@pytest.mark.parametrize("grid_size,order", [(100, 3), (5, 8)],
+                         ids=["g100o3", "g5o8"])
+def test_plain_layer_dx_matches_jax_grad(highest, grid_size, order):
+    """The plain backward of one wide KAN layer, the reference the card
+    tests hold kernel H to (the tensor-core dx past J = 64 among them):
+    dx and dW^T for a random cotangent g against ``jax.grad`` of
+    sum(kan_linear_apply(x) * g) with respect to x and to the layer's
+    weights, the points a little past the grid range.  Tolerance: 1e-4 of
+    the largest |value| (the card tests' KAN_GRAD_RTOL rule), as each dx
+    sums J terms of derivatives that scale with the grid size."""
+    din, dout = 6, 12
+    jcfg, tcfg, jp, tp = _pair(grid_size, order, layers=(din, dout), seed=7)
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-1.1, 1.1, (500, din)).astype(np.float32)
+    g = rng.standard_normal((500, dout)).astype(np.float32)
+    jl = jp["layers"][0]
+
+    def dot(p, xv):
+        return jnp.sum(jkan.kan_linear_apply(p, jcfg, xv) * jnp.asarray(g))
+
+    jdx = jax.jit(jax.grad(dot, argnums=1))(jl, jnp.asarray(x))
+    jgrads = jax.jit(jax.grad(dot))(jl, jnp.asarray(x))
+    grid_t, w_t = kf.flatten_kan_params(tp)
+    dw_t, dx = kf.kan_layer_backward_plain(
+        torch.from_numpy(x), grid_t, w_t.detach(), torch.from_numpy(g),
+        order, kf.kan_dot_mode(), need_dx=True)
+    J = grid_t.shape[1] - order
+    assert dx.shape == (500, din) and dw_t.shape == (dout, din * J)
+
+    def close(ref, out):
+        ref, out = np.asarray(ref, np.float64), np.asarray(out, np.float64)
+        assert np.abs(out - ref).max() <= GRAD_RTOL * np.abs(ref).max()
+
+    close(jdx, dx.numpy())
+    # dW^T's columns: the base weight, then the scaled spline weights
+    dw = dw_t.numpy().reshape(dout, din, J)
+    close(jgrads["base_w"], dw[..., 0])
+    scaler = np.asarray(jl["spline_scaler"])
+    close(jgrads["spline_w"], dw[..., 1:] * scaler[..., None])
