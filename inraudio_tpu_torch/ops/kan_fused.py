@@ -122,6 +122,13 @@ _FW_MAX_FC = 2 * _THREADS // _FW_TM   # kFwPairs * kThreads / kFwTM
 _NF_FC = 32
 _SMEM_MAX = 232448       # bytes a block may use on the H100
 _TC_MODES = ("bf16", "bf16x2", "bf16x3")
+# the wide build's tensor-core G (kan.cu, KAN_FWD_WS): A buffers, W's ring
+# of k16 blocks, builder warps (beside 8 mma warps), (row, feature) slots
+# a chunk, K values a chunk at most (one mask bit a k16 block); a chunk's
+# cost beside its k16 steps in the plan (ops/kan_fwd_ab.py --wide: at J =
+# 24, 104, 11 and 14 the chunk this cost picks read fastest on an H100)
+_FWS_BUFS, _FWS_STAGES, _FWS_BUILD_WARPS = 2, 6, 8
+_FWS_SLOTS, _FWS_MAX_K, _FWS_CHUNK = 8 * _FW_TM, 512, 2
 
 
 def layer_route(dout: int, mode: str) -> str:
@@ -196,18 +203,56 @@ def _fc_cost(din: int, fc: int, J: int) -> int:
             + _FW_CHUNK * len(chunks))
 
 
+def fwd_ws_smem(tn: int, fc: int, J: int, ks: int) -> int:
+    """Dynamic shared memory of the wide build's tensor-core G (kan.cu
+    fwd_ws_smem): _FWS_BUFS buffers of A's bf16 planes, a ring of
+    _FWS_STAGES k16 blocks of W's two bf16 planes, two buffers of knots
+    (rows of ``ks`` floats), the mbarriers, the builders' mask words and
+    the slots' previous intervals."""
+    return (_FWS_BUFS * 2 * _FW_TM * (_round16(fc * J) + 8) * 2
+            + _FWS_STAGES * 2 * 16 * (tn + 8) * 2 + 2 * fc * ks * 4
+            + (2 * _FWS_BUFS + 2 * _FWS_STAGES) * 8
+            + _FWS_BUFS * _FWS_BUILD_WARPS * 4 + _FWS_BUFS * _FWS_SLOTS * 2)
+
+
+def _fws_cost(din: int, fc: int, J: int) -> int:
+    return _fc_steps(din, fc, J) + _FWS_CHUNK * -(-din // fc)
+
+
+def _fwd_ws_fc(din: int, dout: int, J: int, ks: int, tile: int) -> int:
+    """Input features a chunk of the wide build's tensor-core G.  Where the
+    default build takes the config (its knot row is the wide build's
+    n_knots floats, so the order is ks - J), the default build's chunk: the
+    same padding and k16 blocks, so the two builds sum every output in one
+    order.  Past that, the chunk of least ``_fws_cost`` within shared
+    memory, _FW_MAX_FC features and _FWS_MAX_K values, ties to the
+    larger."""
+    if ks - J <= _MAX_ORDER and ks - 1 <= _MAX_BASES:
+        return fwd_plan(din, dout, J).fc
+    fits = [fc for fc in range(1, min(din, _FW_MAX_FC) + 1)
+            if fwd_ws_smem(tile, fc, J, ks) <= _SMEM_MAX
+            and _round16(fc * J) <= _FWS_MAX_K]
+    return min(fits, key=lambda fc: (_fws_cost(din, fc, J), -fc))
+
+
 def fwd_plan(din: int, dout: int, J: int, mode: str = "bf16x3",
-             ks: int = _KNOT_STRIDE) -> FwdPlan:
-    """G's launch for one layer (knot rows of ``ks`` floats).  tc: the
-    column tile is the least power of two >= dout in 64..256, halved (not
-    below 64) while one feature's chunk does not fit in shared memory (a
-    large J), and the chunk (at most _FW_MAX_FC features: two (row,
-    feature) pairs a thread) the one of least ``_fc_cost`` within shared
-    memory, ties to the larger.  narrow: every output held, up to 32
-    features a chunk within shared memory.  fma: the column groups that
-    cover dout (<= 32), or the nearest whose tile holds one feature's
+             ks: int = _KNOT_STRIDE, wide: bool = False) -> FwdPlan:
+    """G's launch for one layer (knot rows of ``ks`` floats) in the default
+    build of kan.cu, or with ``wide`` in the wide one.  tc: the column tile
+    is the least power of two >= dout in 64..256; in the default build it
+    is halved (not below 64) while one feature's chunk does not fit in
+    shared memory (a large J), and the chunk (at most _FW_MAX_FC features:
+    two (row, feature) pairs a thread) is the one of least ``_fc_cost``
+    within shared memory, ties to the larger; the wide build keeps the
+    tile and takes ``_fwd_ws_fc``'s chunk.  narrow: every output held, up
+    to 32 features a chunk within shared memory.  fma: the column groups
+    that cover dout (<= 32), or the nearest whose tile holds one feature's
     chunk, and the most features a chunk within _SMEM_BUDGET."""
     route = layer_route(dout, mode)
+    if route == "tc" and wide:
+        tile = _pow2_at_least(dout, 64, 256)
+        return FwdPlan(route, tile, _fwd_ws_fc(din, dout, J, ks, tile),
+                       _FW_TM)
     if route == "tc":
         tile = _pow2_at_least(dout, 64, 256)
         while tile > 64 and fwd_tc_smem(tile, 1, J, ks) > _SMEM_MAX:
@@ -532,9 +577,9 @@ def kan_library(order: int, n_knots: int) -> _KanLibrary:
     """The build of ``csrc/kan.cu`` that takes the config: the default one
     for orders up to 4 with at most 16 degree-0 bases, the wide one
     otherwise.  The wide build takes the default one's configs too, with
-    the same outputs and gradients; at the runner's grid 5 / order 3 its G
-    reads 3% and its H 11% faster on an H100, H by its narrow head's bins
-    (chip_smoke.py phase 29 times both)."""
+    the same outputs and gradients, by other kernels: G's builder and mma
+    warps, H's narrow head's bins (chip_smoke.py phase 29 times both
+    builds at the runner's grid 5 / order 3)."""
     return KAN_WIDE_LIBRARY if is_wide(order, n_knots) else KAN_LIBRARY
 
 
@@ -638,7 +683,7 @@ def layer_forward(lib, x, grid, w_t, s: LayerShape, order: int, mode: str,
     """One layer of G: y (n, dout) on the route of ``fwd_plan``, with W's
     planes made here: bf16 (K, whole column tiles) for the tensor cores,
     f32 (K, dout) for the narrow and FMA kernels."""
-    plan = fwd_plan(s.din, s.dout, s.J, mode, s.ks)
+    plan = fwd_plan(s.din, s.dout, s.J, mode, s.ks, s.wide)
     code = _MODE_CODE[mode]
     y = torch.empty((s.n, s.dout), dtype=torch.float32, device=x.device)
     dims = (s.n, s.din, s.dout, s.nk, order, code)

@@ -3,16 +3,17 @@ repository, on one card.
 
 ``save ROOT OUT`` imports ``inraudio_tpu_torch`` from the tree at ROOT,
 runs the results listed below on the card from fixed seeds, and saves them
-to OUT (``torch.save``); ``compare A B`` loads two such files and lists the
-results that are not bit-equal (exit code 1 if any).  Run it on a parent
-commit unpacked beside the checkout (``git archive``) and on the change, on
-the same card:
+to OUT (``torch.save``); ``compare A B`` loads two such files, compares the
+results both hold and lists those that are not bit-equal (exit code 1 if
+any) and those only one holds (a tree older or newer than the list).  Run
+it on a parent commit unpacked beside the checkout (``git archive``) and on
+the change, on the same card:
 
     python3 inraudio_tpu_torch/ops/kernel_ab.py save PARENT parent.pt
     python3 inraudio_tpu_torch/ops/kernel_ab.py save . change.pt
     python3 inraudio_tpu_torch/ops/kernel_ab.py compare parent.pt change.pt
 
-The results (91), each at the kernel widths h = 32, 64, 128, 256 where it
+The results (100), each at the kernel widths h = 32, 64, 128, 256 where it
 has an h: the stack kernel's output (3 windows x 700 rows, approx_sin) in
 the default bf16x3 tier, in the highest tier and in the decode's bf16 and
 mixed (bf16 / bf16x2) degree-7 tiers; C's gradients (bf16x2 and highest
@@ -31,9 +32,11 @@ grid 20 / order 3, grid 100 / order 3 and grid 5 / order 8 (the wide
 build of kan.cu), H of each layer alone (``layer_backward`` on a fixed
 input and cotangent of its widths, 3000 rows) in the bf16x3 and highest
 tiers: its dW, and the dx of layers 1 and 2 (the head's from the narrow
-H).  The bf16-tier C, D and E
-results follow the grad kernel's route, G's bf16x3 results of a layer
-with dout >= 8 (and so both stacks' bf16x3 outputs) the tensor-core G's,
+H); and G of each layer alone on the bf16x3 inputs (the wide build's
+tensor-core G at layers 0 and 1, the narrow G at the head).  The
+bf16-tier C, D and E results follow the grad kernel's route, G's bf16x3
+results of a layer with dout >= 8 (and so both stacks' bf16x3 outputs) the
+tensor-core G's,
 and the stack's bf16x3 outputs (``stack{h}``) its tensor-core route.  H's,
 every highest-tier result (``stack-highest{h}``: the stack's FMA kernel),
 the stack's bf16 and mixed outputs (``stack-bf16{h}``, ``stack-mixed{h}``:
@@ -43,7 +46,9 @@ tile_gemm's chains) are the ones that must stay bit-equal across those
 changes.  Of the wide KAN results, only a dx that moved to the
 tensor-core dx kernel (layer 1's at grid 100 in bf16x3: J > 64) may
 differ from a tree that formed it on the FMA kernel; the narrow H's dW and
-dx, and every dW, stay bit-equal.
+dx, and every dW, stay bit-equal.  The wide tensor-core G's outputs follow
+its plan's chunk of features (the k16 blocks each output is summed over),
+the narrow G's stay bit-equal.
 """
 
 from __future__ import annotations
@@ -159,7 +164,7 @@ def wide_kan_results(torch, kf, build_model, KANConfig, dev) -> dict:
     """H of each layer of KAN([1, 64, 64, 1]) alone at grid 20 / order 3,
     grid 100 / order 3 and grid 5 / order 8, in the bf16x3 and highest
     tiers, on fixed inputs and cotangents: dW of every layer, dx of layers
-    1 and 2."""
+    1 and 2; and G of each layer on the bf16x3 inputs."""
     out = {}
     stream = torch.cuda.current_stream().cuda_stream
     for grid_size, order in ((20, 3), (100, 3), (5, 8)):
@@ -183,6 +188,9 @@ def wide_kan_results(torch, kf, build_model, KANConfig, dev) -> dict:
                 out[tag + "-dW"] = dw
                 if dx is not None:
                     out[tag + "-dx"] = dx
+                if mode == "bf16x3":
+                    out[f"G-g{grid_size}o{order}-{mode}-layer{li}"], _ = \
+                        kf.KAN_FWD([(grid, w_t)], x, order, mode)
     return out
 
 
@@ -253,15 +261,16 @@ def compare(a_path: str, b_path: str) -> int:
     import torch
 
     a, b = torch.load(a_path), torch.load(b_path)
-    if a.keys() != b.keys():
-        print("the files hold different results: "
-              f"{sorted(a.keys() ^ b.keys())}")
-        return 1
-    differ = [k for k in a if not torch.equal(a[k], b[k])]
-    for k in a:
+    both = [k for k in a if k in b]
+    differ = [k for k in both if not torch.equal(a[k], b[k])]
+    for k in both:
         print(f"{k}: {tuple(a[k].shape)} "
               f"{'bit-equal' if k not in differ else 'DIFFERS'}")
-    print(f"compared {len(a)} results; not bit-equal: {differ}")
+    for path, only in ((a_path, sorted(a.keys() - b.keys())),
+                       (b_path, sorted(b.keys() - a.keys()))):
+        if only:
+            print(f"only in {path}: {only}")
+    print(f"compared {len(both)} results; not bit-equal: {differ}")
     return 1 if differ else 0
 
 

@@ -1559,7 +1559,8 @@ KAN_CONFIGS = [dict(layers_hidden=(1, 32, 32, 1)),
                # the wide library (kan.cu with KAN_WIDE): grid extension's
                # sizes and orders up to 8; at J > 64 (grid 100) H's
                # tensor-core K tiles cut through features and dx runs on
-               # the tensor-core dx kernel, G's column tile shrinks to 128
+               # the tensor-core dx kernel; G's builder and mma warps keep
+               # a 256-column tile at every J
                dict(layers_hidden=(1, 16, 1), grid_size=20, spline_order=3),
                dict(layers_hidden=(1, 16, 1), grid_size=100, spline_order=3),
                dict(layers_hidden=(1, 16, 1), grid_size=5, spline_order=5),
@@ -1771,23 +1772,128 @@ def test_kan_kernels_validate(dev):
     assert kf.KAN_FWD.launches == before
 
 
-def test_kan_wide_kernels_are_deterministic(dev):
+@pytest.mark.parametrize("cfg_kw", [
+    dict(layers_hidden=(1, 64, 64, 1), grid_size=100),
+    dict(layers_hidden=(1, 64, 64, 1), grid_size=5, spline_order=8),
+    dict(layers_hidden=(1, 64, 320, 1), grid_size=20),
+    dict(layers_hidden=(1, 48, 256, 1), grid_size=5, spline_order=5)],
+    ids=["64-g100o3", "64-g5o8", "320-g20o3", "256-g5o5"])
+def test_kan_wide_kernels_are_deterministic(dev, cfg_kw):
     """The wide library's G and H, repeated from one state, bit-equal: at
     grid 100 (H's K tiles cut through features, its dx on the tensor-core
-    dx kernel) and at order 8."""
-    for cfg_kw in (dict(layers_hidden=(1, 64, 64, 1), grid_size=100),
-                   dict(layers_hidden=(1, 64, 64, 1), grid_size=5,
-                        spline_order=8)):
-        order = kan_config(cfg_kw).spline_order
-        layers, coords, cot = kan_setup(cfg_kw, 4000, dev)
-        a, xa = kf.KAN_FWD(layers, coords, order, "bf16x3")
-        b, xb = kf.KAN_FWD(layers, coords, order, "bf16x3")
-        ga = kf.KAN_BWD(layers, xa, cot, order, "bf16x3")
-        gb = kf.KAN_BWD(layers, xa, cot, order, "bf16x3")
-        torch.cuda.synchronize()
-        assert torch.equal(a, b)
-        assert all(torch.equal(p, q) for p, q in zip(xa, xb))
-        assert all(torch.equal(p, q) for p, q in zip(ga, gb))
+    dx kernel), at orders 5 and 8, and at 320 outputs (G's two column
+    tiles, H's dx after its dW pass)."""
+    order = kan_config(cfg_kw).spline_order
+    layers, coords, cot = kan_setup(cfg_kw, 4000, dev)
+    a, xa = kf.KAN_FWD(layers, coords, order, "bf16x3")
+    b, xb = kf.KAN_FWD(layers, coords, order, "bf16x3")
+    ga = kf.KAN_BWD(layers, xa, cot, order, "bf16x3")
+    gb = kf.KAN_BWD(layers, xa, cot, order, "bf16x3")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert all(torch.equal(p, q) for p, q in zip(xa, xb))
+    assert all(torch.equal(p, q) for p, q in zip(ga, gb))
+
+
+# the wide build's tensor-core G at grid extension's J (grid / order): 24,
+# 104, 11 and 14
+KAN_WIDE_G = [(20, 3), (100, 3), (5, 5), (5, 8)]
+KAN_WIDE_G_IDS = [f"g{g}o{o}" for g, o in KAN_WIDE_G]
+
+
+def kan_wide_layer(din, dout, grid_size, order, n, inputs, dev, seed=0):
+    """One wide layer's (grid, W^T) drawn from ``seed`` and n inputs:
+    'smooth' (each feature a smooth function of the row, as a hidden
+    layer's inputs along a clip: most k16 blocks of a 64-row tile are
+    zero and skipped), 'random' (uniform over the knots: none is skipped)
+    or 'outside' (every third row past the knots: interval -1, silu
+    alone)."""
+    cfg = KANConfig(layers_hidden=(din, dout), grid_size=grid_size,
+                    spline_order=order)
+    params = build_model("kan", cfg).init(torch.Generator().manual_seed(seed),
+                                          dev)
+    grid, w_t = [t.detach().contiguous()
+                 for t in kf.flatten_kan_params(params)]
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    if inputs == "smooth":
+        t = torch.linspace(-1, 1, n, device=dev)[:, None]
+        phase = torch.rand(1, din, device=dev, generator=g) * 6
+        x = 0.9 * torch.sin(2.1 * t + phase)
+    else:
+        x = torch.rand(n, din, device=dev, generator=g) * 2.2 - 1.1
+        if inputs == "outside":
+            x[::3] *= 5.0
+    return grid, w_t, x.contiguous()
+
+
+@pytest.mark.parametrize("inputs", ["smooth", "random", "outside"])
+@pytest.mark.parametrize("dout", [8, 64, 256, 320])
+@pytest.mark.parametrize("grid_size,order", KAN_WIDE_G, ids=KAN_WIDE_G_IDS)
+def test_kan_wide_forward_matches_plain(dev, grid_size, order, dout,
+                                        inputs):
+    """The wide build's tensor-core G (builder warps, W streamed in k16
+    blocks, the blocks zero in every row of a tile skipped, a 256-column
+    tile: two at 320 outputs) against the plain version on 3001 rows (a
+    part tile), at the layer's term scale; a repeat bit-equal."""
+    grid, w_t, x = kan_wide_layer(24, dout, grid_size, order, 3001, inputs,
+                                  dev)
+    nk = grid.shape[1]
+    plan = kf.fwd_plan(24, dout, nk - order, "bf16x3", nk, wide=True)
+    assert plan.route == "tc" and plan.tile == min(256, max(64, dout))
+    out, xs = kf.KAN_FWD([(grid, w_t)], x, order, "bf16x3")
+    ref, xs_ref = kf.kan_forward_plain([(grid, w_t)], x, order, "bf16x3")
+    again, _ = kf.KAN_FWD([(grid, w_t)], x, order, "bf16x3")
+    torch.cuda.synchronize()
+    check_kan_outputs([(grid, w_t)], xs, out, xs_ref, ref, order)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("inputs", ["smooth", "random"])
+@pytest.mark.parametrize("grid_size,order", KAN_WIDE_G, ids=KAN_WIDE_G_IDS)
+def test_kan_wide_forward_sums_as_the_chunked_design(dev, grid_size, order,
+                                                     inputs):
+    """At one tile and chunk of features, the wide build's tensor-core G
+    and the chunked design built wide (``-DKAN_FWD_WS=0``) give bit-equal
+    outputs: the same bases, the same k16 blocks in the same order, the
+    skipped ones zero in every row."""
+    from inraudio_tpu_torch.ops.kan_fwd_ab import chunked_layer
+    grid, w_t, x = kan_wide_layer(24, 64, grid_size, order, 3001, inputs,
+                                  dev)
+    call, before = chunked_layer(torch, kf, x, grid, w_t, order, "bf16x3")
+    call()
+    nk = grid.shape[1]
+    plan = kf.fwd_plan(24, 64, nk - order, "bf16x3", nk)
+    s = kf._layer_shape(x, grid, w_t, order, 0)
+    lib = kf.kan_library(order, nk)()
+    code = kf._MODE_CODE["bf16x3"]
+    stream = torch.cuda.current_stream().cuda_stream
+    whi, wlo = kf.split_w_bf16(lib, w_t, s, 64, code, stream)
+    y = torch.full_like(before, float("nan"))
+    assert lib.kan_forward_tc(
+        x.data_ptr(), grid.data_ptr(), whi.data_ptr(), wlo.data_ptr(), 64,
+        y.data_ptr(), s.n, s.din, s.dout, s.nk, order, code, plan.tile,
+        plan.fc, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(y, before)
+
+
+@pytest.mark.parametrize("grid_size,order", KAN_WIDE_G, ids=KAN_WIDE_G_IDS)
+def test_kan_wide_forward_rows_are_independent(dev, grid_size, order):
+    """A row's G output does not depend on the other rows of its 64-row
+    tile: the k16 blocks skipped are zero in every row, so changing one
+    row's input (here moving it to another knot interval, which marks
+    other blocks) leaves every other row of the tile bit-equal."""
+    grid, w_t, x = kan_wide_layer(48, 256, grid_size, order, 1000, "smooth",
+                                  dev)
+    a, _ = kf.KAN_FWD([(grid, w_t)], x, order, "bf16x3")
+    x2 = x.clone()
+    x2[70] = 0.37 - 0.9 * x2[70]   # row 70 of the tile of rows 64..127
+    b, _ = kf.KAN_FWD([(grid, w_t)], x2, order, "bf16x3")
+    torch.cuda.synchronize()
+    keep = torch.ones(1000, dtype=torch.bool, device=dev)
+    keep[70] = False
+    assert torch.equal(a[keep], b[keep])
+    assert not torch.equal(a[70], b[70])
 
 
 @pytest.mark.parametrize("mode", ["bf16x3", "bf16x2", "bf16"])

@@ -354,6 +354,12 @@ def test_plans_fit_the_kernels(monkeypatch):
     assert kf.fwd_plan(1, 256, 9).tile == 256
     assert kf.fwd_plan(256, 1, 9) == kf.FwdPlan("narrow", 1, 32, 256)
     assert kf.fwd_plan(256, 256, 9, "highest").route == "fma"
+    # the wide build's G at the runner's grid 5 / order 3 (knot rows of 12
+    # floats there) takes the default build's plan: the same tile, chunk
+    # and padding, so the two builds sum every output alike
+    for din, dout in ((256, 256), (1, 256), (256, 1)):
+        assert kf.fwd_plan(din, dout, 9, "bf16x3", 12, wide=True) == \
+            kf.fwd_plan(din, dout, 9, "bf16x3", 12)
     assert kf.dw_plan(308_207, 256, 256, 9).tile == 256
     assert kf.dw_plan(308_207, 256, 1, 9).route == "narrow"
     assert kf.dx_fused(256, "bf16x3") and kf.dx_fused(1, "bf16x3")

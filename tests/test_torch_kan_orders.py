@@ -13,6 +13,9 @@ GRAD_RTOL on gradients), with the products in the highest tier so that
 both packages compute true f32 products (the bf16 tiers are the card
 tests' business)."""
 
+import pathlib
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,7 +153,9 @@ WIDE_SHAPES = [(1, 256), (256, 256), (256, 1), (1, 16), (16, 1), (64, 64),
 def test_wide_plans_fit_the_kernels(grid_size, order):
     """Every plan of G and H stays within a CTA's shared memory and within
     what the C launchers check, at every layer shape and tier: the
-    tensor-core G's column tile shrinks to fit one feature's chunk, H's
+    default build's tensor-core G's column tile shrinks to fit one
+    feature's chunk, the wide build's keeps the least power of two >= dout
+    in 64..256 (its W streams in k16 blocks), H's
     tensor-core K tiles cut through a feature past J = 64 (then dx runs on
     the tensor-core dx kernel in the bf16 tiers, as it does past 256
     outputs, and on the FMA kernel in the highest tier or past the
@@ -169,8 +174,14 @@ def test_wide_plans_fit_the_kernels(grid_size, order):
     assert ks == (nk if wide else 20) and ks >= nk
     for din, dout in WIDE_SHAPES:
         for mode in ("bf16x3", "bf16x2", "bf16", "highest"):
-            fp = kf.fwd_plan(din, dout, J, mode, ks)
-            if fp.route == "tc":
+            fp = kf.fwd_plan(din, dout, J, mode, ks, wide)
+            if fp.route == "tc" and wide:
+                assert fp.tile == min(256, max(64, 1 << (dout - 1)
+                                               .bit_length()))
+                assert 1 <= fp.fc <= min(8, din)
+                assert kf._round16(fp.fc * J) <= 512
+                assert kf.fwd_ws_smem(fp.tile, fp.fc, J, ks) <= kf._SMEM_MAX
+            elif fp.route == "tc":
                 assert fp.tile in (64, 128, 256) and 1 <= fp.fc <= 8
                 assert kf.fwd_tc_smem(fp.tile, fp.fc, J, ks) <= kf._SMEM_MAX
             elif fp.route == "narrow":
@@ -244,6 +255,66 @@ def test_wide_plans_fit_the_kernels(grid_size, order):
                                        ks) <= kf._SMEM_MAX
 
 
+def _kan_cu_fwd_ws_smem():
+    """kan.cu's fwd_ws_smem as a Python function: its return expression
+    (products and sums of its constants and round16) evaluated over the
+    constants' values as the source states them."""
+    src = (pathlib.Path(kf.__file__).parents[1] / "csrc" / "kan.cu"
+           ).read_text()
+    env = {"round16": kf._round16}
+    for name in ("kFwTM", "kFwsBufs", "kFwsStages", "kFwsSlots",
+                 "kFwsBuildWarps"):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+        env[name] = eval(expr, dict(env))
+    body = re.search(r"constexpr int fwd_ws_smem\(int tn, int fc, int J, "
+                     r"int ks\) \{\s*return (.*?);\s*\}", src, re.S).group(1)
+    expr = compile(f"({body})", "kan.cu fwd_ws_smem", "eval")
+    return lambda tn, fc, J, ks: eval(expr, dict(env, tn=tn, fc=fc, J=J,
+                                                 ks=ks))
+
+
+def test_wide_forward_plan_keeps_one_column_tile():
+    """The wide build's tensor-core G at every grid size up to 100 and
+    order up to 8: a 256-column tile at 256 outputs (the least power of
+    two >= dout in 64..256 at others), shared memory within 232,448 bytes
+    counted by kan.cu's own formula, at most 8 features and 512 K values a
+    chunk; where the default build takes the config (order <= 4, at most
+    16 degree-0 bases), the default build's chunk, so that both sum each
+    output over the same k16 blocks in one order.  The default build's
+    plans at grid extension's J are as they were: the column tile halved
+    at J = 104, the chunk W's two stages allow."""
+    cu_smem = _kan_cu_fwd_ws_smem()
+    for tn, fc, J, ks in ((256, 8, 24, 27), (256, 2, 104, 107),
+                          (64, 3, 104, 107), (128, 5, 11, 16),
+                          (256, 1, 127, 128)):
+        assert cu_smem(tn, fc, J, ks) == kf.fwd_ws_smem(tn, fc, J, ks)
+    for grid_size in range(1, 101):
+        for order in range(1, 9):
+            nk = grid_size + 2 * order + 1
+            J = nk - order
+            default = order <= 4 and nk - 1 <= 16
+            for din, dout in ((1, 256), (256, 256), (64, 8), (24, 320),
+                              (3, 64)):
+                fp = kf.fwd_plan(din, dout, J, "bf16x3", nk, wide=True)
+                assert fp.route == "tc" and fp.tm == 64
+                assert fp.tile == (256 if dout >= 256 else 64)
+                assert 1 <= fp.fc <= min(8, din)
+                assert kf._round16(fp.fc * J) <= 512
+                assert cu_smem(fp.tile, fp.fc, J, nk) <= kf._SMEM_MAX
+                if default:
+                    dp = kf.fwd_plan(din, dout, J, "bf16x3")
+                    assert (fp.tile, fp.fc, kf._fc_steps(din, fp.fc, J)) == (
+                        dp.tile, dp.fc, kf._fc_steps(din, dp.fc, J))
+    # the default build's plans (the KAN_FWD_WS=0 design) at grid 20 / 100
+    # and orders 5 / 8 over the runner's 256 -> 256 layer
+    assert kf.fwd_plan(256, 256, 24, "bf16x3", 27) == kf.FwdPlan("tc", 256,
+                                                                 3, 64)
+    assert kf.fwd_plan(256, 256, 104, "bf16x3", 107) == kf.FwdPlan(
+        "tc", 128, 1, 64)
+    assert kf.fwd_plan(256, 256, 11, "bf16x3", 16).fc == 4
+    assert kf.fwd_plan(256, 256, 14, "bf16x3", 22).fc == 4
+
+
 def test_kernel_config_bound():
     """Orders 1..8 and up to 128 knots a feature; past that the kernels
     raise with the bound in the message."""
@@ -296,7 +367,7 @@ def test_layer_launches_follow_the_plans(grid_size, order, dims, mode):
         assert s.wide == kf.is_wide(order, nk)
         lib.calls.clear()
         kf.layer_forward(lib, x, grid, w_t, s, order, mode, 0)
-        fp = kf.fwd_plan(din, dout, J, mode, s.ks)
+        fp = kf.fwd_plan(din, dout, J, mode, s.ks, s.wide)
         name, args = lib.calls[-1]
         if fp.route == "tc":
             assert name == "kan_forward_tc"
