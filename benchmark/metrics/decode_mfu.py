@@ -1,0 +1,9 @@
+"""The requests' model FLOP (MACs only) over the window's wall time, as a
+share of the card's dense bf16 peak."""
+
+from benchmark import counts
+from benchmark.metrics._shared import mfu
+
+
+def read(ctx: dict) -> float | None:
+    return mfu(ctx, counts.forward_flop(ctx["cfg"], ctx["rows"]))
