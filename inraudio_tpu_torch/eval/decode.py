@@ -23,6 +23,7 @@ from ..dsp.stft import griffin_lim
 from ..device import resolve_device
 from ..models import INRModel
 from ..tree import tree_map
+from ..utils.observability import span
 
 
 def decode_dense(model: INRModel, params, coords, chunk: int = 1 << 20,
@@ -30,21 +31,32 @@ def decode_dense(model: INRModel, params, coords, chunk: int = 1 << 20,
                  device: torch.device | str = "cuda") -> np.ndarray:
     """The model over (n, d) coords (numpy or tensor) on ``device`` in
     chunks of ``chunk`` rows -> host (n, out).  ``fit_snr_db`` routes a
-    model with a quality-gated decode (fused mlp) through its tier."""
-    dev = resolve_device(device)
-    params = tree_map(lambda t: t.to(dev), params)
-    coords = torch.as_tensor(coords, dtype=torch.float32).to(dev)
-    tiered = fit_snr_db is not None and model.decode_apply is not None
+    model with a quality-gated decode (fused mlp) through its tier.  Under
+    a ``torch.profiler`` session the call is the span ``inr.decode``, with
+    ``inr.decode.prepare``, each chunk's ``inr.decode.to_host`` and
+    ``inr.decode.gather`` inside it."""
+    n = coords.shape[0]
+    with span("inr.decode", rows=n, chunks=-(-n // chunk)):
+        with span("inr.decode.prepare"):
+            dev = resolve_device(device)
+            params = tree_map(lambda t: t.to(dev), params)
+            coords = torch.as_tensor(coords, dtype=torch.float32).to(dev)
+            tiered = (fit_snr_db is not None
+                      and model.decode_apply is not None)
 
-    def fn(c):
-        if tiered:
-            return model.decode_apply(params, c, float(fit_snr_db))
-        return model.apply(params, c)
+        def fn(c):
+            if tiered:
+                return model.decode_apply(params, c, float(fit_snr_db))
+            return model.apply(params, c)
 
-    with torch.no_grad():
-        outs = [fn(coords[s:s + chunk]).cpu()
-                for s in range(0, coords.shape[0], chunk)]
-    return torch.cat(outs).numpy()
+        outs = []
+        with torch.no_grad():
+            for s in range(0, n, chunk):
+                out = fn(coords[s:s + chunk])
+                with span("inr.decode.to_host"):
+                    outs.append(out.cpu())
+        with span("inr.decode.gather"):
+            return torch.cat(outs).numpy()
 
 
 def bwe_coords(problem: FittingProblem,

@@ -1,5 +1,8 @@
 """Build a CUDA source into a shared library with nvcc and load it with ctypes,
-and count a kernel wrapper's launches.
+and count a kernel wrapper's calls.  Both are counters of
+``utils.observability``: the seconds of the library ``<name>``'s nvcc run in
+``nvcc.build_s.<name>`` and of its load in ``nvcc.load_s.<name>``, and a
+wrapper's calls in ``launches.<wrapper>``.
 
 The library goes into ``<root>/<name>-<hash>/``, keyed by a hash of the
 sources and flags, and is built at first use: nothing is compiled when a
@@ -18,8 +21,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
+import time
 from pathlib import Path
+
+from ..utils.observability import counter
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 
@@ -80,24 +85,39 @@ def build_library(name: str, sources: list[str],
         tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
         cmd = [find_nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
                *[str(CSRC / s) for s in sources]]
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
+        counter(f"nvcc.build_s.{name}").add(time.perf_counter() - t0)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}")
         (lib.parent / "build.log").write_text(proc.stderr + proc.stdout)
         os.replace(tmp, lib)
-    return ctypes.CDLL(str(lib))
+    t0 = time.perf_counter()
+    loaded = ctypes.CDLL(str(lib))
+    counter(f"nvcc.load_s.{name}").add(time.perf_counter() - t0)
+    return loaded
 
 
 class LaunchCounter:
-    """A kernel wrapper's launch count: ``launches`` rises by one per launch
-    (``count``), nowhere else.  The increment holds a lock, since ranks on
-    threads of one process launch the same wrapper."""
+    """A kernel wrapper's launch count, the registry's counter
+    ``launches.<name>``: ``launches`` rises by one per call of the wrapper
+    (``count``), nowhere else, whatever kernels the call launches.  The
+    increment holds the counter's lock, since ranks on threads of one
+    process launch the same wrapper."""
 
-    def __init__(self):
-        self.launches = 0
-        self._lock = threading.Lock()
+    def __init__(self, name: str):
+        self._counter = counter(f"launches.{name}")
+        self._lock = self._counter.lock
+
+    @property
+    def launches(self) -> int:
+        return self._counter.value
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        with self._lock:
+            self._counter.value = value
 
     def count(self) -> None:
-        with self._lock:
-            self.launches += 1
+        self._counter.add()

@@ -826,8 +826,8 @@ class _KanBwdKernel(LaunchCounter):
         return grads
 
 
-KAN_FWD = _KanFwdKernel()
-KAN_BWD = _KanBwdKernel()
+KAN_FWD = _KanFwdKernel("kan_fwd")
+KAN_BWD = _KanBwdKernel("kan_bwd")
 
 
 def kan_stack_forward(layers, coords: torch.Tensor, order: int, mode: str):

@@ -37,6 +37,7 @@ from typing import Any
 import torch
 
 from ..models.siren import SirenSnakeTanhConfig
+from ..utils.observability import span
 from ._nvcc import LaunchCounter, build_library
 
 Params = dict[str, Any]
@@ -409,8 +410,8 @@ class _SirenStackKernel(LaunchCounter):
     rises by one per call that launches the kernel, nowhere else; a
     tensor-core call launches the weight split before it)."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, name: str):
+        super().__init__(name)
         self._lib = None
 
     def library(self):
@@ -441,69 +442,76 @@ class _SirenStackKernel(LaunchCounter):
         model whose h is not a kernel width is zero-padded to the next one
         (``pad_params``): its output is the unpadded model's, since every
         padded unit's outgoing weights are 0.  The route is
-        ``stack_launch``'s."""
-        _check_rff_plan(plan, bt)
-        dev = coords.device
-        n, d = coords.shape
-        h = kernel_width(params["layers"][0]["w"].shape[-1])
-        params = pad_params(params, h)
-        layers = params["layers"]
-        k = layers[0]["w"].shape[0]
-        L = len(layers)
-        n_freq = 0 if bt is None else bt.shape[1]
-        _check_tensor("coords", coords, dev, (n, d))
-        if bt is not None:
-            _check_tensor("bt", bt, dev, (d, n_freq))
-        if pre0 is not None:
-            _check_tensor("pre0", pre0, dev, (k, n, h), aligned=True)
-        if not 1 <= d <= _MAX_SMALL_IN:
-            raise ValueError(f"kernel takes 1..{_MAX_SMALL_IN} raw input "
-                             f"columns, got {d}")
-        if not 2 <= L <= _KERNEL_MAX_LAYERS or len(plan.kinds) != L:
-            raise ValueError(f"kernel takes 2..{_KERNEL_MAX_LAYERS} layers "
-                             f"matching the plan, got {L}")
-        ptrs, ints = [], []
-        for li, p in enumerate(layers):
-            in_f = (2 * n_freq if n_freq else d) if li == 0 else h
-            out_f = 1 if li == L - 1 else h
-            # the kernel reads an RFF layer 0's and layers 1+ weights as
-            # 16-byte vectors
-            _check_tensor(f"layers[{li}].w", p["w"], dev, (k, in_f, out_f),
-                          aligned=li > 0 or n_freq > 0)
-            _check_tensor(f"layers[{li}].b", p["b"], dev, (k, out_f))
-            a = p.get("snake_a")
-            if plan.kinds[li] == "linear_snake":
-                _check_tensor(f"layers[{li}].snake_a", a, dev, (k, out_f))
-            ptrs += [p["w"].data_ptr(), p["b"].data_ptr(),
-                     a.data_ptr() if plan.kinds[li] == "linear_snake" else 0]
-            ints += [_KIND_CODE[plan.kinds[li]],
-                     _MODE_CODE[plan.modes[li] or "highest"],
-                     plan.degrees[li]]
-        out = torch.empty((k, n), dtype=torch.float32, device=dev)
-        ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-        if k == 0 or n == 0:
-            return out.unsqueeze(-1)
-        c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
-        c_ints = (ctypes.c_int32 * len(ints))(*ints)
-        c_omegas = (ctypes.c_float * L)(*plan.omegas)
-        lib = self.library()
-        launch = stack_launch(plan, h, n)
-        args = (coords.data_ptr(), out.data_ptr(), ctypes.addressof(c_ptrs),
-                ctypes.addressof(c_ints), ctypes.addressof(c_omegas), L, k, n,
-                d, h, ptr(bt), n_freq, plan.feature_degree, ptr(pre0))
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            if launch.route == "tc":
-                planes = torch.empty(tc_plane_elems(plan, h, k, n_freq),
-                                     dtype=torch.bfloat16, device=dev)
-                rc = lib.siren_stack_forward_tc(
-                    *args, planes.data_ptr(), planes.numel(), launch.rows,
-                    stream)
-            else:
-                rc = lib.siren_stack_forward(*args, stream)
-        if rc != 0:
-            raise RuntimeError(f"siren_stack launch failed: cudaError {rc}")
-        self.count()
+        ``stack_launch``'s.  The host's work up to the launch is the span
+        ``inr.stack.prepare``, the ctypes calls ``inr.stack.launch``."""
+        with span("inr.stack.prepare"):
+            _check_rff_plan(plan, bt)
+            dev = coords.device
+            n, d = coords.shape
+            h = kernel_width(params["layers"][0]["w"].shape[-1])
+            params = pad_params(params, h)
+            layers = params["layers"]
+            k = layers[0]["w"].shape[0]
+            L = len(layers)
+            n_freq = 0 if bt is None else bt.shape[1]
+            _check_tensor("coords", coords, dev, (n, d))
+            if bt is not None:
+                _check_tensor("bt", bt, dev, (d, n_freq))
+            if pre0 is not None:
+                _check_tensor("pre0", pre0, dev, (k, n, h), aligned=True)
+            if not 1 <= d <= _MAX_SMALL_IN:
+                raise ValueError(f"kernel takes 1..{_MAX_SMALL_IN} raw "
+                                 f"input columns, got {d}")
+            if not 2 <= L <= _KERNEL_MAX_LAYERS or len(plan.kinds) != L:
+                raise ValueError(f"kernel takes 2..{_KERNEL_MAX_LAYERS} "
+                                 f"layers matching the plan, got {L}")
+            ptrs, ints = [], []
+            for li, p in enumerate(layers):
+                in_f = (2 * n_freq if n_freq else d) if li == 0 else h
+                out_f = 1 if li == L - 1 else h
+                # the kernel reads an RFF layer 0's and layers 1+ weights
+                # as 16-byte vectors
+                _check_tensor(f"layers[{li}].w", p["w"], dev,
+                              (k, in_f, out_f), aligned=li > 0 or n_freq > 0)
+                _check_tensor(f"layers[{li}].b", p["b"], dev, (k, out_f))
+                a = p.get("snake_a")
+                if plan.kinds[li] == "linear_snake":
+                    _check_tensor(f"layers[{li}].snake_a", a, dev,
+                                  (k, out_f))
+                ptrs += [p["w"].data_ptr(), p["b"].data_ptr(),
+                         a.data_ptr() if plan.kinds[li] == "linear_snake"
+                         else 0]
+                ints += [_KIND_CODE[plan.kinds[li]],
+                         _MODE_CODE[plan.modes[li] or "highest"],
+                         plan.degrees[li]]
+            out = torch.empty((k, n), dtype=torch.float32, device=dev)
+            ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+            if k == 0 or n == 0:
+                return out.unsqueeze(-1)
+            c_ptrs = (ctypes.c_uint64 * len(ptrs))(*ptrs)
+            c_ints = (ctypes.c_int32 * len(ints))(*ints)
+            c_omegas = (ctypes.c_float * L)(*plan.omegas)
+            lib = self.library()
+            launch = stack_launch(plan, h, n)
+            args = (coords.data_ptr(), out.data_ptr(),
+                    ctypes.addressof(c_ptrs), ctypes.addressof(c_ints),
+                    ctypes.addressof(c_omegas), L, k, n, d, h, ptr(bt),
+                    n_freq, plan.feature_degree, ptr(pre0))
+        with span("inr.stack.launch"):
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                if launch.route == "tc":
+                    planes = torch.empty(tc_plane_elems(plan, h, k, n_freq),
+                                         dtype=torch.bfloat16, device=dev)
+                    rc = lib.siren_stack_forward_tc(
+                        *args, planes.data_ptr(), planes.numel(),
+                        launch.rows, stream)
+                else:
+                    rc = lib.siren_stack_forward(*args, stream)
+            if rc != 0:
+                raise RuntimeError("siren_stack launch failed: cudaError "
+                                   f"{rc}")
+            self.count()
         return out.unsqueeze(-1)
 
 
@@ -524,7 +532,7 @@ def _check_tensor(name: str, t, device: torch.device, shape,
         raise ValueError(f"{name}: kernel takes a 16-byte-aligned tensor")
 
 
-SIREN_STACK = _SirenStackKernel()
+SIREN_STACK = _SirenStackKernel("siren_stack")
 
 
 def _run(params: Params, plan: StackPlan, coords: torch.Tensor,

@@ -316,7 +316,7 @@ class _SirenStepKernel(LaunchCounter):
         return loss
 
 
-SIREN_STEP = _SirenStepKernel()
+SIREN_STEP = _SirenStepKernel("siren_step")
 
 
 def fused_mse_step_call(params, mu, nu, best, coords, targets, lr, c1, c2,
@@ -380,7 +380,7 @@ class _SirenGradKernel(LaunchCounter):
         return buf
 
 
-SIREN_GRAD = _SirenGradKernel()
+SIREN_GRAD = _SirenGradKernel("siren_grad")
 
 
 def fused_mse_grad_call(params, coords, targets, limit, n_valid: int,
@@ -412,8 +412,8 @@ class _SirenAdamKernel(LaunchCounter):
     stream, P), so a call allocates only the loss it returns.  ``launches``
     rises by one per update launched, nowhere else."""
 
-    def __init__(self):
-        super().__init__()
+    def __init__(self, name: str):
+        super().__init__(name)
         self._scratch: dict = {}
         self._scratch_lock = threading.Lock()
 
@@ -453,7 +453,7 @@ class _SirenAdamKernel(LaunchCounter):
         return loss
 
 
-SIREN_ADAM = _SirenAdamKernel()
+SIREN_ADAM = _SirenAdamKernel("siren_adam")
 
 
 def fused_adam_call(params, mu, nu, best, buf, lr, c1, c2, best_loss,

@@ -51,6 +51,7 @@ from typing import Any
 import torch
 
 from ..models.siren import SirenSnakeTanhConfig
+from ..utils.observability import span
 from ._nvcc import LaunchCounter, build_library
 from .siren_fused import (_KERNEL_MAX_LAYERS, _KIND_CODE, _MAX_SMALL_IN,
                           _MODE_CODE, SIREN_STACK, StackPlan,
@@ -690,7 +691,7 @@ class _SirenBwdKernel(LaunchCounter):
         return grads if h == g.h else unpad_params(grads, h)
 
 
-SIREN_BWD = _SirenBwdKernel()
+SIREN_BWD = _SirenBwdKernel("siren_bwd")
 
 
 def siren_backward(params: Params, cfg: SirenSnakeTanhConfig, plan: StackPlan,
@@ -761,21 +762,23 @@ def fused_siren_train_apply(params: Params, cfg: SirenSnakeTanhConfig,
     a card.  Unlike the TPU kernels, any n and k are taken as they are.
     ``rff_b`` (F, d) folds the model's Gaussian Fourier encoding into both
     kernels (``coords`` raw, ``cfg.in_features`` = 2F); B is fixed, so it
-    gets no gradient, as under ``rff_apply``."""
-    check_kernel_width(cfg)
-    _check_rff_model(cfg, rff_b)
-    plan = stack_plan(cfg, approx_sin=approx_sin, rff=rff_b is not None)
-    bt = None if rff_b is None else _prep_rff_bt(rff_b)
-    stacked = params["layers"][0]["w"].dim() == 3
-    if not stacked:
-        params = {"layers": [{k: v.unsqueeze(0) for k, v in p.items()}
-                             for p in params["layers"]]}
-    for li, layer in enumerate(params["layers"]):
-        for key, v in layer.items():
-            if v.device != coords.device:
-                raise ValueError(f"layers[{li}].{key} is on {v.device}, "
-                                 f"coords on {coords.device}")
-    leaves = [params["layers"][li][key].contiguous()
-              for li, key in _leaf_keys(plan)]
-    out = _FusedStack.apply(cfg, plan, coords.contiguous(), bt, *leaves)
-    return out if stacked else out[0]
+    gets no gradient, as under ``rff_apply``.  The call is the span
+    ``inr.stack`` (``utils.observability.span``)."""
+    with span("inr.stack"):
+        check_kernel_width(cfg)
+        _check_rff_model(cfg, rff_b)
+        plan = stack_plan(cfg, approx_sin=approx_sin, rff=rff_b is not None)
+        bt = None if rff_b is None else _prep_rff_bt(rff_b)
+        stacked = params["layers"][0]["w"].dim() == 3
+        if not stacked:
+            params = {"layers": [{k: v.unsqueeze(0) for k, v in p.items()}
+                                 for p in params["layers"]]}
+        for li, layer in enumerate(params["layers"]):
+            for key, v in layer.items():
+                if v.device != coords.device:
+                    raise ValueError(f"layers[{li}].{key} is on {v.device}, "
+                                     f"coords on {coords.device}")
+        leaves = [params["layers"][li][key].contiguous()
+                  for li, key in _leaf_keys(plan)]
+        out = _FusedStack.apply(cfg, plan, coords.contiguous(), bt, *leaves)
+        return out if stacked else out[0]

@@ -58,7 +58,7 @@ from ..parallel.mesh import (Mesh, normalise_weight, resolve_mesh,
                              shard_array, shard_problem_arrays, shard_rows,
                              whole_signal_arrays)
 from ..tree import tree_leaves, tree_map, tree_unflatten
-from ..utils.observability import profile_trace
+from ..utils.observability import profile_trace, span
 from .losses import mix_loss
 from .optim import (AdamConfig, AdamState, PlateauConfig, PlateauState,
                     adam_init, adam_update, clip_by_global_norm,
@@ -509,113 +509,141 @@ def fit(model: INRModel, coords, targets, cfg: TrainConfig | None = None,
     ``torch.profiler`` trace of round min(1, rounds - 1) into that
     directory, on rank 0 (``utils.observability.profile_trace``; the card is
     synchronised before the trace closes).  ``state`` warm-starts;
-    otherwise the state is drawn from ``generator`` (seed 0 when None)."""
+    otherwise the state is drawn from ``generator`` (seed 0 when None).
+
+    Under a ``torch.profiler`` session the call is the span ``inr.fit``
+    (attrs ``steps``, ``route``), holding ``inr.fit.prologue``, each
+    round's ``inr.fit.round`` (``steps``, ``tier``) and
+    ``inr.fit.between_rounds``, and ``inr.fit.epilogue``; the two waits
+    for the card are ``inr.fit.sync`` (``utils.observability.span``)."""
     cfg = cfg or TrainConfig()
-    mesh = resolve_mesh(mesh, device)
-    dev = mesh.device
-    if state is None:
-        state = init_train_state(
-            model, generator or torch.Generator().manual_seed(0), cfg, dev)
-    else:
-        state = tree_map(lambda t: t.to(dev), state)
-    coords_d = torch.as_tensor(coords, dtype=torch.float32).to(dev)
-    targets_np = np.asarray(targets, np.float32)
-    weight_n = None if weight is None else normalise_weight(weight)
-    tiers = ((None, schedule_tiers()[0]) if cfg.precision_schedule
-             else (None,))
+    with span("inr.fit", steps=cfg.total_steps) as call:
+        with span("inr.fit.prologue"):
+            mesh = resolve_mesh(mesh, device)
+            dev = mesh.device
+            if state is None:
+                state = init_train_state(
+                    model, generator or torch.Generator().manual_seed(0),
+                    cfg, dev)
+            else:
+                state = tree_map(lambda t: t.to(dev), state)
+            coords_d = torch.as_tensor(coords, dtype=torch.float32).to(dev)
+            targets_np = np.asarray(targets, np.float32)
+            weight_n = None if weight is None else normalise_weight(weight)
+            tiers = ((None, schedule_tiers()[0]) if cfg.precision_schedule
+                     else (None,))
 
-    if mesh.size > 1:
-        # shard_problem_arrays normalises the weight over the whole clip,
-        # then splits it
-        carry, steps, unstack = _sharded_step(
-            model, cfg, state, coords_d.cpu().numpy(), targets_np, mesh,
-            weight, tiers)
-    elif fused_step_plan(model, cfg, coords_d.shape[0]) is not None:
-        carry, steps, unstack = _one_window_step(
-            model, cfg, state, coords_d, targets, weight_n, tiers)
-    else:
-        train_step = make_train_step(model, cfg)
-        targets_d = torch.from_numpy(targets_np).to(dev)
-        weight_d = (None if weight_n is None
-                    else torch.from_numpy(weight_n).to(dev))
-        carry, unstack = state, (lambda c: c)
-        steps = [lambda c: train_step(c, coords_d, targets_d, weight_d)]
-    full_step = steps[0]
-    cheap_step = steps[1] if len(steps) > 1 else None
-    sched_thr = float("inf")
-    if cheap_step is not None:
-        power = float(np.mean(targets_np ** 2))
-        sched_thr = power / 10.0 ** (cfg.schedule_db / 10.0)
+            if mesh.size > 1:
+                # shard_problem_arrays normalises the weight over the whole
+                # clip, then splits it
+                carry, steps, unstack = _sharded_step(
+                    model, cfg, state, coords_d.cpu().numpy(), targets_np,
+                    mesh, weight, tiers)
+                # the autograd step carries the TrainState, E + F a flat one
+                route = ("sharded_autograd" if isinstance(carry, TrainState)
+                         else "kernels_ef")
+            elif fused_step_plan(model, cfg, coords_d.shape[0]) is not None:
+                carry, steps, unstack = _one_window_step(
+                    model, cfg, state, coords_d, targets, weight_n, tiers)
+                route = "kernel_d"
+            else:
+                train_step = make_train_step(model, cfg)
+                targets_d = torch.from_numpy(targets_np).to(dev)
+                weight_d = (None if weight_n is None
+                            else torch.from_numpy(weight_n).to(dev))
+                carry, unstack = state, (lambda c: c)
+                steps = [lambda c: train_step(c, coords_d, targets_d,
+                                              weight_d)]
+                route = "autograd"
+            call.set(route=route)
+            full_step = steps[0]
+            cheap_step = steps[1] if len(steps) > 1 else None
+            sched_thr = float("inf")
+            if cheap_step is not None:
+                power = float(np.mean(targets_np ** 2))
+                sched_thr = power / 10.0 ** (cfg.schedule_db / 10.0)
 
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    chunk = max(1, min(cfg.scan_chunk, cfg.total_steps))
-    n_rounds = -(-cfg.total_steps // chunk)
-    sync()
-    t0 = time.time()
-    loss_chunks, lr_chunks = [], []
-    done = last_ckpt = last_grid_update = rounds = 0
-    while done < cfg.total_steps:
-        m = min(chunk, cfg.total_steps - done)
-        step = cheap_step if cheap_step is not None else full_step
-        losses, lrs = [], []
-        # the trace holds a round after the first (its steps warm)
-        profiled = (profile_dir is not None and mesh.rank == 0
-                    and rounds == min(1, n_rounds - 1))
-        with profile_trace(profile_dir, enabled=profiled):
-            for _ in range(m):
-                carry, (loss, lr) = step(carry)
-                losses.append(loss)
-                lrs.append(lr)
-            if profiled:
+            sync = (torch.cuda.synchronize if dev.type == "cuda"
+                    else (lambda: None))
+            chunk = max(1, min(cfg.scan_chunk, cfg.total_steps))
+            n_rounds = -(-cfg.total_steps // chunk)
+            with span("inr.fit.sync"):
                 sync()
-        loss_chunks.append(torch.stack(losses))
-        lr_chunks.append(torch.stack(lrs))
-        if cheap_step is not None and float(loss_chunks[-1][-1]) < sched_thr:
-            cheap_step = None  # escalated for good
-        done += m
-        rounds += 1
-        if (cfg.update_grid_every and model.update_grid is not None
-                and done - last_grid_update >= cfg.update_grid_every
-                and done < cfg.total_steps):
-            n_rows = coords_d.shape[0]
-            grid_x = coords_d
-            if n_rows > cfg.update_grid_batch:
-                grid_x = coords_d[::-(-n_rows // cfg.update_grid_batch)]
-            carry = carry._replace(
-                params=model.update_grid(carry.params, grid_x))
-            last_grid_update = done
-        if metrics is not None:
-            elapsed = time.time() - t0
-            metrics.log({"event": "round", "step": done,
-                         "loss": float(loss_chunks[-1][-1]),
-                         "lr": float(lr_chunks[-1][-1]),
-                         "elapsed_s": round(elapsed, 3),
-                         "steps_per_sec": round(done / max(elapsed, 1e-9),
-                                                2)})
-        if (checkpoint_every and checkpoint_path
-                and done - last_ckpt >= checkpoint_every
-                and done < cfg.total_steps):
-            if mesh.rank == 0:
-                from .checkpoint import save_checkpoint
-                save_checkpoint(checkpoint_path, unstack(carry),
-                                extra={"steps_done": done})
-            last_ckpt = done
-    sync()
-    train_time = mesh.span(t0, time.time())
-    state = unstack(carry)
-    cat = lambda xs: (torch.cat(xs).cpu().numpy() if xs  # noqa: E731
-                      else np.zeros((0,), np.float32))
-    loss_hist, lr_hist = cat(loss_chunks), cat(lr_chunks)
-    if cfg.log_every > 1:
-        loss_hist = loss_hist[::cfg.log_every]
-        lr_hist = lr_hist[::cfg.log_every]
-    return FitResult(
-        params=state.best_params if cfg.track_best else state.params,
-        final_params=state.params, state=state, loss_history=loss_hist,
-        lr_history=lr_hist, best_loss=float(state.best_loss),
-        best_iter=int(state.best_iter), steps=cfg.total_steps,
-        train_time_s=train_time,
-        steps_per_sec=cfg.total_steps / max(train_time, 1e-9))
+        t0 = time.time()
+        loss_chunks, lr_chunks = [], []
+        done = last_ckpt = last_grid_update = rounds = 0
+        while done < cfg.total_steps:
+            m = min(chunk, cfg.total_steps - done)
+            step = cheap_step if cheap_step is not None else full_step
+            losses, lrs = [], []
+            # the trace holds a round after the first (its steps warm)
+            profiled = (profile_dir is not None and mesh.rank == 0
+                        and rounds == min(1, n_rounds - 1))
+            with profile_trace(profile_dir, enabled=profiled):
+                with span("inr.fit.round", steps=m,
+                          tier="full" if step is full_step else "cheap"):
+                    for _ in range(m):
+                        carry, (loss, lr) = step(carry)
+                        losses.append(loss)
+                        lrs.append(lr)
+                    if profiled:
+                        sync()
+            with span("inr.fit.between_rounds"):
+                loss_chunks.append(torch.stack(losses))
+                lr_chunks.append(torch.stack(lrs))
+                if (cheap_step is not None
+                        and float(loss_chunks[-1][-1]) < sched_thr):
+                    cheap_step = None  # escalated for good
+                done += m
+                rounds += 1
+                if (cfg.update_grid_every and model.update_grid is not None
+                        and done - last_grid_update >= cfg.update_grid_every
+                        and done < cfg.total_steps):
+                    n_rows = coords_d.shape[0]
+                    grid_x = coords_d
+                    if n_rows > cfg.update_grid_batch:
+                        grid_x = coords_d[
+                            ::-(-n_rows // cfg.update_grid_batch)]
+                    carry = carry._replace(
+                        params=model.update_grid(carry.params, grid_x))
+                    last_grid_update = done
+                if metrics is not None:
+                    elapsed = time.time() - t0
+                    metrics.log({"event": "round", "step": done,
+                                 "loss": float(loss_chunks[-1][-1]),
+                                 "lr": float(lr_chunks[-1][-1]),
+                                 "elapsed_s": round(elapsed, 3),
+                                 "steps_per_sec": round(
+                                     done / max(elapsed, 1e-9), 2)})
+                if (checkpoint_every and checkpoint_path
+                        and done - last_ckpt >= checkpoint_every
+                        and done < cfg.total_steps):
+                    if mesh.rank == 0:
+                        from .checkpoint import save_checkpoint
+                        save_checkpoint(checkpoint_path, unstack(carry),
+                                        extra={"steps_done": done})
+                    last_ckpt = done
+        with span("inr.fit.epilogue"):
+            # the card's queue drains in its own span: the epilogue's self
+            # time is the host's
+            with span("inr.fit.sync"):
+                sync()
+            train_time = mesh.span(t0, time.time())
+            state = unstack(carry)
+            cat = lambda xs: (torch.cat(xs).cpu().numpy()  # noqa: E731
+                              if xs else np.zeros((0,), np.float32))
+            loss_hist, lr_hist = cat(loss_chunks), cat(lr_chunks)
+            if cfg.log_every > 1:
+                loss_hist = loss_hist[::cfg.log_every]
+                lr_hist = lr_hist[::cfg.log_every]
+            return FitResult(
+                params=state.best_params if cfg.track_best else state.params,
+                final_params=state.params, state=state,
+                loss_history=loss_hist, lr_history=lr_hist,
+                best_loss=float(state.best_loss),
+                best_iter=int(state.best_iter), steps=cfg.total_steps,
+                train_time_s=train_time,
+                steps_per_sec=cfg.total_steps / max(train_time, 1e-9))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,3 @@
-from .observability import (MetricsLogger, StepTimer, profile_trace,
-                            read_metrics)
+from .observability import MetricsLogger, profile_trace, read_metrics
 
-__all__ = ["MetricsLogger", "StepTimer", "profile_trace", "read_metrics"]
+__all__ = ["MetricsLogger", "profile_trace", "read_metrics"]

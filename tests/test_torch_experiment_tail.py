@@ -2,10 +2,10 @@
 landscape (``_filter_normalize`` on the same directions, ``random_plane``'s
 grid), the pipelines (the decimation curriculum and the band split, end to
 end), the plots, the profiler (``profile_trace``, ``fit(profile_dir=)``),
-``StepTimer``, and the ``fit`` CLI's ``--inst``, ``--no-plots``,
-``--profile``, ``--scaled-first`` and ``--visualization`` beside the JAX
-CLI's.  Signals are synthesised; the port runs on the CPU (its plain
-versions), the JAX package unfused.
+and the ``fit`` CLI's ``--inst``, ``--no-plots``, ``--profile``,
+``--scaled-first`` and ``--visualization`` beside the JAX CLI's.  Signals
+are synthesised; the port runs on the CPU (its plain versions), the JAX
+package unfused.
 
 Tolerance: ``_filter_normalize`` is a norm and a scale per row, the same
 float32 expressions in both packages (reductions in another order):
@@ -35,7 +35,7 @@ from inraudio_tpu_torch.models import (SirenSnakeTanhConfig, build_model,
 from inraudio_tpu_torch.train import loop as tloop
 from inraudio_tpu_torch.train.losses import mix_loss
 from inraudio_tpu_torch.tree import tree_leaves, tree_map
-from inraudio_tpu_torch.utils import StepTimer, profile_trace
+from inraudio_tpu_torch.utils import profile_trace
 from inraudio_tpu_torch.utils import landscape as tlandscape
 
 torch.set_num_threads(1)
@@ -169,7 +169,7 @@ def test_band_split_train_sums_two_bands(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Plots, StepTimer, the profiler
+# Plots, the profiler
 # ---------------------------------------------------------------------------
 
 def test_plots_write_their_files(tmp_path):
@@ -190,18 +190,6 @@ def test_plots_write_their_files(tmp_path):
                  "landscape.png"):
         with open(tmp_path / name, "rb") as f:
             assert f.read(8) == b"\x89PNG\r\n\x1a\n", name
-
-
-def test_step_timer():
-    t = StepTimer(samples_per_step=1000)
-    t._t0 -= 2.0  # two seconds ago
-    t.tick(10)
-    t.tick()
-    assert t.steps == 11
-    assert 5.0 < t.steps_per_sec <= 5.5
-    assert abs(t.msamples_per_sec - t.steps_per_sec * 1e-3) < 1e-4
-    t.reset()
-    assert t.steps == 0 and t.elapsed < 1.0
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
