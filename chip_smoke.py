@@ -1363,7 +1363,7 @@ def runner_phases(np, torch, dev, clip):
             f"weight planes {group / 2**20:.1f} MiB = {tp.slices} slices x "
             f"P={P} floats + 2 x {tp.wq} bf16, planes and pres of a pass "
             f"{pass_ / 2**20:.1f} MiB = {tp.units} units x ({tp.unit_elems} "
-            f"bf16 + {len(plan.kinds)} x 8192 floats); limit "
+            f"bf16 + {len(plan.kinds)} x {tp.group * 8192} floats); limit "
             f"{allowed / 2**20:.1f} MiB = SCRATCH_BYTES "
             f"{st.SCRATCH_BYTES / 2**20:.0f} MiB + PLANE_BYTES "
             f"{st.PLANE_BYTES / 2**20:.0f} MiB + 8 state-sized groups + 16 "

@@ -303,6 +303,17 @@ __device__ __forceinline__ void put(float* p, float v, bool first) {
   *p = first ? v : *p + v;
 }
 
+// put of a group's tiles in order, v[0 .. n): one read, one write
+template <int N>
+__device__ __forceinline__ void put_group(float* p, const float (&v)[N],
+                                          int n, bool first) {
+  float s = first ? v[0] : *p + v[0];
+#pragma unroll
+  for (int g = 1; g < N; ++g)
+    if (g < n) s = s + v[g];
+  *p = s;
+}
+
 __device__ __forceinline__ void put4(float* p, float4 v, bool first) {
   if (!first) {
     const float4 o = *reinterpret_cast<const float4*>(p);
@@ -791,16 +802,18 @@ siren_grad_kernel(const float* __restrict__ coords,
 //
 // Three launches a pass, then the reduce:
 // - siren_wsplit_kernel: each window's h x h weights (and an RFF W0) into
-//   packed bf16 hi/lo planes, once per launch group (the w-role split);
+//   packed bf16 hi/lo planes, once per launch group (the w-role split), and
+//   each h x h W transposed beside them, the dgrad's operand;
 // - siren_sweep_kernel, per unit = (window, row slice), over the tiles of
-//   one row chunk of its slice: the forward recompute, the cotangent, the
-//   head (narrow FMAs), and the dgrad sweep, with W streamed in K-slabs of
-//   packed bf16 planes by cp.async (two stages; W^T read from W's rows).
-//   For each h x h layer it writes dW's operands once, as bf16 planes, into
-//   the unit's scratch: x_in's hi (and lo in bf16x3) and gpre's hi (and lo
-//   in bf16x2 / bf16x3); for an RFF model gpre0's.  db, da, the head's dW
-//   and a raw layer 0's dW go to the unit's slab as before (its first tile
-//   stores, later tiles add: a few H floats a layer);
+//   one row chunk of its slice, Sw<H>::G row tiles at a time: the forward
+//   recompute, the cotangent, the head (narrow FMAs), and the dgrad sweep,
+//   with W streamed in slabs of packed bf16 planes through a ring of
+//   shared-memory stages.  For each h x h layer it writes dW's operands
+//   once, as bf16 planes, into the unit's scratch: x_in's hi (and lo in
+//   bf16x3) and gpre's hi (and lo in bf16x2 / bf16x3); for an RFF model
+//   gpre0's.  db, da, the head's dW and a raw layer 0's dW go to the unit's
+//   slab as before (a slice's first tile stores, later tiles add, in tile
+//   order: a few H floats a layer);
 // - siren_dw_kernel, per (unit, output tile of a layer): dW = x_in^T gpre
 //   (and the RFF dW0 = [cos; sin]^T gpre0, the features recomputed from the
 //   coordinates) as one large-K tensor-core product over the chunk's rows
@@ -814,10 +827,13 @@ siren_grad_kernel(const float* __restrict__ coords,
 // products run:
 // - dW, and an RFF layer 0's forward: every term on the tensor cores, a
 //   pass per term; each step's hi.hi in a fresh accumulator, added in f32;
-// - the dgrad: the cross term on the tensor cores, hi.hi as fp32 FMAs in k
-//   order (the plain version's own order);
+// - the dgrad: the cross term on the tensor cores (mma.sync m16n8k16, k16
+//   blocks in order, each in a fresh accumulator added in f32), hi.hi as
+//   fp32 FMAs in k order (the plain version's own order);
 // - the forward of layers 1+: every term as fp32 FMAs, in the FMA kernel's
-//   chains, so its pres are that kernel's bit for bit.
+//   chains, so its pres are that kernel's bit for bit: for each output,
+//   hh = sum_k xh wh and cr = sum_k (xh wl, then xl wh in bf16x3), k
+//   ascending, then pre = (hh + cr) + b.
 // Why not everything on the tensor cores: the tensor core sums 16 products
 // at a time (with truncation), and an ulp of difference in a pre is
 // multiplied by omega in the next sine and flips the bf16 rounding of later
@@ -827,42 +843,94 @@ siren_grad_kernel(const float* __restrict__ coords,
 // order the card tests passed, but the headline encode's 300-step fit left
 // the plain-step fit by more than chip_smoke's 1 dB of median per-hop SNR.
 // With the whole forward in the FMA kernel's order every gate passes.
+//
+// What bounds the sweep, then, is the issue rate of those fp32 FMAs (about
+// 1.05M a row at h = 256: the forward's three terms and the dgrad's hi.hi
+// of four h x h layers), not the tensor cores.  Its design (Sw<H>) keeps
+// the FMA pipes fed:
+// - G row tiles a CTA at once (R = G TM rows: 64 at h = 256, 128 at h =
+//   128; G = 1 at h = 32 and 64, whose tiles are 256 and 128 rows already
+//   and whose slices are often one tile), so each W slab in shared memory
+//   serves R rows;
+// - a register tile of 8 rows x TC columns a thread (8 x 8 at G = 2, 8 x 4
+//   at G = 1), every output's hh and cr chains in registers; the operand
+//   planes are k-major (a layer's input and gpre as [k][row], the slabs as
+//   [k][column]), so each k's 8 rows are one 16-byte shared load a plane,
+//   its TC columns another, converted to f32 by one shift or mask a value
+//   and loaded a k ahead of the FMAs that use them;
+// - W slabs of 16 rows through a ring of NST stages (4 at h = 256, 8
+//   below), each plane of a slab one bulk copy (cp.async.bulk) issued by
+//   the warps in turn and completed on an mbarrier: the weight planes'
+//   rows are swizzled (swz_off) so that a dense slab serves ldmatrix and the
+//   FMA tile without bank conflicts.  A warp waits only for the slab it needs,
+//   never on a barrier of the whole CTA, and releases it by its own
+//   arrival; the next product's first slabs load while a layer's
+//   elementwise phase runs;
+// - the elementwise phases (a layer's activation and its split, gpre) as
+//   column passes with the layer's activation a compile-time choice
+//   (with_act): one straight-line copy of it, runs of 8 rows a thread, the
+//   k-major planes written 16 bytes at a time; a product's sums reach them
+//   through dX;
+// - the per-tile sums (the loss, the head's db and da) in parallel, a warp
+//   a tile, each in its own order.
+// Every output keeps the chain above, and every sum over rows its one-tile
+// grouping and order, so the results are those of the one-tile design bit
+// for bit.
 // Determinism: no float atomics; the slices and chunks are functions of the
 // shapes (ops/siren_train.py: tc_plan), so the grouping of windows and
 // units into passes leaves every result bit-equal.
 // ===========================================================================
 
-// Which of the sweep's h x h products run as fp32 FMAs in the reference's
-// k order, the rest on mma.sync: 2 (the route) every term of the forward
-// and the dgrad's hi.hi; 1 the hi.hi of both; 0 none.  1 and 0 fail the
-// gates against the plain versions (PERF.md §6); ops/sweep_ab.py builds
-// them to time them and to read those gates.
-#ifndef SIREN_SWEEP_SEQ
-#define SIREN_SWEEP_SEQ 2
-#endif
-
 template <int H>
-struct Tc {
+struct Sw {
   static constexpr int TM = tile_rows<H>();
-  static constexpr int LDB = H + 8;           // X / G plane pitch (bf16)
-  static constexpr int LDX = H + 4;           // dX pitch (f32)
-  static constexpr int KS = H < 64 ? H : 64;  // W slab depth
-  static constexpr int WN = H / 32;           // warps along the columns
-  // one W slab plane: KS rows x H (forward) or H rows x KS (dgrad)
-  static constexpr int WSP =
-      KS * (H + 8) > H * (KS + 8) ? KS * (H + 8) : H * (KS + 8);
+  static constexpr int G = H >= 128 ? 2 : 1;   // row tiles a CTA carries
+  static constexpr int R = G * TM;             // rows a group
+  static constexpr int RP = R + 8;             // X / G plane pitch (bf16)
+  static constexpr int LDX = H + 4;            // dX pitch (f32)
+  static constexpr int KS = 16;                // W slab rows
+  static constexpr int SLAB = KS * H;          // one plane of a slab (bf16)
+  static constexpr int NST = H == 256 ? 4 : 8; // ring stages
+  static constexpr int TC = 4 * G;             // FMA tile: 8 rows x TC cols
+  static constexpr int WCF = H / TC / 8;       // FMA tile: warps along cols
+  static constexpr int WN = H / 32;            // mma: warps along the columns
+  static constexpr int MT = 2 * G;             // mma: m16 tiles a warp
   static constexpr size_t smem_bytes() {
-    return static_cast<size_t>(2 * TM * LDB) * 2  // X / G planes
-           + static_cast<size_t>(4 * WSP) * 2     // 2 stages x hi / lo
-           + static_cast<size_t>(TM * LDX) * 4    // dX
-           + static_cast<size_t>(2 * H + TM * kMaxIn + 5 * TM + 2 * kThreads) * 4;
+    return static_cast<size_t>(2 * NST) * 8            // mbarriers
+           + static_cast<size_t>(2 * H * RP) * 2       // X / G planes
+           + static_cast<size_t>(NST * 2 * SLAB) * 2   // W ring
+           + static_cast<size_t>(R * LDX) * 4          // dX
+           + static_cast<size_t>(2 * H + R * kMaxIn + 5 * R +
+                                 2 * G * kThreads + 4 * G) * 4;
   }
 };
 
-static_assert(Tc<32>::smem_bytes() <= 232448, "sweep smem h=32");
-static_assert(Tc<64>::smem_bytes() <= 232448, "sweep smem h=64");
-static_assert(Tc<128>::smem_bytes() <= 232448, "sweep smem h=128");
-static_assert(Tc<256>::smem_bytes() <= 232448, "sweep smem h=256");
+static_assert(Sw<32>::smem_bytes() <= 232448, "sweep smem h=32");
+static_assert(Sw<64>::smem_bytes() <= 232448, "sweep smem h=64");
+static_assert(Sw<128>::smem_bytes() <= 232448, "sweep smem h=128");
+static_assert(Sw<256>::smem_bytes() <= 232448, "sweep smem h=256");
+static_assert(Sw<32>::R * 32 == 8 * kThreads * Sw<32>::TC &&
+              Sw<256>::R * 256 == 8 * kThreads * Sw<256>::TC,
+              "one 8 x TC tile a thread covers the group");
+
+// bf16 weight planes a window on the tensor-core route: the h x h layers'
+// W, an RFF W0 (2F x h), then each h x h W transposed (the dgrad's slabs).
+__host__ __device__ inline long long tc_wq(int n_layers, int h, int n_freq) {
+  return 2LL * (n_layers - 2) * h * h + 2LL * n_freq * h;
+}
+
+// The weight planes' rows are swizzled (siren_wsplit_kernel writes them
+// so, and the sweep's slabs copy them as they are): the 16-byte chunk c of
+// row k sits at chunk c ^ swz(h, k), so that ldmatrix's 8 rows at one chunk
+// fall in 8 distinct banks of a dense slab.
+__host__ __device__ inline int swz(int h, int k) {
+  return h >= 64 ? (k & 7) : ((k >> 1) & 3);  // h = 32: 4 chunks a row
+}
+
+// Offset of element (k, c) in a swizzled plane of rows of h.
+__host__ __device__ inline int swz_off(int h, int k, int c) {
+  return k * h + (((c >> 3) ^ swz(h, k)) << 3) + (c & 7);
+}
 
 // Planes of a unit's scratch: for each h x h layer x_in hi, [x_in lo in
 // bf16x3], gpre hi, [gpre lo in bf16x2 / bf16x3], each (rows_cap x H); then
@@ -870,357 +938,525 @@ static_assert(Tc<256>::smem_bytes() <= 232448, "sweep smem h=256");
 __host__ __device__ inline int tc_x_planes(int gm) { return gm == kBf16x3 ? 2 : 1; }
 __host__ __device__ inline int tc_g_planes(int gm) { return gm == kBf16 ? 1 : 2; }
 
-// One K-slab's product on the tensor cores for the warp's 32 x 32 block of
-// a (TM x H) output: A (TM rows, pitch LDB) from column acol0, in the x
-// role; B the slab in shared memory, in the w role: (KS x H, pitch H + 8)
-// read with .trans (the forward: W's rows), or (H x KS, pitch KS + 8) read
-// as is (the dgrad: columns of W, i.e. rows of W^T).  With HH every term
-// of the tier (hi.hi into hh, the cross terms into cr), else the cross
-// terms alone (hi.hi runs as FMAs: seq_hh_slab, seq_fwd_slab).
-template <int H, int MODE, bool DGRAD, bool HH>
-__device__ __forceinline__ void tc_slab(const bf16* Ah, const bf16* Al,
-                                        int acol0, const bf16* Bh,
-                                        const bf16* Bl, int ksteps,
-                                        float (&hh)[2][4][4],
-                                        float (&cr)[2][4][4]) {
-  using C = Tc<H>;
+// --- mbarriers and bulk copies (the sweep's W ring) ---
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  unsigned long long state;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 %0, [%1], %2;\n"
+               : "=l"(state)
+               : "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  unsigned long long state;
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];\n"
+               : "=l"(state)
+               : "r"(smem_u32(bar))
+               : "memory");
+}
+
+// whether the phase of `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16) global -> shared by the copy engine; their
+// arrival counts against `bar`'s expected transaction bytes
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         unsigned bytes,
+                                         unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The W slabs of one unit's sweep, in the order its products read them:
+// per group of row tiles an RFF W0's slabs (if any), the forward's h x h
+// layers 1 .. L-2, then the dgrad's L-2 .. 1 (rows of W^T).  Slab j is
+// issued by warp j % 8, up to NST - 1 slabs ahead of the slab the warp
+// consumes next, once every warp has released its stage; a warp waits for
+// that only for a slab of its own that it is about to read.  The slowest
+// warp has released every stage before the slab it reads, so every slab
+// it waits for gets issued.
+template <int H>
+struct SlabRing {
+  using S = Sw<H>;
+  static constexpr int LS = H / S::KS;  // slabs an h x h layer
+  bf16* stage;                          // NST x [hi, lo] slabs
+  unsigned long long* full;             // NST: a slab has landed
+  unsigned long long* empty;            // NST: every warp has read it
+  const bf16* wh;                       // the window's weight planes
+  const bf16* wl;
+  int nh;     // h x h layers
+  int K0;     // an RFF W0's rows (2F), or 0
+  int nsi;    // slabs a group
+  int total;  // slabs of the launch
+  int q;      // the next slab to consume
+  int next;   // the next slab this warp issues (its own: j % 8 == warp)
+
+  __device__ void init(bf16* st, unsigned long long* bars, const bf16* h,
+                       const bf16* l, int layers, int k0rows, int groups) {
+    stage = st;
+    full = bars;
+    empty = bars + S::NST;
+    wh = h;
+    wl = l;
+    nh = layers;
+    K0 = k0rows;
+    nsi = (K0 + S::KS - 1) / S::KS + 2 * nh * LS;
+    total = groups * nsi;
+    q = 0;
+    next = threadIdx.x / 32;
+  }
+
+  // the warp: slab `next` into its stage
+  __device__ void issue() {
+    constexpr int KS = S::KS;
+    const int lane = threadIdx.x & 31;
+    const int s = next % S::NST;
+    if (next >= S::NST)  // the stage's previous slab, released by all
+      mbar_wait(&empty[s], ((next / S::NST) - 1) & 1);
+    const long long HH = static_cast<long long>(H) * H;
+    const int nr = (K0 + KS - 1) / KS;
+    int j = next % nsi, K = H, k0;
+    long long off;
+    if (j < nr) {  // an RFF W0
+      off = nh * HH;
+      K = K0;
+      k0 = j * KS;
+    } else if ((j -= nr) < nh * LS) {  // the forward's W, layers 1 ..
+      off = (j / LS) * HH;
+      k0 = (j % LS) * KS;
+    } else {  // the dgrad's W^T, layers L-2 .. 1
+      j -= nh * LS;
+      off = nh * HH + static_cast<long long>(K0) * H +
+            (nh - 1 - j / LS) * HH;
+      k0 = (j % LS) * KS;
+    }
+    const int kn = K - k0 < KS ? K - k0 : KS;
+    bf16* dh = stage + s * 2 * S::SLAB;
+    bf16* dl = dh + S::SLAB;
+    if (kn < KS) {  // a ragged W0: zero its rows up to the next k16 block
+      const int kz = (kn + 15) & ~15;
+      for (int e = kn * H / 8 + lane; e < kz * H / 8; e += 32) {
+        reinterpret_cast<uint4*>(dh)[e] = make_uint4(0, 0, 0, 0);
+        reinterpret_cast<uint4*>(dl)[e] = make_uint4(0, 0, 0, 0);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    __syncwarp();
+    if (lane == 0) {  // the slab's rows are contiguous: one copy a plane
+      const long long src = off + static_cast<long long>(k0) * H;
+      mbar_expect_tx(&full[s], 2u * kn * H * 2);
+      bulk_g2s(dh, wh + src, kn * H * 2, &full[s]);
+      bulk_g2s(dl, wl + src, kn * H * 2, &full[s]);
+    }
+    next += kThreads / 32;
+  }
+
+  // every thread: the next slab's stage, once it has landed
+  __device__ const bf16* acquire() {
+    const int lim = q + S::NST < total ? q + S::NST : total;
+    while (next < lim) {
+      // a later slab whose stage some warp still reads waits for the
+      // warp's next acquire (lane 0 decides for the warp)
+      bool busy = false;
+      if (next > q && next >= S::NST && (threadIdx.x & 31) == 0)
+        busy = !mbar_test(&empty[next % S::NST], ((next / S::NST) - 1) & 1);
+      if (__shfl_sync(0xffffffffu, busy, 0)) break;
+      issue();
+    }
+    const int s = q % S::NST;
+    mbar_wait(&full[s], (q / S::NST) & 1);
+    return stage + s * 2 * S::SLAB;
+  }
+
+  // every thread, after its last read of the slab
+  __device__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[q % S::NST]);
+    ++q;
+  }
+};
+
+// N packed bf16 (one 16- or 8-byte shared load) and their f32 values
+template <int N>
+struct Packed {
+  unsigned v[N / 2];
+};
+
+template <int N>
+__device__ __forceinline__ Packed<N> ld_packed(const bf16* p) {
+  Packed<N> r;
+  if constexpr (N == 8) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    r.v[0] = u.x;
+    r.v[1] = u.y;
+    r.v[2] = u.z;
+    r.v[3] = u.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    r.v[0] = u.x;
+    r.v[1] = u.y;
+  }
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ void unpack(const Packed<N>& r, float (&f)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    f[2 * i] = __uint_as_float(r.v[i] << 16);
+    f[2 * i + 1] = __uint_as_float(r.v[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ unsigned pack2(bf16 a, bf16 b) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(a)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(b)) << 16);
+}
+
+// hh and cr += one W slab (KS values of k, in order) as fp32 FMAs for the
+// thread's 8 x TC outputs: ah / al point at the A planes' first k of the
+// slab and the thread's 8 rows (k-major, pitch RP), bh / bl at the slab's
+// planes (swizzled rows of H), whose columns col0 .. col0 + TC are the
+// thread's.  MODE: the forward's tier,
+// every term in the FMA kernel's chains (dense_tile: hi.hi into hh; hi.lo,
+// then lo.hi in bf16x3, into cr at each k); kBf16 for the dgrad's hi.hi.
+// The products of bf16 values are exact, so every FMA rounds as the
+// reference's does.
+template <int H, int MODE>
+__device__ __forceinline__ void fma_slab(const bf16* ah, const bf16* al,
+                                         const bf16* bh, const bf16* bl,
+                                         int col0, float (&hh)[8][Sw<H>::TC],
+                                         float (&cr)[8][Sw<H>::TC]) {
+  using S = Sw<H>;
+  constexpr int TC = S::TC, KS = S::KS, RP = S::RP;
+  constexpr bool XL = MODE == kBf16x3, WL = MODE != kBf16;
+  Packed<8> xa = ld_packed<8>(ah), xb{};
+  Packed<TC> wa = ld_packed<TC>(bh + swz_off(H, 0, col0)), wb{};
+  if (XL) xb = ld_packed<8>(al);
+  if (WL) wb = ld_packed<TC>(bl + swz_off(H, 0, col0));
+#pragma unroll 4
+  for (int k = 0; k < KS; ++k) {
+    const int kn = k + 1 < KS ? k + 1 : k;  // the next k's operands
+    const int wo = swz_off(H, kn, col0);
+    const Packed<8> na = ld_packed<8>(ah + kn * RP);
+    const Packed<TC> nw = ld_packed<TC>(bh + wo);
+    Packed<8> nb{};
+    Packed<TC> nl{};
+    if (XL) nb = ld_packed<8>(al + kn * RP);
+    if (WL) nl = ld_packed<TC>(bl + wo);
+    float xh[8], xl[8], wh[TC], wl[TC];
+    unpack(xa, xh);
+    unpack(wa, wh);
+    if (XL) unpack(xb, xl);
+    if (WL) unpack(wb, wl);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < TC; ++c) {
+        hh[i][c] = fmaf(xh[i], wh[c], hh[i][c]);
+        if (WL) cr[i][c] = fmaf(xh[i], wl[c], cr[i][c]);
+        if (XL) cr[i][c] = fmaf(xl[i], wh[c], cr[i][c]);
+      }
+    xa = na;
+    wa = nw;
+    xb = nb;
+    wb = nl;
+  }
+}
+
+// One slab's product on the tensor cores for the warp's (32 G) x 32 block
+// of the (R x H) output: A's k-major planes (pitch RP) from k-row ka, read
+// with ldmatrix .trans; B the slab ([k][column], swizzled rows of H), read
+// with .trans.  With HH every term of the tier (hi.hi into hh, the cross terms
+// into cr), else the cross terms alone, each k16 step's sums in fresh
+// accumulators added in f32 (tier_mma_f32, cross_mma).
+template <int H, int MODE, bool HH>
+__device__ __forceinline__ void mma_slab(const bf16* Ah, const bf16* Al,
+                                         int ka, const bf16* Bh,
+                                         const bf16* Bl, int ksteps,
+                                         float (&hh)[Sw<H>::MT][4][4],
+                                         float (&cr)[Sw<H>::MT][4][4]) {
+  using S = Sw<H>;
+  constexpr int MT = S::MT, RP = S::RP;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = (warp / C::WN) * 32, n0 = (warp % C::WN) * 32;
+  const int m0 = (warp / S::WN) * 16 * MT, n0 = (warp % S::WN) * 32;
 #pragma unroll 1
   for (int s = 0; s < ksteps; ++s) {
     const int kk = s * 16;
-    unsigned ah[2][4], al[2][4] = {};
+    unsigned ah[MT][4], al[MT][4] = {};
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int off = (r0 + mi * 16 + (lane & 15)) * C::LDB + acol0 + kk +
-                      (lane >> 4) * 8;
-      ldsm_x4(ah[mi], Ah + off);
-      if (MODE == kBf16x3) ldsm_x4(al[mi], Al + off);
+    for (int mi = 0; mi < MT; ++mi) {
+      const int off = (ka + kk + (lane & 7) + ((lane >> 4) & 1) * 8) * RP +
+                      m0 + mi * 16 + ((lane >> 3) & 1) * 8;
+      ldsm_x4_t(ah[mi], Ah + off);
+      if (MODE == kBf16x3) ldsm_x4_t(al[mi], Al + off);
     }
 #pragma unroll
     for (int nj = 0; nj < 4; nj += 2) {
       unsigned bh[4], bl[4] = {};
-      if (DGRAD) {
-        const int off = (n0 + nj * 8 + (lane & 7) + (lane >> 4) * 8) *
-                            (C::KS + 8) + kk + ((lane >> 3) & 1) * 8;
-        ldsm_x4(bh, Bh + off);
-        if (MODE != kBf16) ldsm_x4(bl, Bl + off);
-      } else {
-        const int off = (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * (H + 8) +
-                        n0 + nj * 8 + (lane >> 4) * 8;
-        ldsm_x4_t(bh, Bh + off);
-        if (MODE != kBf16) ldsm_x4_t(bl, Bl + off);
-      }
+      const int off = swz_off(H, kk + (lane & 7) + ((lane >> 3) & 1) * 8,
+                              n0 + nj * 8 + (lane >> 4) * 8);
+      ldsm_x4_t(bh, Bh + off);
+      if (MODE != kBf16) ldsm_x4_t(bl, Bl + off);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        if (!HH) {
-          cross_mma<MODE>(cr[mi][nj], ah[mi], al[mi], bh[0], bh[1], bl[0],
-                          bl[1]);
-          cross_mma<MODE>(cr[mi][nj + 1], ah[mi], al[mi], bh[2], bh[3],
-                          bl[2], bl[3]);
-        } else {
+      for (int mi = 0; mi < MT; ++mi) {
+        if (HH) {
           tier_mma_f32<MODE>(hh[mi][nj], cr[mi][nj], ah[mi], al[mi], bh[0],
                              bh[1], bl[0], bl[1]);
           tier_mma_f32<MODE>(hh[mi][nj + 1], cr[mi][nj + 1], ah[mi], al[mi],
                              bh[2], bh[3], bl[2], bl[3]);
+        } else {
+          cross_mma<MODE>(cr[mi][nj], ah[mi], al[mi], bh[0], bh[1], bl[0],
+                          bl[1]);
+          cross_mma<MODE>(cr[mi][nj + 1], ah[mi], al[mi], bh[2], bh[3],
+                          bl[2], bl[3]);
         }
       }
     }
   }
 }
 
-template <int H, bool DGRAD, bool HH>
-__device__ __forceinline__ void tc_slab_dispatch(int mode, const bf16* Ah,
-                                                 const bf16* Al, int acol0,
-                                                 const bf16* Bh,
-                                                 const bf16* Bl, int ksteps,
-                                                 float (&hh)[2][4][4],
-                                                 float (&cr)[2][4][4]) {
-  if (mode == kBf16x3)
-    tc_slab<H, kBf16x3, DGRAD, HH>(Ah, Al, acol0, Bh, Bl, ksteps, hh, cr);
-  else if (mode == kBf16x2)
-    tc_slab<H, kBf16x2, DGRAD, HH>(Ah, Al, acol0, Bh, Bl, ksteps, hh, cr);
-  else if (HH)  // bf16 has no cross term
-    tc_slab<H, kBf16, DGRAD, HH>(Ah, Al, acol0, Bh, Bl, ksteps, hh, cr);
-}
-
-// hh += the hi.hi term of one dgrad K-slab as fp32 FMAs in k order, the
-// order of the plain version's (and the FMA kernel's) f32 product, for the
-// warp's 32 x 32 block: gpre's hi plane from column acol0, W^T's hi slab
-// (H x KS, pitch KS + 8).  The products are exact, so every FMA rounds as
-// the reference's does.
-template <int H>
-__device__ __forceinline__ void seq_hh_slab(const bf16* Ah, int acol0,
-                                            const bf16* Wh, int kn,
-                                            float (&hh)[2][4][4]) {
-  using C = Tc<H>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = (warp / C::WN) * 32 + (lane >> 2);
-  const int c0 = (warp % C::WN) * 32 + (lane & 3) * 2;
-#pragma unroll 2
-  for (int k = 0; k < kn; ++k) {
-    float x[2][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        x[mi][half] = __bfloat162float(
-            Ah[(r0 + mi * 16 + half * 8) * C::LDB + acol0 + k]);
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const bf16* wc = Wh + (c0 + nj * 8) * (C::KS + 8) + k;
-      const float w0 = __bfloat162float(wc[0]);
-      const float w1 = __bfloat162float(wc[C::KS + 8]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          hh[mi][nj][half * 2] = fmaf(x[mi][half], w0, hh[mi][nj][half * 2]);
-          hh[mi][nj][half * 2 + 1] =
-              fmaf(x[mi][half], w1, hh[mi][nj][half * 2 + 1]);
-        }
-    }
-  }
-}
-
-// hh and cr += one forward K-slab of every term of the tier as fp32 FMAs in
-// k order, the FMA kernel's chains (dense_tile: hi.hi; then hi.lo and, in
-// bf16x3, lo.hi interleaved per k).
+// The forward product of an h x h layer, (R x H) x (H x H), every term as
+// FMAs in the tier MODE, W's slabs from the ring: the thread's 8 x TC
+// outputs from row0, col0 into hh, cr.
 template <int H, int MODE>
-__device__ __forceinline__ void seq_fwd_slab(const bf16* Xh, const bf16* Xl,
-                                             int acol0, const bf16* Wh,
-                                             const bf16* Wl, int kn,
-                                             float (&hh)[2][4][4],
-                                             float (&cr)[2][4][4]) {
-  using C = Tc<H>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = (warp / C::WN) * 32 + (lane >> 2);
-  const int c0 = (warp % C::WN) * 32 + (lane & 3) * 2;
+__device__ __forceinline__ void fwd_product(SlabRing<H>& ring,
+                                            const bf16* Xh, const bf16* Xl,
+                                            int row0, int col0,
+                                            float (&hh)[8][Sw<H>::TC],
+                                            float (&cr)[8][Sw<H>::TC]) {
+  using S = Sw<H>;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < S::TC; ++c) hh[i][c] = cr[i][c] = 0.0f;
 #pragma unroll 1
-  for (int k = 0; k < kn; ++k) {
-    float xh[2][2], xl[2][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int idx = (r0 + mi * 16 + half * 8) * C::LDB + acol0 + k;
-        xh[mi][half] = __bfloat162float(Xh[idx]);
-        xl[mi][half] = MODE == kBf16x3 ? __bfloat162float(Xl[idx]) : 0.0f;
-      }
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      const bf162 h2 = *reinterpret_cast<const bf162*>(
-          Wh + k * (H + 8) + c0 + nj * 8);
-      const bf162 l2 = *reinterpret_cast<const bf162*>(
-          Wl + k * (H + 8) + c0 + nj * 8);
-      const float wh[2] = {__bfloat162float(h2.x), __bfloat162float(h2.y)};
-      const float wl[2] = {__bfloat162float(l2.x), __bfloat162float(l2.y)};
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            float& h = hh[mi][nj][half * 2 + q];
-            float& c = cr[mi][nj][half * 2 + q];
-            h = fmaf(xh[mi][half], wh[q], h);
-            if (MODE == kBf16x2 || MODE == kBf16x3)
-              c = fmaf(xh[mi][half], wl[q], c);
-          }
-      if (MODE == kBf16x3) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int half = 0; half < 2; ++half)
-#pragma unroll
-            for (int q = 0; q < 2; ++q)
-              cr[mi][nj][half * 2 + q] =
-                  fmaf(xl[mi][half], wh[q], cr[mi][nj][half * 2 + q]);
-      }
-    }
+  for (int s = 0; s < H / S::KS; ++s) {
+    const bf16* st = ring.acquire();
+    const int a = s * S::KS * S::RP + row0;
+    fma_slab<H, MODE>(Xh + a, Xl + a, st, st + S::SLAB, col0, hh, cr);
+    ring.release();
   }
 }
 
-// Rows [k0, k0 + KS) of a (K x H) bf16 plane pair into a forward slab
-// (pitch H + 8); rows at or past K are zero.
-template <int H>
-__device__ __forceinline__ void issue_fwd_slab(bf16* dh, bf16* dl,
-                                               const bf16* sh, const bf16* sl,
-                                               int k0, int K) {
-  constexpr int VR = H / 8;  // 16-byte vectors a row
-  for (int e = threadIdx.x; e < Tc<H>::KS * VR; e += kThreads) {
-    const int r = e / VR, v = e % VR;
-    const bool ok = k0 + r < K;
-    const long long src = ok ? static_cast<long long>(k0 + r) * H + v * 8 : 0;
-    const int dst = r * (H + 8) + v * 8;
-    cp_async16(dh + dst, sh + src, ok ? 16 : 0);
-    cp_async16(dl + dst, sl + src, ok ? 16 : 0);
-  }
-}
-
-// Columns [c0, c0 + KS) of every row of an (H x H) bf16 plane pair into a
-// dgrad slab (H rows, pitch KS + 8).
-template <int H>
-__device__ __forceinline__ void issue_dgrad_slab(bf16* dh, bf16* dl,
-                                                 const bf16* sh,
-                                                 const bf16* sl, int c0) {
-  constexpr int KS = Tc<H>::KS, VR = KS / 8;
-  for (int e = threadIdx.x; e < H * VR; e += kThreads) {
-    const int j = e / VR, v = e % VR;
-    const long long src = static_cast<long long>(j) * H + c0 + v * 8;
-    const int dst = j * (KS + 8) + v * 8;
-    cp_async16(dh + dst, sh + src, 16);
-    cp_async16(dl + dst, sl + src, 16);
-  }
-}
-
-// One (TM x H) x (K x H) product (the forward, K = H or 2F rows of W) or
-// (TM x H) x (H x H)^T (the dgrad) on the tensor cores, W's planes (global,
-// per window) streamed through two slab stages by cp.async.
-template <int H, bool DGRAD>
-__device__ __forceinline__ void tc_product(int mode, const bf16* Ah,
-                                           const bf16* Al, const bf16* wh,
-                                           const bf16* wl, int K, bf16* Ws,
-                                           float (&hh)[2][4][4],
-                                           float (&cr)[2][4][4]) {
-  constexpr int KS = Tc<H>::KS, WSP = Tc<H>::WSP;
+// The dgrad of an h x h layer, gpre (R x H) W^T, the slabs being W^T's
+// rows: hi.hi as FMAs into the thread's 8 x TC tile (hh), the cross terms
+// of the grad tier GM on the tensor cores into the warp's block (cr).
+template <int H, int GM>
+__device__ __forceinline__ void dgrad_product(SlabRing<H>& ring,
+                                              const bf16* Gh, const bf16* Gl,
+                                              int row0, int col0,
+                                              float (&hh)[8][Sw<H>::TC],
+                                              float (&cr)[Sw<H>::MT][4][4]) {
+  using S = Sw<H>;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < S::TC; ++c) hh[i][c] = 0.0f;
+#pragma unroll
+  for (int mi = 0; mi < S::MT; ++mi)
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) hh[mi][nj][q] = cr[mi][nj][q] = 0.0f;
-  const int ns = (K + KS - 1) / KS;
-  auto issue = [&](int s, int st) {
-    bf16* dh = Ws + st * 2 * WSP;
-    if (DGRAD)
-      issue_dgrad_slab<H>(dh, dh + WSP, wh, wl, s * KS);
+      for (int q = 0; q < 4; ++q) cr[mi][nj][q] = 0.0f;
+#pragma unroll 1
+  for (int s = 0; s < H / S::KS; ++s) {
+    const bf16* st = ring.acquire();
+    const bf16* a = Gh + s * S::KS * S::RP + row0;
+    fma_slab<H, kBf16>(a, a, st, st, col0, hh, hh);
+    if (GM != kBf16)
+      mma_slab<H, GM, false>(Gh, Gl, s * S::KS, st, st + S::SLAB,
+                             S::KS / 16, cr, cr);
+    ring.release();
+  }
+}
+
+// A layer's activation with its kind and sin / cos degree as constants, so
+// that an elementwise loop carries one straight-line copy of it (the
+// values are those of activate and dact with the same arguments).
+template <int KIND, int DEG>
+struct Act {
+  __device__ __forceinline__ float operator()(float pre, float omega,
+                                              float a) const {
+    return activate(KIND, pre, omega, a, DEG);
+  }
+  __device__ __forceinline__ float grad(float pre, float omega, float a,
+                                        float g, float* ga) const {
+    return dact(KIND, pre, omega, a, DEG, g, ga);
+  }
+};
+
+// f(Act<kind, deg>{}) for a layer's runtime kind and degree (trig_sin and
+// trig_cos take any degree other than 0, 7 and 9 as 11).
+template <typename F>
+__device__ __forceinline__ void with_act(int kind, int deg, F&& f) {
+  if (kind == kSine || kind == kSnake) {
+    const bool sine = kind == kSine;
+    if (deg == 0)
+      sine ? f(Act<kSine, 0>{}) : f(Act<kSnake, 0>{});
+    else if (deg == 7)
+      sine ? f(Act<kSine, 7>{}) : f(Act<kSnake, 7>{});
+    else if (deg == 9)
+      sine ? f(Act<kSine, 9>{}) : f(Act<kSnake, 9>{});
     else
-      issue_fwd_slab<H>(dh, dh + WSP, wh, wl, s * KS, K);
-  };
-  __syncthreads();  // A is complete; the slab stages are free
-  issue(0, 0);
-  cp_async_commit();
-  for (int s = 0; s < ns; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();  // slab s has landed; slab s - 1 is consumed
-    if (s + 1 < ns) issue(s + 1, (s + 1) & 1);
-    cp_async_commit();
-    const bf16* bh = Ws + (s & 1) * 2 * WSP;
-    const int kn = K - s * KS < KS ? K - s * KS : KS;
-    if constexpr (SIREN_SWEEP_SEQ == 0) {  // every term on mma
-      tc_slab_dispatch<H, DGRAD, true>(mode, Ah, Al, s * KS, bh, bh + WSP,
-                                       (kn + 15) / 16, hh, cr);
-    } else if constexpr (DGRAD || SIREN_SWEEP_SEQ == 1) {
-      // hi.hi in the reference's order, the cross terms on mma
-      if constexpr (DGRAD)
-        seq_hh_slab<H>(Ah, s * KS, bh, kn, hh);
-      else
-        seq_fwd_slab<H, kBf16>(Ah, Al, s * KS, bh, bh + WSP, kn, hh, cr);
-      tc_slab_dispatch<H, DGRAD, false>(mode, Ah, Al, s * KS, bh, bh + WSP,
-                                        (kn + 15) / 16, hh, cr);
-    } else if (mode == kBf16x3) {  // every term in the reference's order
-      seq_fwd_slab<H, kBf16x3>(Ah, Al, s * KS, bh, bh + WSP, kn, hh, cr);
-    } else if (mode == kBf16x2) {
-      seq_fwd_slab<H, kBf16x2>(Ah, Al, s * KS, bh, bh + WSP, kn, hh, cr);
-    } else {
-      seq_fwd_slab<H, kBf16>(Ah, Al, s * KS, bh, bh + WSP, kn, hh, cr);
-    }
+      sine ? f(Act<kSine, 11>{}) : f(Act<kSnake, 11>{});
+  } else if (kind == kTanh) {
+    f(Act<kTanh, 0>{});
+  } else {
+    f(Act<kLinear, 0>{});
   }
 }
 
-// The warp's accumulators -> pre = (hh + cr) + b, saved to pre_out (TM x H
-// f32), and the activation (0 at or past `live`) split into the X planes
-// and, as the next layer's x_in for dW, into xg (rows of H: hi, and lo at
-// xg + xlo when xlo > 0).
+// The thread's FMA tile of sums s = hh + cr into dX (R x H f32, pitch
+// LDX), for store_cols.
 template <int H>
-__device__ __forceinline__ void store_tc(const float (&hh)[2][4][4],
-                                         const float (&cr)[2][4][4],
-                                         const float* sb, const float* sa,
-                                         int kind, float omega, int deg,
-                                         bf16* Xh, bf16* Xl, float* pre_out,
-                                         int live, bf16* xg, long long xlo) {
-  using C = Tc<H>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = (warp / C::WN) * 32, n0 = (warp % C::WN) * 32;
-  const int gid = lane >> 2, tig = lane & 3;
+__device__ __forceinline__ void stage_tile(const float (&hh)[8][Sw<H>::TC],
+                                           const float (&cr)[8][Sw<H>::TC],
+                                           float* dX, int row0, int col0) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = r0 + mi * 16 + gid + half * 8;
-        const int col = n0 + nj * 8 + tig * 2;
-        float p[2], v[2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          p[q] = (hh[mi][nj][half * 2 + q] + cr[mi][nj][half * 2 + q]) +
-                 sb[col + q];
-          v[q] = col + q < live
-                     ? activate(kind, p[q], omega, sa[col + q], deg)
-                     : 0.0f;
-        }
-        *reinterpret_cast<float2*>(pre_out + row * H + col) =
-            make_float2(p[0], p[1]);
-        bf162 hi, lo;
-        split_bf16(v[0], &hi.x, &lo.x);
-        split_bf16(v[1], &hi.y, &lo.y);
-        *reinterpret_cast<bf162*>(Xh + row * C::LDB + col) = hi;
-        *reinterpret_cast<bf162*>(Xl + row * C::LDB + col) = lo;
-        if (xg != nullptr) {
-          *reinterpret_cast<bf162*>(xg + row * H + col) = hi;
-          if (xlo > 0) *reinterpret_cast<bf162*>(xg + xlo + row * H + col) = lo;
-        }
-      }
+    for (int c = 0; c < Sw<H>::TC; c += 4)
+      *reinterpret_cast<float4*>(dX + (row0 + i) * Sw<H>::LDX + col0 + c) =
+          make_float4(hh[i][c] + cr[i][c], hh[i][c + 1] + cr[i][c + 1],
+                      hh[i][c + 2] + cr[i][c + 2], hh[i][c + 3] + cr[i][c + 3]);
 }
 
-// The warp's accumulators -> dX = hh + cr (TM x H f32, pitch LDX).
+// The warp's mma block of sums s = hh + cr into dX, for store_cols.
 template <int H>
-__device__ __forceinline__ void store_dx(const float (&hh)[2][4][4],
-                                         const float (&cr)[2][4][4],
-                                         float* dX) {
-  using C = Tc<H>;
+__device__ __forceinline__ void stage_frag(const float (&hh)[Sw<H>::MT][4][4],
+                                           const float (&cr)[Sw<H>::MT][4][4],
+                                           float* dX) {
+  using S = Sw<H>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = (warp / C::WN) * 32, n0 = (warp % C::WN) * 32;
-  const int gid = lane >> 2, tig = lane & 3;
+  const int m0 = (warp / S::WN) * 16 * S::MT, n0 = (warp % S::WN) * 32;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int mi = 0; mi < S::MT; ++mi)
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int row = r0 + mi * 16 + gid + half * 8;
-        const int col = n0 + nj * 8 + tig * 2;
-        *reinterpret_cast<float2*>(dX + row * C::LDX + col) = make_float2(
+        const int row = m0 + mi * 16 + (lane >> 2) + half * 8;
+        const int col = n0 + nj * 8 + (lane & 3) * 2;
+        *reinterpret_cast<float2*>(dX + row * S::LDX + col) = make_float2(
             hh[mi][nj][half * 2] + cr[mi][nj][half * 2],
             hh[mi][nj][half * 2 + 1] + cr[mi][nj][half * 2 + 1]);
       }
 }
 
-// Each window's h x h weights (layers 1 .. L-2, then an RFF W0 (2F x h))
-// split into packed bf16 hi / lo planes: (k, wq) each, wq = (L - 2) h^2 +
-// 2F h.  The w role of every tensor-core product of the step.
+// A layer's output from its sums s = hh + cr, staged in dX (R x H f32,
+// pitch LDX): pre = s + b saved to pre_out (R x H f32), and the activation
+// (0 at or past `live`) split into the X planes (k-major) and, as the next
+// layer's x_in for dW, into xg (rows of H: hi, and lo at xg + xlo when
+// xlo > 0) for the rows below rows_ok.  A column a thread, runs of 8
+// rows: the X planes take one 16-byte store a plane and run.
+template <int H, typename A>
+__device__ __forceinline__ void store_cols(A act, const float* dX,
+                                           const float* sb, const float* sa,
+                                           float omega, bf16* Xh, bf16* Xl,
+                                           float* pre_out, int live, bf16* xg,
+                                           long long xlo, int rows_ok) {
+  using S = Sw<H>;
+  constexpr int TPC = kThreads / H, RB = S::R / TPC;
+  const int ec = threadIdx.x % H, es = threadIdx.x / H;
+  const float b = sb[ec], a = sa[ec];
+  const bool on = ec < live;
+#pragma unroll 1
+  for (int r0 = es * RB; r0 < (es + 1) * RB; r0 += 8) {
+    bf16 hi[8], lo[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = r0 + i;
+      const float p = dX[r * S::LDX + ec] + b;
+      pre_out[r * H + ec] = p;
+      split_bf16(on ? act(p, omega, a) : 0.0f, &hi[i], &lo[i]);
+      if (xg != nullptr && r < rows_ok) {
+        xg[r * H + ec] = hi[i];
+        if (xlo > 0) xg[xlo + r * H + ec] = lo[i];
+      }
+    }
+    const int o = ec * S::RP + r0;
+    *reinterpret_cast<uint4*>(Xh + o) =
+        make_uint4(pack2(hi[0], hi[1]), pack2(hi[2], hi[3]),
+                   pack2(hi[4], hi[5]), pack2(hi[6], hi[7]));
+    *reinterpret_cast<uint4*>(Xl + o) =
+        make_uint4(pack2(lo[0], lo[1]), pack2(lo[2], lo[3]),
+                   pack2(lo[4], lo[5]), pack2(lo[6], lo[7]));
+  }
+}
+
+// Each window's weights split into packed bf16 hi / lo planes, (k, wq)
+// each (tc_wq): the h x h layers 1 .. L-2, an RFF W0 (2F x h), then the h x
+// h layers' W transposed, every row swizzled (swz_off).  The w role of
+// every tensor-core product of the step.
 __global__ void __launch_bounds__(kThreads)
 siren_wsplit_kernel(const float* __restrict__ params, bf16* __restrict__ whi,
                     bf16* __restrict__ wlo, const TrainArgs args, int h,
                     long long wq, int k) {
   const long long hh = static_cast<long long>(h) * h;
   const long long nhh = (args.n_layers - 2) * hh;
+  const long long w0 = nhh + 2LL * args.n_freq * h;  // W^T from here
   const long long total = wq * k;
   for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long w = e / wq, i = e % wq;
-    const long long src =
-        i < nhh ? args.off_w[1 + i / hh] + i % hh : args.off_w[0] + (i - nhh);
+    // the plane's row k and the logical column of swizzled position cp
+    const long long t = i < nhh ? i % hh : i < w0 ? i - nhh : (i - w0) % hh;
+    const int k = static_cast<int>(t / h), cp = static_cast<int>(t % h);
+    const int c = (((cp >> 3) ^ swz(h, k)) << 3) + (cp & 7);
+    long long src;
+    if (i < nhh)
+      src = args.off_w[1 + i / hh] + static_cast<long long>(k) * h + c;
+    else if (i < w0)
+      src = args.off_w[0] + static_cast<long long>(k) * h + c;
+    else  // W^T[k][c] = W[c][k]
+      src = args.off_w[1 + (i - w0) / hh] + static_cast<long long>(c) * h + k;
     split_bf16(params[w * args.P + src], whi + e, wlo + e);
   }
 }
 
 // One unit (window, row slice) over the row tiles of chunk `chunk` of its
-// slice: forward recompute, cotangent, head, dgrad sweep; dW's operands
-// into the unit's planes (local row = row - the chunk's first row).
+// slice, G tiles at a time (the last group of a chunk may hold fewer):
+// forward recompute, cotangent, head, dgrad sweep; dW's operands into the
+// unit's planes (local row = row - the chunk's first row).
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
 siren_sweep_kernel(const float* __restrict__ coords,
@@ -1234,29 +1470,31 @@ siren_sweep_kernel(const float* __restrict__ coords,
                    int n, int tiles, int slices, int u0, int chunk,
                    int chunk_tiles, int rows_cap, long long unit_elems,
                    long long wq) {
-  using C = Tc<H>;
-  constexpr int TM = C::TM, LDB = C::LDB, LDX = C::LDX, KS = C::KS;
-  constexpr int WSP = C::WSP;
+  using S = Sw<H>;
+  constexpr int TM = S::TM, G = S::G, R = S::R, RP = S::RP, LDX = S::LDX;
+  constexpr int KS = S::KS, TC = S::TC, MT = S::MT, NST = S::NST;
   constexpr int TPR = kThreads / TM;   // head forward: threads per row
   constexpr int TPC = kThreads / H;    // column passes: threads per column
-  constexpr int RPT = TM / TPC;        // column passes: rows per thread (32)
+  constexpr int RPT = TM / TPC;        // column passes: a tile's rows a thread
   static_assert(RPT % 8 == 0, "rows per thread in chunks of 8");
   extern __shared__ float4 smem4[];
-  bf16* Xh = reinterpret_cast<bf16*>(smem4);  // X planes, then G planes
-  bf16* Xl = Xh + TM * LDB;
-  bf16* Ws = Xl + TM * LDB;                   // [stage][hi, lo][WSP]
-  float* dX = reinterpret_cast<float*>(Ws + 4 * WSP);
-  float* sb = dX + TM * LDX;
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem4);
+  bf16* Xh = reinterpret_cast<bf16*>(bars + 2 * NST);  // X, then G planes
+  bf16* Xl = Xh + H * RP;
+  bf16* ring_st = Xl + H * RP;                         // [stage][hi, lo]
+  float* dX = reinterpret_cast<float*>(ring_st + NST * 2 * S::SLAB);
+  float* sb = dX + R * LDX;
   float* sa = sb + H;
   float* sc = sa + H;
-  float* shp = sc + TM * kMaxIn;       // head pre
-  float* shg = shp + TM;               // head gpre (f32)
-  float* shh = shg + TM;               // head gpre hi
-  float* shl = shh + TM;               // head gpre lo
-  float* sl = shl + TM;                // per-row loss
-  float* red = sl + TM;                // 2 * kThreads column partials
+  float* shp = sc + R * kMaxIn;        // head pre
+  float* shg = shp + R;                // head gpre (f32)
+  float* shh = shg + R;                // head gpre hi
+  float* shl = shh + R;                // head gpre lo
+  float* sl = shl + R;                 // per-row loss
+  float* red = sl + R;                 // G x 2 x kThreads column partials
+  float* tsum = red + 2 * G * kThreads;  // per tile: loss, db, da
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int u = u0 + blockIdx.x;
   const long long win = u / slices;
   const int slice = u % slices;
@@ -1273,35 +1511,47 @@ siren_sweep_kernel(const float* __restrict__ coords,
   const int gm = args.gmode;
   const int F = args.n_freq;
   const float* wp = params + win * args.P;
-  const bf16* wh = whi + win * wq;
-  const bf16* wl = wlo + win * wq;
-  const long long HH = static_cast<long long>(H) * H;
   float* slab = partial + static_cast<long long>(u) * args.P;
-  float* pre_tile = pre_buf + static_cast<long long>(blockIdx.x) * L * kTileFloats;
+  float* pre_tile =
+      pre_buf + static_cast<long long>(blockIdx.x) * L * (R * H);
   bf16* up = planes + blockIdx.x * unit_elems;
   const long long RCH = static_cast<long long>(rows_cap) * H;
   const int npl = tc_x_planes(gm) + tc_g_planes(gm);
   const long long xlo = gm == kBf16x3 ? RCH : 0;  // x_in's lo plane
   const int ec = tid % H, es = tid / H;  // column-pass mapping
   const int n_lim = limit != nullptr ? min(n, __ldg(limit)) : n;
+  // the thread's FMA tile: a warp's lanes are 4 row groups x 8 column groups
+  const int row0 = ((warp / S::WCF) * 4 + lane / 8) * 8;
+  const int col0 = ((warp % S::WCF) * 8 + lane % 8) * TC;
 
-  if (chunk == 0 && tid == 0) {  // zero the pads between leaves of the slab
-    for (int li = 0; li < L; ++li) {
-      const int in_f = li == 0 ? (F > 0 ? 2 * F : d) : H;
-      const int out_f = li == L - 1 ? 1 : H;
-      int ends[3] = {args.off_w[li] + in_f * out_f, args.off_b[li] + out_f,
-                     args.off_a[li] >= 0 ? args.off_a[li] + out_f : -1};
-      for (int q = 0; q < 3; ++q)
-        for (int e = ends[q]; e >= 0 && (e & 3); ++e) slab[e] = 0.0f;
+  SlabRing<H> ring;
+  ring.init(ring_st, bars, whi + win * wq, wlo + win * wq, L - 2, 2 * F,
+            (c1t - c0t + G - 1) / G);
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (chunk == 0) {  // zero the pads between leaves of the slab
+      for (int li = 0; li < L; ++li) {
+        const int in_f = li == 0 ? (F > 0 ? 2 * F : d) : H;
+        const int out_f = li == L - 1 ? 1 : H;
+        int ends[3] = {args.off_w[li] + in_f * out_f, args.off_b[li] + out_f,
+                       args.off_a[li] >= 0 ? args.off_a[li] + out_f : -1};
+        for (int q = 0; q < 3; ++q)
+          for (int e = ends[q]; e >= 0 && (e & 3); ++e) slab[e] = 0.0f;
+      }
     }
   }
   float loss_acc = 0.0f;  // thread 0: the chunk's loss
 
-  for (int t = c0t; t < c1t; ++t) {
-    const bool first = t == t_begin;
-    const int row0 = t * TM;
+  for (int t = c0t; t < c1t; t += G) {
+    const int ng = min(G, c1t - t);      // tiles in this group
+    const int rows_ok = ng * TM;         // its rows of real tiles
+    const int row_g0 = t * TM;
     const long long lr0 = static_cast<long long>(t - c0t) * TM;
-    __syncthreads();  // the previous tile is done with shared memory
+    __syncthreads();  // the previous group is done with shared memory
 
     // ================= forward recompute, saving each pre =================
     {
@@ -1309,88 +1559,117 @@ siren_sweep_kernel(const float* __restrict__ coords,
         sb[e] = wp[args.off_b[0] + e];
         sa[e] = args.off_a[0] >= 0 ? wp[args.off_a[0] + e] : 1.0f;
       }
-      for (int e = tid; e < TM * d; e += kThreads) {
-        const int row = row0 + e / d;
-        sc[e] = row < n ? coords[(long long)row * d + e % d] : 0.0f;
+      for (int e = tid; e < R * d; e += kThreads) {
+        const int r = e / d, row = row_g0 + r;
+        sc[e] = r < rows_ok && row < n ? coords[(long long)row * d + e % d]
+                                       : 0.0f;
       }
       const int kind = args.kind[0], deg = args.deg[0];
       const float omega = args.omega[0];
       // x_in of layer 1, for dW (none when layer 1 is the head)
       bf16* xg0 = L > 2 ? up + lr0 * H : nullptr;
       if (F > 0) {
-        // [cos v, sin v] W0 by K-slabs: the features of the slab into the
-        // X planes (the forward tier's split), W0's slab by cp.async
+        // [cos v, sin v] W0 by slabs: the features of the slab into the X
+        // planes (the forward tier's split), W0's slab from the ring
         const int K = 2 * F;
-        const bf16* w0h = wh + (L - 2) * HH;
-        const bf16* w0l = wl + (L - 2) * HH;
-        float hh[2][4][4], cr[2][4][4];
+        float hf[MT][4][4], cf[MT][4][4];
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
+        for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
           for (int nj = 0; nj < 4; ++nj)
 #pragma unroll
-            for (int q = 0; q < 4; ++q) hh[mi][nj][q] = cr[mi][nj][q] = 0.0f;
+            for (int q = 0; q < 4; ++q) hf[mi][nj][q] = cf[mi][nj][q] = 0.0f;
         for (int k0 = 0; k0 < K; k0 += KS) {
           const int kn = K - k0 < KS ? K - k0 : KS;
-          const int kn16 = (kn + 15) & ~15;
-          __syncthreads();  // the previous slab is consumed
-          issue_fwd_slab<H>(Ws, Ws + WSP, w0h, w0l, k0, K);
-          cp_async_commit();
-          for (int e = tid; e < TM * kn16; e += kThreads) {
-            const int r = e / kn16, j = e % kn16;
+          const int kz = (kn + 15) & ~15;
+          __syncthreads();  // the previous slab's features are consumed
+          for (int e = tid; e < R * kz; e += kThreads) {
+            const int j = e / R, r = e % R;
             const float v = j < kn ? rff_feature(sc + r * d, args.bt, d, F,
                                                  k0 + j, args.fdeg)
                                    : 0.0f;
-            split_bf16(v, Xh + r * LDB + j, Xl + r * LDB + j);
+            split_bf16(v, Xh + j * RP + r, Xl + j * RP + r);
           }
-          cp_async_wait<0>();
           __syncthreads();
-          tc_slab_dispatch<H, false, true>(args.mode[0], Xh, Xl, 0, Ws,
-                                           Ws + WSP, kn16 / 16, hh, cr);
+          const bf16* st = ring.acquire();
+          const bf16* sl0 = st + S::SLAB;
+          if (args.mode[0] == kBf16x3)
+            mma_slab<H, kBf16x3, true>(Xh, Xl, 0, st, sl0, kz / 16, hf, cf);
+          else if (args.mode[0] == kBf16x2)
+            mma_slab<H, kBf16x2, true>(Xh, Xl, 0, st, sl0, kz / 16, hf, cf);
+          else
+            mma_slab<H, kBf16, true>(Xh, Xl, 0, st, sl0, kz / 16, hf, cf);
+          ring.release();
         }
+        stage_frag<H>(hf, cf, dX);
         __syncthreads();  // every warp has read the features
-        store_tc<H>(hh, cr, sb, sa, kind, omega, deg, Xh, Xl, pre_tile,
-                    args.h_real, xg0, xlo);
+        with_act(kind, deg, [&](auto act) {
+          store_cols<H>(act, dX, sb, sa, omega, Xh, Xl, pre_tile, args.h_real,
+                        xg0, xlo, rows_ok);
+        });
       } else {
+        // exact f32 multiply-adds, a column a thread in runs of 8 rows
         const float* w0 = wp + args.off_w[0];
-        for (int e = tid; e < d * H; e += kThreads) dX[e] = w0[e];
-        __syncthreads();
-        for (int e = tid; e < TM * H; e += kThreads) {
-          const int r = e / H, c = e % H;
-          float pre = sb[c];
-          for (int q = 0; q < d; ++q) pre = pre + sc[r * d + q] * dX[q * H + c];
-          pre_tile[e] = pre;
-          bf16* xh = Xh + r * LDB + c;
-          bf16* xl = Xl + r * LDB + c;
-          split_bf16(c < args.h_real ? activate(kind, pre, omega, sa[c], deg)
-                                     : 0.0f,
-                     xh, xl);
-          if (xg0 != nullptr) {
-            xg0[e] = *xh;
-            if (xlo > 0) xg0[xlo + e] = *xl;
+        float w[kMaxIn];
+#pragma unroll
+        for (int q = 0; q < kMaxIn; ++q) w[q] = q < d ? w0[q * H + ec] : 0.0f;
+        __syncthreads();  // the coordinates are in
+        with_act(kind, deg, [&](auto act) {
+          constexpr int RB = R / TPC;
+          const float b = sb[ec], a = sa[ec];
+          const bool on = ec < args.h_real;
+#pragma unroll 1
+          for (int r0 = es * RB; r0 < (es + 1) * RB; r0 += 8) {
+            bf16 hi[8], lo[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int r = r0 + i;
+              float pre = b;
+#pragma unroll
+              for (int q = 0; q < kMaxIn; ++q)
+                if (q < d) pre = pre + sc[r * d + q] * w[q];
+              pre_tile[r * H + ec] = pre;
+              split_bf16(on ? act(pre, omega, a) : 0.0f, &hi[i], &lo[i]);
+              if (xg0 != nullptr && r < rows_ok) {
+                xg0[r * H + ec] = hi[i];
+                if (xlo > 0) xg0[xlo + r * H + ec] = lo[i];
+              }
+            }
+            *reinterpret_cast<uint4*>(Xh + ec * RP + r0) = make_uint4(
+                pack2(hi[0], hi[1]), pack2(hi[2], hi[3]), pack2(hi[4], hi[5]),
+                pack2(hi[6], hi[7]));
+            *reinterpret_cast<uint4*>(Xl + ec * RP + r0) = make_uint4(
+                pack2(lo[0], lo[1]), pack2(lo[2], lo[3]), pack2(lo[4], lo[5]),
+                pack2(lo[6], lo[7]));
           }
-        }
+        });
       }
     }
     for (int li = 1; li < L - 1; ++li) {
-      float hh[2][4][4], cr[2][4][4];
+      float hh[8][TC], cr[8][TC];
       float nb = 0.0f, na = 1.0f;  // layer li's bias and a, loaded early
       if (tid < H) {
         nb = wp[args.off_b[li] + tid];
         if (args.off_a[li] >= 0) na = wp[args.off_a[li] + tid];
       }
-      tc_product<H, false>(args.mode[li], Xh, Xl, wh + (li - 1) * HH,
-                           wl + (li - 1) * HH, H, Ws, hh, cr);
-      __syncthreads();  // every warp has read X and the bias of layer li-1
-      if (tid < H) {
+      __syncthreads();  // the X planes are complete
+      if (args.mode[li] == kBf16x3)
+        fwd_product<H, kBf16x3>(ring, Xh, Xl, row0, col0, hh, cr);
+      else if (args.mode[li] == kBf16x2)
+        fwd_product<H, kBf16x2>(ring, Xh, Xl, row0, col0, hh, cr);
+      else
+        fwd_product<H, kBf16>(ring, Xh, Xl, row0, col0, hh, cr);
+      stage_tile<H>(hh, cr, dX, row0, col0);
+      if (tid < H) {  // the bias of layer li - 1 was last read before X's
         sb[tid] = nb;
         sa[tid] = na;
       }
-      __syncthreads();
-      store_tc<H>(hh, cr, sb, sa, args.kind[li], args.omega[li], args.deg[li],
-                  Xh, Xl, pre_tile + li * kTileFloats, args.h_real,
-                  li + 1 < L - 1 ? up + li * npl * RCH + lr0 * H : nullptr,
-                  xlo);
+      __syncthreads();  // every warp has read X and staged its sums
+      bf16* xg = li + 1 < L - 1 ? up + li * npl * RCH + lr0 * H : nullptr;
+      with_act(args.kind[li], args.deg[li], [&](auto act) {
+        store_cols<H>(act, dX, sb, sa, args.omega[li], Xh, Xl,
+                      pre_tile + li * (R * H), args.h_real, xg, xlo, rows_ok);
+      });
     }
     // head: h -> 1 (narrow FMAs), then the cotangent
     {
@@ -1403,60 +1682,58 @@ siren_sweep_kernel(const float* __restrict__ coords,
         dX[H + j] = bf16r(w - hi);
       }
       __syncthreads();
-      const int r = tid / TPR, s = tid % TPR;
-      const bf16* xh = Xh + r * LDB;
-      const bf16* xl = Xl + r * LDB;
-      float acc = 0.0f, acc2 = 0.0f;
-      for (int j = s; j < H; j += TPR) {
-        const float xv = __bfloat162float(xh[j]);
-        acc = fmaf(xv, dX[j], acc);
-        if (mode == kBf16x2 || mode == kBf16x3) acc2 = fmaf(xv, dX[H + j], acc2);
-        if (mode == kBf16x3) acc2 = fmaf(__bfloat162float(xl[j]), dX[j], acc2);
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off /= 2) {
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        acc2 += __shfl_xor_sync(0xffffffffu, acc2, off);
-      }
-      if (s == 0) {
-        const int row = row0 + r;
-        const float pre = (acc + acc2) + wp[args.off_b[LH]];
-        const float a = args.off_a[LH] >= 0 ? wp[args.off_a[LH]] : 1.0f;
-        const float out = activate(args.kind[LH], pre, args.omega[LH], a,
-                                   args.deg[LH]);
-        float g = 0.0f, l = 0.0f;
-        if (row < n_lim) {
-          if (cot != nullptr) {
-            g = cot[win * n + row];
-          } else {
-            // the plain version's order: (err err) w and err (w 2/n); no
-            // weight is w = 1, which gives the unweighted bits
-            const float err = out - tgt[win * n + row];
-            const float w = args.wgt != nullptr ? args.wgt[win * n + row]
-                                                : 1.0f;
-            l = err * err * w;
-            g = err * (w * args.two_inv_n);
-          }
+      const int s = tid % TPR;
+#pragma unroll 1
+      for (int g = 0; g < G; ++g) {
+        const int r = g * TM + tid / TPR;
+        float acc = 0.0f, acc2 = 0.0f;
+        for (int j = s; j < H; j += TPR) {
+          const float xv = __bfloat162float(Xh[j * RP + r]);
+          acc = fmaf(xv, dX[j], acc);
+          if (mode == kBf16x2 || mode == kBf16x3) acc2 = fmaf(xv, dX[H + j], acc2);
+          if (mode == kBf16x3)
+            acc2 = fmaf(__bfloat162float(Xl[j * RP + r]), dX[j], acc2);
         }
-        shp[r] = pre;
-        shg[r] = g;
-        sl[r] = l;
+#pragma unroll
+        for (int off = TPR / 2; off > 0; off /= 2) {
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+          acc2 += __shfl_xor_sync(0xffffffffu, acc2, off);
+        }
+        if (s == 0) {
+          const int row = row_g0 + r;
+          const float pre = (acc + acc2) + wp[args.off_b[LH]];
+          float gv = 0.0f, l = 0.0f;
+          if (g < ng && row < n_lim) {
+            const float a = args.off_a[LH] >= 0 ? wp[args.off_a[LH]] : 1.0f;
+            const float out = activate(args.kind[LH], pre, args.omega[LH], a,
+                                       args.deg[LH]);
+            if (cot != nullptr) {
+              gv = cot[win * n + row];
+            } else {
+              // the plain version's order: (err err) w and err (w 2/n); no
+              // weight is w = 1, which gives the unweighted bits
+              const float err = out - tgt[win * n + row];
+              const float w = args.wgt != nullptr ? args.wgt[win * n + row]
+                                                  : 1.0f;
+              l = err * err * w;
+              gv = err * (w * args.two_inv_n);
+            }
+          }
+          shp[r] = pre;
+          shg[r] = gv;
+          sl[r] = l;
+        }
       }
     }
     __syncthreads();
-    if (tid == 0 && cot == nullptr) {
-      float s = 0.0f;
-      for (int r = 0; r < TM; ++r) s += sl[r];
-      loss_acc = t == c0t ? s * args.inv_n : loss_acc + s * args.inv_n;
-    }
 
     // ================= backward =================
     // head: gpre, db, dW (h x 1) from the X planes (the head's input, the
-    // grad tier's rounding: hi, and lo in bf16x3), and dX (TM x h)
+    // grad tier's rounding: hi, and lo in bf16x3), and dX (R x h)
     {
       const int kind = args.kind[LH];
       const float a = args.off_a[LH] >= 0 ? wp[args.off_a[LH]] : 1.0f;
-      for (int r = tid; r < TM; r += kThreads) {
+      for (int r = tid; r < R; r += kThreads) {
         float ga = 0.0f;
         const float gp = dact(kind, shp[r], args.omega[LH], a, args.deg[LH],
                               shg[r], &ga);
@@ -1465,37 +1742,61 @@ siren_sweep_kernel(const float* __restrict__ coords,
         wsplit(gp, gm, shh + r, shl + r);
       }
       __syncthreads();
-      if (tid == 0) {
-        float db = 0.0f, da = 0.0f;
+      if (lane == 0 && warp < ng) {  // a warp a tile: its loss, db and da
+        const int g0 = warp * TM;
+        float s = 0.0f, db = 0.0f, da = 0.0f;
+        for (int r = 0; r < TM; ++r) s += sl[g0 + r];
         for (int r = 0; r < TM; ++r) {
-          db += shg[r];
-          da += shp[r];
+          db += shg[g0 + r];
+          da += shp[g0 + r];
         }
-        put(slab + args.off_b[LH], db, first);
-        if (args.off_a[LH] >= 0) put(slab + args.off_a[LH], da, first);
+        tsum[4 * warp] = s;
+        tsum[4 * warp + 1] = db;
+        tsum[4 * warp + 2] = da;
       }
-      float acc = 0.0f, acc2 = 0.0f;
-      for (int r = es; r < TM; r += TPC) {
-        const float xh = __bfloat162float(Xh[r * LDB + ec]);
-        acc = fmaf(xh, shh[r], acc);
-        if (gm == kBf16x2 || gm == kBf16x3) acc2 = fmaf(xh, shl[r], acc2);
-        if (gm == kBf16x3)
-          acc2 = fmaf(__bfloat162float(Xl[r * LDB + ec]), shh[r], acc2);
+      for (int g = 0; g < ng; ++g) {
+        float acc = 0.0f, acc2 = 0.0f;
+        for (int r = g * TM + es; r < (g + 1) * TM; r += TPC) {
+          const float xh = __bfloat162float(Xh[ec * RP + r]);
+          acc = fmaf(xh, shh[r], acc);
+          if (gm == kBf16x2 || gm == kBf16x3) acc2 = fmaf(xh, shl[r], acc2);
+          if (gm == kBf16x3)
+            acc2 = fmaf(__bfloat162float(Xl[ec * RP + r]), shh[r], acc2);
+        }
+        red[2 * g * kThreads + es * H + ec] = acc;
+        red[(2 * g + 1) * kThreads + es * H + ec] = acc2;
       }
-      red[es * H + ec] = acc;
-      red[kThreads + es * H + ec] = acc2;
       __syncthreads();
-      if (es == 0) {
-        float s1 = red[ec], s2 = red[kThreads + ec];
-        for (int q = 1; q < TPC; ++q) {
-          s1 += red[q * H + ec];
-          s2 += red[kThreads + q * H + ec];
+      if (tid == 0) {
+        float db[G], da[G];
+        for (int g = 0; g < G; ++g) {
+          db[g] = tsum[4 * g + 1];
+          da[g] = tsum[4 * g + 2];
+          if (cot == nullptr && g < ng)
+            loss_acc = t + g == c0t ? tsum[4 * g] * args.inv_n
+                                    : loss_acc + tsum[4 * g] * args.inv_n;
         }
-        put(slab + args.off_w[LH] + ec, s1 + s2, first);
+        put_group(slab + args.off_b[LH], db, ng, t == t_begin);
+        if (args.off_a[LH] >= 0)
+          put_group(slab + args.off_a[LH], da, ng, t == t_begin);
+      }
+      if (es == 0) {
+        float dw[G];
+        for (int g = 0; g < G; ++g) {
+          const float* r1 = red + 2 * g * kThreads;
+          const float* r2 = r1 + kThreads;
+          float s1 = r1[ec], s2 = r2[ec];
+          for (int q = 1; q < TPC; ++q) {
+            s1 += r1[q * H + ec];
+            s2 += r2[q * H + ec];
+          }
+          dw[g] = s1 + s2;
+        }
+        put_group(slab + args.off_w[LH] + ec, dw, ng, t == t_begin);
       }
       float whv, wlv;
       wsplit(wp[args.off_w[LH] + ec], gm, &whv, &wlv);
-      for (int r = es; r < TM; r += TPC) {
+      for (int r = es; r < R; r += TPC) {
         float gh, gl;
         xsplit(shg[r], gm, &gh, &gl);
         dX[r * LDX + ec] = tier_mul(gh, gl, whv, wlv, gm);
@@ -1508,7 +1809,7 @@ siren_sweep_kernel(const float* __restrict__ coords,
       // ---- gpre = dX * act'(pre) into the G planes (and the unit's
       // planes); db, da ----
       {
-        const float* pt = pre_tile + li * kTileFloats;
+        const float* pt = pre_tile + li * (R * H);
         const int kind = args.kind[li], deg = args.deg[li];
         const float omega = args.omega[li];
         const float a = args.off_a[li] >= 0 ? wp[args.off_a[li] + ec] : 1.0f;
@@ -1517,51 +1818,125 @@ siren_sweep_kernel(const float* __restrict__ coords,
           gph = up + ((li - 1) * npl + tc_x_planes(gm)) * RCH;
         else if (F > 0)
           gph = up + (L - 2) * npl * RCH;
-        float db = 0.0f, da = 0.0f;
-        for (int i0 = 0; i0 < RPT; i0 += 8) {
-          float pv[8];  // the pres of 8 rows, loaded before any store
+        with_act(kind, deg, [&](auto act) {
+          // runs of 8 of the thread's rows (in each tile es, es + TPC, ...),
+          // the next run's pres loaded while this one is computed
+          constexpr int CPT = RPT / 8;  // runs a tile
+          auto run_row = [&](int ch) {
+            return (ch / CPT) * TM + es + (ch % CPT) * 8 * TPC;
+          };
+          float pv[8], pn[8] = {};
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
-            pv[i] = pt[(es + (i0 + i) * TPC) * H + ec];
+          for (int i = 0; i < 8; ++i) pv[i] = pt[(run_row(0) + i * TPC) * H + ec];
+          float db = 0.0f, da = 0.0f;
+#pragma unroll 1
+          for (int ch = 0; ch < ng * CPT; ++ch) {
+            const int r0 = run_row(ch);
+            if (ch + 1 < ng * CPT) {
+              const int rn = run_row(ch + 1);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int r = es + (i0 + i) * TPC;
-            float ga = 0.0f;
-            const float gp = dact(kind, pv[i], omega, a, deg,
-                                  dX[r * LDX + ec], &ga);
-            db += gp;
-            da += ga;
-            bf16 hi, lo;
-            split_bf16(gp, &hi, &lo);
-            Xh[r * LDB + ec] = hi;
-            Xl[r * LDB + ec] = lo;
-            if (gph != nullptr) {
-              const long long idx = (lr0 + r) * H + ec;
-              gph[idx] = hi;
-              if (gm != kBf16) gph[RCH + idx] = lo;
+              for (int i = 0; i < 8; ++i) pn[i] = pt[(rn + i * TPC) * H + ec];
             }
+            {
+              bf16 hi[8], lo[8];
+#pragma unroll
+              for (int i = 0; i < 8; ++i) {
+                const int r = r0 + i * TPC;
+                float ga = 0.0f;
+                const float gp =
+                    act.grad(pv[i], omega, a, dX[r * LDX + ec], &ga);
+                db += gp;
+                da += ga;
+                split_bf16(gp, &hi[i], &lo[i]);
+                if (gph != nullptr) {
+                  const long long idx = (lr0 + r) * H + ec;
+                  gph[idx] = hi[i];
+                  if (gm != kBf16) gph[RCH + idx] = lo[i];
+                }
+              }
+              if constexpr (TPC == 1) {  // 8 rows in a run: one store a plane
+                *reinterpret_cast<uint4*>(Xh + ec * RP + r0) = make_uint4(
+                    pack2(hi[0], hi[1]), pack2(hi[2], hi[3]),
+                    pack2(hi[4], hi[5]), pack2(hi[6], hi[7]));
+                *reinterpret_cast<uint4*>(Xl + ec * RP + r0) = make_uint4(
+                    pack2(lo[0], lo[1]), pack2(lo[2], lo[3]),
+                    pack2(lo[4], lo[5]), pack2(lo[6], lo[7]));
+              } else {
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                  Xh[ec * RP + r0 + i * TPC] = hi[i];
+                  Xl[ec * RP + r0 + i * TPC] = lo[i];
+                }
+              }
+            }
+            if ((ch + 1) % CPT == 0) {  // the tile's sums, each in its order
+              const int g = ch / CPT;
+              red[2 * g * kThreads + es * H + ec] = db;
+              red[(2 * g + 1) * kThreads + es * H + ec] = da;
+              db = da = 0.0f;
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) pv[i] = pn[i];
           }
-        }
-        red[es * H + ec] = db;
-        red[kThreads + es * H + ec] = da;
+        });
         __syncthreads();
         if (es == 0) {
-          float s1 = red[ec], s2 = red[kThreads + ec];
-          for (int q = 1; q < TPC; ++q) {
-            s1 += red[q * H + ec];
-            s2 += red[kThreads + q * H + ec];
+          float sb_[G], sa_[G];
+          for (int g = 0; g < G; ++g) {
+            const float* r1 = red + 2 * g * kThreads;
+            const float* r2 = r1 + kThreads;
+            float s1 = r1[ec], s2 = r2[ec];
+            for (int q = 1; q < TPC; ++q) {
+              s1 += r1[q * H + ec];
+              s2 += r2[q * H + ec];
+            }
+            sb_[g] = s1;
+            sa_[g] = s2;
           }
-          put(slab + args.off_b[li] + ec, s1, first);
-          if (args.off_a[li] >= 0) put(slab + args.off_a[li] + ec, s2, first);
+          put_group(slab + args.off_b[li] + ec, sb_, ng, t == t_begin);
+          if (args.off_a[li] >= 0)
+            put_group(slab + args.off_a[li] + ec, sa_, ng, t == t_begin);
         }
       }
       if (li == 0) break;
-      // ---- dX = gpre W^T on the tensor cores ----
+      // ---- dX = gpre W^T: hi.hi as FMAs, the cross terms on mma ----
       {
-        float hh[2][4][4], cr[2][4][4];
-        tc_product<H, true>(gm, Xh, Xl, wh + (li - 1) * HH, wl + (li - 1) * HH,
-                            H, Ws, hh, cr);
-        store_dx<H>(hh, cr, dX);  // dX was last read before the G planes
+        float hh[8][TC], cr[MT][4][4];
+        if (gm == kBf16x3)
+          dgrad_product<H, kBf16x3>(ring, Xh, Xl, row0, col0, hh, cr);
+        else if (gm == kBf16x2)
+          dgrad_product<H, kBf16x2>(ring, Xh, Xl, row0, col0, hh, cr);
+        else
+          dgrad_product<H, kBf16>(ring, Xh, Xl, row0, col0, hh, cr);
+        // dX = hh + cr (dX was last read before the G planes): hh from the
+        // FMA tiles (plus cr = 0 where the tier has no cross term), then cr
+        // added by the mma blocks that hold it
+        const float z = gm == kBf16 ? 0.0f : -0.0f;  // x + -0 is x
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int c = 0; c < TC; c += 4)
+            *reinterpret_cast<float4*>(dX + (row0 + i) * LDX + col0 + c) =
+                make_float4(hh[i][c] + z, hh[i][c + 1] + z, hh[i][c + 2] + z,
+                            hh[i][c + 3] + z);
+        if (gm != kBf16) {
+          __syncthreads();
+          const int m0 = (warp / S::WN) * 16 * MT, n0 = (warp % S::WN) * 32;
+          const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+            for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int row = m0 + mi * 16 + gid + half * 8;
+                const int col = n0 + nj * 8 + tig * 2;
+                float2* p = reinterpret_cast<float2*>(dX + row * LDX + col);
+                const float2 o = *p;
+                *p = make_float2(o.x + cr[mi][nj][half * 2],
+                                 o.y + cr[mi][nj][half * 2 + 1]);
+              }
+        }
         __syncthreads();
       }
     }
@@ -1569,37 +1944,45 @@ siren_sweep_kernel(const float* __restrict__ coords,
     // ---- a raw layer 0's dW: coords^T gpre0, rows split over TPC ----
     if (F == 0) {
       __syncthreads();
-      float acc[kMaxIn], acc2[kMaxIn];
+      float* part = dX;  // per tile: (TPC, d, H) x 2
+      for (int g = 0; g < ng; ++g) {
+        float acc[kMaxIn], acc2[kMaxIn];
 #pragma unroll
-      for (int q = 0; q < kMaxIn; ++q) acc[q] = acc2[q] = 0.0f;
-      for (int r = es; r < TM; r += TPC) {
-        const float gh = __bfloat162float(Xh[r * LDB + ec]);
-        const float gl = __bfloat162float(Xl[r * LDB + ec]);
+        for (int q = 0; q < kMaxIn; ++q) acc[q] = acc2[q] = 0.0f;
+        for (int r = g * TM + es; r < (g + 1) * TM; r += TPC) {
+          const float gh = __bfloat162float(Xh[ec * RP + r]);
+          const float gl = __bfloat162float(Xl[ec * RP + r]);
 #pragma unroll
-        for (int q = 0; q < kMaxIn; ++q) {
-          if (q < d) {
-            float xh, xl;
-            xsplit(sc[r * d + q], gm, &xh, &xl);
-            acc[q] = fmaf(xh, gh, acc[q]);
-            if (gm == kBf16x2 || gm == kBf16x3) acc2[q] = fmaf(xh, gl, acc2[q]);
-            if (gm == kBf16x3) acc2[q] = fmaf(xl, gh, acc2[q]);
+          for (int q = 0; q < kMaxIn; ++q) {
+            if (q < d) {
+              float xh, xl;
+              xsplit(sc[r * d + q], gm, &xh, &xl);
+              acc[q] = fmaf(xh, gh, acc[q]);
+              if (gm == kBf16x2 || gm == kBf16x3) acc2[q] = fmaf(xh, gl, acc2[q]);
+              if (gm == kBf16x3) acc2[q] = fmaf(xl, gh, acc2[q]);
+            }
           }
         }
-      }
-      float* part = dX;  // (TPC, d, H) x 2
-      for (int q = 0; q < d; ++q) {
-        part[(es * d + q) * H + ec] = acc[q];
-        part[TPC * d * H + (es * d + q) * H + ec] = acc2[q];
+        float* pg = part + g * 2 * TPC * d * H;
+        for (int q = 0; q < d; ++q) {
+          pg[(es * d + q) * H + ec] = acc[q];
+          pg[TPC * d * H + (es * d + q) * H + ec] = acc2[q];
+        }
       }
       __syncthreads();
       if (es == 0) {
         for (int q = 0; q < d; ++q) {
-          float s1 = part[q * H + ec], s2 = part[TPC * d * H + q * H + ec];
-          for (int grp = 1; grp < TPC; ++grp) {
-            s1 += part[(grp * d + q) * H + ec];
-            s2 += part[TPC * d * H + (grp * d + q) * H + ec];
+          float dw[G];
+          for (int g = 0; g < G; ++g) {
+            const float* pg = part + g * 2 * TPC * d * H;
+            float s1 = pg[q * H + ec], s2 = pg[TPC * d * H + q * H + ec];
+            for (int grp = 1; grp < TPC; ++grp) {
+              s1 += pg[(grp * d + q) * H + ec];
+              s2 += pg[TPC * d * H + (grp * d + q) * H + ec];
+            }
+            dw[g] = s1 + s2;
           }
-          put(slab + args.off_w[0] + q * H + ec, s1 + s2, first);
+          put_group(slab + args.off_w[0] + q * H + ec, dw, ng, t == t_begin);
         }
       }
     }
@@ -1801,9 +2184,10 @@ int launch_sweep(const TrainArgs& args, const float* coords,
                  float* partial, float* loss_part, float* pre, bf16* planes,
                  const float* tgt, const float* cot, const int* limit, int n,
                  int slices, int u0, int units, int chunk, int chunk_tiles,
-                 int rows_cap, long long unit_elems, long long wq,
+                 int rows_cap, long long unit_elems, long long wq, int group,
                  cudaStream_t stream) {
-  const size_t smem = Tc<H>::smem_bytes();
+  if (group != Sw<H>::G) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Sw<H>::smem_bytes();
   cudaError_t e = cudaFuncSetAttribute(
       siren_sweep_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -2354,14 +2738,16 @@ int siren_adam_global(const void* buf, void* sq_part, void* params, void* mu,
 
 // The tensor-core route (bf16, bf16x2, bf16x3 tiers).  Windows are those of
 // one launch group: the caller offsets params / tgt / cot / loss_part to the
-// group's first window, and whi / wlo (k, wq) bf16, wq = (n_layers - 2) h^2
-// + 2 n_freq h, hold that group's planes (siren_wsplit).  A unit u = w *
-// slices + s is window w's row slice s; partial (k * slices, P) and
-// loss_part (k * slices) are indexed by it.  A pass runs units [u0, u0 +
-// units) over the tiles of chunk `chunk` of their slices (chunk_tiles
-// tiles a chunk); its pre (units, n_layers, 8192) f32 and planes (units,
-// unit_elems) bf16 scratch are indexed by u - u0, each unit's planes
-// rows_cap rows of h.  wgt: as siren_grad's.  Every call returns a
+// group's first window, and whi / wlo (k, wq) bf16, wq = 2 (n_layers - 2)
+// h^2 + 2 n_freq h (tc_wq), hold that group's planes (siren_wsplit).  A
+// unit u = w * slices + s is window w's row slice s; partial (k * slices,
+// P) and loss_part (k * slices) are indexed by it.  A pass runs units [u0,
+// u0 + units) over the tiles of chunk `chunk` of their slices (chunk_tiles
+// tiles a chunk); its pre (units, n_layers, group * 8192) f32 and planes
+// (units, unit_elems) bf16 scratch are indexed by u - u0, each unit's
+// planes rows_cap rows of h.  group: the row tiles a sweep CTA carries at
+// once at this h (Sw<H>::G), which the pre scratch is sized by; any other
+// value is refused.  wgt: as siren_grad's.  Every call returns a
 // cudaError_t value: 0 when accepted.
 int siren_wsplit(const void* params, void* whi, void* wlo, const void* offs,
                  const void* ints, const void* omegas, int n_layers, int k,
@@ -2372,8 +2758,7 @@ int siren_wsplit(const void* params, void* whi, void* wlo, const void* offs,
   const TrainArgs args = make_args(offs, ints, omegas, n_layers, 1, P,
                                    kBf16x2, 1.0f, 2.0f, nullptr, n_freq, 0,
                                    h);
-  const long long wq = static_cast<long long>(n_layers - 2) * h * h +
-                       2LL * n_freq * h;
+  const long long wq = tc_wq(n_layers, h, n_freq);
   if (wq == 0) return 0;
   const long long blocks = std::min((wq * k + kThreads - 1) / kThreads,
                                     65536LL);
@@ -2392,8 +2777,8 @@ int siren_sweep(const void* coords, const void* params, const void* whi,
                 int gmode, float inv_n, float two_inv_n, const void* bt,
                 int n_freq, int fdeg, int slices, int u0, int units,
                 int chunk, int chunk_tiles, int rows_cap,
-                long long unit_elems, const void* limit, const void* wgt,
-                void* stream) {
+                long long unit_elems, int group, const void* limit,
+                const void* wgt, void* stream) {
   if (n_layers < 2 || n_layers > kMaxLayers || d < 1 || d > kMaxIn ||
       n < 1 || P < 1 || (P & 3) || (tgt == nullptr) == (cot == nullptr) ||
       (wgt != nullptr && tgt == nullptr) ||
@@ -2404,8 +2789,7 @@ int siren_sweep(const void* coords, const void* params, const void* whi,
                              inv_n, two_inv_n, bt, n_freq, fdeg, h_real);
   args.wgt = static_cast<const float*>(wgt);
   if (!tc_tiers(args)) return static_cast<int>(cudaErrorInvalidValue);
-  const long long wq = static_cast<long long>(n_layers - 2) * h * h +
-                       2LL * n_freq * h;
+  const long long wq = tc_wq(n_layers, h, n_freq);
   const float* c = static_cast<const float*>(coords);
   const float* p = static_cast<const float*>(params);
   const bf16* wh = static_cast<const bf16*>(whi);
@@ -2421,7 +2805,7 @@ int siren_sweep(const void* coords, const void* params, const void* whi,
 #define SWEEP(H)                                                            \
   launch_sweep<H>(args, c, p, wh, wl, part, lp, pr, pl, t, ct, lim, n,       \
                   slices, u0, units, chunk, chunk_tiles, rows_cap,           \
-                  unit_elems, wq, s)
+                  unit_elems, wq, group, s)
   switch (h) {
     case 32: return SWEEP(32);
     case 64: return SWEEP(64);

@@ -51,7 +51,7 @@ from typing import Any
 import torch
 
 from ..models.siren import SirenSnakeTanhConfig
-from ..utils.observability import span
+from ..utils.observability import counter, span
 from ._nvcc import LaunchCounter, build_library
 from .siren_fused import (_KERNEL_MAX_LAYERS, _KIND_CODE, _MAX_SMALL_IN,
                           _MODE_CODE, SIREN_STACK, StackPlan,
@@ -116,6 +116,15 @@ def tc_slices(tiles: int, h: int) -> int:
     return min(MAX_SLICES, tiles, -(-tiles // max(1, h * h // 4096)))
 
 
+def sweep_group(h: int) -> int:
+    """Row tiles the sweep kernel carries at once at width h (csrc/
+    siren_train.cu, ``Sw<H>::G``, which refuses another): two at h = 128
+    and 256, so each W slab in shared memory serves 128 / 64 rows; one at
+    h = 32 and 64, whose tiles are 256 / 128 rows already.  Its pre
+    scratch holds that many tiles a unit."""
+    return 2 if h >= 128 else 1
+
+
 def tc_unit_planes(n_layers: int, gmode: str, rff: bool) -> int:
     """bf16 planes of h values a row that the sweep saves for the dW
     kernel: per h x h layer x_in's hi (and lo in bf16x3) and gpre's hi (and
@@ -130,8 +139,10 @@ class TcPlan:
     """The tensor-core route's structure for one grad launch: ``slices`` a
     window, its row chunks (``chunks`` of at most ``chunk_tiles`` tiles,
     ``rows_cap`` rows of planes a unit), a unit's planes (``unit_elems``
-    bf16), the weight planes a window (``wq`` bf16 each of hi and lo), the
-    windows of a launch group and the units of a pass."""
+    bf16), the weight planes a window (``wq`` bf16 each of hi and lo: the
+    h x h layers' W, an RFF W0, and the h x h W transposed), the windows of
+    a launch group, the units of a pass, and the row tiles a sweep CTA
+    carries at once (``group``, ``sweep_group``)."""
 
     slices: int
     chunk_tiles: int
@@ -141,12 +152,13 @@ class TcPlan:
     wq: int
     windows: int
     units: int
+    group: int
 
     def scratch_bytes(self, P: int, n_layers: int) -> tuple[int, int]:
         """(bytes of a launch group's slabs, losses and weight planes,
         bytes of a pass's planes and pres)."""
         group = self.windows * (self.slices * (4 * P + 4) + 4 * self.wq)
-        unit = 2 * self.unit_elems + 4 * n_layers * TILE_FLOATS
+        unit = 2 * self.unit_elems + 4 * n_layers * TILE_FLOATS * self.group
         return group, self.units * unit
 
 
@@ -163,13 +175,14 @@ def tc_plan(g: "GradLaunch", gmode: str) -> TcPlan:
     chunks = -(-per_slice // CHUNK_TILES)
     rows_cap = min(CHUNK_TILES, per_slice) * tile_rows(h)
     unit_elems = (tc_unit_planes(L, gmode, n_freq > 0) * rows_cap * h)
-    wq = (L - 2) * h * h + 2 * n_freq * h
+    wq = 2 * (L - 2) * h * h + 2 * n_freq * h
     per_window = slices * (4 * g.layout.size + 4) + 4 * wq
     windows = max(1, min(g.k, SCRATCH_BYTES // per_window))
-    per_unit = 2 * unit_elems + 4 * L * TILE_FLOATS
+    group = sweep_group(h)
+    per_unit = 2 * unit_elems + 4 * L * TILE_FLOATS * group
     units = max(1, min(windows * slices, PLANE_BYTES // per_unit))
     return TcPlan(slices, CHUNK_TILES, chunks, rows_cap, unit_elems, wq,
-                  windows, units)
+                  windows, units, group)
 
 
 def tc_traffic(g: "GradLaunch", gmode: str) -> dict[str, int]:
@@ -417,7 +430,7 @@ class _TrainLibrary:
             lib.siren_adam_global.argtypes = [_P] * 11 + [_I, _I, _F, _P]
             lib.siren_wsplit.argtypes = [_P] * 6 + [_I] * 5 + [_P]
             lib.siren_sweep.argtypes = ([_P] * 13 + [_I] * 7 + [_F, _F, _P]
-                                        + [_I] * 8 + [_L, _P, _P, _P])
+                                        + [_I] * 8 + [_L, _I, _P, _P, _P])
             lib.siren_dw.argtypes = ([_P] * 6 + [_I] * 6 + [_P] + [_I] * 8
                                      + [_L, _P])
             for fn in (lib.siren_grad, lib.siren_reduce, lib.siren_adam,
@@ -567,7 +580,9 @@ def tc_launches(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
     """The tensor-core route of ``grad_reduce`` (``tc_plan``) as its
     launches in order: per launch group the weights' bf16 planes
     (``siren_wsplit``), then per row chunk and pass of units the sweep and
-    the dW kernel, then the reduce.  Returns ([(kernel name, launch)],
+    the dW kernel, then the reduce.  Each sweep launch adds one to the
+    counter ``sweep.launches.g<G>``, G its row tiles a CTA
+    (``sweep_group``).  Returns ([(kernel name, launch)],
     (grads, sq_part, loss_part), scratch): the outputs are filled once
     every launch has run, and the caller holds ``scratch`` (the buffers
     and host arrays the launches point at) while they run."""
@@ -577,7 +592,7 @@ def tc_launches(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
     tp = tc_plan(g, gmode)
     S, kg, L, P = tp.slices, tp.windows, len(g.plan.kinds), g.layout.size
     partial = torch.empty((kg * S, P), **f32)
-    pre = torch.empty((tp.units, L, TILE_FLOATS), **f32)
+    pre = torch.empty((tp.units, L, tp.group * TILE_FLOATS), **f32)
     planes = torch.empty((tp.units, max(1, tp.unit_elems)), **bf16)
     whi = torch.empty((kg, max(1, tp.wq)), **bf16)
     wlo = torch.empty_like(whi)
@@ -593,10 +608,14 @@ def tc_launches(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
     gm = _MODE_CODE[gmode]
     ptrs = [ctypes.addressof(a) for a in arrays]
     launches = []
+    sweeps = counter(f"sweep.launches.g{tp.group}")
 
-    def call(name, *args):
-        launches.append((name, lambda: _check_rc(name, getattr(lib, name)(
-            *args))))
+    def call(name, *args, count=None):
+        def run():
+            _check_rc(name, getattr(lib, name)(*args))
+            if count is not None:
+                count.add()
+        launches.append((name, run))
 
     for w0 in range(0, g.k, kg):
         kn = min(kg, g.k - w0)
@@ -612,8 +631,8 @@ def tc_launches(lib, g: GradLaunch, coords, flat, stream, *, targets=None,
                      row(targets, g.n), row(cot, g.n), *ptrs, L, g.n, g.d,
                      g.h, g.plan.width, P, gm, inv_n, 2.0 * inv_n, bt, n_freq,
                      g.plan.feature_degree, S, u0, nu, chunk, tp.chunk_tiles,
-                     tp.rows_cap, tp.unit_elems, lim, row(weight, g.n),
-                     stream)
+                     tp.rows_cap, tp.unit_elems, tp.group, lim,
+                     row(weight, g.n), stream, count=sweeps)
                 call("siren_dw", coords.data_ptr(), partial.data_ptr(),
                      planes.data_ptr(), *ptrs, L, g.n, g.d, g.h, P, gm, bt,
                      n_freq, g.plan.feature_degree, S, u0, nu, chunk,

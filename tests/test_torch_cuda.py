@@ -17,6 +17,7 @@ tests/test_torch_cuda.py`` (``python3 chip_smoke.py`` does)."""
 
 import ctypes
 import datetime
+import hashlib
 import threading
 from typing import Any, Callable
 
@@ -35,6 +36,7 @@ from inraudio_tpu_torch.ops import siren_train as st
 from inraudio_tpu_torch.parallel import Mesh, make_mesh
 from inraudio_tpu_torch.train import loop as tloop
 from inraudio_tpu_torch.tree import tree_leaves
+from inraudio_tpu_torch.utils.observability import counter
 
 pytestmark = pytest.mark.cuda
 
@@ -640,16 +642,37 @@ def _train_setup(h, k, n, dev, seed=0, lr=1e-3):
     return cfg, model, tc, state, coords, targets
 
 
+# (h, rows, RFF frequencies) of C, D and E against their plain versions:
+# 300 rows (a ragged tile) at every width; 1300 rows at the kernel widths,
+# whose slices at h = 128 and 256 hold odd numbers of tiles (the sweep's
+# last group of two tiles part-filled: 3-4 tiles a slice at h = 128, 13-14
+# at h = 256), raw and with an RFF layer 0 of 16 frequencies
+SWEEP_CASES = ([(h, 300, 0) for h in (32, 64, 128, 256, 36, 40, 48)]
+               + [(h, 1300, f) for f in (0, 16) for h in (32, 64, 128, 256)])
+SWEEP_IDS = [f"{h}-{n}" + (f"-rff{f}" if f else "") for h, n, f in SWEEP_CASES]
+
+
 @pytest.mark.parametrize("gmode", ["bf16x2", "highest", "bf16", "bf16x3"])
-@pytest.mark.parametrize("h", [32, 64, 128, 256, 36, 40, 48])
-def test_backward_kernel_matches_plain(dev, h, gmode):
+@pytest.mark.parametrize("h,rows,f", SWEEP_CASES, ids=SWEEP_IDS)
+def test_backward_kernel_matches_plain(dev, h, rows, f, gmode):
+    before = st.SIREN_BWD.launches
+    if f:
+        cfg, params, b, bt = _rff_model(h, f, dev)
+        plan = sf.stack_plan(cfg, approx_sin=True, rff=True)
+        coords = torch.rand(rows, 1, device=dev,
+                            generator=torch.Generator(dev).manual_seed(2))
+        cot = torch.randn(1, rows, 1, device=dev,
+                          generator=torch.Generator(dev).manual_seed(1))
+        check_rff_backward(stacked(params), cfg, plan, gmode, 2 * coords - 1,
+                           cot, bt)
+        assert st.SIREN_BWD.launches == before + 1
+        return
     cfg = SirenSnakeTanhConfig(hidden_features=h, first_omega_0=1800.0)
     params = _population(cfg, 3, dev)
     plan = sf.stack_plan(cfg, approx_sin=True)
-    coords = torch.linspace(-1, 1, 300, device=dev)[:, None]  # ragged tile
-    cot = torch.randn(3, 300, 1, device=dev,
+    coords = torch.linspace(-1, 1, rows, device=dev)[:, None]
+    cot = torch.randn(3, rows, 1, device=dev,
                       generator=torch.Generator(dev).manual_seed(1))
-    before = st.SIREN_BWD.launches
     out = st.SIREN_BWD(params, cfg, plan, gmode, coords, cot)
     assert st.SIREN_BWD.launches == before + 1
     ref = st.backward_plain(params, plan, gmode, coords, cot)
@@ -685,16 +708,96 @@ def test_rff_autograd_runs_both_kernels(dev):
     assert all(torch.isfinite(g).all() and g.any() for g in grads)
 
 
+STEP_CASES = ([(h, 300, "raw") for h in (32, 64, 128, 256)]
+              + [(h, 1300, v) for v in ("raw", "rff", "weighted")
+                 for h in (32, 64, 128, 256)])
+
+
 @pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3", "bf16", "highest"])
-@pytest.mark.parametrize("h", [32, 64, 128, 256])
-def test_step_kernel_matches_plain(dev, h, gmode, monkeypatch):
+@pytest.mark.parametrize("h,rows,variant", STEP_CASES,
+                         ids=[f"{h}-{n}-{v}" for h, n, v in STEP_CASES])
+def test_step_kernel_matches_plain(dev, h, rows, variant, gmode, monkeypatch):
+    """Three D steps against the plain step: raw at 300 rows; at 1300 rows
+    (odd tiles a slice at h = 128 and 256) raw, with an RFF layer 0 of 16
+    frequencies (one window) and with a per-row loss weight."""
     monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
-    cfg, model, tc, state, coords, targets = _train_setup(h, 3, 300, dev)
     before = ss.SIREN_STEP.launches
-    a, b, _ = steps_kernel_vs_plain(cfg, tc, coords, targets,
-                                    ss.flat_state_from_train_state(state, cfg))
+    if variant == "rff":
+        cfg, model, tc, state, coords, targets, b = _rff_train_setup(
+            h, 16, 1, rows, dev)
+        check_rff_steps(cfg, tc, coords, targets, state, b)
+    elif variant == "weighted":
+        cfg, tc, fs, coords, targets, w = weighted_setup(h, 3, rows, dev)
+        weighted_steps_vs_plain(cfg, tc, fs, coords, targets, w, gmode)
+    else:
+        cfg, model, tc, state, coords, targets = _train_setup(h, 3, rows,
+                                                              dev)
+        a, b, _ = steps_kernel_vs_plain(
+            cfg, tc, coords, targets,
+            ss.flat_state_from_train_state(state, cfg))
+        check_state(a, b, tc.learning_rate, gmode)
     assert ss.SIREN_STEP.launches == before + 3
-    check_state(a, b, tc.learning_rate, gmode)
+
+
+# SHA-256 of D's state after three steps from _train_setup's state, in the
+# default bf16x3 forward and each grad tier: params, mu, nu and best, then
+# the three steps' losses, as float32 bytes.  Recorded on an NVIDIA H100
+# 80GB HBM3 from the build of commit e61b326, whose sweep carried one row
+# tile a CTA; the sweep's grouping of tiles must leave every bit as it was.
+SWEEP_SHAPES = {"runner": (256, 1, 70_000), "headline": (128, 669, 512)}
+SWEEP_STATE_DIGESTS = {
+    ("runner", "bf16x2"):
+        "8a96d762a884d5edbbe69a3908e6fbee57a8fd8973ec75bbf56e6435c16f2dea",
+    ("runner", "bf16x3"):
+        "1f704967036a7b344df87e961c21924fdf47acf800359844531d7215c7ca867a",
+    ("headline", "bf16x2"):
+        "e61b5943ceebeb10518ff5efefcbe25975c176840db17ea642a678b0cc9bcd2a",
+    ("headline", "bf16x3"):
+        "419b41cad9ff212d0f83bcf47d127853794877f6de62324d67a5d8c64b2ed71d",
+}
+
+
+@pytest.mark.parametrize("gmode", ["bf16x2", "bf16x3"])
+@pytest.mark.parametrize("shape", list(SWEEP_SHAPES))
+def test_sweep_states_match_recorded_bits(dev, shape, gmode):
+    """D's state after 3 steps at the runner's width (h = 256, 70,000 rows:
+    137 slices of 15-16 tiles) and at the headline encode's shape (h = 128,
+    669 windows of 512 rows) against the digests recorded above."""
+    h, k, n = SWEEP_SHAPES[shape]
+    cfg, model, tc, state, coords, targets = _train_setup(h, k, n, dev)
+    step = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
+                                        tier={"grad_mode": gmode})
+    fs = ss.flat_state_from_train_state(state, cfg)
+    losses = []
+    for _ in range(3):
+        fs, (loss, _) = step(fs, coords, targets)
+        losses.append(loss)
+    digest = hashlib.sha256()
+    for t in (fs.params, fs.mu, fs.nu, fs.best_params, *losses):
+        digest.update(t.detach().float().contiguous().cpu().numpy().tobytes())
+    assert digest.hexdigest() == SWEEP_STATE_DIGESTS[shape, gmode]
+
+
+def test_sweep_counter_reads_its_group(dev):
+    """A D step at the runner's width advances ``sweep.launches.g<G>`` by
+    the sweep launches of its plan, with G the row tiles a sweep CTA
+    carries: two at h = 256."""
+    n = 70_000
+    cfg, model, tc, state, coords, targets = _train_setup(256, 1, n, dev)
+    fs = ss.flat_state_from_train_state(state, cfg)
+    g = st.validate_grad_launch(fs.params, cfg,
+                                sf.stack_plan(cfg, approx_sin=True), coords)
+    tp = st.tc_plan(g, st.grad_dot_mode())
+    assert tp.group == st.sweep_group(256) >= 2
+    sweeps = sum(tp.chunks * len(st.tc_passes(min(tp.windows, g.k - w0)
+                                              * tp.slices, tp.units))
+                 for w0 in range(0, g.k, tp.windows))
+    launches = counter(f"sweep.launches.g{tp.group}")
+    before = launches.value
+    ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True)(fs, coords,
+                                                              targets)
+    torch.cuda.synchronize()
+    assert sweeps >= 1 and launches.value == before + sweeps
 
 
 def padded_slots(cfg) -> tuple[torch.Tensor, torch.Tensor]:
@@ -907,20 +1010,21 @@ def _limit(rows, dev):
 
 
 def check_grad_shard(fs, coords, targets, limit, n_valid, cfg, plan, gmode,
-                     bt):
-    """Kernel E against its plain version on one shard: the loss to
-    LOSS_RTOL, the grads to the grad tier's tolerance or, with an RFF
-    layer 0, to RFF_CTRL_X times the control (the plain version with layer
-    0 one ulp off).  Returns (kernel buffer, grad error, control gap)."""
+                     bt, weight=None):
+    """Kernel E against its plain version on one shard, with the per-row
+    loss ``weight`` or None: the loss to LOSS_RTOL, the grads to the grad
+    tier's tolerance or, with an RFF layer 0, to RFF_CTRL_X times the
+    control (the plain version with layer 0 one ulp off).  Returns (kernel
+    buffer, grad error, control gap)."""
     P = fs.params.shape[1]
     out = ss.SIREN_GRAD(fs.params, coords, targets, limit, n_valid, cfg,
-                        plan, gmode, bt)
+                        plan, gmode, bt, weight=weight)
     ref = ss.grad_plain(fs.params, coords, targets, limit, n_valid, cfg,
-                        plan, gmode, bt)
+                        plan, gmode, bt, weight=weight)
     pert = st.flatten_params(perturb_layer0(st.unflatten_params(
         fs.params, cfg)), cfg)
     ctl = ss.grad_plain(pert, coords, targets, limit, n_valid, cfg, plan,
-                        gmode, bt)
+                        gmode, bt, weight=weight)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out[P], ref[P], rtol=LOSS_RTOL, atol=0)
@@ -935,16 +1039,34 @@ def check_grad_shard(fs, coords, targets, limit, n_valid, cfg, plan, gmode,
     return out, err, c
 
 
+GRAD_CASES = ([(h, f, 1000, False) for h, f in
+               ((32, 0), (64, 0), (128, 0), (256, 0), (32, 4), (256, 256),
+                (40, 0))]
+              + [(h, f, 2700, wt) for h, f, wt in
+                 ((32, 0, False), (64, 0, False), (128, 0, False),
+                  (256, 0, False), (128, 16, False), (256, 16, False),
+                  (64, 0, True), (128, 0, True), (256, 0, True))])
+
+
 @pytest.mark.parametrize("gmode", ["bf16x2", "highest", "bf16", "bf16x3"])
-@pytest.mark.parametrize("h,f", [(32, 0), (64, 0), (128, 0), (256, 0),
-                                 (32, 4), (256, 256), (40, 0)])
-def test_grad_kernel_matches_plain(dev, h, f, gmode):
-    """E on a tail shard: 1000 rows of which the first 700 are real, the
-    loss normalised by a whole clip of 2500 rows."""
-    cfg, plan, bt, fs, coords, targets = shard_setup(h, f, 1000, dev)
+@pytest.mark.parametrize("h,f,rows,weighted", GRAD_CASES,
+                         ids=[f"{h}-{f}-{n}" + ("-weighted" if w else "")
+                              for h, f, n, w in GRAD_CASES])
+def test_grad_kernel_matches_plain(dev, h, f, rows, weighted, gmode):
+    """E on a tail shard: ``rows`` rows of which all but the last 300 are
+    real, the loss normalised by a whole clip of 2500 rows (3000 past 1000
+    rows).  At 2700 rows the slices at h = 128 and 256 hold odd numbers of
+    tiles; raw, with an RFF layer 0, or with a per-row loss weight."""
+    if weighted:
+        cfg, tc, fs, coords, targets, w = weighted_setup(h, 1, rows, dev)
+        plan, bt = sf.stack_plan(cfg, approx_sin=True), None
+    else:
+        cfg, plan, bt, fs, coords, targets = shard_setup(h, f, rows, dev)
+        w = None
     before = ss.SIREN_GRAD.launches
-    check_grad_shard(fs, coords, targets, _limit(700, dev), 2500, cfg, plan,
-                     gmode, bt)
+    check_grad_shard(fs, coords, targets, _limit(rows - 300, dev),
+                     2500 if rows <= 1000 else 3000, cfg, plan, gmode, bt,
+                     weight=w)
     assert ss.SIREN_GRAD.launches == before + 1
 
 
@@ -1300,12 +1422,19 @@ def test_weighted_step_kernel_matches_plain(dev, h, gmode, d, monkeypatch):
     one and two coordinate columns."""
     monkeypatch.setenv("INRAUDIO_GRAD_PRECISION", gmode)
     cfg, tc, fs, coords, targets, w = weighted_setup(h, 3, 700, dev, d)
+    before = ss.SIREN_STEP.launches
+    weighted_steps_vs_plain(cfg, tc, fs, coords, targets, w, gmode)
+    assert ss.SIREN_STEP.launches == before + 3
+
+
+def weighted_steps_vs_plain(cfg, tc, fs, coords, targets, w, gmode):
+    """Three weighted D steps against ``step_plain`` with the weight: each
+    loss, the first step's gradients and the final state."""
     n = coords.shape[0]
     kstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True)
     pstep = ss.make_fused_mse_train_step(cfg, tc, n, approx_sin=True,
                                          step_call=ss.step_plain)
     a, b = clone_state(fs), clone_state(fs)
-    before = ss.SIREN_STEP.launches
     for i in range(3):
         a, (la, _) = kstep(a, coords, targets, w)
         b, (lb, _) = pstep(b, coords, targets, w)
@@ -1313,7 +1442,6 @@ def test_weighted_step_kernel_matches_plain(dev, h, gmode, d, monkeypatch):
                                    rtol=LOSS_DRIFT_RTOL if i else LOSS_RTOL)
         if i == 0:
             check_grads(a.mu, b.mu, gmode)
-    assert ss.SIREN_STEP.launches == before + 3
     check_state(a, b, tc.learning_rate, gmode)
 
 

@@ -15,6 +15,7 @@ import torch
 from inraudio_tpu_torch.models import SirenSnakeTanhConfig, build_model
 from inraudio_tpu_torch.ops import siren_fused as sf
 from inraudio_tpu_torch.ops import siren_train as st
+from inraudio_tpu_torch.utils.observability import counter
 
 CLIP = 308_207  # 7 s at 44.1 kHz
 
@@ -66,7 +67,9 @@ def test_plans_at_the_served_shapes(name):
     planes = st.tc_unit_planes(len(g.plan.kinds), "bf16x2", f > 0)
     assert planes == 4 * 3 + (2 if f else 0)
     assert tp.unit_elems == planes * tp.rows_cap * h
-    assert tp.wq == 4 * h * h + 2 * f * h
+    # the h x h layers' W, each also transposed, and an RFF W0
+    assert tp.wq == 8 * h * h + 2 * f * h
+    assert tp.group == (2 if h >= 128 else 1) == st.sweep_group(h)
     group, pass_ = tp.scratch_bytes(g.layout.size, len(g.plan.kinds))
     assert group <= st.SCRATCH_BYTES and pass_ <= st.PLANE_BYTES
     assert 1 <= tp.windows <= k and 1 <= tp.units <= tp.windows * tp.slices
@@ -159,10 +162,10 @@ class _RecordingLibrary:
                     planes, tgt, cot, offs, ints, omegas, n_layers, n, d, h,
                     h_real, P, gmode, inv_n, two_inv_n, bt, n_freq, fdeg,
                     slices, u0, units, chunk, chunk_tiles, rows_cap,
-                    unit_elems, limit, wgt, stream):
+                    unit_elems, group, limit, wgt, stream):
         self.calls.append(("sweep", chunk, u0, units, params, loss_part, tgt,
                            cot, limit, bt, n_freq, inv_n, slices, gmode,
-                           h_real))
+                           h_real, group))
         return 0
 
     def siren_dw(self, coords, partial, planes, offs, ints, omegas, n_layers,
@@ -202,9 +205,12 @@ def test_grad_reduce_runs_groups_chunks_and_passes(monkeypatch):
     tp = st.tc_plan(g, "bf16x2")
     assert (tp.windows, tp.units) == (2, 7)
     lib = _RecordingLibrary()
+    sweeps = counter("sweep.launches.g1").value
     grads, sq_part, loss_part = st.grad_reduce(lib, g, coords, flat, 0,
                                                targets=targets,
                                                gmode="bf16x2")
+    # each sweep launch counted under its row tiles a CTA (one at h = 32)
+    assert counter("sweep.launches.g1").value == sweeps + 6
     assert grads.shape == (k, g.layout.size)
     assert loss_part.shape == (k * 5,)
     P = g.layout.size
@@ -217,7 +223,7 @@ def test_grad_reduce_runs_groups_chunks_and_passes(monkeypatch):
                             flat.data_ptr() + 4 * w0 * P,
                             loss_part.data_ptr() + 4 * w0 * 5,
                             targets.data_ptr() + 4 * w0 * n, 0, 0, 0, 0,
-                            1.0 / n, 5, 2, 32),
+                            1.0 / n, 5, 2, 32, 1),
                            ("dw", chunk, u0, nu, 5, 0, 0)]
         expect.append(("reduce", kn, 5, grads.data_ptr() + 4 * w0 * P, 0, 0))
     assert lib.calls == expect
@@ -290,7 +296,7 @@ def test_grad_reduce_passes_rff_cotangent_and_row_limit(kernel, monkeypatch):
                             loss_part.data_ptr() + 4 * w0 * 5,
                             tgt, 0 if cot is None
                             else cot.data_ptr() + 4 * w0 * n,
-                            lim, bt_ptr, f, inv_n, 5, 2, 32),
+                            lim, bt_ptr, f, inv_n, 5, 2, 32, 1),
                            ("dw", chunk, u0, nu, 5, bt_ptr, f)]
         expect.append(("reduce", kn, 5, grads.data_ptr() + 4 * w0 * P,
                        loss_part.data_ptr() if loss_out else 0, loss_out))
@@ -298,12 +304,12 @@ def test_grad_reduce_passes_rff_cotangent_and_row_limit(kernel, monkeypatch):
 
 
 def test_extra_defines_build_a_library_of_their_own():
-    """A build with extra -D flags (ops/sweep_ab.py's sweep variants) goes
-    into a directory of its own; with none it is the route's library."""
+    """A build with extra -D flags goes into a directory of its own; with
+    none it is the route's library."""
     from inraudio_tpu_torch.ops import _nvcc
     route = _nvcc.library_path("siren_train", ["siren_train.cu"])
     assert _nvcc.library_path("siren_train", ["siren_train.cu"], ()) == route
-    seq = {s: _nvcc.library_path("siren_train", ["siren_train.cu"],
-                                 (f"-DSIREN_SWEEP_SEQ={s}",)) for s in (0, 1)}
-    assert len({route, *seq.values()}) == 3
+    variants = {v: _nvcc.library_path("siren_train", ["siren_train.cu"],
+                                      (f"-DVARIANT={v}",)) for v in (0, 1)}
+    assert len({route, *variants.values()}) == 3
     assert st.TRAIN_LIBRARY.defines == ()
