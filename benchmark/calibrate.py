@@ -12,12 +12,15 @@ For each seed the cell is set up as a run sets it up, and then:
   program's place, against the float32 reference;
 - the faults, in the reference put in the program's place or in the
   program's own output: ``half_batch`` (half the rows left out, the mean
-  over the rest), ``unchanged`` (a step that returns its state, or a
-  request that returns nothing new), ``altered`` (a leaf moved double, or
+  over the rest; a population's: half of each window's rows),
+  ``unchanged`` (a step that returns its state, or a request that returns
+  nothing new), ``altered`` (a leaf moved double: the leaf that moves
+  most, or in a population the leaf of one window that moves most; or
   one sample of each answer shifted by the answer's RMS).
 
-A decode cell runs a window of ``--seconds`` at the cell's own load for
-its sample of requests.  Prints one JSON line a seed.
+The cases are the driver's kind of readings (its ``readings_kind``).  A
+decode cell runs a window of ``--seconds`` at the cell's own load for its
+sample of requests.  Prints one JSON line a seed.
 """
 
 from __future__ import annotations
@@ -72,6 +75,35 @@ def train_cases(drv) -> dict[str, dict[str, float]]:
                                         p0)}
 
 
+def population_cases(drv) -> dict[str, dict[str, float]]:
+    ref = drv.reference()
+    p0 = drv.params0
+    read = lambda out: check.population_readings(out, ref, p0)  # noqa
+    unchanged = {**ref, "params": p0, "best_params": p0}
+    # the (window, leaf) that moves most, moved double in that window
+    moved = {n: torch.linalg.vector_norm(
+        (ref["params"][n] - p0[n]).double().reshape(p0[n].shape[0], -1),
+        dim=1) for n in p0}
+    big = max(moved, key=lambda n: float(moved[n].max()))
+    w = int(torch.argmax(moved[big]))
+    doubled = ref["params"][big].clone()
+    doubled[w] = p0[big][w] + 2 * (ref["params"][big][w] - p0[big][w])
+    control = drv.reference(tf32=True)
+    worst = lambda out: {  # noqa
+        key: int(np.argmax(np.abs(out["loss"][i] - ref["loss"][i])
+                           / np.abs(ref["loss"][i])))
+        for i, key in ((0, "loss1"), (-1, "loss_last"))}
+    return {
+        "look": {"windows": int(ref["loss"].shape[1]),
+                 "program_worst_window": worst(drv.prog),
+                 "control_worst_window": worst(control)},
+        "program": read(drv.prog),
+        "control": read(control),
+        "half_batch": read(drv.reference(rows=drv.rows // 2)),
+        "unchanged": read(unchanged),
+        "altered": read({**ref, "params": {**ref["params"], big: doubled}})}
+
+
 def decode_cases(drv) -> dict[str, dict[str, float]]:
     ref = drv.reference()
     prog = drv.answers()
@@ -99,6 +131,10 @@ def decode_cases(drv) -> dict[str, dict[str, float]]:
             [(shifted(a, r), r) for a, r in zip(prog, ref)])}
 
 
+CASES = {"train": train_cases, "population": population_cases,
+         "decode": decode_cases}
+
+
 def calibrate(workload: str, seed: int, seconds: float,
               device: torch.device, overrides: dict | None = None) -> dict:
     """Every case's readings of one seed."""
@@ -107,13 +143,12 @@ def calibrate(workload: str, seed: int, seconds: float,
                              overrides)
     driver = make_driver(cell)
     driver.setup()
-    if cell.mix["driver"] == "decode":
+    if driver.readings_kind == "decode":
         driver.window(seconds, False)
     driver.model = None
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    cases = (train_cases if cell.mix["driver"] == "fit"
-             else decode_cases)(driver)
+    cases = CASES[driver.readings_kind](driver)
     return {"workload": workload, "seed": seed, "limits": limits, **cases}
 
 

@@ -24,6 +24,12 @@ A training cell reads the first steps that the window's own call drove
 Leaves whose reference gradient is under a thousandth of the median leaf's
 (a buffer such as the KAN's knot grid) are left out.
 
+A population cell (one model a window, every leaf with a leading window
+axis) reads ``loss_gap``, ``loss1_gap``, ``grad_gap`` and ``change_gap``
+window by window, each as above with a window's leaves for the model's,
+and reports the worst window (``population_readings``): one window gone
+wrong shows, however many agree.
+
 A decode cell compares the answers of a sample of its requests
 (``decode_readings``): ``decode_err`` is the largest |program - reference|
 of a sample over the reference's RMS over that request.
@@ -34,6 +40,7 @@ from __future__ import annotations
 import math
 import statistics
 
+import numpy as np
 import torch
 
 BETA1 = 0.9
@@ -115,6 +122,54 @@ def train_readings(prog: dict, ref: dict,
             "grad_err": _median_leaf(prog["grad"], ref["grad"], names,
                                      ref["grad_scale"]),
             "change_gap": _worse(*change.values())}
+
+
+def _window_norms(tree: dict[str, torch.Tensor], names: list[str],
+                  device: torch.device) -> np.ndarray:
+    """(windows, leaves) float64: each window's norm of each leaf."""
+    return torch.stack([torch.linalg.vector_norm(
+        tree[n].to(device).double().reshape(tree[n].shape[0], -1), dim=1)
+        for n in names], dim=1).cpu().numpy()
+
+
+def population_readings(prog: dict, ref: dict,
+                        params0: dict[str, torch.Tensor]) -> dict[str, float]:
+    """``prog`` and ``ref`` as for ``train_readings``, with each loss a
+    window's ((steps, windows) arrays) and each leaf stacked on a leading
+    window axis; the worst window of each number."""
+    names = list(params0)
+    dev = params0[names[0]].device
+    p_loss = np.asarray(prog["loss"], np.float64)
+    r_loss = np.asarray(ref["loss"], np.float64)
+    if p_loss.shape != r_loss.shape:
+        return dict.fromkeys(("loss_gap", "loss1_gap", "grad_gap",
+                              "change_gap"), math.inf)
+    gaps = np.abs(p_loss - r_loss) / np.abs(r_loss)
+    ref_grad = _window_norms(ref["grad"], names, dev)
+    counted = ref_grad >= 1e-3 * np.median(ref_grad, axis=1, keepdims=True)
+
+    def worst(p: np.ndarray, r: np.ndarray) -> float:
+        """The worst window's worst counted leaf: the gap of norms over the
+        larger of the leaf's reference norm and the window's median."""
+        out = 0.0
+        for w in range(r.shape[0]):
+            c = counted[w]
+            scale = np.maximum(r[w, c], max(np.median(r[w, c]), 1e-30))
+            out = _worse(out, float(np.max(np.abs(p[w, c] - r[w, c])
+                                           / scale)))
+        return out
+
+    change = 0.0
+    for key in ("params", "best_params"):
+        d = lambda tree: {n: tree[key][n].to(dev) - params0[n]  # noqa
+                          for n in names}
+        change = _worse(change, worst(_window_norms(d(prog), names, dev),
+                                      _window_norms(d(ref), names, dev)))
+    return {"loss_gap": _worse(float(np.max(gaps)), 0.0),
+            "loss1_gap": _worse(float(np.max(gaps[0])), 0.0),
+            "grad_gap": worst(_window_norms(prog["grad"], names, dev),
+                              ref_grad),
+            "change_gap": change}
 
 
 def decode_readings(pairs: list[tuple[torch.Tensor, torch.Tensor]]

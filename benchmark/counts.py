@@ -16,6 +16,11 @@ count, so a roofline share cannot pass 100% by a change of tier.
   silu and the Cox-de-Boor recursion of ``kan_feature_ops``.
 - Bytes: the model's inputs read once, its outputs written once, its
   parameters read once (and, in a backward, its gradients written once).
+  A population of k windows has k models: its parameters count k times.
+- The optimizer's epilogue (clip, Adam and the best snapshot) is counted
+  by its bytes a window and step: the gradient, parameters and both
+  moments read, the parameters and moments written, and the parameters
+  copied to the best snapshot in a step that improved the window's loss.
 - The least time is the largest of the three: tensor FLOP over 989 TFLOP/s
   (dense bf16), fp32 FLOP over 67 TFLOP/s, bytes over 3.35 TB/s (NVIDIA
   H100 SXM data sheet, at 700 W).
@@ -101,12 +106,20 @@ def forward_work(cfg: dict, rows: int) -> Work:
                 _io_bytes(cfg, rows) + 4 * param_floats(cfg))
 
 
-def sweep_work(cfg: dict, rows: int) -> Work:
-    """Kernel D's sweep over ``rows`` rows: the forward, the cotangent and
-    dx (4 FLOP a MAC), the activations and their derivatives; it reads the
-    coordinates, the targets and the parameters."""
+def sweep_work(cfg: dict, rows: int, windows: int = 1) -> Work:
+    """Kernel D's sweep over ``rows`` rows (of all ``windows`` models): the
+    forward, the cotangent and dx (4 FLOP a MAC), the activations and their
+    derivatives; it reads the coordinates, the targets and the
+    parameters."""
     return Work(4 * macs_row(cfg) * rows, 2 * act_ops_row(cfg) * rows,
-                _io_bytes(cfg, rows) + 4 * param_floats(cfg))
+                _io_bytes(cfg, rows) + 4 * windows * param_floats(cfg))
+
+
+def epilogue_work(cfg: dict, window_steps: int, improved: int) -> Work:
+    """Clip, Adam and the best snapshot over ``window_steps`` (window, step)
+    pairs, ``improved`` of which wrote the snapshot: 7 floats an element
+    (g, p, mu, nu read; p, mu, nu written), 1 more where improved."""
+    return Work(0, 0, 4 * param_floats(cfg) * (7 * window_steps + improved))
 
 
 def backward_work(cfg: dict, rows: int) -> Work:

@@ -52,6 +52,9 @@ class Requests:
 
 
 class Driver:
+    door = "decode_dense"
+    readings_kind = "decode"
+
     def __init__(self, cell):
         self.cell = cell
         self.cfg = cell.cfg

@@ -31,6 +31,9 @@ def _copy(tree) -> dict[str, torch.Tensor]:
 
 
 class Driver:
+    door = "fit"
+    readings_kind = "train"
+
     def __init__(self, cell):
         self.cell = cell
         self.cfg = cell.cfg

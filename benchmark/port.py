@@ -4,7 +4,9 @@ Every call the drivers make into ``inraudio_tpu_torch`` goes through this
 module, so that a test can put a broken or a plain program in its place.
 The program is built from a configuration file's knobs with the port's own
 config classes and builder, and fitted and decoded through its public
-entries (``train.loop.fit``, ``eval.decode.decode_dense``).
+entries (``train.loop.fit``, ``train.multi_inr.multi_inr_fit``,
+``eval.decode.decode_dense``).  A driver names the entry it calls as its
+``door``.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ from inraudio_tpu_torch.eval.decode import decode_dense
 from inraudio_tpu_torch.models import (KANConfig, SirenSnakeTanhConfig,
                                        build_model as _build)
 from inraudio_tpu_torch.train.loop import TrainConfig, fit, init_train_state
+from inraudio_tpu_torch.train.multi_inr import MultiINRConfig, multi_inr_fit
 
-__all__ = ["build_model", "decode_dense", "fit", "initial_state",
-           "train_config"]
+__all__ = ["build_model", "decode_dense", "fit", "given_init",
+           "initial_state", "multi_config", "multi_inr_fit", "train_config"]
 
 _MODEL_CONFIGS = {"mlp": SirenSnakeTanhConfig, "kan": KANConfig}
 
@@ -46,6 +49,21 @@ def build_model(cfg: dict):
 
 def train_config(cfg: dict, steps: int) -> TrainConfig:
     return TrainConfig(total_steps=int(steps), **_knobs(TrainConfig, cfg))
+
+
+def multi_config(cfg: dict) -> MultiINRConfig:
+    return MultiINRConfig(**_knobs(MultiINRConfig, cfg))
+
+
+def given_init(model, params: dict):
+    """The model with its initial parameters replaced by ``params``, made by
+    the benchmark: the program's init returns them whatever its generator
+    (a copy of each leaf, so that the program never writes the
+    benchmark's)."""
+    return dataclasses.replace(
+        model, init=lambda generator, dev, windows=None: {
+            "layers": [{k: v.clone() for k, v in layer.items()}
+                       for layer in params["layers"]]})
 
 
 def initial_state(model, params: dict, cfg: dict, device: torch.device):

@@ -41,6 +41,25 @@ def test_runner_sizes():
     assert counts.forward_flop(kan, 10) == 2 * 594_432 * 10
 
 
+def test_population_hand_counts():
+    headline = {**TINY_MLP, "hidden_features": 128, "num_snake": 2,
+                "num_tanh": 0}
+    # (1*128 + 128) + 4 (128*128 + 128) + (128 + 1), and two snake a's
+    assert counts.param_floats(headline) == 66_689
+    assert counts.macs_row(headline) == 65_792
+    # 669 windows of 512 rows: a step's model FLOP
+    assert counts.train_step_flop(headline, 669 * 512) == 6 * 65_792 * 342_528
+    # each window's parameters count once; one window reads as the model
+    sweep = counts.sweep_work(TINY_MLP, 100, windows=3)
+    assert sweep.bytes == 4 * 100 * 2 + 3 * 4 * counts.param_floats(TINY_MLP)
+    assert counts.sweep_work(TINY_MLP, 100, 1) == counts.sweep_work(TINY_MLP,
+                                                                    100)
+    # 2 windows x 3 steps, 4 of which improved: 7 floats a parameter, and 1
+    ep = counts.epilogue_work(TINY_MLP, 6, 4)
+    assert ep.bytes == 4 * counts.param_floats(TINY_MLP) * (7 * 6 + 4)
+    assert ep.tensor_flop == ep.f32_flop == 0
+
+
 def test_least_time_takes_the_larger_bound():
     w = counts.Work(989e12, 0.0, 0.0)
     assert w.least_s() == pytest.approx(1.0)

@@ -15,10 +15,12 @@ import torch
 from benchmark import port
 from benchmark.calibrate import calibrate
 from benchmark.check import judge
-from benchmark.harness import ROOT, load_bench, run_cell
+from benchmark.harness import (ROOT, load_bench, make_cell, make_driver,
+                               run_cell)
 from benchmark.reference.common import leaves
 from benchmark.run import forbidden_modules
 from benchmark.tests.small import SMALL
+from inraudio_tpu_torch.train.loop import init_train_state
 
 CELLS = [w["name"] for w in load_bench()["workloads"]]
 CPU = torch.device("cpu")
@@ -84,13 +86,62 @@ def _decode_fault(kind):
     return decode_dense
 
 
+def _population_fault(kind):
+    real = port.multi_inr_fit
+
+    def multi_inr_fit(model, signal, sample_rate, cfg, train_cfg, seed=0,
+                      device=None):
+        if kind == "half_batch":
+            # each window's step over the first half of its rows
+            ctx = model.fused_step_ctx
+            step = ctx["step"]
+
+            def half(params, mu, nu, best, coords, targets, lr, c1, c2,
+                     best_loss, mcfg, plan, gmode, n_valid, *rest, **kw):
+                n = coords.shape[0] // 2
+                return step(params, mu, nu, best, coords[:n],
+                            targets[:, :n].contiguous(), lr, c1, c2,
+                            best_loss, mcfg, plan, gmode, n, *rest, **kw)
+            model = dataclasses.replace(
+                model, fused_step_ctx={**ctx, "step": half})
+        res = real(model, signal, sample_rate, cfg, train_cfg, seed=seed,
+                   device=device)
+        k = res.num_chunks
+        if kind == "unchanged":
+            # the states as drawn
+            return res._replace(states=init_train_state(
+                model, torch.Generator(), train_cfg, device, windows=k))
+        if kind == "altered":
+            # in one window, the leaf that moved most moved double
+            old = dict(leaves(model.init(None, device, windows=k)))
+            new = dict(leaves(res.states.params))
+            moved = {n: torch.linalg.vector_norm(
+                (new[n] - old[n]).reshape(k, -1), dim=1) for n in new}
+            name = max(moved, key=lambda n: float(moved[n].max()))
+            w = int(torch.argmax(moved[name]))
+            i, key = name.split(".")[1:]
+            leaf = new[name].clone()
+            leaf[w] = old[name][w] + 2 * (new[name][w] - old[name][w])
+            res.states.params["layers"][int(i)][key] = leaf
+        return res
+    return multi_inr_fit
+
+
+FAULTS = {"fit": _fit_fault, "decode_dense": _decode_fault,
+          "multi_inr_fit": _population_fault}
+
+
+def _door(workload: str) -> str:
+    """The entry of ``port`` that the cell's driver calls."""
+    cell, _ = make_cell(load_bench(), workload, 1, 0.1, CPU, SMALL)
+    return make_driver(cell).door
+
+
 @pytest.mark.parametrize("workload", CELLS)
 @pytest.mark.parametrize("kind", ["unchanged", "half_batch", "altered"])
 def test_broken_timed_path_is_not_correct(workload, kind, monkeypatch):
-    if workload.startswith("decode."):
-        monkeypatch.setattr(port, "decode_dense", _decode_fault(kind))
-    else:
-        monkeypatch.setattr(port, "fit", _fit_fault(kind))
+    door = _door(workload)
+    monkeypatch.setattr(port, door, FAULTS[door](kind))
     out = _run(workload)
     assert not out["correct"], out["checks"]
 
@@ -115,9 +166,9 @@ def test_a_run_loads_no_jax():
     code = ("import time, torch; from benchmark.harness import load_bench, "
             "run_cell; from benchmark.tests.small import SMALL; "
             "from benchmark.run import forbidden_modules; "
-            "[run_cell(load_bench(), w, 3, 0.2, False, torch.device('cpu'), "
-            "time.perf_counter(), SMALL) for w in "
-            "('fit.runner_mlp', 'fit.runner_kan', 'decode.runner_mlp')]; "
+            "b = load_bench(); [run_cell(b, w['name'], 3, 0.2, False, "
+            "torch.device('cpu'), time.perf_counter(), SMALL) for w in "
+            "b['workloads']]; "
             "print(forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=600)
