@@ -18,9 +18,11 @@ For each seed the cell is set up as a run sets it up, and then:
   most, or in a population the leaf of one window that moves most; or
   one sample of each answer shifted by the answer's RMS).
 
-The cases are the driver's kind of readings (its ``readings_kind``).  A
-decode cell runs a window of ``--seconds`` at the cell's own load for its
-sample of requests.  Prints one JSON line a seed.
+The cases are the cell's driver's (its ``cases()``: ``train_cases``,
+``population_cases`` or ``decode_cases`` below, or a new driver's own).
+A driver whose ``cases_after_window`` is true (the decode's, for its
+sample of requests) runs a window of ``--seconds`` at the cell's own load
+first.  Prints one JSON line a seed.
 """
 
 from __future__ import annotations
@@ -131,10 +133,6 @@ def decode_cases(drv) -> dict[str, dict[str, float]]:
             [(shifted(a, r), r) for a, r in zip(prog, ref)])}
 
 
-CASES = {"train": train_cases, "population": population_cases,
-         "decode": decode_cases}
-
-
 def calibrate(workload: str, seed: int, seconds: float,
               device: torch.device, overrides: dict | None = None) -> dict:
     """Every case's readings of one seed."""
@@ -143,12 +141,12 @@ def calibrate(workload: str, seed: int, seconds: float,
                              overrides)
     driver = make_driver(cell)
     driver.setup()
-    if driver.readings_kind == "decode":
+    if driver.cases_after_window:
         driver.window(seconds, False)
     driver.model = None
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    cases = CASES[driver.readings_kind](driver)
+    cases = driver.cases()
     return {"workload": workload, "seed": seed, "limits": limits, **cases}
 
 

@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from .. import check, port
+from .. import calibrate, check, port
 from ..clip import synth_clip, wave_problem
 from ..reference.common import forward_blocks
 from ..trace import span
@@ -53,7 +53,8 @@ class Requests:
 
 class Driver:
     door = "decode_dense"
-    readings_kind = "decode"
+    # the cases read the answers of a window's sample of requests
+    cases_after_window = True
 
     def __init__(self, cell):
         self.cell = cell
@@ -62,9 +63,9 @@ class Driver:
         self.dev = cell.device
 
     def _decode(self, start: int, length: int) -> np.ndarray:
-        return port.decode_dense(self.model, self.params,
-                                 self.coords[start:start + length],
-                                 device=self.dev)
+        return port.door(self.door)(self.model, self.params,
+                                    self.coords[start:start + length],
+                                    device=self.dev)
 
     def setup(self) -> None:
         cfg, dev, seed = self.cfg, self.dev, self.cell.seed
@@ -152,3 +153,24 @@ class Driver:
             torch.cuda.empty_cache()
         return check.decode_readings(list(zip(self.answers(),
                                               self.reference())))
+
+    def cases(self) -> dict[str, dict[str, float]]:
+        return calibrate.decode_cases(self)
+
+    def fault(self, kind: str):
+        """The door with the timed path broken: ``unchanged`` (the answer's
+        buffer never written), ``half_batch`` (the second half of each
+        answer left out), ``altered`` (one sample shifted by the answer's
+        RMS)."""
+        real = port.door(self.door)
+
+        def decode_dense(model, params, coords, device=None):
+            out = real(model, params, coords, device=device).copy()
+            if kind == "unchanged":
+                out[:] = 0
+            elif kind == "half_batch":
+                out[out.shape[0] // 2:] = 0
+            else:
+                out[out.shape[0] // 3] += float((out ** 2).mean() ** 0.5)
+            return out
+        return decode_dense

@@ -21,12 +21,13 @@ Mix keys: ``check_steps``, ``warmup_steps``.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from .. import check, port
+from .. import calibrate, check, port
 from ..clip import synth_clip, window_problem
 from ..reference.common import leaves
 from ..trace import span
@@ -45,7 +46,7 @@ def improvements(losses: np.ndarray) -> int:
 
 class Driver:
     door = "multi_inr_fit"
-    readings_kind = "population"
+    cases_after_window = False
 
     def __init__(self, cell):
         self.cell = cell
@@ -54,7 +55,7 @@ class Driver:
         self.dev = cell.device
 
     def _fit(self, steps: int):
-        return port.multi_inr_fit(
+        return port.door(self.door)(
             self.model, self.clip, self.cfg["sample_rate"],
             port.multi_config(self.cfg), port.train_config(self.cfg, steps),
             seed=self.cell.seed, device=self.dev)
@@ -135,3 +136,49 @@ class Driver:
         if not np.all(np.isfinite(out["loss"])):
             return {}
         return check.population_readings(self.prog, out, self.params0)
+
+    def cases(self) -> dict[str, dict[str, float]]:
+        return calibrate.population_cases(self)
+
+    def fault(self, kind: str):
+        """The door with the timed path broken: ``unchanged`` (the states
+        as drawn), ``half_batch`` (each window's step over the first half
+        of its rows, through the model's ``fused_step_ctx["step"]``),
+        ``altered`` (in one window, the leaf that moved most moved
+        double)."""
+        real = port.door(self.door)
+        init_state = port.door("train.loop.init_train_state")
+
+        def multi_inr_fit(model, signal, sample_rate, cfg, train_cfg, seed=0,
+                          device=None):
+            if kind == "half_batch":
+                ctx = model.fused_step_ctx
+                step = ctx["step"]
+
+                def half(params, mu, nu, best, coords, targets, lr, c1, c2,
+                         best_loss, mcfg, plan, gmode, n_valid, *rest, **kw):
+                    n = coords.shape[0] // 2
+                    return step(params, mu, nu, best, coords[:n],
+                                targets[:, :n].contiguous(), lr, c1, c2,
+                                best_loss, mcfg, plan, gmode, n, *rest, **kw)
+                model = dataclasses.replace(
+                    model, fused_step_ctx={**ctx, "step": half})
+            res = real(model, signal, sample_rate, cfg, train_cfg, seed=seed,
+                       device=device)
+            k = res.num_chunks
+            if kind == "unchanged":
+                return res._replace(states=init_state(
+                    model, torch.Generator(), train_cfg, device, windows=k))
+            if kind == "altered":
+                old = dict(leaves(model.init(None, device, windows=k)))
+                new = dict(leaves(res.states.params))
+                moved = {n: torch.linalg.vector_norm(
+                    (new[n] - old[n]).reshape(k, -1), dim=1) for n in new}
+                name = max(moved, key=lambda n: float(moved[n].max()))
+                w = int(torch.argmax(moved[name]))
+                i, key = name.split(".")[1:]
+                leaf = new[name].clone()
+                leaf[w] = old[name][w] + 2 * (new[name][w] - old[name][w])
+                res.states.params["layers"][int(i)][key] = leaf
+            return res
+        return multi_inr_fit

@@ -14,13 +14,14 @@ Mix keys: ``check_steps``, ``warmup_steps``.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 
 import numpy as np
 import torch
 
-from .. import check, port
+from .. import calibrate, check, port
 from ..clip import synth_clip, wave_problem
 from ..reference.common import leaves, train
 from ..trace import span
@@ -32,7 +33,7 @@ def _copy(tree) -> dict[str, torch.Tensor]:
 
 class Driver:
     door = "fit"
-    readings_kind = "train"
+    cases_after_window = False
 
     def __init__(self, cell):
         self.cell = cell
@@ -41,9 +42,9 @@ class Driver:
         self.dev = cell.device
 
     def _fit(self, steps: int, state):
-        return port.fit(self.model, self.coords, self.targets,
-                        port.train_config(self.cfg, steps), state=state,
-                        device=self.dev)
+        return port.door(self.door)(
+            self.model, self.coords, self.targets,
+            port.train_config(self.cfg, steps), state=state, device=self.dev)
 
     def setup(self) -> None:
         cfg, dev, seed = self.cfg, self.dev, self.cell.seed
@@ -114,3 +115,30 @@ class Driver:
         if not all(math.isfinite(v) for v in out["loss"]):
             return {}
         return check.train_readings(self.prog, out, self.params0)
+
+    def cases(self) -> dict[str, dict[str, float]]:
+        return calibrate.train_cases(self)
+
+    def fault(self, kind: str):
+        """The door with the timed path broken: ``unchanged`` (the call
+        returns the state it was given), ``half_batch`` (the fit of the
+        first half of the rows), ``altered`` (the largest leaf moved
+        double)."""
+        real = port.door(self.door)
+
+        def fit(model, coords, targets, cfg, state=None, device=None):
+            if kind == "half_batch":
+                n = coords.shape[0] // 2
+                return real(model, coords[:n], targets[:n], cfg, state=state,
+                            device=device)
+            res = real(model, coords, targets, cfg, state=state,
+                       device=device)
+            if kind == "unchanged":
+                return dataclasses.replace(res, state=state)
+            name, new = max(leaves(res.state.params),
+                            key=lambda t: t[1].numel())
+            old = dict(leaves(state.params))[name]
+            i, key = name.split(".")[1:]
+            res.state.params["layers"][int(i)][key] = old + 2 * (new - old)
+            return res
+        return fit

@@ -5,8 +5,13 @@ import json
 import re
 from pathlib import Path
 
+import torch
+
+from benchmark import port
+from benchmark.drivers import FAULTS
 from benchmark.harness import (HERE, ROOT, applies, config_path, load_bench,
-                               metric_reader)
+                               make_cell, make_driver, metric_reader)
+from benchmark.tests.small import SMALL
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -107,6 +112,19 @@ def test_every_file_found_by_name():
         assert limits and all(v >= 0 for v in limits.values())
     for m in b["per_layer"]:
         assert callable(metric_reader(m["name"]).read)
+
+
+def test_every_driver_owns_its_door_faults_and_cases():
+    """Each cell's driver resolves its door and brings a fault of every
+    kind and its calibration cases: nothing outside its file names them."""
+    for w in load_bench()["workloads"]:
+        cell, _ = make_cell(load_bench(), w["name"], 1, 0.1,
+                            torch.device("cpu"), SMALL)
+        drv = make_driver(cell)
+        assert callable(port.door(drv.door)), w["name"]
+        assert all(callable(drv.fault(kind)) for kind in FAULTS), w["name"]
+        assert callable(drv.cases), w["name"]
+        assert isinstance(drv.cases_after_window, bool), w["name"]
 
 
 def test_files_under_paths_are_named_from_names():

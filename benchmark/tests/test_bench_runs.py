@@ -2,7 +2,6 @@
 plain versions: a sound run, the run with its timed path broken, the
 control, and the process's modules."""
 
-import dataclasses
 import json
 import math
 import subprocess
@@ -15,12 +14,11 @@ import torch
 from benchmark import port
 from benchmark.calibrate import calibrate
 from benchmark.check import judge
+from benchmark.drivers import FAULTS
 from benchmark.harness import (ROOT, load_bench, make_cell, make_driver,
                                run_cell)
-from benchmark.reference.common import leaves
 from benchmark.run import forbidden_modules
 from benchmark.tests.small import SMALL
-from inraudio_tpu_torch.train.loop import init_train_state
 
 CELLS = [w["name"] for w in load_bench()["workloads"]]
 CPU = torch.device("cpu")
@@ -51,97 +49,17 @@ def test_small_run_is_correct(workload, trace):
         assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
 
 
-def _fit_fault(kind):
-    real = port.fit
-
-    def fit(model, coords, targets, cfg, state=None, device=None):
-        if kind == "half_batch":
-            n = coords.shape[0] // 2
-            return real(model, coords[:n], targets[:n], cfg, state=state,
-                        device=device)
-        res = real(model, coords, targets, cfg, state=state, device=device)
-        if kind == "unchanged":
-            return dataclasses.replace(res, state=state)
-        # altered: the largest leaf moved double
-        name, new = max(leaves(res.state.params), key=lambda t: t[1].numel())
-        old = dict(leaves(state.params))[name]
-        i, key = name.split(".")[1:]
-        res.state.params["layers"][int(i)][key] = old + 2 * (new - old)
-        return res
-    return fit
-
-
-def _decode_fault(kind):
-    real = port.decode_dense
-
-    def decode_dense(model, params, coords, device=None):
-        out = real(model, params, coords, device=device).copy()
-        if kind == "unchanged":
-            out[:] = 0
-        elif kind == "half_batch":
-            out[out.shape[0] // 2:] = 0
-        else:
-            out[out.shape[0] // 3] += float((out ** 2).mean() ** 0.5)
-        return out
-    return decode_dense
-
-
-def _population_fault(kind):
-    real = port.multi_inr_fit
-
-    def multi_inr_fit(model, signal, sample_rate, cfg, train_cfg, seed=0,
-                      device=None):
-        if kind == "half_batch":
-            # each window's step over the first half of its rows
-            ctx = model.fused_step_ctx
-            step = ctx["step"]
-
-            def half(params, mu, nu, best, coords, targets, lr, c1, c2,
-                     best_loss, mcfg, plan, gmode, n_valid, *rest, **kw):
-                n = coords.shape[0] // 2
-                return step(params, mu, nu, best, coords[:n],
-                            targets[:, :n].contiguous(), lr, c1, c2,
-                            best_loss, mcfg, plan, gmode, n, *rest, **kw)
-            model = dataclasses.replace(
-                model, fused_step_ctx={**ctx, "step": half})
-        res = real(model, signal, sample_rate, cfg, train_cfg, seed=seed,
-                   device=device)
-        k = res.num_chunks
-        if kind == "unchanged":
-            # the states as drawn
-            return res._replace(states=init_train_state(
-                model, torch.Generator(), train_cfg, device, windows=k))
-        if kind == "altered":
-            # in one window, the leaf that moved most moved double
-            old = dict(leaves(model.init(None, device, windows=k)))
-            new = dict(leaves(res.states.params))
-            moved = {n: torch.linalg.vector_norm(
-                (new[n] - old[n]).reshape(k, -1), dim=1) for n in new}
-            name = max(moved, key=lambda n: float(moved[n].max()))
-            w = int(torch.argmax(moved[name]))
-            i, key = name.split(".")[1:]
-            leaf = new[name].clone()
-            leaf[w] = old[name][w] + 2 * (new[name][w] - old[name][w])
-            res.states.params["layers"][int(i)][key] = leaf
-        return res
-    return multi_inr_fit
-
-
-FAULTS = {"fit": _fit_fault, "decode_dense": _decode_fault,
-          "multi_inr_fit": _population_fault}
-
-
-def _door(workload: str) -> str:
-    """The entry of ``port`` that the cell's driver calls."""
+def _driver(workload: str):
     cell, _ = make_cell(load_bench(), workload, 1, 0.1, CPU, SMALL)
-    return make_driver(cell).door
+    return make_driver(cell)
 
 
 @pytest.mark.parametrize("workload", CELLS)
-@pytest.mark.parametrize("kind", ["unchanged", "half_batch", "altered"])
+@pytest.mark.parametrize("kind", FAULTS)
 def test_broken_timed_path_is_not_correct(workload, kind, monkeypatch):
-    door = _door(workload)
-    monkeypatch.setattr(port, door, FAULTS[door](kind))
+    """The cell's driver's fault of each kind, planted in its door."""
+    drv = _driver(workload)
+    monkeypatch.setitem(port.DOORS, drv.door, drv.fault(kind))
     out = _run(workload)
     assert not out["correct"], out["checks"]
 
