@@ -495,7 +495,8 @@ KAN_SUBSET_ROWS = 32768
 # default build's, then the wide build's), for the kernels line
 KAN_ENTRY_KERNELS = {
     "kan_split": "kan_split_kernel", "kan_gsplit": "kan_gsplit_kernel",
-    "kan_bwd_tc": "kan_bwd_tc_kernel", "kan_reduce": "kan_reduce_kernel",
+    "kan_bwd_tc": "kan_bwd_tc_kernel | kan_bwd_ws_kernel",
+    "kan_reduce": "kan_reduce_kernel",
     "kan_dx_tc": "kan_dx_tc_kernel", "kan_dx": "kan_dx_kernel",
     "kan_dw": "kan_dw_kernel",
     "kan_bwd_narrow": ("kan_bwd_narrow_kernel",
@@ -4081,9 +4082,11 @@ def build_kernels():
     # their SASS must hold HMMA / HGMMA
     for lib_name, marks in (("kan", ("kan_fwd_tc_kernel",
                                      "kan_bwd_tc_kernel",
+                                     "kan_bwd_ws_kernel",
                                      "kan_dx_tc_kernel")),
                             ("kan_wide", ("kan_fwd_tc_kernel",
                                           "kan_bwd_tc_kernel",
+                                          "kan_bwd_ws_kernel",
                                           "kan_dx_tc_kernel")),
                             ("siren_train", ("siren_sweep_kernel",
                                              "siren_dw_kernel")),

@@ -42,6 +42,7 @@ from typing import Any
 import torch
 
 from ..models.kan import KANConfig, _scaled_spline_weight, b_splines
+from ..utils.observability import counter
 from ._nvcc import LaunchCounter, build_library
 from .siren_fused import _MODE_CODE, _check_tensor, _f32_dot_mode, _kernel_dot
 from .siren_train import _check_rc
@@ -108,6 +109,9 @@ def _col_groups(width: int, cap: int) -> int:
 # the narrow kernels' feature lanes (at most, in the wide library) and row
 # groups, and the A values per block of the grid that sets their slices
 _TC_TK, _TC_RC = 64, 32
+# its pass with dx fused (kan.cu kan_bwd_ws_kernel): g's stages, A^T and GX
+# buffers
+_WS_STAGES, _WS_BUFS = 3, 2
 _NW_F, _NW_RG, _NW_JB = 32, 8, 16
 # the tensor-core dx (kan.cu kan_dx_tc_kernel): its row tiles, W's outputs
 # a slab, K values a chunk at most, W's stages, and a chunk's cost beside
@@ -304,13 +308,25 @@ class DwPlan:
 
 
 def bwd_tc_smem(tn: int, fck: int, dx: bool, ks: int = _KNOT_STRIDE) -> int:
-    """Dynamic shared memory of the tensor-core backward (kan.cu
-    bwd_tc_smem): A^T's planes, two stages of g's planes, the knots and,
-    with dx, W's planes and the parked GX."""
+    """Dynamic shared memory of the tensor-core backward on one role of
+    warps (kan.cu bwd_tc_smem): A^T's planes, two stages of g's planes,
+    the knots and, with dx (the -DKAN_BWD_WS=0 build), W's planes and the
+    parked GX."""
     return (2 * _TC_TK * (_TC_RC + 8) * 2 + 2 * 2 * _TC_RC * (tn + 8) * 2
             + fck * ks * 4
             + (2 * _TC_TK * (tn + 8) * 2 + _TC_RC * (_TC_TK + 1) * 4
                if dx else 0))
+
+
+def bwd_ws_smem(tn: int, fck: int, ks: int = _KNOT_STRIDE) -> int:
+    """Dynamic shared memory of the tensor-core backward with dx fused
+    (kan.cu bwd_ws_smem): W's resident planes, _WS_STAGES stages of g's,
+    _WS_BUFS buffers of A^T's planes and of the parked GX, their mbarriers,
+    the knots, and each (row, feature) slot's previous interval."""
+    return (2 * _TC_TK * (tn + 8) * 2 + _WS_STAGES * 2 * _TC_RC * (tn + 8) * 2
+            + _WS_BUFS * 2 * _TC_TK * (_TC_RC + 8) * 2
+            + _WS_BUFS * _TC_RC * (_TC_TK + 1) * 4 + 4 * _WS_BUFS * 8
+            + fck * ks * 4 + _WS_BUFS * _TC_RC * fck * 2)
 
 
 def narrow_bins_smem(no: int, J: int, fck: int,
@@ -388,6 +404,15 @@ def dx_fused(dout: int, mode: str, J: int = 1) -> bool:
     route = layer_route(dout, mode)
     return route == "narrow" or (route == "tc" and dout <= 256
                                  and J <= _TC_TK)
+
+
+def bwd_pass(plan: DwPlan, fused: bool) -> str:
+    """H's dW kernel for a layer on ``plan`` whose dx the pass forms or not
+    (``fused``): 'ws' (kan_bwd_ws_kernel: the tensor-core pass with dx,
+    builder warps beside the product warps) where the route is 'tc' and dx
+    is fused, else the route's ('tc': kan_bwd_tc_kernel, dW alone;
+    'narrow'; 'fma').  The shapes pick it: no flag does."""
+    return "ws" if plan.route == "tc" and fused else plan.route
 
 
 @dataclasses.dataclass(frozen=True)
@@ -739,10 +764,12 @@ def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
     (``dx_fused``), else ``dx_plan``'s kernel runs after them (the
     tensor-core dx on the same planes, or the FMA one).  The planes (the
     cotangent's and W's bf16 splits for the tensor cores, W^T's f32 split
-    otherwise) are made here, once per layer."""
+    otherwise) are made here, once per layer.  Each dW launch counts one
+    on ``kan_bwd.launches.<bwd_pass>``."""
     plan = dw_plan(s.n, s.din, s.dout, s.J, mode, s.ks, s.wide)
     code = _MODE_CODE[mode]
     fused = need_dx and dx_fused(s.dout, mode, s.J)
+    launches = counter(f"kan_bwd.launches.{bwd_pass(plan, fused)}")
     xplan = (dx_plan(s.din, s.dout, s.J, mode, s.ks)
              if need_dx and not fused else None)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -780,6 +807,7 @@ def layer_backward(lib, x, grid, g, w_t, s: LayerShape, order: int,
                 x.data_ptr(), grid.data_ptr(), g.data_ptr(),
                 partial.data_ptr(), *dims, plan.tile, plan.fck, plan.rc,
                 *rows))
+        launches.add()
         _check_rc("kan_reduce", lib.kan_reduce(
             partial.data_ptr(), dw_t.data_ptr(), s.dout * s.K, sg,
             int(s0 == 0), stream))
@@ -802,9 +830,9 @@ class _KanBwdKernel(LaunchCounter):
     """Kernel H: the stack backward for a supplied output cotangent, per
     layer in reverse: dW (product over rows + fixed-order reduce) and, for
     layers > 0, dx, one pass for both in the bf16 tiers: on tensor cores
-    (dout >= 8; past 256 outputs or J = 64, dx on the tensor cores after
-    the dW pass) or as weighted sums (dout < 8); CUDA-core FMAs in the
-    highest tier.
+    (dout >= 8: builder warps beside product warps, ``bwd_pass`` 'ws';
+    past 256 outputs or J = 64, dx on the tensor cores after the dW pass)
+    or as weighted sums (dout < 8); CUDA-core FMAs in the highest tier.
     ``launches`` rises by one per stack backward."""
 
     def __call__(self, layers, xs, g: torch.Tensor, order: int,

@@ -1869,6 +1869,84 @@ def test_kan_backward_is_deterministic_and_budget_free(dev, monkeypatch):
         assert torch.equal(x, y) and torch.equal(x, z)
 
 
+# H's tensor-core pass with dx fused (kan_bwd_ws_kernel) against the
+# one-role design it replaced (kan.cu built with -DKAN_BWD_WS=0), one layer
+# (din, dout, grid_size, order, n): the runner's layer 1 over a row count
+# that is no multiple of the 32-row chunk; the wide build's grid 20 / order
+# 3 (J 24) and grid 5 / order 8 (J 14); rows so few that a slice is shorter
+# than one chunk (one slice of 20 rows; four slices, the last of 4 rows);
+# 8 outputs (a 32-column tile)
+KAN_WS_CASES = [(256, 256, 5, 3, 30_011), (64, 256, 20, 3, 9_001),
+                (48, 256, 5, 8, 9_001), (256, 256, 5, 3, 20),
+                (256, 256, 5, 3, 100), (24, 8, 5, 3, 3_001)]
+KAN_WS_IDS = [f"{di}x{do}-g{g}o{o}-n{n}" for di, do, g, o, n in KAN_WS_CASES]
+
+
+def kan_ws_layer(din, dout, grid_size, order, n, mode, dev):
+    """One layer of KAN_WS_CASES (inputs uniform over the knots, every
+    third row past them) with its cotangent: (args of
+    ``kf.layer_backward`` before the stream, its dW plan)."""
+    grid, w_t, x = kan_wide_layer(din, dout, grid_size, order, n, "outside",
+                                  dev)
+    g = torch.randn((n, dout), device=dev,
+                    generator=torch.Generator(dev).manual_seed(7)) / n
+    s = kf._layer_shape(x, grid, w_t, order, 1)
+    plan = kf.dw_plan(s.n, s.din, s.dout, s.J, mode, s.ks, s.wide)
+    assert kf.bwd_pass(plan, kf.dx_fused(dout, mode, s.J)) == "ws"
+    return (x, grid, g, w_t, s, order, mode), plan
+
+
+def kan_ws_against_one_role(args, dev) -> int:
+    """One layer's H on the route and on the one-role library; asserts dW
+    and dx bit-equal and returns the route's count of
+    ``kan_bwd.launches.ws``."""
+    from inraudio_tpu_torch.ops.kan_h_split import one_role_library
+    s = args[4]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launches = counter("kan_bwd.launches.ws")
+    before = launches.value
+    got = kf.layer_backward(kf.kan_library(args[5], s.nk)(), *args, stream,
+                            need_dx=True)
+    counted = launches.value - before
+    ref = kf.layer_backward(one_role_library(s.wide)(), *args, stream,
+                            need_dx=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return counted
+
+
+@pytest.mark.parametrize("mode", ["bf16", "bf16x2", "bf16x3"])
+@pytest.mark.parametrize("din,dout,grid_size,order,n", KAN_WS_CASES,
+                         ids=KAN_WS_IDS)
+def test_kan_fused_pass_matches_the_one_role_design(dev, mode, din, dout,
+                                                    grid_size, order, n):
+    """The fused pass's builder and product warps give dW and dx bit-equal
+    to the one-role design's in every bf16 tier, and count one launch a
+    layer call."""
+    args, plan = kan_ws_layer(din, dout, grid_size, order, n, mode, dev)
+    assert kf.dw_group(plan, dout, args[4].K) == plan.slices
+    assert kan_ws_against_one_role(args, dev) == 1
+
+
+def test_kan_fused_pass_in_launch_groups(dev, monkeypatch):
+    """More slices than the scratch holds: the fused pass in three launch
+    groups, bit-equal to the one-role design through the same groups and
+    to itself in one group, one count a launch."""
+    args, plan = kan_ws_layer(256, 256, 5, 3, 6_000, "bf16x3", dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    whole = kf.layer_backward(kf.KAN_LIBRARY(), *args, stream, need_dx=True)
+    K = args[4].K
+    monkeypatch.setattr(kf, "SCRATCH_BYTES", 3 * 4 * 256 * K)
+    assert kf.dw_group(plan, 256, K) == 3 and plan.slices > 6
+    assert kan_ws_against_one_role(args, dev) == -(-plan.slices // 3)
+    parts = kf.layer_backward(kf.KAN_LIBRARY(), *args, stream, need_dx=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(whole, parts))
+
+
 def test_kan_autograd_counts_launches(dev):
     cfg = KANConfig(layers_hidden=(1, 32, 32, 1))
     model = build_model("kan", cfg, fused=True)

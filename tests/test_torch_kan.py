@@ -318,8 +318,10 @@ def test_plans_fit_the_kernels(monkeypatch):
                 assert plan.rows_per_slice % 32 == 0
                 fused = kf.dx_fused(dout, mode)
                 assert fused == (dout <= 256)
-                assert kf.bwd_tc_smem(plan.tile, plan.fck,
-                                      fused) <= kf._SMEM_MAX
+                # the fused pass (builder warps) with dx, dW alone without
+                assert (kf.bwd_ws_smem(plan.tile, plan.fck) if fused else
+                        kf.bwd_tc_smem(plan.tile, plan.fck,
+                                       False)) <= kf._SMEM_MAX
             elif plan.route == "narrow":
                 assert plan.tile in (1, 2, 4, 8) and dout <= plan.tile
                 assert plan.fck == 32 and plan.rc == 8

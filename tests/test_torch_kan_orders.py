@@ -202,8 +202,10 @@ def test_wide_plans_fit_the_kernels(grid_size, order):
                 assert dp.fck >= min(din, touch)
                 assert (dp.ktile == dp.fck * J) == (J <= 64)
                 assert fused == (dout <= 256 and J <= 64)
-                assert kf.bwd_tc_smem(dp.tile, dp.fck, fused,
-                                      ks) <= kf._SMEM_MAX
+                # the fused pass (builder warps) with dx, dW alone without
+                assert (kf.bwd_ws_smem(dp.tile, dp.fck, ks) if fused else
+                        kf.bwd_tc_smem(dp.tile, dp.fck, False,
+                                       ks)) <= kf._SMEM_MAX
             elif dp.route == "narrow":
                 assert fused and dp.rc == 8
                 # the slices of 32-feature tiles x blocks of 16 values,
@@ -430,6 +432,110 @@ def test_layer_launches_follow_the_plans(grid_size, order, dims, mode):
                 assert xp.route == "fma"
                 assert a[6:14] == (n, din, dout, nk, order, code, xp.fc,
                                    xp.inner)
+
+
+# (din, dout, grid_size, order, tier, dx wanted, H's dW kernel): the fused
+# pass with builder warps (ws) for a layer whose tensor-core pass forms dx:
+# the runner's layer 1 in each bf16 tier, the wide build's J <= 64 configs
+# (grid 20 / order 3, grid 5 / order 5, grid 5 / order 8), 8 outputs; the
+# one-role pass (tc, dW alone) for J > 64, for a layer with no dx wanted
+# (the runner's layer 0) and past 256 outputs; the FMA kernel in the
+# highest tier; the narrow head
+BWD_PASSES = [(256, 256, 5, 3, "bf16x3", True, "ws"),
+              (256, 256, 5, 3, "bf16x2", True, "ws"),
+              (256, 256, 5, 3, "bf16", True, "ws"),
+              (256, 256, 20, 3, "bf16x3", True, "ws"),
+              (256, 256, 5, 5, "bf16x3", True, "ws"),
+              (256, 256, 5, 8, "bf16x3", True, "ws"),
+              (64, 8, 5, 3, "bf16x3", True, "ws"),
+              (256, 256, 100, 3, "bf16x3", True, "tc"),
+              (1, 256, 5, 3, "bf16x3", False, "tc"),
+              (256, 320, 5, 3, "bf16x3", True, "tc"),
+              (256, 256, 5, 3, "highest", True, "fma"),
+              (256, 1, 5, 3, "bf16x3", True, "narrow")]
+
+
+@pytest.mark.parametrize(
+    "din,dout,grid_size,order,mode,need_dx,expect", BWD_PASSES,
+    ids=[f"{di}x{do}-g{g}o{o}-{m}-{'dx' if x else 'nodx'}"
+         for di, do, g, o, m, x, _ in BWD_PASSES])
+def test_backward_pass_follows_the_shape(din, dout, grid_size, order, mode,
+                                         need_dx, expect):
+    """H's dW kernel is picked from the layer's shapes and tier alone
+    (``bwd_pass``): on a recording library the fused pass is the one whose
+    launches carry dx, and each dW launch counts one on
+    ``kan_bwd.launches.<pass>``, no other pass's counter moving."""
+    from inraudio_tpu_torch.utils.observability import counter
+    nk = grid_size + 2 * order + 1
+    J = nk - order
+    n = 3000
+    x, g = torch.zeros((n, din)), torch.zeros((n, dout))
+    grid, w_t = torch.zeros((din, nk)), torch.zeros((dout, din * J))
+    s = kf._layer_shape(x, grid, w_t, order, 1)
+    plan = kf.dw_plan(n, din, dout, J, mode, s.ks, s.wide)
+    fused = need_dx and kf.dx_fused(dout, mode, J)
+    assert kf.bwd_pass(plan, fused) == expect
+    passes = ("ws", "tc", "narrow", "fma")
+    before = {p: counter(f"kan_bwd.launches.{p}").value for p in passes}
+    lib = _RecordingLibrary()
+    kf.layer_backward(lib, x, grid, g, w_t, s, order, mode, 0,
+                      need_dx=need_dx)
+    groups = -(-plan.slices // kf.dw_group(plan, dout, din * J))
+    moved = {p: counter(f"kan_bwd.launches.{p}").value - before[p]
+             for p in passes}
+    assert moved == {p: groups if p == expect else 0 for p in passes}
+    if plan.route == "tc":
+        bwd = [a for nm, a in lib.calls if nm == "kan_bwd_tc"]
+        assert len(bwd) == groups
+        assert all((a[8] != 0) == (expect == "ws") for a in bwd)
+
+
+def _kan_cu_bwd_ws_smem():
+    """kan.cu's bwd_ws_smem as a Python function: its return expression
+    over its constants' values as the source states them."""
+    src = (pathlib.Path(kf.__file__).parents[1] / "csrc" / "kan.cu"
+           ).read_text()
+    env = {}
+    for name in ("kTcTK", "kTcRC", "kTcAP", "kTcGxP", "kWsStages",
+                 "kWsBufs"):
+        expr = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+        env[name] = eval(expr, dict(env))
+    body = re.search(r"constexpr int bwd_ws_smem\(int tn, int fck, int ks\)"
+                     r" \{\s*return (.*?);\s*\}", src, re.S).group(1)
+    expr = compile(f"({body})", "kan.cu bwd_ws_smem", "eval")
+    return lambda tn, fck, ks: eval(expr, dict(env, tn=tn, fck=fck, ks=ks))
+
+
+def test_fused_pass_shared_memory_fits():
+    """The fused pass's shared memory, counted by kan.cu's own formula and
+    by its Python mirror alike, stays within a block's 232,448 bytes at
+    every shape the plan sends to it: each grid size up to 100 and order up
+    to 8 with J <= 64, in either library, at each column tile; and its
+    (row, feature) slots within what the kernel holds (32 rows x 32
+    features)."""
+    cu_smem = _kan_cu_bwd_ws_smem()
+    seen = 0
+    for grid_size in range(1, 101):
+        for order in range(1, 9):
+            nk = grid_size + 2 * order + 1
+            J = nk - order
+            if J > 64 or nk > 128:
+                continue
+            ks = kf.knot_stride(order, nk)
+            wide = kf.is_wide(order, nk)
+            for din, dout in ((256, 256), (256, 8), (3, 100), (64, 33)):
+                plan = kf.dw_plan(50_000, din, dout, J, "bf16x3", ks, wide)
+                if kf.bwd_pass(plan, kf.dx_fused(dout, "bf16x3", J)) != "ws":
+                    continue
+                seen += 1
+                assert plan.ktile == plan.fck * J <= 64
+                assert 32 * plan.fck <= 32 * 32
+                smem = kf.bwd_ws_smem(plan.tile, plan.fck, ks)
+                assert smem == cu_smem(plan.tile, plan.fck, ks)
+                assert smem <= kf._SMEM_MAX
+    assert seen > 1000
+    # the runner's layer 1: 7 features a K tile, 256 columns
+    assert kf.bwd_ws_smem(256, 7, 20) == cu_smem(256, 7, 20) == 207_600
 
 
 @pytest.mark.parametrize("grid_size,order", [(100, 3), (5, 8)],
