@@ -286,10 +286,7 @@ other losses, and the KAN at grid extension's sizes and orders:
    H against their plain versions on a KAN_SUBSET_ROWS-row subset, at the
    init and after ``update_grid``, repeat calls bit-equal, the fits'
    launches, and G, H and each layer timed over the whole clip against
-   ``kan_bounds`` at the config's J, each layer's H also launch by launch
-   (``ops/kan_h_split.py``: the splits, the dW pass, the reduce, dx), and
-   layer 1's G on the route beside the wide build's chunked G it replaced
-   (``ops/kan_fwd_ab.py``), with the share of k16 blocks the route skips.
+   ``kan_bounds`` at the config's J.
 
 Every kernel's bound (the least time the card could take for the same
 work) is computed from the run's shapes: the larger of the bytes it must
@@ -3842,6 +3839,18 @@ def kan_library_ab(torch, dev, iters=10):
     return times, gap
 
 
+class _EntryLog:
+    """A kan.cu library that records the names of the C entries called
+    through it (``called``)."""
+
+    def __init__(self, lib):
+        self._lib, self.called = lib, set()
+
+    def __getattr__(self, name):
+        self.called.add(name)
+        return getattr(self._lib, name)
+
+
 def kan_order_phases(np, torch, dev, clip):
     """Phase 29: G and H at the runner KAN's widths with grid extension's
     sizes and orders up to 8 (the wide library), after the runner's grid 5
@@ -3855,8 +3864,6 @@ def kan_order_phases(np, torch, dev, clip):
     from inraudio_tpu_torch.data import waveform_fitting, write_wav
     from inraudio_tpu_torch.models import KANConfig, build_model
     from inraudio_tpu_torch.ops import kan_fused as kf
-    from inraudio_tpu_torch.ops.kan_fwd_ab import chunked_layer, skip_share
-    from inraudio_tpu_torch.ops.kan_h_split import stack_split
     from inraudio_tpu_torch.train import loop as tloop
     from test_torch_cuda import (KAN_GRAD_RTOL, check_kan,
                                  check_kan_outputs)
@@ -3938,38 +3945,27 @@ def kan_order_phases(np, torch, dev, clip):
         gfull = torch.ones((n, 1), device=dev) / n
         h_ms = cuda_ms(torch, lambda: kf.KAN_BWD(layers, xf, gfull, order,
                                                  mode), 3)
-        # each layer's H whole and launch by launch (CUDA events around
-        # each C entry's call), on the cotangent ones / n
-        split = stack_split(torch, kf, layers, xf, order, mode)
-        per_layer = []
-        for (li, din, dout, layer_h_ms, _), (grid, w_t) in zip(split,
-                                                                  layers):
+        # each layer's G and H whole (CUDA events), H on the cotangent ones
+        # / n, and the C entries H calls
+        stream = torch.cuda.current_stream().cuda_stream
+        lib = kf.kan_library(order, nk)()
+        per_layer, entries = [], _EntryLog(lib)
+        for li, (grid, w_t) in enumerate(layers):
             s = kf._layer_shape(xf[li], grid, w_t, order, li)
-            per_layer.append((li, din, dout, kf.fwd_plan(
-                din, dout, J, mode, s.ks).route, kf.dw_plan(
-                n, din, dout, J, mode, s.ks, s.wide).route, cuda_ms(
+            ones = torch.ones((n, s.dout), device=dev) / n
+            args = (xf[li], grid, ones, w_t, s, order, mode, stream, li > 0)
+            kf.layer_backward(entries, *args)
+            per_layer.append((li, s.din, s.dout, kf.fwd_plan(
+                s.din, s.dout, J, mode, s.ks).route, kf.dw_plan(
+                n, s.din, s.dout, J, mode, s.ks, s.wide).route, cuda_ms(
                 torch, lambda: kf.KAN_FWD([(grid, w_t)], xf[li], order,
-                                          mode), 3), layer_h_ms))
+                                          mode), 3), cuda_ms(
+                torch, lambda: kf.layer_backward(lib, *args), 3)))
+            del ones, args
         wide = kf.is_wide(order, nk)
-        # layer 1's G: the route against the wide build's G before its
-        # builder warps (the chunked design, its own plan), and the share
-        # of k16 blocks the route skips, from layer 1's inputs in plain
-        # PyTorch
-        g1 = None
-        if wide:
-            grid1, w1 = layers[1]
-            s1 = kf._layer_shape(xf[1], grid1, w1, order, 1)
-            fc1 = kf.fwd_plan(s1.din, s1.dout, J, mode, s1.ks, True).fc
-            before, _ = chunked_layer(torch, kf, xf[1], grid1, w1, order,
-                                      mode)
-            g1 = dict(ms=per_layer[1][5],
-                      chunked_ms=cuda_ms(torch, before, 3), fc=fc1,
-                      skipped=skip_share(torch, xf[1], grid1, order, fc1))
-            del before
         h_kernels = sorted({
             k[wide] if isinstance(k, tuple) else k
-            for *_, parts in split
-            for k in (KAN_ENTRY_KERNELS[e] for e in parts)})
+            for k in (KAN_ENTRY_KERNELS[e] for e in entries.called)})
         del xf, gfull
         slayers, sxr, scot = keep
         sg_ms = cuda_ms(torch, lambda: kf.KAN_FWD(slayers, sub, order, mode),
@@ -3993,7 +3989,7 @@ def kan_order_phases(np, torch, dev, clip):
                             sub.shape[0]), sub_g_ms=sg_ms,
                         sub_g_plain=sg_plain, sub_h_ms=sh_ms,
                         sub_h_plain=sh_plain, sub_bounds=sbounds,
-                        steps_s=res.steps_per_sec, h_split=split, g1=g1,
+                        steps_s=res.steps_per_sec,
                         h_kernels=h_kernels, g_kernels=sorted(
                             {"kan_split_kernel"} | {
                                 {"tc": "kan_fwd_tc_kernel",
@@ -4016,18 +4012,6 @@ def kan_order_phases(np, torch, dev, clip):
             + f"; on the subset G {sg_ms:.3f} ms (plain {sg_plain:.3f}), H "
             f"{sh_ms:.3f} ms (plain {sh_plain:.3f}); "
             f"{'ok' if ok else 'FAILED'}")
-        if g1:
-            log(f"phase29 {tag} layer 1 G over {n} rows (CUDA events, 3 "
-                f"calls): {g1['ms']:.3f} ms on the route ({g1['fc']} "
-                f"features a chunk), {g1['chunked_ms']:.3f} ms on the wide "
-                f"build's chunked G it replaced; k16 blocks skipped "
-                f"{100 * g1['skipped']:.1f}% (plain PyTorch, from the "
-                f"inputs)")
-        log(f"phase29 {tag} H per launch over {n} rows (ms a call, CUDA "
-            f"events around each launch, 3 calls): " + "; ".join(
-                f"layer {li} ({di}->{do}) {ms:.3f} ms = " + ", ".join(
-                    f"{e} {c}x {t:.3f}" for e, (c, t) in parts.items())
-                for li, di, do, ms, parts in split))
         if not ok:
             fails.append(tag)
         del keep, slayers, sxr, scot
@@ -4043,15 +4027,12 @@ def build_kernels():
     from inraudio_tpu_torch.ops import siren_fused as sf
     from inraudio_tpu_torch.ops import siren_train as st
     from inraudio_tpu_torch.ops._nvcc import library_path
-    from inraudio_tpu_torch.ops.kan_fwd_ab import chunked_library
     builds = {"siren_stack": sf.SIREN_STACK.library,
               "siren_train": st.TRAIN_LIBRARY, "kan": kf.KAN_LIBRARY,
-              "kan_wide": kf.KAN_WIDE_LIBRARY,
-              "kan_wide_chunked": chunked_library()}
+              "kan_wide": kf.KAN_WIDE_LIBRARY}
     # (source, extra nvcc defines) of each library
     sources = {name: (name + ".cu", ()) for name in builds}
-    for name in ("kan_wide", "kan_wide_chunked"):
-        sources[name] = ("kan.cu", builds[name].defines)
+    sources["kan_wide"] = ("kan.cu", kf.KAN_WIDE_LIBRARY.defines)
     build_s, failures = {}, []
 
     def build(name, fn):
@@ -4616,11 +4597,6 @@ def main() -> int:
                     f"{t['bounds'][b][0]:.3f} ms"),
                 "cuda_kernels": t[key + "_kernels"],
             })
-            if key == "g" and t["g1"]:
-                kernels["kernels"][-1].update(
-                    layer1_ms=t["g1"]["ms"],
-                    layer1_chunked_ms=t["g1"]["chunked_ms"],
-                    k16_skipped=t["g1"]["skipped"])
     log(f"nvidia-smi: {nvidia_smi()}")
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {

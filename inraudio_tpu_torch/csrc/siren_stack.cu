@@ -257,7 +257,7 @@ siren_stack_kernel(const float* __restrict__ coords, float* __restrict__ out,
 //   multiply-adds), the epilogue (activate(), the bf16 splits), and the
 //   head's reduction over h in the FMA kernel's chains (H / 32 threads a
 //   row; one output column would waste 7/8 of an n8 tile).
-// What held it on an H100 (ops/stack_ab.py times the parts): with the
+// What held it on an H100 (PR 9 timed the parts): with the
 // layer's kind and trig degree read at run time inside the epilogue, its
 // unrolled units were separate branchy chains that 8 warps could not hide
 // (the activations took 1.3 of the headline's 2.4 ms); they are now
@@ -268,16 +268,14 @@ siren_stack_kernel(const float* __restrict__ coords, float* __restrict__ out,
 // function of the plan and the shapes, never of k.
 // ===========================================================================
 
-// Warps a CTA, W rows a streamed slab at h = 256 (two stages of 64), and
-// whether the bf16x3 layers' products sum in fresh accumulators
-// (tier_mma_f32) instead of in the tensor core (tier_mma): on an H100 8
-// warps, four stages of 32 rows and fresh sums were each slower
-// (ops/stack_ab.py builds copies with the other values to time them;
+// Warps a CTA and W rows a streamed slab at h = 256 (two stages of 64): on
+// an H100 8 warps and four stages of 32 rows were each slower, and so were
+// the bf16x3 hidden layers' products summed in fresh accumulators
+// (tier_mma_f32) in place of the tensor core's (tier_mma) (PR 9, PERF.md;
 // ops/siren_fused.py's _TC_PASS_ROWS, _TC_MAX_ROWS and stack_launch follow
 // these).
 constexpr int kTcWarps = 16;
 constexpr int kTcSlab = 64;
-constexpr bool kTcFresh = false;
 
 template <int H>
 struct Tc {
@@ -362,8 +360,10 @@ __device__ __forceinline__ void issue_slab(bf16* dst, const bf16* wh, int K,
 
 // hh, cr += A[arow.., acol..] . B[0.., c0..] over ksteps k16 steps for the
 // warp's 32 x WC block: A the activation planes (x role: hi, lo), B a slab
-// stage (w role: hi, lo; K x H row-major, read with .trans).
-template <int H, int MODE, bool FRESH>
+// stage (w role: hi, lo; K x H row-major, read with .trans). F32_STEPS:
+// each k16 step into fresh accumulators added in f32 (tier_mma_f32, RFF
+// layer 0), else summed in the tensor core (tier_mma, the hidden layers).
+template <int H, int MODE, bool F32_STEPS>
 __device__ __forceinline__ void tc_product(
     const bf16* Xh, const bf16* Xl, int arow, int acol, const bf16* Wh,
     const bf16* Wl, int ksteps, float (&hh)[2][Tc<H>::NT][4],
@@ -391,7 +391,7 @@ __device__ __forceinline__ void tc_product(
       if (MODE != kBf16) ldsm_x4_t(bl, Wl + off);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        if (FRESH) {
+        if (F32_STEPS) {
           tier_mma_f32<MODE>(hh[mi][nj], cr[mi][nj], ah[mi], al[mi], bh[0],
                              bh[1], bl[0], bl[1]);
           tier_mma_f32<MODE>(hh[mi][nj + 1], cr[mi][nj + 1], ah[mi], al[mi],
@@ -465,21 +465,21 @@ __device__ __forceinline__ void seq_product(
   }
 }
 
-// A hidden layer's product in its tier: bf16x3 on mma.sync (tier_mma, or
-// tier_mma_f32 with FRESH); bf16 and bf16x2 as the FMA kernel's chains.
+// A hidden layer's product in its tier: bf16x3 on mma.sync (tier_mma);
+// bf16 and bf16x2 as the FMA kernel's chains.
 // Those two round the x role to bf16, so an ulp of a pre can flip the next
 // layer's operand by a bf16 ulp: on an H100 the tensor core's sums (in
 // the tensor core or in fresh accumulators alike) flipped enough of them to
 // move the rate points' bf16-tier decode 1.0-1.6e-3 from the plain
 // version's, past chip_smoke.py phase 17's 1e-3.  bf16x3 splits x (hi +
 // lo), which moves with the pre continuously.
-template <int H, bool FRESH>
+template <int H>
 __device__ __forceinline__ void hidden_product(
     int mode, const bf16* Xh, const bf16* Xl, int arow, int acol,
     const bf16* Wh, const bf16* Wl, int ksteps,
     float (&hh)[2][Tc<H>::NT][4], float (&cr)[2][Tc<H>::NT][4]) {
   if (mode == kBf16x3)
-    tc_product<H, kBf16x3, FRESH>(Xh, Xl, arow, acol, Wh, Wl, ksteps, hh, cr);
+    tc_product<H, kBf16x3, false>(Xh, Xl, arow, acol, Wh, Wl, ksteps, hh, cr);
   else if (mode == kBf16x2)
     seq_product<H, kBf16x2>(Xh, arow, acol, Wh, Wl, ksteps, hh, cr);
   else
@@ -786,7 +786,7 @@ siren_stack_tc_kernel(const float* __restrict__ coords,
       for (int p = 0; p < passes; ++p) {
         const int xrow = p * C::TP + wm * 32;
         zero(hh, cr);
-        hidden_product<H, kTcFresh>(
+        hidden_product<H>(
             mode, Xh, Xl, xrow, 0, Ws, Ws + C::KS * C::LD, H / 16, hh, cr);
         if (p + 1 < passes) {
           group_sync();
@@ -807,7 +807,7 @@ siren_stack_tc_kernel(const float* __restrict__ coords,
         issue(j + C::NST - 1);
         cp_async_commit();
         const bf16* w = Ws + (j % C::NST) * 2 * C::KS * C::LD;
-        hidden_product<H, kTcFresh>(
+        hidden_product<H>(
             mode, Xh, Xl, wm * 32, s * C::KS, w, w + C::KS * C::LD,
             C::KS / 16, hh, cr);
       }

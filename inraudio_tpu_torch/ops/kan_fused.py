@@ -126,11 +126,11 @@ _FW_MAX_FC = 2 * _THREADS // _FW_TM   # kFwPairs * kThreads / kFwTM
 _NF_FC = 32
 _SMEM_MAX = 232448       # bytes a block may use on the H100
 _TC_MODES = ("bf16", "bf16x2", "bf16x3")
-# the wide build's tensor-core G (kan.cu, KAN_FWD_WS): A buffers, W's ring
-# of k16 blocks, builder warps (beside 8 mma warps), (row, feature) slots
-# a chunk, K values a chunk at most (one mask bit a k16 block); a chunk's
-# cost beside its k16 steps in the plan (ops/kan_fwd_ab.py --wide: at J =
-# 24, 104, 11 and 14 the chunk this cost picks read fastest on an H100)
+# the wide build's tensor-core G (kan.cu under KAN_WIDE): A buffers, W's
+# ring of k16 blocks, builder warps (beside 8 mma warps), (row, feature)
+# slots a chunk, K values a chunk at most (one mask bit a k16 block); a
+# chunk's cost beside its k16 steps in the plan (at J = 24, 104, 11 and 14
+# the chunk this cost picks read fastest on an H100: PR 16)
 _FWS_BUFS, _FWS_STAGES, _FWS_BUILD_WARPS = 2, 6, 8
 _FWS_SLOTS, _FWS_MAX_K, _FWS_CHUNK = 8 * _FW_TM, 512, 2
 
@@ -196,7 +196,7 @@ def _fc_steps(din: int, fc: int, J: int) -> int:
 # barrier 2.  At the runner's layer 1 the build takes about twice the
 # product's time, and 8 features a chunk (two rounds of 256 pairs, 160
 # steps) beat 7 (two rounds, the second a quarter full; 147 steps) by 6%
-# (ops/kan_fwd_ab.py on an H100).
+# on an H100 (PR 8).
 _FW_ROUND, _FW_CHUNK = 8, 2
 
 
@@ -307,15 +307,11 @@ class DwPlan:
     ktile: int = 0
 
 
-def bwd_tc_smem(tn: int, fck: int, dx: bool, ks: int = _KNOT_STRIDE) -> int:
-    """Dynamic shared memory of the tensor-core backward on one role of
-    warps (kan.cu bwd_tc_smem): A^T's planes, two stages of g's planes,
-    the knots and, with dx (the -DKAN_BWD_WS=0 build), W's planes and the
-    parked GX."""
+def bwd_tc_smem(tn: int, fck: int, ks: int = _KNOT_STRIDE) -> int:
+    """Dynamic shared memory of the tensor-core dW pass without dx (kan.cu
+    bwd_tc_smem): A^T's planes, two stages of g's planes and the knots."""
     return (2 * _TC_TK * (_TC_RC + 8) * 2 + 2 * 2 * _TC_RC * (tn + 8) * 2
-            + fck * ks * 4
-            + (2 * _TC_TK * (tn + 8) * 2 + _TC_RC * (_TC_TK + 1) * 4
-               if dx else 0))
+            + fck * ks * 4)
 
 
 def bwd_ws_smem(tn: int, fck: int, ks: int = _KNOT_STRIDE) -> int:
@@ -559,18 +555,16 @@ _I = ctypes.c_int
 
 
 class _KanLibrary:
-    """``csrc/kan.cu`` (or a variant ``source`` of it) built once per
-    process (at first use) under ``name`` with the extra nvcc
-    ``defines``."""
+    """``csrc/kan.cu`` built once per process (at first use) under
+    ``name`` with the extra nvcc ``defines``."""
 
-    def __init__(self, name: str = "kan", defines: tuple[str, ...] = (),
-                 source: str = "kan.cu"):
-        self.name, self.defines, self.source = name, defines, source
+    def __init__(self, name: str = "kan", defines: tuple[str, ...] = ()):
+        self.name, self.defines = name, defines
         self._lib = None
 
     def __call__(self):
         if self._lib is None:
-            lib = build_library(self.name, [self.source], self.defines)
+            lib = build_library(self.name, ["kan.cu"], self.defines)
             lib.kan_split.argtypes = [_P] * 7 + [_I] * 4 + [_P]
             lib.kan_gsplit.argtypes = [_P] * 3 + [ctypes.c_longlong, _I, _I,
                                                   _P]

@@ -13,7 +13,7 @@ the change, on the same card:
     python3 inraudio_tpu_torch/ops/kernel_ab.py save . change.pt
     python3 inraudio_tpu_torch/ops/kernel_ab.py compare parent.pt change.pt
 
-The results (100), each at the kernel widths h = 32, 64, 128, 256 where it
+The results (106), each at the kernel widths h = 32, 64, 128, 256 where it
 has an h: the stack kernel's output (3 windows x 700 rows, approx_sin) in
 the default bf16x3 tier, in the highest tier and in the decode's bf16 and
 mixed (bf16 / bf16x2) degree-7 tiers; C's gradients (bf16x2 and highest
@@ -33,11 +33,14 @@ build of kan.cu), H of each layer alone (``layer_backward`` on a fixed
 input and cotangent of its widths, 3000 rows) in the bf16x3 and highest
 tiers: its dW, and the dx of layers 1 and 2 (the head's from the narrow
 H); and G of each layer alone on the bf16x3 inputs (the wide build's
-tensor-core G at layers 0 and 1, the narrow G at the head).  The
-bf16-tier C, D and E results follow the grad kernel's route, G's bf16x3
-results of a layer with dout >= 8 (and so both stacks' bf16x3 outputs) the
-tensor-core G's,
-and the stack's bf16x3 outputs (``stack{h}``) its tensor-core route.  H's,
+tensor-core G at layers 0 and 1, the narrow G at the head); for the
+runner KAN's layer 1 alone (256 -> 256, grid 5 / order 3, 4000 rows, a
+fixed input and cotangent) H's dW and dx in the bf16, bf16x2 and bf16x3
+tiers (the fused tensor-core pass, builder warps beside product
+warps).  The bf16-tier C, D and E results follow the grad kernel's route,
+G's bf16x3 results of a layer with dout >= 8 (and so both stacks' bf16x3
+outputs) the tensor-core G's, and the stack's bf16x3 outputs
+(``stack{h}``) its tensor-core route.  H's,
 every highest-tier result (``stack-highest{h}``: the stack's FMA kernel),
 the stack's bf16 and mixed outputs (``stack-bf16{h}``, ``stack-mixed{h}``:
 the tensor-core kernel runs those tiers' products as the FMA kernel's
@@ -154,6 +157,7 @@ def save(root: str, dest: str) -> int:
         for i, t in enumerate(kf.KAN_BWD(layers, xs, g, 3, "highest")):
             out[f"H-highest{lh}-{i}"] = t
     out.update(wide_kan_results(torch, kf, build_model, KANConfig, dev))
+    out.update(runner_h_results(torch, kf, build_model, KANConfig, dev))
     torch.cuda.synchronize()
     torch.save({k: v.cpu() for k, v in out.items()}, dest)
     print(f"saved {len(out)} results of {root} to {dest}")
@@ -191,6 +195,27 @@ def wide_kan_results(torch, kf, build_model, KANConfig, dev) -> dict:
                 if mode == "bf16x3":
                     out[f"G-g{grid_size}o{order}-{mode}-layer{li}"], _ = \
                         kf.KAN_FWD([(grid, w_t)], x, order, mode)
+    return out
+
+
+def runner_h_results(torch, kf, build_model, KANConfig, dev) -> dict:
+    """H of the runner KAN's layer 1 alone (256 -> 256, grid 5 / order 3)
+    over 4000 rows of a fixed input and cotangent, with dx, in the bf16,
+    bf16x2 and bf16x3 tiers: its dW and dx."""
+    out = {}
+    stream = torch.cuda.current_stream().cuda_stream
+    p = build_model("kan", KANConfig(layers_hidden=(256, 256))).init(
+        torch.Generator().manual_seed(8), dev)
+    grid, w_t = [t.detach().contiguous() for t in kf.flatten_kan_params(p)]
+    gen = torch.Generator(dev).manual_seed(9)
+    x = torch.rand(4000, 256, device=dev, generator=gen) * 2.2 - 1.1
+    g = torch.randn(4000, 256, device=dev, generator=gen) / 4000
+    s = kf._layer_shape(x, grid, w_t, 3, 1)
+    lib = kf.kan_library(3, s.nk)()
+    for mode in ("bf16", "bf16x2", "bf16x3"):
+        dw, dx = kf.layer_backward(lib, x, grid, g, w_t, s, 3, mode, stream,
+                                   need_dx=True)
+        out[f"H-runner-{mode}-dW"], out[f"H-runner-{mode}-dx"] = dw, dx
     return out
 
 

@@ -320,8 +320,7 @@ def test_plans_fit_the_kernels(monkeypatch):
                 assert fused == (dout <= 256)
                 # the fused pass (builder warps) with dx, dW alone without
                 assert (kf.bwd_ws_smem(plan.tile, plan.fck) if fused else
-                        kf.bwd_tc_smem(plan.tile, plan.fck,
-                                       False)) <= kf._SMEM_MAX
+                        kf.bwd_tc_smem(plan.tile, plan.fck)) <= kf._SMEM_MAX
             elif plan.route == "narrow":
                 assert plan.tile in (1, 2, 4, 8) and dout <= plan.tile
                 assert plan.fck == 32 and plan.rc == 8
