@@ -488,16 +488,14 @@ POP_CASES = {
 KAN_ORDER_CASES = ((20, 3, 30, 10), (5, 5, 30, 0), (100, 3, 5, 0),
                    (5, 8, 5, 0))
 KAN_SUBSET_ROWS = 32768
-# the CUDA kernel behind each C entry of kan.cu (the narrow H's: the
-# default build's, then the wide build's), for the kernels line
+# the CUDA kernel behind each C entry of kan.cu, for the kernels line
 KAN_ENTRY_KERNELS = {
     "kan_split": "kan_split_kernel", "kan_gsplit": "kan_gsplit_kernel",
     "kan_bwd_tc": "kan_bwd_tc_kernel | kan_bwd_ws_kernel",
     "kan_reduce": "kan_reduce_kernel",
     "kan_dx_tc": "kan_dx_tc_kernel", "kan_dx": "kan_dx_kernel",
     "kan_dw": "kan_dw_kernel",
-    "kan_bwd_narrow": ("kan_bwd_narrow_kernel",
-                       "kan_bwd_narrow_bins_kernel")}
+    "kan_bwd_narrow": "kan_bwd_narrow_kernel"}
 # the CUDA kernels that serve C, D and E in the bf16 grad tiers (the
 # highest tier runs siren_grad_kernel in their place), for the kernels line
 TC_KERNELS = ["siren_wsplit_kernel", "siren_sweep_kernel", "siren_dw_kernel",
@@ -3963,9 +3961,7 @@ def kan_order_phases(np, torch, dev, clip):
                 torch, lambda: kf.layer_backward(lib, *args), 3)))
             del ones, args
         wide = kf.is_wide(order, nk)
-        h_kernels = sorted({
-            k[wide] if isinstance(k, tuple) else k
-            for k in (KAN_ENTRY_KERNELS[e] for e in entries.called)})
+        h_kernels = sorted({KAN_ENTRY_KERNELS[e] for e in entries.called})
         del xf, gfull
         slayers, sxr, scot = keep
         sg_ms = cuda_ms(torch, lambda: kf.KAN_FWD(slayers, sub, order, mode),

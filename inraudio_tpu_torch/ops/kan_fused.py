@@ -327,13 +327,14 @@ def bwd_ws_smem(tn: int, fck: int, ks: int = _KNOT_STRIDE) -> int:
 
 def narrow_bins_smem(no: int, J: int, fck: int,
                      ks: int = _KNOT_STRIDE) -> int:
-    """Dynamic shared memory of the wide library's narrow H (kan.cu
-    narrow_bins_smem): hi.hi and cross bins of ``no`` outputs x J values
-    for each of the CTA's _NW_RG * fck threads (the column stride padded to
-    a multiple of 32 from 4 features up), and the knot rows."""
+    """Dynamic shared memory of the narrow H (kan.cu narrow_bins_smem):
+    hi.hi and cross bins of ``no`` outputs x J values for each of the CTA's
+    _NW_RG * fck threads (the column stride padded to a multiple of 32 from
+    4 features up), the knot rows, and W^T's two planes of the CTA's
+    features."""
     threads = _NW_RG * fck
     stride = -(-threads // 32) * 32 if fck >= 4 else threads
-    return 4 * (no * J * 2 * stride + fck * ks)
+    return 4 * (no * J * 2 * stride + fck * ks + no * J * 2 * fck)
 
 
 def dw_plan(n: int, din: int, dout: int, J: int, mode: str = "bf16x3",
@@ -344,9 +345,9 @@ def dw_plan(n: int, din: int, dout: int, J: int, mode: str = "bf16x3",
     budget.  A large J (the wide library) cuts the tensor-core K tiles
     through features and narrows the FMA column tile until its K tile
     holds a feature.  The narrow route's slices are those of a grid of 32
-    features x blocks of _NW_JB values (the sum order of dW, kept by the
-    wide library's bins kernel, whose CTAs take as many features, up to 32,
-    as its bins hold in shared memory)."""
+    features x blocks of _NW_JB values (they fix dW's sum order); its CTAs
+    take as many features, up to 32, as its bins hold in shared memory, in
+    both libraries (dW and dx do not depend on that count)."""
     route = layer_route(dout, mode)
     ktile = 0
     if route == "tc":
@@ -361,11 +362,9 @@ def dw_plan(n: int, din: int, dout: int, J: int, mode: str = "bf16x3",
         tiles = -(-din * J // ktile) * -(-dout // tile)
     elif route == "narrow":
         tile = _pow2_at_least(dout, 1, 8)
-        fck, rc = _NW_F, _NW_RG
-        if wide:
-            fck = min(_NW_F, din)
-            while fck > 1 and narrow_bins_smem(tile, J, fck, ks) > _SMEM_MAX:
-                fck -= 1
+        fck, rc = min(_NW_F, din), _NW_RG
+        while fck > 1 and narrow_bins_smem(tile, J, fck, ks) > _SMEM_MAX:
+            fck -= 1
         tiles = -(-din // _NW_F) * -(-J // _NW_JB)
     else:
         tile = _col_groups(dout, 16)
@@ -596,9 +595,14 @@ def kan_library(order: int, n_knots: int) -> _KanLibrary:
     """The build of ``csrc/kan.cu`` that takes the config: the default one
     for orders up to 4 with at most 16 degree-0 bases, the wide one
     otherwise.  The wide build takes the default one's configs too, with
-    the same outputs and gradients, by other kernels: G's builder and mma
-    warps, H's narrow head's bins (chip_smoke.py phase 29 times both
-    builds at the runner's grid 5 / order 3)."""
+    the same outputs and gradients: by another kernel in G (builder and mma
+    warps; chip_smoke.py phase 29 times both builds at the runner's grid 5
+    / order 3), by the same kernels in H.  The narrow H (dout < 8) is one
+    kernel in both builds: each (row, feature)'s bases once, only the
+    values that can be non-zero added into per-thread bins, each bin's FMA
+    chains in row order; the values it skips are exact zeros, whose
+    products leave those chains' sums as they are, so its dW and dx are
+    bit-equal to chains over every value."""
     return KAN_WIDE_LIBRARY if is_wide(order, n_knots) else KAN_LIBRARY
 
 

@@ -13,7 +13,7 @@ the change, on the same card:
     python3 inraudio_tpu_torch/ops/kernel_ab.py save . change.pt
     python3 inraudio_tpu_torch/ops/kernel_ab.py compare parent.pt change.pt
 
-The results (106), each at the kernel widths h = 32, 64, 128, 256 where it
+The results (112), each at the kernel widths h = 32, 64, 128, 256 where it
 has an h: the stack kernel's output (3 windows x 700 rows, approx_sin) in
 the default bf16x3 tier, in the highest tier and in the decode's bf16 and
 mixed (bf16 / bf16x2) degree-7 tiers; C's gradients (bf16x2 and highest
@@ -37,8 +37,9 @@ tensor-core G at layers 0 and 1, the narrow G at the head); for the
 runner KAN's layer 1 alone (256 -> 256, grid 5 / order 3, 4000 rows, a
 fixed input and cotangent) H's dW and dx in the bf16, bf16x2 and bf16x3
 tiers (the fused tensor-core pass, builder warps beside product
-warps).  The bf16-tier C, D and E results follow the grad kernel's route,
-G's bf16x3 results of a layer with dout >= 8 (and so both stacks' bf16x3
+warps), and the same of the runner KAN's head alone (256 -> 1, the
+narrow H, ``H-head-<tier>``).  The bf16-tier C, D and E results follow
+the grad kernel's route, G's bf16x3 results of a layer with dout >= 8 (and so both stacks' bf16x3
 outputs) the tensor-core G's, and the stack's bf16x3 outputs
 (``stack{h}``) its tensor-core route.  H's,
 every highest-tier result (``stack-highest{h}``: the stack's FMA kernel),
@@ -200,22 +201,25 @@ def wide_kan_results(torch, kf, build_model, KANConfig, dev) -> dict:
 
 def runner_h_results(torch, kf, build_model, KANConfig, dev) -> dict:
     """H of the runner KAN's layer 1 alone (256 -> 256, grid 5 / order 3)
-    over 4000 rows of a fixed input and cotangent, with dx, in the bf16,
-    bf16x2 and bf16x3 tiers: its dW and dx."""
+    and of its head alone (256 -> 1) over 4000 rows of a fixed input and
+    cotangent, with dx, in the bf16, bf16x2 and bf16x3 tiers: their dW and
+    dx."""
     out = {}
     stream = torch.cuda.current_stream().cuda_stream
-    p = build_model("kan", KANConfig(layers_hidden=(256, 256))).init(
-        torch.Generator().manual_seed(8), dev)
-    grid, w_t = [t.detach().contiguous() for t in kf.flatten_kan_params(p)]
-    gen = torch.Generator(dev).manual_seed(9)
-    x = torch.rand(4000, 256, device=dev, generator=gen) * 2.2 - 1.1
-    g = torch.randn(4000, 256, device=dev, generator=gen) / 4000
-    s = kf._layer_shape(x, grid, w_t, 3, 1)
-    lib = kf.kan_library(3, s.nk)()
-    for mode in ("bf16", "bf16x2", "bf16x3"):
-        dw, dx = kf.layer_backward(lib, x, grid, g, w_t, s, 3, mode, stream,
-                                   need_dx=True)
-        out[f"H-runner-{mode}-dW"], out[f"H-runner-{mode}-dx"] = dw, dx
+    for tag, dout, seed in (("runner", 256, 8), ("head", 1, 10)):
+        p = build_model("kan", KANConfig(layers_hidden=(256, dout))).init(
+            torch.Generator().manual_seed(seed), dev)
+        grid, w_t = [t.detach().contiguous()
+                     for t in kf.flatten_kan_params(p)]
+        gen = torch.Generator(dev).manual_seed(seed + 1)
+        x = torch.rand(4000, 256, device=dev, generator=gen) * 2.2 - 1.1
+        g = torch.randn(4000, dout, device=dev, generator=gen) / 4000
+        s = kf._layer_shape(x, grid, w_t, 3, 1)
+        lib = kf.kan_library(3, s.nk)()
+        for mode in ("bf16", "bf16x2", "bf16x3"):
+            dw, dx = kf.layer_backward(lib, x, grid, g, w_t, s, 3, mode,
+                                       stream, need_dx=True)
+            out[f"H-{tag}-{mode}-dW"], out[f"H-{tag}-{mode}-dx"] = dw, dx
     return out
 
 

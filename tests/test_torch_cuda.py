@@ -2214,34 +2214,122 @@ def test_kan_dx_tc_matches_the_fused_dx(dev, mode, cfg_kw):
         assert torch.equal(dx, fused), (tm, float((dx - fused).abs().max()))
 
 
-@pytest.mark.parametrize("dout", [1, 2, 3, 5])
-def test_kan_narrow_bins_match_the_default_narrow(dev, dout, monkeypatch):
-    """The wide library's narrow H (its bins over every J value, one
-    recursion a (row, feature)) and the default library's (registers over
-    16 values) at grid 5 / order 3, which both take: dW and dx bit-equal
-    in every bf16 tier, at 1, 2, 4 and 8 outputs held."""
-    cfg_kw = dict(layers_hidden=(1, 64, dout))
-    layers, coords, _ = kan_setup(cfg_kw, 5001, dev)
-    grid, w_t = layers[1]
-    _, xs = kf.KAN_FWD(layers, coords, 3, "bf16x3")
-    x = xs[1]
-    g = torch.randn(x.shape[0], dout, device=dev,
-                    generator=torch.Generator(dev).manual_seed(5)) / 5001
-    stream = torch.cuda.current_stream().cuda_stream
+# The narrow H (dout < 8): the runner's head (256 -> 1, grid 5 / order 3)
+# over 30,011 rows (every third row past the knots); 2, 3 and 5 outputs of
+# 64 features (2, 4 and 8 held); rows fewer than a slice's 8 row groups
+# (one slice of 5 rows); the wide build's heads at J = 24, 14 and 104; the
+# runner's head with one feature's knot row and inputs scaled by 2^-64,
+# where every spacing fails den_ok and '/' forms that feature's values
+KAN_NARROW_CASES = {
+    "head-n30011": (256, 1, 5, 3, 30_011), "dout2": (64, 2, 5, 3, 5_001),
+    "dout3": (64, 3, 5, 3, 5_001), "dout5": (64, 5, 5, 3, 5_001),
+    "head-n5": (256, 1, 5, 3, 5), "g20o3": (256, 1, 20, 3, 9_001),
+    "g5o8": (256, 1, 5, 8, 9_001), "g100o3": (256, 1, 100, 3, 9_001),
+    "fallback": (256, 1, 5, 3, 9_001)}
+# bits_digest of (dW, dx) of each case in each bf16 tier, recorded on an
+# NVIDIA H100 80GB HBM3 from the build of commit 1445cb8, whose narrow H
+# formed every A value of a (row, feature) by '/' and summed all J of them
+# (the default build), or its non-zero ones into bins (the wide build)
+KAN_NARROW_DIGESTS = {
+    ("head-n30011", "bf16"):
+        "f88afb31f3ece2fd6f96c0a429fb621a7bcbd60b8708ce2a8a6dfe0bc3078f73",
+    ("head-n30011", "bf16x2"):
+        "110dd7344ec94aa1fa8dfd212d06348ee4fe324d0018ff660c89f39199c0b402",
+    ("head-n30011", "bf16x3"):
+        "4a381fa20aa3da49ed7ebd0044357265fa70125f9e897594bdf0c329c22bd3fd",
+    ("dout2", "bf16"):
+        "96b1fd0b2de1b6f5b1c163b9839fdd1c10853de7949ff8fd28f5c475f0f574f3",
+    ("dout2", "bf16x2"):
+        "8b93943e561dcb1869b29cbe6a2ec23645d4bea4cf176584fad9167e01fb004b",
+    ("dout2", "bf16x3"):
+        "a7a1972d98ef9a7f444b80aceef1a4944f9f3205b1f16ee08a59876d43f58d44",
+    ("dout3", "bf16"):
+        "911fd37576ee4b3379b55889052410847154584d1f7e17368212622d6439d226",
+    ("dout3", "bf16x2"):
+        "fe807e79ebb7fcfc79e530110a517997e4fffbbd41415a1be127abdca95032da",
+    ("dout3", "bf16x3"):
+        "bc7999c3549bafa3ccfe3a76558042756e8d772c56d1315b338e7897b1cf4ae8",
+    ("dout5", "bf16"):
+        "4f0331d97801d46b7b472096e57baee4bf9896fe2ef43281edde57fe86c4b9b7",
+    ("dout5", "bf16x2"):
+        "054bfbf1e5fc5f610111a612207f6e2e364a932132d75f9445958a7b40bc5562",
+    ("dout5", "bf16x3"):
+        "57acca28b9d7f94ab05c12e6d6cdbc4d42c4ed7dddebfcc2173b3540f366090b",
+    ("head-n5", "bf16"):
+        "cebc51fc0bc64d2331766994b551d68441336837ca1fadd2ff61736a44984520",
+    ("head-n5", "bf16x2"):
+        "42f0005eb8e44a125d5b9ecd11b2069283aa4a18c9cd62a404a6c93d2d34fe1a",
+    ("head-n5", "bf16x3"):
+        "f790f8f6fda71f78d209eebd44f575f7ae831ed56a81963d8bdf61cbdd971933",
+    ("g20o3", "bf16"):
+        "cf99d4c8a4d51b57ebb76bf7326b0921c4e11de66fa0dc476e786e78b86472e0",
+    ("g20o3", "bf16x2"):
+        "3515b6d9441d30412146923d8763067af27eaaaf76b56d84f57198ae7f8b7a7d",
+    ("g20o3", "bf16x3"):
+        "baa5db8419e07dc82f8e1052ae56aee0af173e593482d1a5f1d1a3b6e71edf6f",
+    ("g5o8", "bf16"):
+        "e7ca62e44656c98cd7cc66b1539455536f249070d4011d47104ec117be2921c1",
+    ("g5o8", "bf16x2"):
+        "a3f99e8bba624901007998932216a31b69c1e81eb690b6a080a6eb72ff4ae2f6",
+    ("g5o8", "bf16x3"):
+        "5360e7b887dfa04fc37a2ca6d22f06f498c2a7cfb3fba12bdd96cad0e293aa9f",
+    ("g100o3", "bf16"):
+        "cf2b079cfd0fc110ffe5132314961de6d798b366e0bf488464dbe8ca8aae1758",
+    ("g100o3", "bf16x2"):
+        "f066ea5e6ab4e85d1b063451ae0dfee24d476bfcf8b3fe9940e473af4b039e70",
+    ("g100o3", "bf16x3"):
+        "828e43ea8cb06c816c56c0606322c17fa49ed6da1ce977db178374cbbe5b7e6a",
+    ("fallback", "bf16"):
+        "801e784b24248c56c0022473715e4d2410f8e41e7c0999da407feed2a0d3ca7c",
+    ("fallback", "bf16x2"):
+        "8b1b95c6eed0de8937a3bfa47c5951dd6eaf27a13a8d3df355eafd304a5e1e64",
+    ("fallback", "bf16x3"):
+        "a78e035eefb133767cb902a8a3487c2d339493a16808b4932904ef2a1755eda3",
+}
+
+
+def kan_narrow_layer(case, mode, dev):
+    """One layer of KAN_NARROW_CASES with its cotangent: (args of
+    ``kf.layer_backward`` before the stream, its dW plan)."""
+    din, dout, grid_size, order, n = KAN_NARROW_CASES[case]
+    grid, w_t, x = kan_wide_layer(din, dout, grid_size, order, n, "outside",
+                                  dev)
+    if case == "fallback":
+        grid[0] *= 2.0 ** -64
+        x[:, 0] *= 2.0 ** -64
+    g = torch.randn((n, dout), device=dev,
+                    generator=torch.Generator(dev).manual_seed(7)) / n
+    s = kf._layer_shape(x, grid, w_t, order, 1)
+    plan = kf.dw_plan(s.n, s.din, s.dout, s.J, mode, s.ks, s.wide)
+    assert kf.bwd_pass(plan, kf.dx_fused(dout, mode, s.J)) == "narrow"
+    return (x, grid, g, w_t, s, order, mode), plan
+
+
+@pytest.mark.parametrize("mode", ["bf16", "bf16x2", "bf16x3"])
+@pytest.mark.parametrize("case", list(KAN_NARROW_CASES))
+def test_kan_narrow_pass_matches_recorded_bits(dev, case, mode, monkeypatch):
+    """The narrow H gives dW and dx whose digest is the one recorded above
+    in every bf16 tier, one launch a layer call on
+    ``kan_bwd.launches.narrow``; at grid 5 / order 3, which both builds of
+    kan.cu take, the wide build's too (its knot rows of 12 floats, and its
+    CTAs' features from its own plan)."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launches = counter("kan_bwd.launches.narrow")
     is_wide = kf.is_wide
-    for mode in ("bf16x3", "bf16x2", "bf16"):
-        out = {}
-        for lib_name in ("default", "wide"):
-            monkeypatch.setattr(kf, "is_wide", is_wide if lib_name ==
-                                "default" else (lambda o, nk: True))
-            s = kf._layer_shape(x, grid, w_t, 3, 1)
-            assert s.wide == (lib_name == "wide")
-            lib = kf.kan_library(3, s.nk)()
-            out[lib_name] = kf.layer_backward(lib, x, grid, g, w_t, s, 3,
-                                              mode, stream, need_dx=True)
+    builds = [is_wide] + ([lambda o, nk: True]
+                          if KAN_NARROW_CASES[case][2:4] == (5, 3) else [])
+    for build in builds:
+        monkeypatch.setattr(kf, "is_wide", build)
+        args, plan = kan_narrow_layer(case, mode, dev)
+        assert kf.dw_group(plan, args[4].dout, args[4].K) == plan.slices
+        before = launches.value
+        got = kf.layer_backward(kf.kan_library(args[5], args[4].nk)(), *args,
+                                stream, need_dx=True)
+        assert launches.value - before == 1
         torch.cuda.synchronize()
-        for a, b in zip(out["default"], out["wide"]):
-            assert torch.isfinite(a).all() and torch.equal(a, b), mode
+        assert all(torch.isfinite(t).all() for t in got)
+        assert bits_digest(got) == KAN_NARROW_DIGESTS[case, mode], (
+            case, mode, args[4].wide)
 
 
 # ---------------------------------------------------------------------------

@@ -323,7 +323,13 @@ def test_plans_fit_the_kernels(monkeypatch):
                         kf.bwd_tc_smem(plan.tile, plan.fck)) <= kf._SMEM_MAX
             elif plan.route == "narrow":
                 assert plan.tile in (1, 2, 4, 8) and dout <= plan.tile
-                assert plan.fck == 32 and plan.rc == 8
+                # as many features a CTA as its bins, knot rows and W's
+                # planes hold, up to 32
+                assert plan.rc == 8 and 1 <= plan.fck <= min(32, din)
+                assert kf.narrow_bins_smem(plan.tile, J,
+                                           plan.fck) <= kf._SMEM_MAX
+                assert plan.fck == min(32, din) or kf.narrow_bins_smem(
+                    plan.tile, J, plan.fck + 1) > kf._SMEM_MAX
             else:
                 assert plan.fck * J <= 1024 // plan.tile
                 assert plan.rc % 4 == 0

@@ -159,8 +159,8 @@ def test_wide_plans_fit_the_kernels(grid_size, order):
     tensor-core K tiles cut through a feature past J = 64 (then dx runs on
     the tensor-core dx kernel in the bf16 tiers, as it does past 256
     outputs, and on the FMA kernel in the highest tier or past the
-    tensor-core dx's bound), the wide narrow H's bins fit at every number
-    of outputs held, the FMA dW's K tile holds a whole feature.  The
+    tensor-core dx's bound), the narrow H's bins fit at every number of
+    outputs held in either library, the FMA dW's K tile holds a whole feature.  The
     library follows the config: the default one up to order 4 and 16
     degree-0 bases."""
     nk = grid_size + 2 * order + 1
@@ -212,19 +212,13 @@ def test_wide_plans_fit_the_kernels(grid_size, order):
                 tiles = -(-din // 32) * -(-J // 16)
                 aim = max(1, min(-(-1056 // tiles), -(-50_000 // 8)))
                 assert dp.rows_per_slice == -(-(-(-50_000 // aim)) // 8) * 8
-                if wide:
-                    # one grid, its CTAs' bins within shared memory: as
-                    # many features as fit, up to 32
-                    assert 1 <= dp.fck <= min(32, din)
-                    assert kf.narrow_bins_smem(dp.tile, J, dp.fck,
-                                               ks) <= kf._SMEM_MAX
-                    assert dp.fck == min(32, din) or kf.narrow_bins_smem(
-                        dp.tile, J, dp.fck + 1, ks) > kf._SMEM_MAX
-                else:
-                    # the kernel's static shared memory: the row groups'
-                    # sums and the knot rows
-                    assert dp.fck == 32
-                    assert 4 * (8 * 32 * 16 + 32 * 20) <= 48 * 1024
+                # one grid, its CTAs' bins within shared memory in either
+                # library: as many features as fit, up to 32
+                assert 1 <= dp.fck <= min(32, din)
+                assert kf.narrow_bins_smem(dp.tile, J, dp.fck,
+                                           ks) <= kf._SMEM_MAX
+                assert dp.fck == min(32, din) or kf.narrow_bins_smem(
+                    dp.tile, J, dp.fck + 1, ks) > kf._SMEM_MAX
             else:
                 assert 1 <= dp.fck and dp.fck * J <= 1024 // dp.tile
             assert dp.slices * dp.rows_per_slice >= 50_000
@@ -247,13 +241,11 @@ def test_wide_plans_fit_the_kernels(grid_size, order):
                 # 672 at every J
                 assert (xp.route == "tc") == (mode != "highest") or \
                     dout > 672
-    # the wide narrow H's bins at every number of outputs held
+    # the narrow H's bins at every number of outputs held
     for dout in (1, 2, 3, 4, 5, 7):
         dp = kf.dw_plan(50_000, 256, dout, J, "bf16x3", ks, wide)
         assert dp.route == "narrow" and dp.tile in (1, 2, 4, 8)
-        if wide:
-            assert kf.narrow_bins_smem(dp.tile, J, dp.fck,
-                                       ks) <= kf._SMEM_MAX
+        assert kf.narrow_bins_smem(dp.tile, J, dp.fck, ks) <= kf._SMEM_MAX
 
 
 def _kan_cu_fwd_ws_smem():
@@ -407,11 +399,8 @@ def test_layer_launches_follow_the_plans(grid_size, order, dims, mode):
             assert len(bwd) == groups and all(
                 a[7:15] == (n, din, dout, nk, order, code, dp.tile, dp.fck)
                 for a in bwd)
-            if s.wide:
-                assert kf.narrow_bins_smem(dp.tile, J, dp.fck,
-                                           s.ks) <= kf._SMEM_MAX
-            else:
-                assert dp.fck == 32
+            assert kf.narrow_bins_smem(dp.tile, J, dp.fck,
+                                       s.ks) <= kf._SMEM_MAX
         else:
             assert mode == "highest" and "kan_dx_tc" not in names
             assert names.count("kan_dw") == groups
@@ -525,6 +514,58 @@ def test_fused_pass_shared_memory_fits():
     assert seen > 1000
     # the runner's layer 1: 7 features a K tile, 256 columns
     assert kf.bwd_ws_smem(256, 7, 20) == cu_smem(256, 7, 20) == 207_600
+
+
+def _kan_cu_narrow_smem():
+    """kan.cu's narrow_bins_smem as a Python function: its return
+    expression and narrow_bin_stride's (C's ``a ? b : c`` read as Python's
+    conditional, its int division as //) over the constants' values as the
+    source states them."""
+    src = (pathlib.Path(kf.__file__).parents[1] / "csrc" / "kan.cu"
+           ).read_text()
+    env = {"kThreads": 256, "round32": lambda v: (v + 31) // 32 * 32}
+    m = re.search(r"constexpr int kNwF = (\d+), kNwRG = ([^;]+);", src)
+    env["kNwF"] = int(m.group(1))
+    env["kNwRG"] = eval(m.group(2).replace("/", "//"), dict(env))
+    cond, yes, no = re.search(
+        r"constexpr int narrow_bin_stride\(int fck\) \{\s*return "
+        r"(.*?) \? (.*?) : (.*?);\s*\}", src, re.S).groups()
+    stride = compile(f"({yes}) if ({cond}) else ({no})", "kan.cu stride",
+                     "eval")
+    env["narrow_bin_stride"] = lambda fck: eval(stride, dict(env, fck=fck))
+    body = re.search(r"constexpr int narrow_bins_smem\(int no, int J, "
+                     r"int fck,\s*int ks\) \{\s*return (.*?);\s*\}",
+                     src, re.S).group(1)
+    expr = compile(f"({body})", "kan.cu narrow_bins_smem", "eval")
+    return lambda no, J, fck, ks: eval(expr, dict(env, no=no, J=J, fck=fck,
+                                                  ks=ks))
+
+
+def test_narrow_pass_shared_memory_fits():
+    """The narrow H's shared memory, counted by kan.cu's own formula and by
+    its Python mirror alike, stays within a block's 232,448 bytes at every
+    plan of a narrow layer: each grid size up to 100 and order up to 8, in
+    either library, at every number of outputs held; the runner's head
+    keeps 32 features a CTA."""
+    cu_smem = _kan_cu_narrow_smem()
+    seen = 0
+    for grid_size in range(1, 101):
+        for order in range(1, 9):
+            nk = grid_size + 2 * order + 1
+            if nk > 128:
+                continue
+            J, ks = nk - order, kf.knot_stride(order, nk)
+            wide = kf.is_wide(order, nk)
+            for din, dout in ((256, 1), (256, 2), (256, 3), (256, 7), (3, 5)):
+                plan = kf.dw_plan(50_000, din, dout, J, "bf16x3", ks, wide)
+                assert plan.route == "narrow"
+                seen += 1
+                smem = kf.narrow_bins_smem(plan.tile, J, plan.fck, ks)
+                assert smem == cu_smem(plan.tile, J, plan.fck, ks)
+                assert smem <= kf._SMEM_MAX and 1 <= plan.fck <= min(32, din)
+    assert seen > 3000
+    assert kf.dw_plan(441_000, 256, 1, 9).fck == 32
+    assert kf.narrow_bins_smem(1, 9, 32, 20) == cu_smem(1, 9, 32, 20) == 23_296
 
 
 @pytest.mark.parametrize("grid_size,order", [(100, 3), (5, 8)],
