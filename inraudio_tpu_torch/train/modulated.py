@@ -30,6 +30,7 @@ from ..models.modulated import modulated_apply, modulated_init
 from ..models.siren import SirenSnakeTanhConfig
 from ..parallel.mesh import Mesh, resolve_mesh
 from ..tree import tree_leaves, tree_map, tree_unflatten
+from ..utils.observability import counter, span
 from .loop import TrainConfig
 from .optim import (AdamConfig, PlateauConfig, adam_init, adam_update,
                     plateau_init, plateau_update)
@@ -63,7 +64,15 @@ def modulated_fit(model_cfg: SirenSnakeTanhConfig, targets: np.ndarray,
     backbone's; the plateau steps the backbone's rate and the ratio holds.
     ``frozen_shared``: a trained backbone; only the modulations train.
     ``frozen_mods``: the dual, modulations fixed (e.g. at their dequantized
-    values) and only the backbone trains; ``init_shared`` warm-starts it."""
+    values) and only the backbone trains; ``init_shared`` warm-starts it.
+
+    Under a ``torch.profiler`` session the call is the span ``inr.modfit``
+    (attrs ``steps``, ``windows``, ``rows``: the rows of a step over every
+    window), holding ``inr.modfit.prologue``, each round's
+    ``inr.modfit.round`` (``steps``) and ``inr.modfit.epilogue``; the two
+    waits for the card are ``inr.modfit.sync``.  Each call adds its windows
+    times its steps to the counter ``modfit.window_steps``
+    (``utils.observability``)."""
     cfg = cfg or TrainConfig()
     if cfg.loss_mode != "mse" or cfg.alpha != 0.0:
         raise ValueError("modulated_fit supports loss_mode='mse', alpha=0")
@@ -78,116 +87,136 @@ def modulated_fit(model_cfg: SirenSnakeTanhConfig, targets: np.ndarray,
                          "pass one or the other")
     if frozen_mods is not None and mods_lr_mult != 1.0:
         raise ValueError("mods_lr_mult is meaningless with frozen_mods")
-    mesh = resolve_mesh(mesh, device)
-    dev = mesh.device
     k = targets.shape[0]
-    if k % mesh.size:
-        raise ValueError(f"{k} chunks do not shard over {mesh.size} ranks "
-                         "— pad the population to a mesh-size multiple")
-    kr = k // mesh.size
-    own = slice(mesh.rank * kr, (mesh.rank + 1) * kr)
-    generator = generator or torch.Generator().manual_seed(0)
-    init = modulated_init(generator, model_cfg, kr, film_scale)
+    with span("inr.modfit", steps=cfg.total_steps, windows=k,
+              rows=k * targets.shape[1]):
+        with span("inr.modfit.prologue"):
+            mesh = resolve_mesh(mesh, device)
+            dev = mesh.device
+            if k % mesh.size:
+                raise ValueError(f"{k} chunks do not shard over {mesh.size} "
+                                 "ranks — pad the population to a mesh-size "
+                                 "multiple")
+            kr = k // mesh.size
+            own = slice(mesh.rank * kr, (mesh.rank + 1) * kr)
+            generator = generator or torch.Generator().manual_seed(0)
+            init = modulated_init(generator, model_cfg, kr, film_scale)
 
-    def f32(tree):
-        return tree_map(lambda x: torch.as_tensor(x).to(dev, torch.float32),
-                        tree)
+            def f32(tree):
+                return tree_map(
+                    lambda x: torch.as_tensor(x).to(dev, torch.float32), tree)
 
-    params: dict[str, Any] = {}
-    if frozen_shared is None:
-        params["shared"] = f32(init_shared if init_shared is not None
-                               else init["shared"])
-    if frozen_mods is None:
-        params["mods"] = init["mods"].to(dev)
-    shared_c = f32(frozen_shared) if frozen_shared is not None else None
-    mods_c = (f32(frozen_mods)[own] if frozen_mods is not None else None)
-    coords_d = torch.as_tensor(np.asarray(coords, np.float32)).to(dev)
-    t = torch.as_tensor(np.asarray(targets, np.float32)[own]).to(dev)
-    count = float(k * t.shape[1] * t.shape[2])
+            params: dict[str, Any] = {}
+            if frozen_shared is None:
+                params["shared"] = f32(init_shared if init_shared is not None
+                                       else init["shared"])
+            if frozen_mods is None:
+                params["mods"] = init["mods"].to(dev)
+            shared_c = f32(frozen_shared) if frozen_shared is not None else None
+            mods_c = (f32(frozen_mods)[own] if frozen_mods is not None
+                      else None)
+            coords_d = torch.as_tensor(np.asarray(coords, np.float32)).to(dev)
+            t = torch.as_tensor(np.asarray(targets, np.float32)[own]).to(dev)
+            count = float(k * t.shape[1] * t.shape[2])
 
-    # one Adam state per trainable group; the plateau steps the first
-    # group's rate (the backbone's, or the modulations' when it is frozen)
-    adam_cfg = AdamConfig(lr=cfg.learning_rate)
-    groups = list(params)
-    mult = {"shared": 1.0, "mods": mods_lr_mult}
-    opt = {g: adam_init(params[g], AdamConfig(lr=cfg.learning_rate
-                                              * mult[g])) for g in groups}
-    plat_cfg = PlateauConfig(factor=cfg.plateau_factor,
-                             patience=cfg.plateau_patience,
-                             min_lr=cfg.min_learning_rate)
-    plat = plateau_init(device=dev)
-    best_loss = torch.tensor(float("inf"), device=dev)
-    best = tree_map(torch.clone, params) if cfg.track_best else None
+            # one Adam state per trainable group; the plateau steps the first
+            # group's rate (the backbone's, or the modulations' when it is
+            # frozen)
+            adam_cfg = AdamConfig(lr=cfg.learning_rate)
+            groups = list(params)
+            mult = {"shared": 1.0, "mods": mods_lr_mult}
+            opt = {g: adam_init(params[g], AdamConfig(lr=cfg.learning_rate
+                                                      * mult[g]))
+                   for g in groups}
+            plat_cfg = PlateauConfig(factor=cfg.plateau_factor,
+                                     patience=cfg.plateau_patience,
+                                     min_lr=cfg.min_learning_rate)
+            plat = plateau_init(device=dev)
+            best_loss = torch.tensor(float("inf"), device=dev)
+            best = tree_map(torch.clone, params) if cfg.track_best else None
+            sync = (torch.cuda.synchronize if dev.type == "cuda"
+                    else (lambda: None))
+            with span("inr.modfit.sync"):
+                sync()
 
-    def step(params, opt, plat, best_loss, best):
-        leaves = [v.detach().requires_grad_(True)
-                  for v in tree_leaves(params)]
-        p = tree_unflatten(params, leaves)
-        with torch.enable_grad():
-            out = modulated_apply(p.get("shared", shared_c), model_cfg,
-                                  coords_d, p.get("mods", mods_c),
-                                  film_scale=film_scale)
-            # this rank's share of the mean over all k windows
-            loss = torch.sum(torch.square(out - t)) / count
-            grads = tree_unflatten(params, list(torch.autograd.grad(
-                loss, leaves)))
-        mods_sq = (torch.sum(torch.square(grads["mods"])) if "mods" in grads
-                   else torch.zeros((), device=dev))
-        if mesh.size > 1:
-            sh = tree_leaves(grads.get("shared", {}))
-            buf = torch.cat([g.reshape(-1) for g in sh]
-                            + [loss.detach().reshape(1), mods_sq.reshape(1)])
-            mesh.all_reduce_(buf)
-            parts = torch.split(buf, [g.numel() for g in sh] + [1, 1])
-            if sh:
-                grads["shared"] = tree_unflatten(
-                    grads["shared"], [q.view_as(g) for q, g in zip(parts, sh)])
-            loss, mods_sq = parts[-2].reshape(()), parts[-1].reshape(())
-        loss = loss.detach()
-        if best is not None:
-            improved = loss < best_loss
-            best_loss = torch.where(improved, loss, best_loss)
-            best = tree_map(lambda b, cur: torch.where(improved, cur, b),
-                            best, params)
-        if cfg.grad_clip_norm > 0:
-            # the JAX package's leaf order: mods, then the backbone
-            norm_sq = mods_sq
-            for g in tree_leaves(grads.get("shared", {})):
-                norm_sq = norm_sq + torch.sum(torch.square(g))
-            scale = torch.clamp(cfg.grad_clip_norm / torch.clamp(
-                torch.sqrt(norm_sq), min=1e-20), max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
-        new_params, new_opt = {}, {}
-        for g in groups:
-            new_params[g], new_opt[g] = adam_update(opt[g], grads[g],
-                                                    params[g], adam_cfg)
-        plat, lr = plateau_update(plat, loss, new_opt[groups[0]].lr,
-                                  plat_cfg)
-        new_opt = {g: new_opt[g]._replace(lr=lr * mult[g]) for g in groups}
-        return new_params, new_opt, plat, best_loss, best, loss
+        def step(params, opt, plat, best_loss, best):
+            leaves = [v.detach().requires_grad_(True)
+                      for v in tree_leaves(params)]
+            p = tree_unflatten(params, leaves)
+            with torch.enable_grad():
+                out = modulated_apply(p.get("shared", shared_c), model_cfg,
+                                      coords_d, p.get("mods", mods_c),
+                                      film_scale=film_scale)
+                # this rank's share of the mean over all k windows
+                loss = torch.sum(torch.square(out - t)) / count
+                grads = tree_unflatten(params, list(torch.autograd.grad(
+                    loss, leaves)))
+            mods_sq = (torch.sum(torch.square(grads["mods"]))
+                       if "mods" in grads else torch.zeros((), device=dev))
+            if mesh.size > 1:
+                sh = tree_leaves(grads.get("shared", {}))
+                buf = torch.cat([g.reshape(-1) for g in sh]
+                                + [loss.detach().reshape(1),
+                                   mods_sq.reshape(1)])
+                mesh.all_reduce_(buf)
+                parts = torch.split(buf, [g.numel() for g in sh] + [1, 1])
+                if sh:
+                    grads["shared"] = tree_unflatten(
+                        grads["shared"],
+                        [q.view_as(g) for q, g in zip(parts, sh)])
+                loss, mods_sq = parts[-2].reshape(()), parts[-1].reshape(())
+            loss = loss.detach()
+            if best is not None:
+                improved = loss < best_loss
+                best_loss = torch.where(improved, loss, best_loss)
+                best = tree_map(lambda b, cur: torch.where(improved, cur, b),
+                                best, params)
+            if cfg.grad_clip_norm > 0:
+                # the JAX package's leaf order: mods, then the backbone
+                norm_sq = mods_sq
+                for g in tree_leaves(grads.get("shared", {})):
+                    norm_sq = norm_sq + torch.sum(torch.square(g))
+                scale = torch.clamp(cfg.grad_clip_norm / torch.clamp(
+                    torch.sqrt(norm_sq), min=1e-20), max=1.0)
+                grads = tree_map(lambda g: g * scale, grads)
+            new_params, new_opt = {}, {}
+            for g in groups:
+                new_params[g], new_opt[g] = adam_update(opt[g], grads[g],
+                                                        params[g], adam_cfg)
+            plat, lr = plateau_update(plat, loss, new_opt[groups[0]].lr,
+                                      plat_cfg)
+            new_opt = {g: new_opt[g]._replace(lr=lr * mult[g])
+                       for g in groups}
+            return new_params, new_opt, plat, best_loss, best, loss
 
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    sync()
-    t0 = time.time()
-    hists = []
-    done = 0
-    chunk = max(1, min(cfg.scan_chunk, cfg.total_steps))
-    while done < cfg.total_steps:
-        m = min(chunk, cfg.total_steps - done)
-        round_losses = []
-        for _ in range(m):
-            params, opt, plat, best_loss, best, loss = step(
-                params, opt, plat, best_loss, best)
-            round_losses.append(loss)
-        hists.append(torch.stack(round_losses))
-        done += m
-    sync()
-    train_time = mesh.span(t0, time.time())
-    final = best if best is not None else params
-    hist = (torch.cat(hists).cpu().numpy() if hists
-            else np.zeros((0,), np.float32))
-    shared = final["shared"] if "shared" in final else shared_c
-    mods = (mesh.all_gather(final["mods"]) if "mods" in final
-            else f32(frozen_mods))
-    return ModulatedFitResult(shared=shared, mods=mods, loss_history=hist,
-                              train_time_s=train_time)
+        t0 = time.time()
+        hists = []
+        done = 0
+        chunk = max(1, min(cfg.scan_chunk, cfg.total_steps))
+        while done < cfg.total_steps:
+            m = min(chunk, cfg.total_steps - done)
+            with span("inr.modfit.round", steps=m):
+                round_losses = []
+                for _ in range(m):
+                    params, opt, plat, best_loss, best, loss = step(
+                        params, opt, plat, best_loss, best)
+                    round_losses.append(loss)
+                hists.append(torch.stack(round_losses))
+            done += m
+        with span("inr.modfit.epilogue"):
+            # the card's queue drains in its own span: the epilogue's self
+            # time is the host's
+            with span("inr.modfit.sync"):
+                sync()
+            train_time = mesh.span(t0, time.time())
+            final = best if best is not None else params
+            hist = (torch.cat(hists).cpu().numpy() if hists
+                    else np.zeros((0,), np.float32))
+            shared = final["shared"] if "shared" in final else shared_c
+            mods = (mesh.all_gather(final["mods"]) if "mods" in final
+                    else f32(frozen_mods))
+            # this rank's windows: the ranks of one process add up to the
+            # population's window steps
+            counter("modfit.window_steps").add(kr * cfg.total_steps)
+        return ModulatedFitResult(shared=shared, mods=mods,
+                                  loss_history=hist, train_time_s=train_time)

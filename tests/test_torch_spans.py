@@ -304,10 +304,13 @@ def _record(i, parent, name, start_us, end_us, **attrs):
                           0, attrs)
 
 
-# Two decode requests and one fit call, in microseconds: request 1 takes
-# prepare 100, the stack 100 (the apply's own 50, the wrapper's prepare 30
-# and launch 20), to_host 500 and gather 40; request 2 prepare 120 (20 of
-# it inside a span of its own), the stack 130 (60 + 40 + 30), gather 60.
+# Two decode requests, one fit call and two modulated fit calls, in
+# microseconds: request 1 takes prepare 100, the stack 100 (the apply's own
+# 50, the wrapper's prepare 30 and launch 20), to_host 500 and gather 40;
+# request 2 prepare 120 (20 of it inside a span of its own), the stack 130
+# (60 + 40 + 30), gather 60.  The modulated calls' prologues hold 4,000 and
+# 3,000 (syncs 500 and 1,000), their epilogues 2,000 and 5,000 (syncs 1,500
+# and 2,500).
 FAKE = [
     _record(1, None, "inr.decode", 0, 1000, seq=0),
     _record(2, 1, "inr.decode.prepare", 0, 100),
@@ -331,16 +334,32 @@ FAKE = [
     _record(23, 20, "inr.fit.round", 13_000, 80_000, steps=500),
     _record(24, 20, "inr.fit.epilogue", 80_000, 90_000),
     _record(25, 24, "inr.fit.sync", 80_000, 89_000),
+    _record(30, None, "inr.modfit", 100_000, 200_000, seq=4, steps=40,
+            windows=3, rows=6615, counters={"modfit.window_steps": 120}),
+    _record(31, 30, "inr.modfit.prologue", 100_000, 104_000),
+    _record(32, 31, "inr.modfit.sync", 103_000, 103_500),
+    _record(33, 30, "inr.modfit.round", 104_000, 198_000, steps=40),
+    _record(34, 30, "inr.modfit.epilogue", 198_000, 200_000),
+    _record(35, 34, "inr.modfit.sync", 198_000, 199_500),
+    _record(40, None, "inr.modfit", 300_000, 400_000, seq=5, steps=40,
+            windows=3, rows=6615, counters={"modfit.window_steps": 120}),
+    _record(41, 40, "inr.modfit.prologue", 300_000, 303_000),
+    _record(42, 41, "inr.modfit.sync", 302_000, 303_000),
+    _record(43, 40, "inr.modfit.round", 303_000, 395_000, steps=40),
+    _record(44, 40, "inr.modfit.epilogue", 395_000, 400_000),
+    _record(45, 44, "inr.modfit.sync", 395_000, 397_500),
 ]
 FAKE_COUNTERS = {"nvcc.build_s.siren_train": 95.5,
                  "nvcc.load_s.siren_train": 0.125,
                  "nvcc.load_s.siren_stack": 0.125, "launches.siren_step": 900}
 # (request 1 + request 2) / 2 requests, in ms; the fit's prologue less its
-# sync and the epilogue less its sync
+# sync and the epilogue less its sync; the same of the two modulated calls,
+# over 2 calls
 READS = {"decode_prep_ms": (0.1 + 0.12) / 2,
          "stack_host_ms": (0.1 + 0.13) / 2,
          "decode_gather_ms": (0.04 + 0.06) / 2,
          "fit_call_host_ms": 2.5 + 1.0,
+         "modfit_call_host_ms": ((3.5 + 0.5) + (2.0 + 2.5)) / 2,
          "wrapper_calls_per_step": 1.0,
          "setup_build_s": 95.75}
 
